@@ -1,14 +1,17 @@
 """bulletproofs_plus_tpu_torch — the PyTorch and CUDA port of bulletproofs_plus_tpu.
 
-Batch verification of Bulletproofs+ range proofs over ristretto255 on an
-NVIDIA Hopper GPU, bit-compatible with the JAX package beside it (and so
-with `tari_bulletproofs_plus` v0.4.1).  This slice of the port covers the
-device engine's main path:
+Batched proving and batch verification of Bulletproofs+ range proofs over
+ristretto255 on an NVIDIA Hopper GPU, bit-compatible with the JAX package
+beside it (and so with `tari_bulletproofs_plus` v0.4.1).  The port so far
+covers the device engine's two main paths:
 
-  * host Fiat-Shamir replay and batch weights (numpy STROBE, native keccak)
-  * the scalar pass, ristretto decompression and the final MSM as torch
-    tensors, with the pow chain (K4) and the MSM (K1-K3) as hand-written
-    CUDA kernels (csrc/) on CUDA tensors
+  * verification: host Fiat-Shamir replay and batch weights (numpy STROBE,
+    native keccak), then the scalar pass, ristretto decompression and the
+    final MSM as torch tensors, with the pow chain (K4) and the MSM (K1-K3,
+    or the signed-digit K7) as hand-written CUDA kernels (csrc/)
+  * proving: `RangeProof.prove_batch_with_rng`, B proofs in lockstep with
+    every MSM a fixed-base table MSM through the CUDA kernels K5 and K6,
+    and `prove_with_rng`, the sequential host prover it is held against
   * canonical proof serialization
 
 Entry points run on `device="cuda"` unless the caller passes

@@ -1,8 +1,10 @@
 """Carry state across from the JAX package: its device arrays, as numpy
 (..., 16) uint32 radix-2^16 limbs, become the port's int64 limb tensors.
 
-The state that crosses is the generator vectors and the packed proof arrays
-(there are no weights); the layouts already agree, only the dtype changes.
+The state that crosses is the generator vectors, the packed proof arrays
+and the fixed-base digit tables (there are no weights).  For points and
+scalars the layouts already agree and only the dtype changes; the tables
+are repacked into the 32-bit words the port's kernels read.
 """
 
 from __future__ import annotations
@@ -28,3 +30,17 @@ def points_from_jax_numpy(x, y, z, t, device="cuda") -> PointArray:
     """Four (..., 16) uint32 coordinate arrays (a JAX PointArray as numpy)
     -> the port's PointArray on `device`."""
     return PointArray(*(scalars_from_jax_numpy(c, device) for c in (x, y, z, t)))
+
+
+def tables_from_jax_numpy(x, y, z, t, device="cuda") -> torch.Tensor:
+    """The JAX package's `build_tables` coordinates, four (64, 16, S, 16)
+    uint32 arrays as numpy -> the port's table (ops/fixed_base.pack_tables):
+    int32 (64, 16, S, 32) words on `device`."""
+    from .ops.fixed_base import N_DIGITS, N_WINDOWS, pack_tables
+
+    shape = np.asarray(x).shape
+    if len(shape) != 4 or shape[:2] != (N_WINDOWS, N_DIGITS):
+        raise ValueError(f"expected ({N_WINDOWS}, {N_DIGITS}, S, {NLIMBS}) table coordinates, got {shape}")
+    if any(np.asarray(c).shape != shape for c in (y, z, t)):
+        raise ValueError("table coordinates differ in shape")
+    return pack_tables(points_from_jax_numpy(x, y, z, t, device))

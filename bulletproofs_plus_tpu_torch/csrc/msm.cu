@@ -1,11 +1,12 @@
-// K1-K3: the dynamic multiscalar multiplication sum_i s_i * P_i with 4-bit
-// windows, the final check of batch verification.
+// K1-K3 and K7: the dynamic multiscalar multiplication sum_i s_i * P_i with
+// 4-bit windows, the final check of batch verification.
 //
 // Replaces the TPU kernels of bulletproofs_plus_tpu/ops/pallas_msm.py:
 //   K1 _dyn_acc_kernel   (:336)  per-tile table T[d] = d*P, select T[digit]
 //                                for each of 64 windows, accumulate
 //   K2 _lane_fold_kernel (:422)  fold the lane axis to one point per window
 //   K3 _horner_kernel    (:432)  sum_j 16^j * W_j over the 64 window sums
+//   K7 _dyn_acc_signed_kernel (:340)  K1 with digits in [-8, 7]; see below
 // They compute the same function; the split differs.  On the TPU the grid
 // ran in order and K1 carried one (window, lane-slot) accumulator across
 // tiles.  Here blocks run in parallel and in no order, so each K1 block
@@ -89,6 +90,81 @@ __global__ void __launch_bounds__(N_WINDOWS) dyn_acc_kernel(const int64_t *__res
     ge_store(out + (long)w * nb + blk, 16L * N_WINDOWS * nb, (long)N_WINDOWS * nb, acc);
 }
 
+#define N_SIGNED 9  // signed-digit table: identity, P .. 8P
+
+// Entry for signed digit d = nibble - 8 in [-8, 7]: |d| * P from the lane's
+// table, with x and t negated where d < 0 (fe_neg returns a value below
+// 2^256, which is all the complete addition asks of its inputs).
+__device__ __forceinline__ ge signed_select(const u32 *tab_lane, u32 nibble) {
+    const int d = (int)nibble - 8;
+    ge e = ge_from_smem(&tab_lane[(d < 0 ? -d : d) * GE_SMEM_STRIDE]);
+    if (d < 0) {
+        e.x = fe_neg(e.x);
+        e.t = fe_neg(e.t);
+    }
+    return e;
+}
+
+// K7, replacing _dyn_acc_signed_kernel (:340): dyn_acc_kernel with the
+// scalar recoded to signed digits d_j in [-8, 7], sum_j d_j 16^j = s.  The
+// recoding is the constant-add of ops/msm.signed_digits4, done here in the
+// prologue: nibble j of s + 0x88..8 is d_j + 8, and a scalar below 2^253
+// (every canonical scalar) cannot carry out of the top nibble.  The table
+// per lane shrinks to 8 multiples (19 KB of shared memory instead of 34),
+// built by a chain of depth 3 (2P; 3P, 4P; then T[d + 4] = T[d] + 4P).
+// Same arguments and output as dyn_acc_kernel.
+__global__ void __launch_bounds__(N_WINDOWS) dyn_acc_signed_kernel(const int64_t *__restrict__ scalars,
+                                                                   const int64_t *__restrict__ pts,
+                                                                   int64_t *__restrict__ out, long n, long nb) {
+    __shared__ u32 tab[TILE * N_SIGNED * GE_SMEM_STRIDE];
+    __shared__ u32 sc[TILE][8];
+    const int tid = threadIdx.x;
+    const long blk = blockIdx.x;
+
+    const int l = tid & (TILE - 1);
+    const int k = tid / TILE;
+    const long lane = blk * TILE + l;
+    const bool live = lane < n;  // lanes past n: zero scalar (all digits 0), identity point
+    ge p = live ? ge_load(pts + lane, 16 * n, n) : ge_identity();
+    if (k == 0) {
+        u64 c = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+            u32 lo = live ? (u32)scalars[(2 * q) * n + lane] : 0u;
+            u32 hi = live ? (u32)scalars[(2 * q + 1) * n + lane] : 0u;
+            c += (u64)(lo | (hi << 16)) + 0x88888888u;
+            sc[l][q] = (u32)c;
+            c >>= 32;
+        }
+        ge_to_smem(&tab[(l * N_SIGNED + 0) * GE_SMEM_STRIDE], ge_identity());
+    }
+    ge d2 = ge_dbl(p);
+    ge tk;
+    if (k == 0) {
+        tk = p;
+    } else if (k == 1) {
+        tk = d2;
+    } else if (k == 2) {
+        tk = ge_add(d2, p);
+    } else {
+        tk = ge_dbl(d2);
+    }
+    ge_to_smem(&tab[(l * N_SIGNED + k + 1) * GE_SMEM_STRIDE], tk);
+    __syncthreads();
+    tk = ge_add(tk, ge_from_smem(&tab[(l * N_SIGNED + 4) * GE_SMEM_STRIDE]));
+    ge_to_smem(&tab[(l * N_SIGNED + k + 5) * GE_SMEM_STRIDE], tk);
+    __syncthreads();
+
+    const int w = tid;
+    const int word = w >> 3, shift = 4 * (w & 7);
+    ge acc = signed_select(&tab[0], (sc[0][word] >> shift) & 15);
+#pragma unroll 1
+    for (int j = 1; j < TILE; ++j) {
+        acc = ge_add(acc, signed_select(&tab[j * N_SIGNED * GE_SMEM_STRIDE], (sc[j][word] >> shift) & 15));
+    }
+    ge_store(out + (long)w * nb + blk, 16L * N_WINDOWS * nb, (long)N_WINDOWS * nb, acc);
+}
+
 #define FOLD_THREADS 128
 
 // parts: (4, 16, 64, nb) -> out: (4, 16, 64); one block per window.
@@ -142,6 +218,12 @@ extern "C" const char *bppt_msm_error_string(int status) { return cudaGetErrorSt
 // All arrays int64, contiguous, on the current device.
 extern "C" int bppt_dyn_acc(const void *scalars, const void *pts, void *out, long n, long nb, void *stream) {
     dyn_acc_kernel<<<(unsigned)nb, N_WINDOWS, 0, (cudaStream_t)stream>>>(
+        (const int64_t *)scalars, (const int64_t *)pts, (int64_t *)out, n, nb);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int bppt_dyn_acc_signed(const void *scalars, const void *pts, void *out, long n, long nb, void *stream) {
+    dyn_acc_signed_kernel<<<(unsigned)nb, N_WINDOWS, 0, (cudaStream_t)stream>>>(
         (const int64_t *)scalars, (const int64_t *)pts, (int64_t *)out, n, nb);
     return (int)cudaGetLastError();
 }

@@ -9,9 +9,10 @@ precomputation handle (`Precomputable`, traits.rs:40-43).
 Device design: the generators are materialised once per device as a
 `PointArray` in the interleaved [G_0 H_0 G_1 H_1 ...] layout the final MSM
 consumes, and cached; the host tuples remain available for setup-time host
-math.  The fixed-base digit tables of the JAX package are not built: on the
-verifier's kernel path the static generators join the dynamic MSM as plain
-points (ops/fixed_base.mixed_msm).
+math.  The prover's fixed-base digit tables (ops/fixed_base.py) are built
+on first use, over as many generators as the proof shape needs, and cached
+per device; on the verifier's kernel path the static generators join the
+dynamic MSM as plain points (ops/fixed_base.mixed_msm).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class BulletproofGens:
         "g_vec",
         "h_vec",
         "_interleaved_device",
+        "_fixed_tables",
     )
 
     def __init__(self, gens_capacity: int, party_capacity: int):
@@ -49,6 +51,7 @@ class BulletproofGens:
             generators_chain(party_label(ord("H"), i), gens_capacity) for i in range(party_capacity)
         ]
         self._interleaved_device = {}
+        self._fixed_tables = {}
 
     def g_iter(self, n: int, m: int) -> List[hr.Point]:
         """First n of each of the first m parties' G generators, flattened."""
@@ -78,3 +81,21 @@ class BulletproofGens:
 
             self._interleaved_device[key] = from_host(self.interleaved(), device=device)
         return self._interleaved_device[key]
+
+    def fixed_tables(self, device="cuda"):
+        """Packed 4-bit digit tables over all interleaved generators on
+        `device`: the `Precomputable` analog (traits.rs:40-43)."""
+        return self.fixed_tables_sliced(2 * self.gens_capacity * self.party_capacity, device)
+
+    def fixed_tables_sliced(self, n_static: int, device="cuda"):
+        """Tables over the first n_static interleaved generators, int32
+        (64, 16, n_static, 32) words (128 KB per generator), built once per
+        size and device."""
+        key = (n_static, str(device))
+        if key not in self._fixed_tables:
+            from ..ops.edwards import PointArray
+            from ..ops.fixed_base import build_tables, pack_tables
+
+            points = PointArray(*(c[:n_static] for c in self.interleaved_device(device)))
+            self._fixed_tables[key] = pack_tables(build_tables(points))
+        return self._fixed_tables[key]

@@ -71,6 +71,7 @@ class PedersenGens:
     g_base_compressed_vec: List[bytes]
     extension_degree: ExtensionDegree
     _device_bases: dict = field(default_factory=dict, compare=False, repr=False)
+    _device_tables: dict = field(default_factory=dict, compare=False, repr=False)
 
     def device_bases(self, device="cuda"):
         """(g_bases PointArray (deg,), h_base PointArray (1,)) on `device`,
@@ -84,6 +85,19 @@ class PedersenGens:
                 from_host([self.h_base], device=device),
             )
         return self._device_bases[key]
+
+    def device_base_tables(self, device="cuda"):
+        """Packed fixed-base digit tables over [G_1..G_deg, H] on `device`,
+        int32 (64, 16, deg + 1, 32), cached per device: the prover's alpha,
+        eta and ry masks multiply these fixed points in every round."""
+        key = str(device)
+        if key not in self._device_tables:
+            from ..ops.edwards import from_host
+            from ..ops.fixed_base import build_tables, pack_tables
+
+            points = from_host(list(self.g_base_vec) + [self.h_base], device=device)
+            self._device_tables[key] = pack_tables(build_tables(points))
+        return self._device_tables[key]
 
     def commit(self, value: int, blindings: Sequence[int]) -> hr.Point:
         """C = value*H + sum_k blindings[k]*G_k

@@ -1,11 +1,12 @@
-"""Bulletproofs+ range proof: batch verification and canonical serialization.
+"""Bulletproofs+ range proof: prover, batch verifier, canonical serialization.
 
 Counterpart of bulletproofs_plus_tpu/models/range_proof.py, in part: the
-device engine's batch verifier for one shape group, with the JAX package's
-host Fiat-Shamir replay (reference src/range_proof.rs:610-1065), and the
-proof codec (range_proof.rs:1112-1309).  The prover, the host oracle engine,
-mesh sharding, the device transcript replay and the pipelined stream are
-later slices of the port.
+sequential host prover and the batched device prover (reference
+src/range_proof.rs:221-608), the device engine's batch verifier for one
+shape group with the JAX package's host Fiat-Shamir replay
+(range_proof.rs:610-1065), and the proof codec (range_proof.rs:1112-1309).
+The host oracle verifier, mesh sharding, the device transcript replay and
+the pipelined stream are later slices of the port.
 
 The `verify_batch` 256-proof cap — including the reference quirk that proofs
 beyond the first chunk are silently ignored (range_proof.rs:740-749) — is
@@ -27,9 +28,10 @@ from ..errors import (
 )
 from ..gens.pedersen import ExtensionDegree
 from ..ops import host_ristretto as hr
+from ..ops.msm import host_msm
 from ..utils.hashing import nonce
-from ..utils.merlin import NullRng, Transcript
-from .statement import ExtendedMask, RangeStatement
+from ..utils.merlin import NullRng, OsRng, Transcript
+from .statement import ExtendedMask, RangeStatement, RangeWitness
 from .transcripts import RangeProofTranscript
 
 L = hr.L
@@ -87,6 +89,240 @@ class RangeProof:
         if not isinstance(other, RangeProof):
             return NotImplemented
         return self.to_bytes() == other.to_bytes()
+
+    # ------------------------------------------------------------------
+    # Prover
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def prove(
+        transcript: Transcript,
+        statement: RangeStatement,
+        witness: RangeWitness,
+        rng=None,
+    ) -> "RangeProof":
+        """Create a (possibly aggregated) range proof with the OS RNG."""
+        return RangeProof.prove_with_rng(transcript, statement, witness, rng or OsRng())
+
+    @staticmethod
+    def prove_batch_with_rng(
+        transcripts: List[Transcript],
+        statements: Sequence[RangeStatement],
+        witnesses: Sequence[RangeWitness],
+        rng,
+        device="cuda",
+    ) -> List["RangeProof"]:
+        """Prove B same-shape statements in lockstep on `device`: the batched
+        prover (models/prover_device.py), whose MSMs are the fixed-base
+        kernels on a CUDA device.  Bit-identical to sequential
+        `prove_with_rng` calls fed the same per-lane RNG streams.  Pass
+        device="cpu" to run the kernels' plain torch versions instead."""
+        from .prover_device import prove_batch_with_rng as _impl
+
+        return _impl(transcripts, statements, witnesses, rng, device=device)
+
+    @staticmethod
+    def prove_with_rng(
+        transcript: Transcript,
+        statement: RangeStatement,
+        witness: RangeWitness,
+        rng,
+    ) -> "RangeProof":
+        """Create one range proof on the host in exact integer arithmetic
+        (range_proof.rs:232-608 parity): the sequential prover the batched
+        one is held against."""
+        gens = statement.generators
+        bit_length = gens.bit_length()
+        aggregation_factor = len(statement.commitments)
+        extension_degree = int(gens.extension_degree())
+        full_length = bit_length * aggregation_factor
+
+        if len(witness.openings) != len(statement.commitments):
+            raise InvalidLength("Witness openings and statement commitments do not match!")
+        if int(witness.extension_degree) != int(gens.extension_degree()):
+            raise InvalidLength("Witness and statement extension degrees do not match!")
+        for opening in witness.openings:
+            if bit_length < 64 and opening.v >> bit_length > 0:
+                raise InvalidLength("Value exceeds bit vector capacity!")
+        for opening, commitment in zip(witness.openings, statement.commitments):
+            if not hr.point_equal(gens.pc_gens.commit(opening.v, opening.r), commitment):
+                raise InvalidArgument("Witness opening is invalid!")
+
+        # Witness bytes: v LE64 then each blinding, per opening (transcripts.rs:91-109)
+        witness_bytes = bytearray()
+        for opening in witness.openings:
+            witness_bytes += opening.v.to_bytes(8, "little")
+            for r in opening.r:
+                witness_bytes += hr.scalar_to_bytes(r)
+
+        rpt = RangeProofTranscript(
+            transcript,
+            gens.h_base_compressed(),
+            gens.g_bases_compressed(),
+            bit_length,
+            extension_degree,
+            aggregation_factor,
+            statement.commitments_compressed,
+            statement.minimum_value_promises,
+            np.frombuffer(bytes(witness_bytes), dtype=np.uint8).reshape(1, -1),
+            rng,
+        )
+
+        # Bit decomposition with minimum-value offsets
+        a_li: List[int] = []
+        a_ri: List[int] = []
+        for minimum_value, opening in zip(statement.minimum_value_promises, witness.openings):
+            if minimum_value is not None:
+                if minimum_value > opening.v:
+                    raise InvalidArgument("Minimum value is larger than value")
+                offset_value = opening.v - minimum_value
+            else:
+                offset_value = opening.v
+            for i in range(bit_length):
+                bit = (offset_value >> i) & 1
+                a_li.append(bit)
+                a_ri.append((bit - 1) % L)
+
+        # alpha masks
+        seed_nonce = statement.seed_nonce
+        if seed_nonce is not None:
+            alpha = [nonce(seed_nonce, "alpha", None, k) for k in range(extension_degree)]
+        else:
+            alpha = [rpt.rng().random_not_zero()[0] for _ in range(extension_degree)]
+
+        # A = interleave(a_li, a_ri) . interleave(gi, hi) + alpha . g_bases
+        gi_base = gens.gi_base()[:full_length]
+        hi_base = gens.hi_base()[:full_length]
+        a_scalars: List[int] = []
+        a_points: List[hr.Point] = []
+        for s_l, s_r, g, h in zip(a_li, a_ri, gi_base, hi_base):
+            a_scalars += [s_l, s_r]
+            a_points += [g, h]
+        a_scalars += alpha
+        a_points += gens.g_bases()
+        a = host_msm(a_scalars, a_points)
+
+        y_list, z_list = rpt.challenges_y_z(hr.compress(a))
+        y, z = y_list[0], z_list[0]
+        z_square = z * z % L
+
+        # Powers of y
+        y_powers = [1]
+        for _ in range(full_length + 1):
+            y_powers.append(y_powers[-1] * y % L)
+
+        # d vector
+        d = [z_square]
+        for _ in range(1, bit_length):
+            d.append(d[-1] * 2 % L)
+        for j in range(1, aggregation_factor):
+            for i in range(bit_length):
+                d.append(d[(j - 1) * bit_length + i] * z_square % L)
+
+        # Prepare for the inner product
+        a_li = [(s - z) % L for s in a_li]
+        a_ri = [(s + d[i] * y_powers[full_length - i] + z) % L for i, s in enumerate(a_ri)]
+        z_even_powers = 1
+        for opening in witness.openings:
+            z_even_powers = z_even_powers * z_square % L
+            for k, r in enumerate(opening.r):
+                alpha[k] = (alpha[k] + z_even_powers * r % L * y_powers[full_length + 1]) % L
+
+        gi_base = list(gi_base)
+        hi_base = list(hi_base)
+        g_base = gens.g_bases()
+        h_base = gens.h_base()
+
+        li: List[hr.Point] = []
+        ri: List[hr.Point] = []
+        n = full_length
+        round_idx = 0
+
+        while n > 1:
+            n //= 2
+            a_lo, a_hi = a_li[:n], a_li[n:]
+            b_lo, b_hi = a_ri[:n], a_ri[n:]
+            gi_lo, gi_hi = gi_base[:n], gi_base[n:]
+            hi_lo, hi_hi = hi_base[:n], hi_base[n:]
+
+            y_n = y_powers[n]
+            if y_n == 0:
+                raise InvalidArgument("Cannot invert a zero valued Scalar")
+            y_n_inverse = _inv(y_n)
+
+            a_lo_offset = [s * y_n_inverse % L for s in a_lo]
+            a_hi_offset = [s * y_n % L for s in a_hi]
+
+            if seed_nonce is not None:
+                d_l = [nonce(seed_nonce, "dL", round_idx, k) for k in range(extension_degree)]
+                d_r = [nonce(seed_nonce, "dR", round_idx, k) for k in range(extension_degree)]
+            else:
+                d_l = [rpt.rng().random_not_zero()[0] for _ in range(extension_degree)]
+                d_r = [rpt.rng().random_not_zero()[0] for _ in range(extension_degree)]
+            round_idx += 1
+
+            c_l = sum(a * y_powers[1 + i] % L * b for i, (a, b) in enumerate(zip(a_lo, b_hi))) % L
+            c_r = sum(a * y_powers[n + 1 + i] % L * b for i, (a, b) in enumerate(zip(a_hi, b_lo))) % L
+
+            li.append(host_msm([c_l] + d_l + a_lo_offset + b_hi, [h_base] + g_base + gi_hi + hi_lo))
+            ri.append(host_msm([c_r] + d_r + a_hi_offset + b_lo, [h_base] + g_base + gi_lo + hi_hi))
+
+            e = rpt.challenge_round_e(hr.compress(li[-1]), hr.compress(ri[-1]))[0]
+            e_square = e * e % L
+            e_inverse = _inv(e)
+            e_inverse_square = e_inverse * e_inverse % L
+            e_y_n_inverse = e * y_n_inverse % L
+
+            gi_base = [
+                hr.point_add(hr.point_mul(e_inverse, lo), hr.point_mul(e_y_n_inverse, hi))
+                for lo, hi in zip(gi_lo, gi_hi)
+            ]
+            hi_base = [
+                hr.point_add(hr.point_mul(e, lo), hr.point_mul(e_inverse, hi))
+                for lo, hi in zip(hi_lo, hi_hi)
+            ]
+            a_li = [(lo * e + hi * e_inverse) % L for lo, hi in zip(a_lo, a_hi_offset)]
+            a_ri = [(lo * e_inverse + hi * e) % L for lo, hi in zip(b_lo, b_hi)]
+            alpha = [
+                (al + dl * e_square + dr * e_inverse_square) % L
+                for al, dl, dr in zip(alpha, d_l, d_r)
+            ]
+
+        # Final masks
+        r = rpt.rng().random_not_zero()[0]
+        s = rpt.rng().random_not_zero()[0]
+        if seed_nonce is not None:
+            d_mask = [nonce(seed_nonce, "d", None, k) for k in range(extension_degree)]
+            eta = [nonce(seed_nonce, "eta", None, k) for k in range(extension_degree)]
+        else:
+            d_mask = [rpt.rng().random_not_zero()[0] for _ in range(extension_degree)]
+            eta = [rpt.rng().random_not_zero()[0] for _ in range(extension_degree)]
+
+        y1 = y_powers[1]
+        a1 = host_msm(
+            [r, s, (r * y1 % L * a_ri[0] + s * y1 % L * a_li[0]) % L] + d_mask,
+            [gi_base[0], hi_base[0], h_base] + g_base,
+        )
+        b_point = host_msm([r * y1 % L * s % L] + eta, [h_base] + g_base)
+
+        e = rpt.challenge_final_e(hr.compress(a1), hr.compress(b_point))[0]
+        e_square = e * e % L
+
+        r1 = (r + a_li[0] * e) % L
+        s1 = (s + a_ri[0] * e) % L
+        d1 = [(et + dm * e + al * e_square) % L for et, dm, al in zip(eta, d_mask, alpha)]
+
+        return RangeProof(
+            a=hr.compress(a),
+            a1=hr.compress(a1),
+            b=hr.compress(b_point),
+            r1=r1,
+            s1=s1,
+            d1=d1,
+            li=[hr.compress(p) for p in li],
+            ri=[hr.compress(p) for p in ri],
+            extension_degree=ExtensionDegree.from_int(extension_degree),
+        )
 
     # ------------------------------------------------------------------
     # Verifier

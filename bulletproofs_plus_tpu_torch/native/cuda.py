@@ -31,11 +31,19 @@ LIBRARIES = {
         "msm.cu",
         {
             "bppt_dyn_acc": [_VP, _VP, _VP, _LONG, _LONG, _VP],
+            "bppt_dyn_acc_signed": [_VP, _VP, _VP, _LONG, _LONG, _VP],
             "bppt_lane_fold": [_VP, _VP, _LONG, _VP],
             "bppt_horner": [_VP, _VP, _VP],
         },
     ),
     "pow": ("pow.cu", {"bppt_pow_p58": [_VP, _VP, _LONG, _VP]}),
+    "fixed": (
+        "fixed.cu",
+        {
+            "bppt_fixed_acc": [_VP, _VP, _VP, _VP, _LONG, _LONG, _LONG, _VP],
+            "bppt_fixed_fold": [_VP, _VP, _LONG, _LONG, _LONG, _VP],
+        },
+    ),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -138,12 +146,13 @@ def check(name: str, status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
 
 
-def require(t, what: str, shape: tuple) -> None:
-    """Validate a kernel argument: an int64, contiguous CUDA tensor of `shape`."""
+def require(t, what: str, shape: tuple, dtype: str = "torch.int64") -> None:
+    """Validate a kernel argument: a contiguous CUDA tensor of `shape` and
+    `dtype` (int64 limbs unless the kernel takes packed int32 words)."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got one on {t.device}")
-    if str(t.dtype) != "torch.int64":
-        raise ValueError(f"{what}: expected int64 limbs, got {t.dtype}")
+    if str(t.dtype) != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():

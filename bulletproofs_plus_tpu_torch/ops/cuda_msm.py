@@ -1,7 +1,7 @@
-"""K1-K3 wrappers: the dynamic MSM through hand-written CUDA kernels.
+"""K1-K3 and K7 wrappers: the dynamic MSM through hand-written CUDA kernels.
 
 Counterpart of bulletproofs_plus_tpu/ops/pallas_msm.py (its dynamic half;
-the fixed-base kernels K5/K6 and the signed-digit K7 are not ported yet).
+the fixed-base kernels K5/K6 are in ops/cuda_fixed.py).
 The MSM sum_i s_i * P_i runs in three stages, each a kernel on CUDA tensors
 (csrc/msm.cu) and a plain torch function of the same arithmetic on CPU
 tensors:
@@ -9,6 +9,9 @@ tensors:
   K1 `dyn_acc`    per tile of TILE lanes: tables T[d] = d*P, then for each
                   4-bit window w the sum over the tile of T[digit_w]
                   -> (4, 16, 64, tiles) partial points
+  K7 `dyn_acc_signed`  K1 with the scalars recoded to signed digits in
+                  [-8, 7]: tables of 8 multiples, x and t negated where the
+                  digit is negative; same output as K1
   K2 `lane_fold`  sum of the partials over tiles -> (4, 16, 64) window sums
   K3 `horner`     sum_j 16^j W_j -> (4, 16), the result point
 
@@ -27,7 +30,8 @@ from ..native import cuda
 from . import pfield as pf
 from .edwards import PointArray
 from .limbs import NLIMBS
-from .msm import digits4
+from . import field as F
+from .msm import digits4, signed_digits4
 
 TILE = 16  # lanes per K1 block (csrc/msm.cu)
 N_WINDOWS = 64
@@ -51,9 +55,9 @@ def _cat(parts, dim: int) -> pf.PointS:
     return pf.PointS(*(torch.cat([getattr(p, f) for p in parts], dim=dim) for f in pf.PointS._fields))
 
 
-def dyn_acc_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
-    """K1's function: (16, n) scalars, (4, 16, n) points -> (4, 16, 64, tiles),
-    entry [., ., w, b] = sum over the lanes l of tile b of T_l[digit_w(s_l)]."""
+def _dyn_acc_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor, signed: bool) -> torch.Tensor:
+    """K1's and K7's function: per tile the tables T[d] = d*P (16 entries, or
+    9 for signed digits), then per window the sum of the selected entries."""
     n = scalars_t.shape[1]
     dev = scalars_t.device
     tiles = -(-n // TILE)
@@ -64,20 +68,41 @@ def dyn_acc_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
         sc = tnf.pad(scalars_t[:, lo:hi], (0, m - (hi - lo)))  # zero scalars on padding lanes
         pts = _cat([pf.from_coords(pts_t[:, :, lo:hi]), pf.identity((m - (hi - lo),), device=dev)], dim=1)
         table = [pf.identity((m,), device=dev), pts]
-        for _ in range(N_DIGITS - 2):
+        for _ in range((9 if signed else N_DIGITS) - 2):
             table.append(pf.padd(table[-1], pts))
-        dig = digits4(sc.t())  # (64, m)
+        dig = signed_digits4(sc.t()) if signed else digits4(sc.t())  # (64, m)
         lanes = torch.arange(m, device=dev)
-        # sel[limb, w, i] = T_i[dig[w, i]][limb], lanes then split into tiles
+        # sel[limb, w, i] = T_i[|dig[w, i]|][limb]
         sel = pf.PointS(
             *(
-                torch.stack([getattr(t, f) for t in table]).permute(0, 2, 1)[dig, lanes]
-                .movedim(-1, 0).reshape(NLIMBS, N_WINDOWS, m // TILE, TILE)
+                torch.stack([getattr(t, f) for t in table]).permute(0, 2, 1)[dig.abs(), lanes].movedim(-1, 0)
                 for f in pf.PointS._fields
             )
         )
+        if signed:
+            negative = dig < 0
+            sel = pf.PointS(
+                torch.where(negative, F.neg25519(sel.x.movedim(0, -1)).movedim(-1, 0), sel.x),
+                sel.y,
+                sel.z,
+                torch.where(negative, F.neg25519(sel.t.movedim(0, -1)).movedim(-1, 0), sel.t),
+            )
+        sel = pf.PointS(*(c.reshape(NLIMBS, N_WINDOWS, m // TILE, TILE) for c in sel))  # lanes split into tiles
         parts.append(pf.lane_halve_sum(sel, axis=3, width=TILE))
     return pf.to_coords(_cat(parts, dim=2))[..., 0]
+
+
+def dyn_acc_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
+    """K1's function: (16, n) scalars, (4, 16, n) points -> (4, 16, 64, tiles),
+    entry [., ., w, b] = sum over the lanes l of tile b of T_l[digit_w(s_l)]."""
+    return _dyn_acc_plain(scalars_t, pts_t, signed=False)
+
+
+def dyn_acc_signed_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
+    """K7's function: as `dyn_acc_plain` with signed digits d in [-8, 7]
+    (ops/msm.signed_digits4): entry = sum over the tile of sign(d) * T_l[|d|].
+    Scalars must be canonical (below 2^253)."""
+    return _dyn_acc_plain(scalars_t, pts_t, signed=True)
 
 
 def lane_fold_plain(parts: torch.Tensor) -> torch.Tensor:
@@ -118,24 +143,37 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _dyn_acc_launch(name: str, scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
+    n = scalars_t.shape[-1]
+    cuda.require(scalars_t, f"{name} scalars", (NLIMBS, n))
+    cuda.require(pts_t, f"{name} points", (4, NLIMBS, n))
+    if n == 0:
+        raise ValueError(f"{name}: empty MSM")
+    tiles = -(-n // TILE)
+    out = torch.empty((4, NLIMBS, N_WINDOWS, tiles), dtype=torch.int64, device=scalars_t.device)
+    with torch.cuda.device(scalars_t.device):
+        status = getattr(cuda.lib("msm"), f"bppt_{name}")(
+            scalars_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tiles, _stream()
+        )
+    cuda.check("msm", status, name)
+    cuda.launches[name] += 1
+    return out
+
+
 def dyn_acc(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
     """K1: (16, n) scalar limbs, (4, 16, n) points -> (4, 16, 64, tiles)."""
     if scalars_t.device.type == "cpu":
         return dyn_acc_plain(scalars_t, pts_t)
-    n = scalars_t.shape[-1]
-    cuda.require(scalars_t, "dyn_acc scalars", (NLIMBS, n))
-    cuda.require(pts_t, "dyn_acc points", (4, NLIMBS, n))
-    if n == 0:
-        raise ValueError("dyn_acc: empty MSM")
-    tiles = -(-n // TILE)
-    out = torch.empty((4, NLIMBS, N_WINDOWS, tiles), dtype=torch.int64, device=scalars_t.device)
-    with torch.cuda.device(scalars_t.device):
-        status = cuda.lib("msm").bppt_dyn_acc(
-            scalars_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tiles, _stream()
-        )
-    cuda.check("msm", status, "dyn_acc")
-    cuda.launches["dyn_acc"] += 1
-    return out
+    return _dyn_acc_launch("dyn_acc", scalars_t, pts_t)
+
+
+def dyn_acc_signed(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
+    """K7: K1's arguments and output through signed digits in [-8, 7].  The
+    scalars must be canonical (below 2^253): the kernel recodes them by
+    adding 0x88..8, which must not carry out of 256 bits."""
+    if scalars_t.device.type == "cpu":
+        return dyn_acc_signed_plain(scalars_t, pts_t)
+    return _dyn_acc_launch("dyn_acc_signed", scalars_t, pts_t)
 
 
 def lane_fold(parts: torch.Tensor) -> torch.Tensor:

@@ -76,6 +76,11 @@ def double(p: PointArray) -> PointArray:
     return PointArray(out[0], out[1], out[2], out[3])
 
 
+def neg(p: PointArray) -> PointArray:
+    """-(X : Y : Z : T) = (-X : Y : Z : -T)."""
+    return PointArray(F.neg25519(p.x), p.y, p.z, F.neg25519(p.t))
+
+
 def select(mask: torch.Tensor, p: PointArray, q: PointArray) -> PointArray:
     """where(mask, p, q); mask shaped like the batch."""
     return PointArray(*(F.select(mask, pc, qc) for pc, qc in zip(p, q)))

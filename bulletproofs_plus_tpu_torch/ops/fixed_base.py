@@ -1,19 +1,105 @@
-"""The verifier's mixed static + dynamic MSM.
+"""Fixed-base MSMs over precomputed 4-bit digit tables, and the verifier's
+mixed static + dynamic MSM.
 
-Counterpart of `mixed_msm` in bulletproofs_plus_tpu/ops/fixed_base.py, on
-the path that package takes on its kernel path: the static generator lanes
-simply join the dynamic MSM (one kernel chain beats two, and the MSM kernel
-builds its digit tables on chip anyway).  The precomputed fixed-base tables
-and their kernels (K5/K6) belong to the prover and are not ported yet.
+Counterpart of bulletproofs_plus_tpu/ops/fixed_base.py.  For fixed points
+(the interleaved G_i/H_i generator vectors, the Pedersen bases) the tables
+
+    T[j, d, i] = d * 16^j * P_i      j in 0..64, d in 0..16
+
+are built once per generator set, so an MSM over S fixed points is 64 table
+reads and 64 * S point additions with no doublings at all.  Every
+fixed-base MSM runs K5 then K6 (ops/cuda_fixed.py): the CUDA kernels on CUDA
+tensors whatever the width, their plain torch versions on CPU tensors.  The
+table lookup is a gather; the JAX package's one-hot matrix product and its
+width thresholds were the TPU's way to the same entries.
+
+`mixed_msm` is the verifier's: there the static generator lanes simply join
+the dynamic MSM (one kernel chain beats two, and the MSM kernel builds its
+digit tables on chip anyway).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import edwards as ed
+from .cuda_fixed import N_DIGITS, N_WINDOWS, fixed_acc, fixed_fold
 from .edwards import PointArray
+from .limbs import NLIMBS
 from .msm import msm_kernel
+
+WINDOW_BITS = 4
+
+
+def build_tables(points: PointArray) -> PointArray:
+    """(S,) points -> (64, 16, S) table of d * 16^j * P_i, as a PointArray
+    with coords (64, 16, S, 16): the JAX package's `build_tables`.
+
+    The 64 window bases 16^j * P come from one chain of 252 doublings over
+    the S lanes; the 16 multiples of all 64 windows are then built together
+    by 15 additions, so the build is 267 batched point operations and not
+    64 * 20."""
+    bases = [points]
+    for _ in range(N_WINDOWS - 1):
+        nxt = bases[-1]
+        for _ in range(WINDOW_BITS):
+            nxt = ed.double(nxt)
+        bases.append(nxt)
+    base = PointArray(*(torch.stack([b[c] for b in bases]) for c in range(4)))  # (64, S)
+    multiples = [ed.identity(base.x.shape[:-1], device=base.x.device), base]
+    for _ in range(N_DIGITS - 2):
+        multiples.append(ed.add(multiples[-1], base))
+    return PointArray(*(torch.stack([m[c] for m in multiples], dim=1) for c in range(4)))
+
+
+def pack_tables(tables: PointArray) -> torch.Tensor:
+    """`build_tables` coords (64, 16, S, 16 limbs) x 4 -> the kernels' table:
+    int32 (64, 16, S, 32), entry = the 8 32-bit words of x, y, z, t."""
+    limbs = torch.stack(list(tables), dim=-2)  # (64, 16, S, 4, 16)
+    words = limbs[..., 0::2] | (limbs[..., 1::2] << 16)  # (64, 16, S, 4, 8), each below 2^32
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)  # the same bits as int32
+    return words.reshape(words.shape[:-2] + (32,)).to(torch.int32).contiguous()
+
+
+def _fixed_msm(flat: torch.Tensor, tables: torch.Tensor, groups: int, lanes) -> torch.Tensor:
+    """(F, S, 16) scalars -> (4, 16, F, groups) points by K5 then K6."""
+    s = flat.shape[1]
+    if s == 0 or s % groups:
+        raise ValueError(f"{s} scalar lanes do not split into {groups} groups")
+    lanes = np.arange(s) if lanes is None else np.asarray(lanes, dtype=np.int64)
+    if lanes.shape != (s,) or lanes.min() < 0 or lanes.max() >= tables.shape[2]:
+        raise ValueError(f"{s} scalar lanes need {s} table lanes below {tables.shape[2]}")
+    lane_idx = torch.as_tensor(lanes, dtype=torch.int64, device=flat.device)
+    parts = fixed_acc(tables, lane_idx, flat.movedim(-1, 0).contiguous())
+    return fixed_fold(parts, groups)
+
+
+def fixed_msm_batched(scalars: torch.Tensor, tables: torch.Tensor, lanes=None) -> PointArray:
+    """sum_s scalars[..., s, :] * P_s over fixed points, batched over any
+    leading axes: the workhorse of the batched prover.
+
+    scalars: (..., S, 16) canonical limbs; tables: `pack_tables` words with at
+    least S lanes.  `lanes`, S host integers (a sequence or numpy array),
+    names the table lane of each scalar position (default: position s reads
+    lane s); it is checked against the table here, since the kernel reads
+    where it is told.  Returns (...,) points."""
+    lead = scalars.shape[:-2]
+    out = _fixed_msm(scalars.reshape((-1,) + scalars.shape[-2:]), tables, 1, lanes)
+    return PointArray(*(c[..., 0].t().reshape(lead + (NLIMBS,)) for c in out))
+
+
+def fixed_msm_grouped(scalars: torch.Tensor, tables: torch.Tensor, groups: int, lanes=None) -> PointArray:
+    """Like `fixed_msm_batched`, but the S scalar positions split into
+    `groups` contiguous equal chunks that sum to separate points: scalars
+    (B, S, 16) -> (B, groups) points, output g summing positions
+    [g * S / groups, (g + 1) * S / groups).
+
+    The prover's round MSMs use it: L and R each touch a known disjoint half
+    of the interleaved generator lanes, so one call of width 2mn, with
+    `lanes` carrying the round's permutation, computes both."""
+    out = _fixed_msm(scalars, tables, groups, lanes)
+    return PointArray(*(c.permute(1, 2, 0).contiguous() for c in out))
 
 
 def mixed_msm(

@@ -47,6 +47,13 @@ def limbs_from_bytes(data: np.ndarray) -> np.ndarray:
     return lo | (hi << np.uint32(8))
 
 
+def bytes_from_limbs(limbs: np.ndarray) -> np.ndarray:
+    """(..., 16) limbs (each < 2^16) -> (..., 32) uint8 little-endian."""
+    arr = np.asarray(limbs)
+    out = np.stack([arr & 0xFF, arr >> 8], axis=-1).astype(np.uint8)
+    return out.reshape(arr.shape[:-1] + (2 * arr.shape[-1],))
+
+
 def pack_ints(values, nlimbs: int = NLIMBS) -> np.ndarray:
     """Host: list of python ints (< 2^(16*nlimbs)) -> (len, nlimbs) uint32.
 

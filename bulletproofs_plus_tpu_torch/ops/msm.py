@@ -4,13 +4,15 @@ Counterpart of bulletproofs_plus_tpu/ops/msm.py.
   * host: variable-time Pippenger over Python ints (`host_msm`) — the
     correctness oracle.
   * device: `msm_kernel`, the 4-bit windowed MSM whose three stages are the
-    hand-written kernels K1-K3 on CUDA tensors (ops/cuda_msm.py) and their
-    plain torch versions on CPU tensors.  Lanes padded with (zero scalar,
-    identity point) contribute nothing.
+    hand-written kernels K1 (or its signed-digit variant K7), K2 and K3 on
+    CUDA tensors (ops/cuda_msm.py) and their plain torch versions on CPU
+    tensors.  Lanes padded with (zero scalar, identity point) contribute
+    nothing.  `tree_reduce` is the plain halving sum over a lane axis.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Sequence
 
 import torch
@@ -106,12 +108,51 @@ def digits4(scalars: torch.Tensor) -> torch.Tensor:
     return nib.reshape(scalars.shape[:-1] + (64,)).movedim(-1, 0)
 
 
-def msm_kernel(scalars: torch.Tensor, points: PointArray) -> PointArray:
+def signed_digits4(scalars: torch.Tensor) -> torch.Tensor:
+    """(..., 16) canonical limbs -> (64, ...) int64 signed digits in [-8, 7]
+    with sum_j d_j 16^j == s, window-major, LSB first.
+
+    The constant-add recoding: nibble j of t = s + 0x88..8 is d_j + 8.
+    Valid for s < 2^253 (every canonical scalar), where t stays below 2^256."""
+    from . import field as F
+
+    t = F.carry_prop(scalars + 0x8888, NLIMBS, bits=17)
+    return digits4(t) - 8
+
+
+def tree_reduce(points: PointArray) -> PointArray:
+    """Sum points over their last lane axis: (..., n, 16) -> (..., 16).
+
+    The lane count is a power of two up to 512 or a multiple of 512 (see
+    `_reduce_width`): rows of 512 lanes are added in sequence, then the
+    remaining lanes halve log2 times."""
+    n = points.x.shape[-2]
+    width = min(n, 512)
+    if width & (width - 1) or n % width:
+        raise ValueError("tree_reduce needs a power of two up to 512, or a multiple of 512, lanes")
+    rows = PointArray(*(c.reshape(c.shape[:-2] + (n // width, width, NLIMBS)) for c in points))
+    acc = PointArray(*(c[..., 0, :, :] for c in rows))
+    for r in range(1, n // width):
+        acc = ed.add(acc, PointArray(*(c[..., r, :, :] for c in rows)))
+    while width > 1:
+        width //= 2
+        acc = ed.add(
+            PointArray(*(c[..., :width, :] for c in acc)), PointArray(*(c[..., width : 2 * width, :] for c in acc))
+        )
+    return PointArray(*(c[..., 0, :] for c in acc))
+
+
+def msm_kernel(scalars: torch.Tensor, points: PointArray, signed: bool | None = None) -> PointArray:
     """sum_i scalars[i] * points[i] for (n, 16) canonical scalar limbs.
 
     4-bit windowed MSM: per-lane tables T[d] = d*P, per-window sums of the
     selected entries, then Horner over the 64 window sums — K1, K2 and K3
-    (ops/cuda_msm.py), launched as kernels on CUDA tensors."""
-    from .cuda_msm import coords_t, dyn_acc, horner, lane_fold
+    (ops/cuda_msm.py), launched as kernels on CUDA tensors.  signed=True
+    takes K7 in K1's place (digits in [-8, 7], half the table); the default
+    reads BPPT_MSM_SIGNED at call time ("1" selects it, default "0")."""
+    from .cuda_msm import coords_t, dyn_acc, dyn_acc_signed, horner, lane_fold
 
-    return PointArray(*horner(lane_fold(dyn_acc(scalars.t().contiguous(), coords_t(points)))))
+    if signed is None:
+        signed = os.environ.get("BPPT_MSM_SIGNED", "0") == "1"
+    acc = dyn_acc_signed if signed else dyn_acc
+    return PointArray(*horner(lane_fold(acc(scalars.t().contiguous(), coords_t(points)))))

@@ -1,11 +1,10 @@
-"""Batched ristretto255 decoding and equality (RFC 9496), plain torch.
+"""Batched ristretto255 encoding, decoding and equality (RFC 9496), plain torch.
 
-Counterpart of bulletproofs_plus_tpu/ops/ristretto.py (`compress` belongs to
-the prover and is not ported yet).  Decompression handles a whole batch in
-one pass; its sqrt-ratio exponent is the pow-chain kernel K4 on CUDA
-tensors (field.pow_p58).  Canonicality failures (non-canonical field
-element, negative sign, non-square) come back as a boolean mask, like
-`CompressedRistretto::decompress` returning `Option`.
+Counterpart of bulletproofs_plus_tpu/ops/ristretto.py.  Compression and
+decompression handle a whole batch in one pass; their sqrt-ratio exponent is
+the pow-chain kernel K4 on CUDA tensors (field.pow_p58).  Canonicality
+failures (non-canonical field element, negative sign, non-square) come back
+as a boolean mask, like `CompressedRistretto::decompress` returning `Option`.
 """
 
 from __future__ import annotations
@@ -30,6 +29,28 @@ def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor):
     flipped_i = F.eq25519(check, F.mul25519(neg_u, sqrt_m1.expand(u.shape)))
     r = F.select(flipped | flipped_i, F.mul25519(r, sqrt_m1.expand(r.shape)), r)
     return correct | flipped, F.abs25519(r)
+
+
+def compress(p: PointArray) -> torch.Tensor:
+    """Batched ristretto encode -> (..., 16) canonical limbs of s."""
+    one = F.limbs_const(1, p.x).expand(p.x.shape)
+    sqrt_m1 = F.limbs_const(hr.SQRT_M1, p.x).expand(p.x.shape)
+    u1 = F.mul25519(F.add25519(p.z, p.y), F.sub25519(p.z, p.y))
+    u2 = F.mul25519(p.x, p.y)
+    _, invsqrt = sqrt_ratio_m1(one, F.mul25519(u1, F.sqr25519(u2)))
+    den1 = F.mul25519(invsqrt, u1)
+    den2 = F.mul25519(invsqrt, u2)
+    z_inv = F.mul25519(F.mul25519(den1, den2), p.t)
+    ix0 = F.mul25519(p.x, sqrt_m1)
+    iy0 = F.mul25519(p.y, sqrt_m1)
+    enchanted = F.mul25519(den1, F.limbs_const(hr.INVSQRT_A_MINUS_D, p.x).expand(p.x.shape))
+    rotate = F.is_negative25519(F.mul25519(p.t, z_inv))
+    x = F.select(rotate, iy0, p.x)
+    y = F.select(rotate, ix0, p.y)
+    den_inv = F.select(rotate, enchanted, den2)
+    y = F.select(F.is_negative25519(F.mul25519(x, z_inv)), F.neg25519(y), y)
+    s = F.abs25519(F.mul25519(den_inv, F.sub25519(p.z, y)))
+    return F.canon25519(s)
 
 
 def decompress(s: torch.Tensor):

@@ -3,29 +3,35 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the batch-verification path from csrc/, holds
-each kernel against its plain torch version on the card, replays and
-verifies the golden proofs, verifies the 256 x 64-bit and 64 x m4 batches
-through `RangeProof.verify_batch(engine="device")` with launch counters
-proving the kernels ran, and checks that tampered and non-canonical batches
-fail with the reference's errors.  Each phase prints one JSON line; then
-come the card's name and power limit (nvidia-smi), the per-kernel table
-({"kernels": [...]}: time, bound, plain version's time) and, last,
-{"ok": true, "device": {...}}.  Any failed phase exits non-zero.  Without a
-CUDA device, or without the package beside it, it exits non-zero with no
-result.
+Builds every CUDA kernel of the port from csrc/, holds each kernel against
+its plain torch version on the card, replays and verifies the golden
+proofs, verifies the 256 x 64-bit and 64 x m4 batches through
+`RangeProof.verify_batch(engine="device")` (once more with the signed-digit
+MSM kernel selected), proves 128 x 64-bit statements with
+`RangeProof.prove_batch_with_rng` and verifies what it proved, with launch
+counters proving the kernels ran, and checks that tampered and
+non-canonical batches fail with the reference's errors.  Each phase prints
+one JSON line; then come the card's name and power limit (nvidia-smi), the
+per-kernel table ({"kernels": [...]}: time, bound, plain version's time)
+and, last, {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
+Without a CUDA device, or without the package beside it, it exits non-zero
+with no result.
 
 Tolerance: exact.  The kernels do integer arithmetic, so K4 must equal its
-plain version mod p, and K1-K3 must give the same points (compared as
-canonical affine coordinates, since tilings differ in projective Z);
-`max_abs_err` is the largest limb difference found, and must be 0.
+plain version mod p, and K1-K3 and K5-K7 must give the same points
+(compared as canonical affine coordinates, since tilings differ in
+projective Z); `max_abs_err` is the largest limb difference found, and must
+be 0.  The prover must reproduce golden proof 3 byte for byte.
 
 Bounds (`bound_ms`) are the larger of bytes moved over 3.35 TB/s and the
 32-bit integer multiply-adds the work needs over the card's rate: 132 SMs x
 64 IMAD/clock x 1.98 GHz = 16.7e12/s, half the FMA rate behind the 67
 TFLOP/s float32 peak (H100 SXM data sheet, 700 W).  A field multiplication
 counts 128 multiply-adds (8 x 8 32-bit words, low and high halves), a point
-addition 9 multiplications, a doubling 8.
+addition 9 multiplications, a doubling 8.  K5 does 60 additions for each
+(row, lane) and reads the lanes' table entries, the scalars and the lane
+map once; K6 the additions of its tree; K7 as K1 with 7 table operations
+for each lane instead of 14.
 """
 
 from __future__ import annotations
@@ -45,6 +51,9 @@ MULADDS_PER_FMUL = 128
 FMUL_PER_ADD, FMUL_PER_DBL = 9, 8
 POW_SQR, POW_MUL = 251, 11  # the x^((p-5)/8) addition chain
 LIMB_BYTES = 8 * 16  # one field element as 16 int64 limbs
+POINT_BYTES = 4 * LIMB_BYTES
+ENTRY_BYTES = 128  # one table entry: 32 packed 32-bit words
+PROVE_BATCH = 128
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "golden_vectors.json")
 
 
@@ -150,7 +159,35 @@ def _point_err(F, torch, got, want) -> float:
     return float((_affine(F, torch, got) - _affine(F, torch, want)).abs().max())
 
 
-def phase_kernels(torch, bp, rows: dict) -> dict:
+def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int) -> dict:
+    """K5 and K6 on one shape against their plain versions: {kernel: row}."""
+    sc_t = scalars.movedim(-1, 0).contiguous()  # (16, f, s)
+    _, f, s = sc_t.shape
+    parts = cf.fixed_acc(tables, lane_idx, sc_t)
+    err5 = _point_err(F, torch, parts, cf.fixed_acc_plain(tables, lane_idx, sc_t))
+    out = cf.fixed_fold(parts, groups)
+    err6 = _point_err(F, torch, out, cf.fixed_fold_plain(parts, groups))
+    for name, err in (("fixed_acc", err5), ("fixed_fold", err6)):
+        if err != 0:
+            raise AssertionError(f"{name} (rows {f}, lanes {s}, groups {groups}) disagrees with its plain version "
+                                 f"(max_abs_err {err})")
+    n_parts = f * cf.WSPLIT * s
+    b5 = bound_ms(cf.N_WINDOWS * cf.N_DIGITS * s * ENTRY_BYTES + f * s * LIMB_BYTES + 8 * s + n_parts * POINT_BYTES,
+                  f * s * (cf.N_WINDOWS - cf.WSPLIT) * FMUL_PER_ADD * MULADDS_PER_FMUL)
+    b6 = bound_ms((n_parts + f * groups) * POINT_BYTES, (n_parts - f * groups) * FMUL_PER_ADD * MULADDS_PER_FMUL)
+    shape = {"rows": f, "lanes": s, "groups": groups}
+    return {
+        "fixed_acc": {"max_abs_err": err5, "ms": kernel_ms(lambda: cf.fixed_acc(tables, lane_idx, sc_t)),
+                      "plain_ms": median_ms(lambda: cf.fixed_acc_plain(tables, lane_idx, sc_t), 3),
+                      "bound_ms": b5[0], "bound_by": b5[1], **shape},
+        "fixed_fold": {"max_abs_err": err6, "ms": kernel_ms(lambda: cf.fixed_fold(parts, groups)),
+                       "plain_ms": median_ms(lambda: cf.fixed_fold_plain(parts, groups), 3),
+                       "bound_ms": b6[0], "bound_by": b6[1], **shape},
+    }
+
+
+def phase_kernels(torch, bp, params, rows: dict) -> dict:
+    from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
     from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
     from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
     from bulletproofs_plus_tpu_torch.ops import edwards as ed
@@ -216,6 +253,50 @@ def phase_kernels(torch, bp, rows: dict) -> dict:
                       "plain_ms": median_ms(lambda: cm.horner_plain(wsum), 3),
                       "bound_ms": b3[0], "bound_by": b3[1]}
 
+    # K7 on K1's inputs, then K1 against K7 in turns (the A/B of the two digit recodings)
+    parts7 = cm.dyn_acc_signed(sc_t, pts_t)
+    err7 = _point_err(F, torch, parts7, cm.dyn_acc_signed_plain(sc_t, pts_t))
+    res7 = cm.horner(cm.lane_fold(parts7))  # the window sums differ with the recoding; the MSM does not
+    if err7 != 0 or _point_err(F, torch, res7[..., None], res[..., None]) != 0:
+        raise AssertionError(f"dyn_acc_signed disagrees with its plain version or with K1 (max_abs_err {err7})")
+    b7 = bound_ms(n * (LIMB_BYTES + point_bytes) + tiles * 64 * point_bytes,
+                  n * (7 * FMUL_PER_ADD + 64 * FMUL_PER_ADD) * MULADDS_PER_FMUL)
+    turns = [kernel_ms(lambda: fn(sc_t, pts_t)) for fn in (cm.dyn_acc, cm.dyn_acc_signed, cm.dyn_acc_signed, cm.dyn_acc)]
+    rows["dyn_acc_signed"] = {"max_abs_err": err7, "ms": statistics.mean(turns[1:3]),
+                              "plain_ms": median_ms(lambda: cm.dyn_acc_signed_plain(sc_t, pts_t), 3),
+                              "bound_ms": b7[0], "bound_by": b7[1], "lanes": n}
+    out["k1_k7_k7_k1_ms"] = turns
+
+    # K5 and K6 at the prover's shapes: the round MSM (128 proofs x 128
+    # generator lanes, permuted, L and R as two groups), the A1 MSM (one
+    # group, lanes in place) and the Pedersen MSMs (256 rows x 2 lanes).
+    t0 = time.perf_counter()
+    gihi = params.bp_gens.fixed_tables_sliced(2 * 64, dev)
+    pedersen = params.pc_gens.device_base_tables(dev)
+    torch.cuda.synchronize()
+    out["table_build_s"] = time.perf_counter() - t0
+    out["table_bytes"] = {"generators": gihi.numel() * 4, "pedersen": pedersen.numel() * 4}
+
+    def rand_scalars(f, s):
+        vals = [[rs.randrange(hr.L) for _ in range(s)] for _ in range(f)]
+        vals[0] = [0] * s  # a chain of identity additions
+        vals[1] = [0] * (s - 1) + [11 << (4 * 50)]  # one non-zero digit
+        return torch.as_tensor(pack_ints([v for row in vals for v in row]).astype("int64"), device=dev).reshape(f, s, 16)
+
+    perm = list(range(128))
+    rs.shuffle(perm)
+    shapes = (
+        ("round", gihi, torch.as_tensor(perm, device=dev), rand_scalars(PROVE_BATCH, 128), 2),
+        ("a1", gihi, torch.arange(128, device=dev), rand_scalars(PROVE_BATCH, 128), 1),
+        ("pedersen", pedersen, torch.arange(2, device=dev), rand_scalars(2 * PROVE_BATCH, 2), 1),
+    )
+    out["fixed_shapes"] = {}
+    for label, tab, lane_idx, scal, groups in shapes:
+        got = _fixed_rows(torch, cf, F, tab, lane_idx, scal, groups)
+        out["fixed_shapes"][label] = got
+        if label == "round":  # the shape the prover launches most: the kernels table's row
+            rows.update(got)
+
     # The whole chain against the host Pippenger on 16 lanes
     small = [hr.point_mul(rs.randrange(1, hr.L), hr.BASEPOINT) for _ in range(16)]
     small_sc = [rs.randrange(hr.L) for _ in range(16)]
@@ -271,7 +352,30 @@ def _verify(bp, statements, proofs):
     )
 
 
-KERNELS = ("dyn_acc", "lane_fold", "horner", "pow_p58")
+VERIFY_KERNELS = ("dyn_acc", "lane_fold", "horner", "pow_p58")
+PROVE_KERNELS = ("fixed_acc", "fixed_fold", "pow_p58")
+
+
+def _signed_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
+    """One verify with BPPT_MSM_SIGNED=1 for the call: K7 takes K1's place."""
+    before = os.environ.get("BPPT_MSM_SIGNED")
+    os.environ["BPPT_MSM_SIGNED"] = "1"
+    try:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        _verify(bp, statements, proofs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        if before is None:
+            del os.environ["BPPT_MSM_SIGNED"]
+        else:
+            os.environ["BPPT_MSM_SIGNED"] = before
+    counts = {k: cuda.launches[k] for k in ("dyn_acc_signed",) + VERIFY_KERNELS}
+    if not counts["dyn_acc_signed"] or counts["dyn_acc"] or not all(counts[k] for k in ("lane_fold", "horner", "pow_p58")):
+        raise AssertionError(f"signed verify: wrong kernels launched: {counts}")
+    launches["dyn_acc_signed"] = counts["dyn_acc_signed"]
+    return {"proofs": len(proofs), "seconds": seconds, "launches": counts}
 
 
 def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
@@ -286,11 +390,12 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         _verify(bp, statements, proofs)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        counts = {k: cuda.launches[k] for k in KERNELS}
+        counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
         if not all(counts.values()):
             raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
         if seed == 3:
             launches.update(counts)
+            out["b64_m1_x256_signed"] = _signed_arm(torch, bp, cuda, statements, proofs, launches)
         samples = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -300,6 +405,69 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         wall = statistics.median(samples)
         out[label] = {"proofs": batch, "first_s": first_s, "median_s": wall, "samples_s": samples,
                       "proofs_per_s": batch / wall, "launches": counts}
+    return out
+
+
+def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
+    """128 x 64-bit proofs through `prove_batch_with_rng` on the card, lane 0
+    being golden cell 3, then verified on the card by the port itself."""
+    from bulletproofs_plus_tpu_torch.native import cuda
+
+    cell = next(c for c in cells if c["seed"] == 3)
+    pc, seed = params.pc_gens, cell["seed"]
+    values = [(cell["values"][0] + 7919 * lane) % 2**64 for lane in range(PROVE_BATCH)]
+    blindings = [[seed * 1000 + 17 * lane] for lane in range(PROVE_BATCH)]
+    commitments = [pc.commit(v, bl) for v, bl in zip(values, blindings)]
+    if hr.compress(commitments[0]).hex() != cell["commitments"][0] or blindings[0] != cell["blindings"][0]:
+        raise AssertionError("lane 0 is not golden cell 3")
+    witnesses = [bp.RangeWitness.init([bp.CommitmentOpening(v, bl)]) for v, bl in zip(values, blindings)]
+
+    def statements(seeded: bool):
+        return [bp.RangeStatement.init(params, [c], [None], (cell["seed_nonce"] + lane) if seeded else None)
+                for lane, c in enumerate(commitments)]
+
+    def transcripts():
+        return [bp.Transcript(b"golden") for _ in range(PROVE_BATCH)]
+
+    # the digit tables, built and timed in the kernels phase, are cached in `params`: no prove below builds them
+    params.bp_gens.fixed_tables_sliced(2 * cell["bits"], "cuda")
+    pc.device_base_tables("cuda")
+    out = {"proofs": PROVE_BATCH}
+
+    seeded = statements(True)
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    proofs = bp.RangeProof.prove_batch_with_rng(transcripts(), seeded, witnesses, bp.SeededRng(seed), device="cuda")
+    torch.cuda.synchronize()
+    out["first_s"] = time.perf_counter() - t0
+    counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
+    if not all(counts.values()):
+        raise AssertionError(f"prove: a kernel of the path never launched: {counts}")
+    launches.update({k: counts[k] for k in ("fixed_acc", "fixed_fold")})
+    out["launches"] = dict(cuda.launches)
+    if proofs[0].to_bytes().hex() != cell["proof"]:
+        raise AssertionError("prove: lane 0 is not golden proof 3")
+    masks = bp.RangeProof.verify_batch(transcripts(), seeded, proofs, bp.VerifyAction.RECOVER_AND_VERIFY, device="cuda")
+    if [m.blindings() for m in masks] != blindings:
+        raise AssertionError("prove: recovered masks differ from the blindings")
+    out["golden_lane0"] = "equal"
+    out["verified_seeded"] = len(masks)
+
+    unseeded = statements(False)
+    plain_proofs = bp.RangeProof.prove_batch_with_rng(transcripts(), unseeded, witnesses, bp.SeededRng(4), device="cuda")
+    bp.RangeProof.verify_batch(transcripts(), unseeded, plain_proofs, bp.VerifyAction.VERIFY_ONLY, device="cuda")
+    out["verified_unseeded"] = len(plain_proofs)
+
+    samples = []
+    for _ in range(5):
+        ts = transcripts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bp.RangeProof.prove_batch_with_rng(ts, seeded, witnesses, bp.SeededRng(seed), device="cuda")
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    wall = statistics.median(samples)
+    out.update(median_s=wall, samples_s=samples, proofs_per_s=PROVE_BATCH / wall, ms_per_proof=wall * 1e3 / PROVE_BATCH)
     return out
 
 
@@ -346,12 +514,15 @@ def main() -> int:
     with open(GOLDEN) as f:
         cells = json.load(f)
 
+    # the prover's parameters: 64 bits, one commitment, extension degree 1 (golden cell 3's)
+    params = bp.RangeParameters.init(64, 1, bp.create_pedersen_gens_with_extension_degree(bp.ExtensionDegree(1)))
     rows, launches = {}, {}
     phases = (
         ("build", lambda: phase_build(torch, cuda)),
-        ("kernels", lambda: phase_kernels(torch, bp, rows)),
+        ("kernels", lambda: phase_kernels(torch, bp, params, rows)),
         ("golden", lambda: phase_golden(bp, hr, cells)),
         ("main", lambda: phase_main(torch, bp, hr, cells, launches)),
+        ("prove", lambda: phase_prove(torch, bp, hr, params, cells, launches)),
         ("reject", lambda: phase_reject(bp, hr, cells)),
     )
     for name, fn in phases:
@@ -360,19 +531,22 @@ def main() -> int:
         torch.cuda.synchronize()
         emit({"phase": name, "ok": True, "seconds": time.perf_counter() - t0, **result})
 
-    replaces = {
-        "dyn_acc": "bulletproofs_plus_tpu/ops/pallas_msm.py:336",
-        "lane_fold": "bulletproofs_plus_tpu/ops/pallas_msm.py:422",
-        "horner": "bulletproofs_plus_tpu/ops/pallas_msm.py:432",
-        "pow_p58": "bulletproofs_plus_tpu/ops/pallas_pow.py:78",
+    # kernel -> (source under csrc/, the TPU kernel it replaces)
+    kernels = {
+        "dyn_acc": ("msm.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:336"),
+        "lane_fold": ("msm.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:422"),
+        "horner": ("msm.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:432"),
+        "pow_p58": ("pow.cu", "bulletproofs_plus_tpu/ops/pallas_pow.py:78"),
+        "fixed_acc": ("fixed.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:536"),
+        "fixed_fold": ("fixed.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:567"),
+        "dyn_acc_signed": ("msm.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:340"),
     }
-    source = {"dyn_acc": "msm.cu", "lane_fold": "msm.cu", "horner": "msm.cu", "pow_p58": "pow.cu"}
     table = [
-        {"name": k, "route": "cuda", "source": f"bulletproofs_plus_tpu_torch/csrc/{source[k]}",
-         "replaces": replaces[k], "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
+        {"name": k, "route": "cuda", "source": f"bulletproofs_plus_tpu_torch/csrc/{source}",
+         "replaces": replaces, "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
          "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
          "bound_by": rows[k]["bound_by"], "library_ms": None}
-        for k in KERNELS
+        for k, (source, replaces) in kernels.items()
     ]
     print(nvidia_smi())
     emit({"kernels": table})

@@ -13,10 +13,13 @@ import pytest
 import torch
 
 from bulletproofs_plus_tpu_torch.native import cuda
+from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
 from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
 from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
 from bulletproofs_plus_tpu_torch.ops import edwards as ed
+from bulletproofs_plus_tpu_torch.ops import fixed_base as fb
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
+from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs, pack_ints
 from bulletproofs_plus_tpu_torch.ops.msm import host_msm, msm_kernel
 
@@ -48,17 +51,17 @@ def test_msm_kernels_match_host(card, n):
     assert [cuda.launches[k] for k in ("dyn_acc", "lane_fold", "horner")] == [1, 1, 1]
 
 
+def pa(coords):
+    """(4, 16, ...) limb-major coordinates -> PointArray."""
+    return ed.PointArray(*(c.movedim(0, -1) for c in coords))
+
+
 def test_msm_kernels_match_plain(card):
     scalars, pts = _msm_inputs(100, 3)
     sc_t = torch.as_tensor(pack_ints(scalars).astype(np.int64), device=card).t().contiguous()
     pts_t = cm.coords_t(ed.from_host(pts, device=card))
     parts = cm.dyn_acc(sc_t, pts_t)
     want = cm.dyn_acc_plain(sc_t, pts_t)
-    from bulletproofs_plus_tpu_torch.ops import ristretto as rist
-
-    def pa(coords):
-        return ed.PointArray(*(c.movedim(0, -1) for c in coords))
-
     assert bool(rist.point_equal(pa(parts), pa(want)).all())
     wsum = cm.lane_fold(parts)
     assert bool(rist.point_equal(pa(wsum), pa(cm.lane_fold_plain(parts))).all())
@@ -72,3 +75,66 @@ def test_pow_p58_kernel_matches_python(card):
     got = cp.pow_p58_cuda(x).cpu().numpy()
     assert [int_from_limbs(r) % P for r in got] == [pow(v, (P - 5) // 8, P) for v in vals]
     assert cp.pow_p58_cuda(x[:0]).shape == (0, 16)
+
+
+@pytest.mark.parametrize("n", [1, 16, 40])
+def test_signed_msm_kernel_matches_host_and_plain(card, n):
+    """K7 in K1's place: the same MSM, its partials equal to the plain version's."""
+    scalars, pts = _msm_inputs(n, 50 + n)
+    sc = torch.as_tensor(pack_ints(scalars).astype(np.int64), device=card)
+    points = ed.from_host(pts, device=card)
+    cuda.reset_launches()
+    assert hr.point_equal(ed.to_host(msm_kernel(sc, points, signed=True)), host_msm(scalars, pts))
+    assert [cuda.launches[k] for k in ("dyn_acc_signed", "dyn_acc", "lane_fold", "horner")] == [1, 0, 1, 1]
+    sc_t, pts_t = sc.t().contiguous(), cm.coords_t(points)
+    assert bool(rist.point_equal(pa(cm.dyn_acc_signed(sc_t, pts_t)), pa(cm.dyn_acc_signed_plain(sc_t, pts_t))).all())
+
+
+@pytest.fixture(scope="module")
+def fixed_setup():
+    """12 base points and their packed digit tables (built on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    pts = [hr.point_mul(9 * i + 4, hr.BASEPOINT) for i in range(12)]
+    return pts, fb.pack_tables(fb.build_tables(ed.from_host(pts, device="cuda")))
+
+
+@pytest.mark.parametrize("rows, lanes, groups", [(1, 1, 1), (3, 12, 1), (5, 12, 2), (130, 6, 3)])
+def test_fixed_kernels_match_host_and_plain(card, fixed_setup, rows, lanes, groups):
+    """K5 and K6 at ragged shapes, with a lane permutation, a zero row and a
+    row with one non-zero digit."""
+    pts, tables = fixed_setup
+    rs = np.random.RandomState(rows * 100 + lanes)
+    scal = [[int.from_bytes(rs.bytes(32), "little") % hr.L for _ in range(lanes)] for _ in range(rows)]
+    scal[0] = [0] * lanes
+    if rows > 1:
+        scal[1] = [0] * (lanes - 1) + [9 << (4 * 63 - 4)]
+    perm = [int(v) for v in rs.permutation(12)[:lanes]]
+    lane_idx = torch.as_tensor(perm, device=card)
+    sc = torch.as_tensor(pack_ints([v for row in scal for v in row]).astype(np.int64), device=card).reshape(rows, lanes, 16)
+    cuda.reset_launches()
+    got = fb.fixed_msm_grouped(sc, tables, groups, lanes=perm)
+    assert (cuda.launches["fixed_acc"], cuda.launches["fixed_fold"]) == (1, 1)
+    per = lanes // groups
+    flat = ed.to_host(ed.PointArray(*(c.reshape(-1, 16) for c in got)))
+    for row in range(0, rows, max(1, rows // 4)):
+        for grp in range(groups):
+            idx = perm[grp * per : (grp + 1) * per]
+            want = host_msm(scal[row][grp * per : (grp + 1) * per], [pts[i] for i in idx])
+            assert hr.point_equal(flat[row * groups + grp], want)
+    sc_t = sc.movedim(-1, 0).contiguous()
+    parts = cf.fixed_acc(tables, lane_idx, sc_t)
+    assert bool(rist.point_equal(pa(parts), pa(cf.fixed_acc_plain(tables, lane_idx, sc_t))).all())
+    assert bool(rist.point_equal(pa(cf.fixed_fold(parts, groups)), pa(cf.fixed_fold_plain(parts, groups))).all())
+
+
+def test_compress_on_card_matches_host(card):
+    pts = [hr.point_mul(k, hr.BASEPOINT) for k in (1, 2, 1000, 2**200 + 7)] + [hr.IDENTITY]
+    points = ed.from_host(pts, device=card)
+    points = ed.cat([points, ed.double(points)])
+    from bulletproofs_plus_tpu_torch.ops.limbs import bytes_from_limbs
+
+    cuda.reset_launches()
+    got = bytes_from_limbs(rist.compress(points).cpu().numpy())
+    assert cuda.launches["pow_p58"] == 1
+    assert [r.tobytes() for r in got] == [hr.compress(p) for p in ed.to_host(points)]
