@@ -4,7 +4,7 @@
 The state that crosses is the generator vectors, the packed proof arrays
 and the fixed-base digit tables (there are no weights).  For points and
 scalars the layouts already agree and only the dtype changes; the tables
-are repacked into the 32-bit words the port's kernels read.
+are made affine and repacked into the 32-bit words the port's kernels read.
 """
 
 from __future__ import annotations
@@ -34,13 +34,15 @@ def points_from_jax_numpy(x, y, z, t, device="cuda") -> PointArray:
 
 def tables_from_jax_numpy(x, y, z, t, device="cuda") -> torch.Tensor:
     """The JAX package's `build_tables` coordinates, four (64, 16, S, 16)
-    uint32 arrays as numpy -> the port's table (ops/fixed_base.pack_tables):
-    int32 (64, 16, S, 32) words on `device`."""
-    from .ops.fixed_base import N_DIGITS, N_WINDOWS, pack_tables
+    uint32 arrays as numpy (extended coordinates) -> the port's table
+    (ops/fixed_base.pack_tables): each entry made affine and precomputed for
+    the mixed addition, int32 (64, 16, S, 24) words on `device`."""
+    from .ops.fixed_base import N_DIGITS, N_WINDOWS, NielsArray, pack_tables, to_niels
 
     shape = np.asarray(x).shape
     if len(shape) != 4 or shape[:2] != (N_WINDOWS, N_DIGITS):
         raise ValueError(f"expected ({N_WINDOWS}, {N_DIGITS}, S, {NLIMBS}) table coordinates, got {shape}")
     if any(np.asarray(c).shape != shape for c in (y, z, t)):
         raise ValueError("table coordinates differ in shape")
-    return pack_tables(points_from_jax_numpy(x, y, z, t, device))
+    extended = PointArray(*(c.transpose(0, 1) for c in points_from_jax_numpy(x, y, z, t, device)))  # (16, 64, S)
+    return pack_tables(NielsArray(*(c.transpose(0, 1) for c in to_niels(extended))))

@@ -8,12 +8,45 @@
 //
 // Representation: `fe` holds any value below 2^256 (not necessarily below
 // p).  Every operation accepts any such input and returns a value below
-// 2^256 congruent to the exact result; canonical reduction happens in torch
-// at compare/encode time.  Each reduction folds the overflow through
+// 2^256 congruent to the exact result; `fe_canon` reduces below p where a
+// kernel compares or encodes.  Each reduction folds the overflow through
 // 2^256 == 38 (mod p) until the result provably fits: after the last
 // fold a carry-out can still occur when the sum lands in [2^256, 2^256+38q),
-// and the final `+38` below covers exactly that window (the JAX package's
-// pfield._fold16 fix).
+// and the final `+38` of `fe_fold_top` covers exactly that window (the JAX
+// package's pfield._fold16 fix).
+//
+// What bounds it on this card, and the design.  A product accumulated
+// through one 64-bit carry (`c += a*b + t; t = (u32)c; c >>= 32`) makes all
+// 64 limb products one dependent chain of multiply, add, truncate and shift.
+// Here the product is row scanning on the hardware carry flag (mad.lo.cc /
+// madc.hi.cc, which ptxas pairs into one IMAD.WIDE with carry): the products
+// of a row that land on even words go to one accumulator and those on odd
+// words to another, so every limb product is one instruction and no carry
+// chain is longer than four products.  One carry chain then joins the two
+// accumulators (its low words are ready while the last rows still
+// multiply), eight independent multiply-adds fold the high half through 38,
+// one carry pass settles them and the top carry is folded.  `fe_sqr`
+// multiplies each word by itself and by the doubled words above it (43
+// products instead of 64) on the same two accumulators.  Additions and
+// subtractions are carry-flag chains as well.
+//
+// Compiled for sm_90a (cuobjdump -sass of the probe kernels in pow.cu,
+// which chip_smoke.py's build phase prints): one fe_mul is 72
+// IMAD.WIDE (64 limb products, 8 of the fold) and some 80 other SASS operations,
+// of which about 35 are the carry adds (IADD3.X, IMAD.X); one fe_sqr is 50
+// IMAD.WIDE and some 100 others, 20 of them the shifts that double the
+// operand.  Measured on an H100 (chip_smoke.py's probe): a lone warp takes
+// about 261 ns for a dependent fe_mul and 207 ns for an fe_sqr, 4.9 clocks
+// for each IMAD.WIDE beyond a fixed 165; eight warps on a scheduler take 169
+// ns and 134 ns an operation.  So the wide multiply-add, which an SM's
+// scheduler issues about once in four clocks, bounds this code, not the
+// carries: two variants that shortened the carry chains at the price of
+// eight more IMAD.WIDE (no joining chain, 64-bit column sums instead) or of
+// a rarely taken branch (the top carry's ripple) measured 3-10% slower and
+// are not kept.
+//
+// ops/field_model.py repeats this file's carry logic word for word in
+// Python; tests/test_torch_field.py holds that model against integers.
 //
 // At the kernel boundary values are radix-2^16 limbs held in int64 tensors,
 // limb-major (16, n) so that neighbouring threads read neighbouring
@@ -36,6 +69,61 @@ struct ge {  // extended coordinates (X : Y : Z : T), x = X/Z, y = Y/Z, T = XY/Z
     fe x, y, z, t;
 };
 
+struct gn {  // an affine point precomputed for the mixed addition: y + x, y - x, 2d * x * y
+    fe yp, ym, t2d;
+};
+
+// ---------------------------------------------------------------------------
+// The carry flag.  One instruction a function, as the compiler's own PTX
+// never touches the flag; `volatile` keeps the statements in order.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ u32 add_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 addc_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 addc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 sub_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 subc_cc(u32 a, u32 b) {
+    u32 r;
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 subc(u32 a, u32 b) {  // a - b - borrow; subc(0, 0) is 0 or 0xFFFFFFFF
+    u32 r;
+    asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+}
+__device__ __forceinline__ u32 mad_lo_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 madc_lo_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 madc_hi_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
 __device__ __forceinline__ fe fe_zero() {
     fe r;
 #pragma unroll
@@ -56,86 +144,202 @@ __device__ __forceinline__ fe fe_d2() {  // 2d mod p, d = -121665/121666
     return r;
 }
 
+__device__ __forceinline__ fe fe_sqrt_m1() {  // sqrt(-1) mod p, the even root (RFC 9496)
+    fe r;
+    r.w[0] = 0x4a0ea0b0u; r.w[1] = 0xc4ee1b27u; r.w[2] = 0xad2fe478u; r.w[3] = 0x2f431806u;
+    r.w[4] = 0x3dfbd7a7u; r.w[5] = 0x2b4d0099u; r.w[6] = 0x4fc1df0bu; r.w[7] = 0x2b832480u;
+    return r;
+}
+
 // r + c * 2^256 -> value < 2^256, for c < 2^26.
-__device__ __forceinline__ void fe_fold_top(fe &r, u64 c) {
-    c *= 38u;
+__device__ __forceinline__ void fe_fold_top(fe &r, u32 c) {
+    r.w[0] = add_cc(r.w[0], 38u * c);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        c += r.w[k];
-        r.w[k] = (u32)c;
-        c >>= 32;
-    }
-    // A carry-out here means the wrapped r is below 38 * c_in < 2^32 - 38,
+    for (int k = 1; k < 8; ++k) r.w[k] = addc_cc(r.w[k], 0u);
+    // A carry-out here means the wrapped r is below 38 * c < 2^32 - 38,
     // so adding the last 38 cannot carry again.
-    r.w[0] += (u32)(38u * c);
+    r.w[0] += 38u * addc(0u, 0u);
 }
 
 __device__ __forceinline__ fe fe_add(const fe &a, const fe &b) {
     fe r;
-    u64 c = 0;
+    r.w[0] = add_cc(a.w[0], b.w[0]);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        c += (u64)a.w[k] + b.w[k];
-        r.w[k] = (u32)c;
-        c >>= 32;
-    }
-    fe_fold_top(r, c);
+    for (int k = 1; k < 8; ++k) r.w[k] = addc_cc(a.w[k], b.w[k]);
+    fe_fold_top(r, addc(0u, 0u));
     return r;
 }
 
 __device__ __forceinline__ fe fe_sub(const fe &a, const fe &b) {
     fe r;
-    int64_t c = 0;
+    r.w[0] = sub_cc(a.w[0], b.w[0]);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        c += (int64_t)a.w[k] - (int64_t)b.w[k];
-        r.w[k] = (u32)c;
-        c >>= 32;  // arithmetic: 0 or -1
-    }
+    for (int k = 1; k < 8; ++k) r.w[k] = subc_cc(a.w[k], b.w[k]);
     // A borrow left r = a - b + 2^256 == a - b + 38: take 38 off.
-    c *= 38;
+    r.w[0] = sub_cc(r.w[0], 38u & subc(0u, 0u));
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        c += (int64_t)r.w[k];
-        r.w[k] = (u32)c;
-        c >>= 32;
-    }
+    for (int k = 1; k < 8; ++k) r.w[k] = subc_cc(r.w[k], 0u);
     // Borrowing again means r was below 38 and now sits at or above
     // 2^256 - 38: one more 38 comes off the low word without underflow.
-    r.w[0] -= (u32)(38 * (int)(-c));
+    r.w[0] -= 38u & subc(0u, 0u);
     return r;
 }
 
 __device__ __forceinline__ fe fe_neg(const fe &a) { return fe_sub(fe_zero(), a); }
 
-__device__ __forceinline__ fe fe_mul(const fe &a, const fe &b) {
-    u32 t[16];
+// ---------------------------------------------------------------------------
+// Products.  `e` collects the limb products that start on an even word, `o`
+// those that start on an odd word: o[k] has the weight of word k + 1.
+// ---------------------------------------------------------------------------
+
+// acc[p], acc[p + 1] += x * y, opening a carry chain or continuing one.
+__device__ __forceinline__ void mad_pair(u32 *acc, int p, u32 x, u32 y, bool first) {
+    acc[p] = first ? mad_lo_cc(x, y, acc[p]) : madc_lo_cc(x, y, acc[p]);
+    acc[p + 1] = madc_hi_cc(x, y, acc[p + 1]);
+}
+
+// The carry a chain leaves goes to the word after its last pair.  That word
+// holds at most a carry of the row before, so it cannot overflow; past word
+// 15 there is no carry, because the accumulators never exceed the product,
+// which is below 2^512.
+__device__ __forceinline__ void mad_chain_end(u32 *acc, int p) {
+    if (p < 16) acc[p] = addc(acc[p], 0u);
+}
+
+// A value below 2^512 as 16 words, folded to a value below 2^256: eight
+// independent multiply-adds fold the high half through 38, one carry pass
+// settles them and the top carry is folded.
+__device__ __forceinline__ fe fe_fold_wide(const u32 *t) {
+    u64 s[8];  // t[k] + 38 * t[k + 8] < 39 * 2^32
 #pragma unroll
-    for (int i = 0; i < 16; ++i) t[i] = 0u;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        u64 c = 0;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            c += (u64)a.w[i] * b.w[j] + t[i + j];  // <= 2^64 - 1
-            t[i + j] = (u32)c;
-            c >>= 32;
-        }
-        t[i + 8] = (u32)c;
-    }
+    for (int k = 0; k < 8; ++k) s[k] = (u64)t[k + 8] * 38u + t[k];
     fe r;
-    u64 c = 0;
+    r.w[0] = (u32)s[0];
+    r.w[1] = add_cc((u32)s[1], (u32)(s[0] >> 32));
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        c += (u64)t[k] + (u64)t[k + 8] * 38u;
-        r.w[k] = (u32)c;
-        c >>= 32;
-    }
-    fe_fold_top(r, c);  // c < 39
+    for (int k = 2; k < 8; ++k) r.w[k] = addc_cc((u32)s[k], (u32)(s[k - 1] >> 32));
+    fe_fold_top(r, addc((u32)(s[7] >> 32), 0u));  // at most 39
     return r;
 }
 
-__device__ __forceinline__ fe fe_sqr(const fe &a) { return fe_mul(a, a); }
+// e + (o << 32), a value below 2^512, folded to a value below 2^256.  One
+// carry chain joins the two accumulators first; its low words are ready
+// while the last rows still multiply.
+__device__ __forceinline__ fe fe_reduce_wide(const u32 *e, const u32 *o) {
+    u32 t[16];
+    t[0] = e[0];
+    t[1] = add_cc(e[1], o[0]);
+#pragma unroll
+    for (int k = 2; k < 16; ++k) t[k] = addc_cc(e[k], o[k - 1]);
+    return fe_fold_wide(t);
+}
+
+// Row i of the product: e, o += a * y * 2^(32 i), y standing for b.w[i].
+__device__ __forceinline__ void fe_mul_row(u32 *e, u32 *o, const fe &a, u32 y, int i) {
+    const int j0 = i & 1, j1 = 1 - j0;  // a.w[j] * y starts on word i + j
+#pragma unroll
+    for (int j = j0; j < 8; j += 2) mad_pair(e, i + j, a.w[j], y, j == j0);
+    mad_chain_end(e, i + j0 + 8);
+#pragma unroll
+    for (int j = j1; j < 8; j += 2) mad_pair(o, i + j - 1, a.w[j], y, j == j1);
+    mad_chain_end(o, i + j1 + 7);
+}
+
+// 64 wide multiply-adds in 16 carry chains of 4, then fe_reduce_wide.
+__device__ __forceinline__ fe fe_mul(const fe &a, const fe &b) {
+    u32 e[16], o[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) e[k] = o[k] = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) fe_mul_row(e, o, a, b.w[i], i);
+    return fe_reduce_wide(e, o);
+}
+
+// a^2 = sum_i a_i W^i * (a_i W^i + 2 * sum_{j>i} a_j W^j), W = 2^32.  Row i
+// multiplies a_i by itself and by the words of 2 * (a >> 32 (i + 1)): the
+// word above it shifted left, the doubled words beyond, and the bit that
+// falls out at the top.  43 wide multiply-adds, no separate doubling pass.
+__device__ __forceinline__ fe fe_sqr(const fe &a) {
+    u32 d[9];  // 2a as nine words
+    d[0] = a.w[0] << 1;
+#pragma unroll
+    for (int k = 1; k < 8; ++k) d[k] = (a.w[k] << 1) | (a.w[k - 1] >> 31);
+    d[8] = a.w[7] >> 31;
+    u32 e[16], o[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) e[k] = o[k] = 0u;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        // operand word j of row i, j = i .. 8 (row 7 is a_7 * a_7 alone)
+        u32 m[9];
+#pragma unroll
+        for (int j = 0; j < 9; ++j) m[j] = j == i ? a.w[i] : (j == i + 1 && j < 8) ? a.w[j] << 1 : d[j];
+        const int last = i == 7 ? 7 : 8;
+        const int j0 = i, j1 = i + 1;  // i + j0 is even, i + j1 odd
+#pragma unroll
+        for (int j = j0; j <= last; j += 2) mad_pair(e, i + j, a.w[i], m[j], j == j0);
+        mad_chain_end(e, i + j0 + 2 * ((last - j0) / 2) + 2);
+#pragma unroll
+        for (int j = j1; j <= last; j += 2) mad_pair(o, i + j - 1, a.w[i], m[j], j == j1);
+        if (j1 <= last) mad_chain_end(o, i + j1 + 2 * ((last - j1) / 2) + 1);
+    }
+    return fe_reduce_wide(e, o);
+}
+
+// ---------------------------------------------------------------------------
+// Canonical form and predicates
+// ---------------------------------------------------------------------------
+
+// The representative below p.
+__device__ __forceinline__ fe fe_canon(const fe &a) {
+    fe r = a;
+    // 2^255 == 19: fold bit 255 down; r < 2^255 + 19 afterwards.
+    const u32 q = r.w[7] >> 31;
+    r.w[7] &= 0x7FFFFFFFu;
+    r.w[0] = add_cc(r.w[0], 19u * q);
+#pragma unroll
+    for (int k = 1; k < 7; ++k) r.w[k] = addc_cc(r.w[k], 0u);
+    r.w[7] = addc(r.w[7], 0u);
+    // r >= p exactly when r + 19 reaches 2^255, and then r - p = r + 19 - 2^255.
+    fe t;
+    t.w[0] = add_cc(r.w[0], 19u);
+#pragma unroll
+    for (int k = 1; k < 7; ++k) t.w[k] = addc_cc(r.w[k], 0u);
+    t.w[7] = addc(r.w[7], 0u);
+    const bool ge_p = (t.w[7] >> 31) != 0u;
+    t.w[7] &= 0x7FFFFFFFu;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r.w[k] = ge_p ? t.w[k] : r.w[k];
+    return r;
+}
+
+__device__ __forceinline__ bool fe_eq(const fe &a, const fe &b) {
+    const fe ca = fe_canon(a), cb = fe_canon(b);
+    u32 diff = 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) diff |= ca.w[k] ^ cb.w[k];
+    return diff == 0u;
+}
+
+// RFC 9496 negativity: the canonical form is odd.
+__device__ __forceinline__ bool fe_is_negative(const fe &a) { return (fe_canon(a).w[0] & 1u) != 0u; }
+
+__device__ __forceinline__ fe fe_select(bool c, const fe &a, const fe &b) {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r.w[k] = c ? a.w[k] : b.w[k];
+    return r;
+}
+
+// The canonical form of |a|.
+__device__ __forceinline__ fe fe_abs(const fe &a) {
+    const fe c = fe_canon(a);
+    return fe_select((c.w[0] & 1u) != 0u, fe_canon(fe_neg(c)), c);
+}
+
+// ---------------------------------------------------------------------------
+// Points
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ ge ge_identity() {
     ge p;
@@ -161,6 +365,38 @@ __device__ __forceinline__ ge ge_add(const ge &p, const ge &q) {
     r.x = fe_mul(e, f);
     r.y = fe_mul(g, h);
     r.z = fe_mul(f, g);
+    r.t = fe_mul(e, h);
+    return r;
+}
+
+// Complete mixed addition, madd-2008-hwcd-3 for a = -1 with the second
+// point affine and precomputed: 7M.  (1, 1, 0) is the identity.
+__device__ __forceinline__ ge ge_madd(const ge &p, const gn &q) {
+    fe a = fe_mul(fe_sub(p.y, p.x), q.ym);
+    fe b = fe_mul(fe_add(p.y, p.x), q.yp);
+    fe c = fe_mul(p.t, q.t2d);
+    fe d = fe_add(p.z, p.z);
+    fe e = fe_sub(b, a);
+    fe f = fe_sub(d, c);
+    fe g = fe_add(d, c);
+    fe h = fe_add(b, a);
+    ge r;
+    r.x = fe_mul(e, f);
+    r.y = fe_mul(g, h);
+    r.z = fe_mul(f, g);
+    r.t = fe_mul(e, h);
+    return r;
+}
+
+// identity + q by the same formulas with the constants folded: 1M.
+// (X : Y : Z : T) = (2(yp - ym) : 2(yp + ym) : 4 : (yp - ym)(yp + ym)).
+__device__ __forceinline__ ge ge_from_niels(const gn &q) {
+    const fe e = fe_sub(q.yp, q.ym), h = fe_add(q.yp, q.ym);
+    ge r;
+    r.x = fe_add(e, e);
+    r.y = fe_add(h, h);
+    r.z = fe_zero();
+    r.z.w[0] = 4u;
     r.t = fe_mul(e, h);
     return r;
 }
@@ -221,6 +457,39 @@ __device__ __forceinline__ void ge_store(int64_t *__restrict__ base, long coord_
     fe_store(base + coord_stride, limb_stride, p.y);
     fe_store(base + 2 * coord_stride, limb_stride, p.z);
     fe_store(base + 3 * coord_stride, limb_stride, p.t);
+}
+
+// Eight packed words (32-byte aligned) as two 16-byte accesses.
+__device__ __forceinline__ fe fe_load_words(const uint4 *__restrict__ v) {
+    const uint4 lo = __ldg(v), hi = __ldg(v + 1);
+    fe r;
+    r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
+    r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
+    return r;
+}
+
+__device__ __forceinline__ void fe_store_words(uint4 *__restrict__ v, const fe &a) {
+    v[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
+    v[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+}
+
+// A point as 32 packed words (x, y, z, t), 128 bytes.
+__device__ __forceinline__ ge ge_load_words(const u32 *__restrict__ point) {
+    const uint4 *v = reinterpret_cast<const uint4 *>(point);
+    ge p;
+    p.x = fe_load_words(v);
+    p.y = fe_load_words(v + 2);
+    p.z = fe_load_words(v + 4);
+    p.t = fe_load_words(v + 6);
+    return p;
+}
+
+__device__ __forceinline__ void ge_store_words(u32 *__restrict__ point, const ge &p) {
+    uint4 *v = reinterpret_cast<uint4 *>(point);
+    fe_store_words(v, p.x);
+    fe_store_words(v + 2, p.y);
+    fe_store_words(v + 4, p.z);
+    fe_store_words(v + 6, p.t);
 }
 
 // Points in shared memory: 32 words plus one pad word per point, so reads

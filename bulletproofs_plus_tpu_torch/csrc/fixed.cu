@@ -11,105 +11,108 @@
 // axis was the innermost, sequential grid axis and one accumulator block was
 // revisited 64 times; the lane chunks that remained were summed afterwards
 // outside the kernels.  Here blocks run in no order, so a K5 thread owns one
-// (row, lane, window range), walks its 16 windows in a loop with the
+// (row, lane, window range), walks its windows in a loop with the
 // accumulator in registers and writes one partial; K6 gives each (row,
 // group) a block that sums that group's partials with a shared-memory tree,
 // which also takes over the sum across lane chunks.
 //
-// Table: T[w, d, lane] = d * 16^w * P_lane as 32 packed 32-bit words (x, y,
-// z, t; 128 bytes, one cache line), layout (64, 16, S_tab, 32).  That is a
-// quarter of the int64-limb form (16.8 MB instead of 67 MB for the 128
-// generator lanes of a 64-bit proof), so a whole table stays in the 50 MB
-// L2.  Entry d = 0 is the identity: zero digits, the padding of every ragged
-// shape, add nothing.  `lane_idx` maps scalar position -> table lane, so the
-// prover's per-round lane permutation reads the table in place instead of
-// copying it.
+// Table: T[w, d, lane] = d * 16^w * P_lane, stored as the affine point in
+// the form the addition consumes: (y + x, y - x, 2d x y), canonical, 24
+// packed 32-bit words (96 bytes, six 16-byte loads), layout (64, 16, S_tab,
+// 24): 12.6 MB for the 128 generator lanes of a 64-bit proof, well inside
+// the 50 MB L2.  Entry d = 0 is (1, 1, 0), the identity, which the complete
+// formulas take: zero digits, the padding of every ragged shape, add
+// nothing.  `lane_idx` maps scalar position -> table lane, so the prover's
+// per-round lane permutation reads the table in place instead of copying it.
 //
-// Bound on this card: operations.  Each (row, lane, window) is one complete
-// addition, 9 field multiplications of about 128 multiply-adds, against a
-// 128-byte table read that mostly hits L2.  Design: thread g = (q, f, s)
-// with s fastest, so a warp reads neighbouring scalar limbs and writes
-// neighbouring partials; splitting the 64 windows four ways gives F*S*4
-// threads (65,536 for 128 proofs x 128 lanes) and chains of 16 additions.
+// What bounds K5 on this card, and the design.
+//   Wide shapes (128 rows x 128 lanes): operations.  A window is one mixed
+//   addition, 7 field multiplications (ge_madd; a complete addition of two
+//   extended points was 9), and a range's first window is 1 (ge_from_niels
+//   instead of an addition to the identity).  The kernel is capped at 128
+//   registers (__launch_bounds__(128, 4)), so four blocks of 128 threads
+//   fit an SM and the 512 blocks of 128 x 128 x 4 ranges are resident at
+//   once: one wave, where 134 registers gave three blocks an SM and a
+//   second wave a third full.
+//   Narrow shapes (256 rows x 2 lanes, the Pedersen MSMs): latency.  There
+//   are too few (row, lane) pairs to fill the card, so the time is the
+//   length of one thread's chain of additions.  The window split is a launch
+//   parameter: the wrapper picks more and shorter ranges where rows x lanes
+//   is small (16 ranges of 4 windows: 8192 threads, chains of 1 + 3), and
+//   K6's tree, which is sized to the partials it finds, sums them.
+// Thread g = (q, f, s) with s fastest, so a warp reads neighbouring scalar
+// limbs.  Partials go to K6 as 32 packed words a point (128 bytes, one line
+// a thread) instead of 64 int64 limbs (512 bytes): K6 is bound by bytes.
 
 #include "field25519.cuh"
 
 #define N_WINDOWS 64
 #define N_DIGITS 16
-#define WSPLIT 4                       // window ranges per (row, lane)
-#define WPT (N_WINDOWS / WSPLIT)       // windows per thread: 16 = 64 scalar bits = 4 limbs
+#define ENTRY_WORDS 24
+#define POINT_WORDS 32
 #define ACC_THREADS 128
+#define ACC_MIN_BLOCKS 4  // blocks an SM: caps the kernel at 65536 / (4 * 128) = 128 registers
 #define FOLD_THREADS 128
 
-// Eight words of a table entry (32-byte aligned) as two 16-byte loads.
-__device__ __forceinline__ fe fe_load_words(const uint4 *__restrict__ v) {
-    const uint4 lo = __ldg(v), hi = __ldg(v + 1);
-    fe r;
-    r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
-    r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
-    return r;
-}
-
-__device__ __forceinline__ ge ge_load_words(const u32 *__restrict__ entry) {
+__device__ __forceinline__ gn gn_load_words(const u32 *__restrict__ entry) {
     const uint4 *v = reinterpret_cast<const uint4 *>(entry);
-    ge p;
-    p.x = fe_load_words(v);
-    p.y = fe_load_words(v + 2);
-    p.z = fe_load_words(v + 4);
-    p.t = fe_load_words(v + 6);
-    return p;
+    gn q;
+    q.yp = fe_load_words(v);
+    q.ym = fe_load_words(v + 2);
+    q.t2d = fe_load_words(v + 4);
+    return q;
 }
 
-// table: (64, 16, s_tab, 32) words; lane_idx: (s,) table lane of each scalar
-// position; scalars: (16, f, s) limb-major; out: (4, 16, f, WSPLIT * s),
-// partial [., ., row, q * s + pos] = sum over windows 16q..16q+15.
-__global__ void __launch_bounds__(ACC_THREADS) fixed_acc_kernel(const u32 *__restrict__ table,
-                                                                const int64_t *__restrict__ lane_idx,
-                                                                const int64_t *__restrict__ scalars,
-                                                                int64_t *__restrict__ out, long f, long s,
-                                                                long s_tab) {
+// table: (64, 16, s_tab, 24) words; lane_idx: (s,) table lane of each scalar
+// position; scalars: (16, f, s) limb-major; out: (f, wsplit * s, 32) words,
+// partial [row, q * s + pos] = sum over windows q * 64 / wsplit .. (q + 1) *
+// 64 / wsplit - 1.  wsplit is a power of two from 1 to 64.
+__global__ void __launch_bounds__(ACC_THREADS, ACC_MIN_BLOCKS)
+    fixed_acc_kernel(const u32 *__restrict__ table, const int64_t *__restrict__ lane_idx,
+                     const int64_t *__restrict__ scalars, u32 *__restrict__ out, long f, long s, long s_tab,
+                     int wsplit) {
     const long g = (long)blockIdx.x * ACC_THREADS + threadIdx.x;
-    if (g >= WSPLIT * f * s) return;
+    if (g >= wsplit * f * s) return;
     const long pos = g % s;
     const long row = (g / s) % f;
     const int q = (int)(g / (s * f));
+    const int wpt = N_WINDOWS / wsplit;  // windows per thread
+    const int w0 = q * wpt;
     const long lane = lane_idx[pos];
     const long fs = f * s;
     const int64_t *sp = scalars + row * s + pos;
-    u64 bits = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) bits |= ((u64)sp[(4 * q + k) * fs] & 0xFFFFu) << (16 * k);
-    const long digit_stride = s_tab * 32;
-    const u32 *base = table + ((long)(WPT * q) * N_DIGITS * s_tab + lane) * 32;
-    ge acc = ge_load_words(base + (long)(bits & 15) * digit_stride);
+    const long digit_stride = s_tab * ENTRY_WORDS;
+    const u32 *base = table + ((long)w0 * N_DIGITS * s_tab + lane) * ENTRY_WORDS;
+    u32 limb = (u32)sp[(w0 >> 2) * fs];  // four windows a 16-bit limb
+    ge acc = ge_from_niels(gn_load_words(base + (long)((limb >> (4 * (w0 & 3))) & 15u) * digit_stride));
 #pragma unroll 1
-    for (int j = 1; j < WPT; ++j) {
-        const long d = (long)((bits >> (4 * j)) & 15);
-        acc = ge_add(acc, ge_load_words(base + ((long)j * N_DIGITS + d) * digit_stride));
+    for (int j = 1; j < wpt; ++j) {
+        const int w = w0 + j;
+        if ((w & 3) == 0) limb = (u32)sp[(w >> 2) * fs];
+        const long d = (long)((limb >> (4 * (w & 3))) & 15u);
+        acc = ge_madd(acc, gn_load_words(base + ((long)j * N_DIGITS + d) * digit_stride));
     }
-    const long p = (long)WSPLIT * s;
-    ge_store(out + row * p + q * s + pos, 16 * f * p, f * p, acc);
+    ge_store_words(out + ((row * wsplit + q) * s + pos) * POINT_WORDS, acc);
 }
 
-// parts: (4, 16, f, WSPLIT * s) -> out: (4, 16, f, groups); block (row,
-// group) sums the partials of lanes [group * s / groups, (group + 1) * s /
-// groups) over all window ranges.
-__global__ void __launch_bounds__(FOLD_THREADS) fixed_fold_kernel(const int64_t *__restrict__ parts,
+// parts: (f, wsplit * s, 32) words -> out: (4, 16, f, groups) int64 limbs;
+// block (row, group) sums the partials of lanes [group * s / groups,
+// (group + 1) * s / groups) over all window ranges.
+__global__ void __launch_bounds__(FOLD_THREADS) fixed_fold_kernel(const u32 *__restrict__ parts,
                                                                   int64_t *__restrict__ out, long f, long s,
-                                                                  long groups) {
+                                                                  long groups, int wsplit) {
     __shared__ u32 sh[FOLD_THREADS * GE_SMEM_STRIDE];
     const int tid = threadIdx.x;
     const long row = blockIdx.x / groups;
     const long grp = blockIdx.x % groups;
     const long per = s / groups;
-    const long count = WSPLIT * per;
-    const long p = (long)WSPLIT * s;
-    const long limb_stride = f * p;
+    const long count = wsplit * per;
+    const u32 *row_parts = parts + row * wsplit * s * POINT_WORDS;
     ge acc = ge_identity();  // threads past `count` contribute the identity
 #pragma unroll 1
     for (long i = tid; i < count; i += FOLD_THREADS) {
         const long at = (i / per) * s + grp * per + (i % per);
-        acc = ge_add(acc, ge_load(parts + row * p + at, 16 * limb_stride, limb_stride));
+        acc = ge_add(acc, ge_load_words(row_parts + at * POINT_WORDS));
     }
     int width = 1;  // tree width: the power of two covering the threads that hold a partial
     while (width < count && width < FOLD_THREADS) width <<= 1;
@@ -128,18 +131,21 @@ __global__ void __launch_bounds__(FOLD_THREADS) fixed_fold_kernel(const int64_t 
 
 extern "C" const char *bppt_fixed_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
-// table: int32 words; lane_idx, scalars, out: int64; all contiguous, on the current device.
+// table, out: int32 words; lane_idx, scalars: int64; all contiguous, on the current device.
 extern "C" int bppt_fixed_acc(const void *table, const void *lane_idx, const void *scalars, void *out, long f,
-                              long s, long s_tab, void *stream) {
-    const long threads = WSPLIT * f * s;
+                              long s, long s_tab, long wsplit, void *stream) {
+    const long threads = wsplit * f * s;
     const unsigned blocks = (unsigned)((threads + ACC_THREADS - 1) / ACC_THREADS);
     fixed_acc_kernel<<<blocks, ACC_THREADS, 0, (cudaStream_t)stream>>>(
-        (const u32 *)table, (const int64_t *)lane_idx, (const int64_t *)scalars, (int64_t *)out, f, s, s_tab);
+        (const u32 *)table, (const int64_t *)lane_idx, (const int64_t *)scalars, (u32 *)out, f, s, s_tab,
+        (int)wsplit);
     return (int)cudaGetLastError();
 }
 
-extern "C" int bppt_fixed_fold(const void *parts, void *out, long f, long s, long groups, void *stream) {
+// parts: int32 words; out: int64.
+extern "C" int bppt_fixed_fold(const void *parts, void *out, long f, long s, long groups, long wsplit,
+                               void *stream) {
     fixed_fold_kernel<<<(unsigned)(f * groups), FOLD_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t *)parts, (int64_t *)out, f, s, groups);
+        (const u32 *)parts, (int64_t *)out, f, s, groups, (int)wsplit);
     return (int)cudaGetLastError();
 }

@@ -193,7 +193,10 @@ __global__ void __launch_bounds__(FOLD_THREADS) lane_fold_kernel(const int64_t *
 }
 
 // wsum: (4, 16, 64) window sums W_j, LSB window first -> out: (4, 16, 1) = sum_j 16^j W_j.
-__global__ void __launch_bounds__(N_WINDOWS) horner_kernel(const int64_t *__restrict__ wsum,
+// One block for the whole card, so it is given every register it can use:
+// with a minimum of one block an SM ptxas keeps the doubling's values in
+// registers, where its own choice of 96 spilled some.
+__global__ void __launch_bounds__(N_WINDOWS, 1) horner_kernel(const int64_t *__restrict__ wsum,
                                                            int64_t *__restrict__ out) {
     __shared__ u32 sh[N_WINDOWS * GE_SMEM_STRIDE];
     const int j = threadIdx.x;

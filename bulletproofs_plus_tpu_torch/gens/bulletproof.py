@@ -88,9 +88,9 @@ class BulletproofGens:
         return self.fixed_tables_sliced(2 * self.gens_capacity * self.party_capacity, device)
 
     def fixed_tables_sliced(self, n_static: int, device="cuda"):
-        """Tables over the first n_static interleaved generators, int32
-        (64, 16, n_static, 32) words (128 KB per generator), built once per
-        size and device."""
+        """Tables over the first n_static interleaved generators, affine and
+        precomputed for the mixed addition: int32 (64, 16, n_static, 24)
+        words (96 KB per generator), built once per size and device."""
         key = (n_static, str(device))
         if key not in self._fixed_tables:
             from ..ops.edwards import PointArray

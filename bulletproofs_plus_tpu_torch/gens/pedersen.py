@@ -88,7 +88,7 @@ class PedersenGens:
 
     def device_base_tables(self, device="cuda"):
         """Packed fixed-base digit tables over [G_1..G_deg, H] on `device`,
-        int32 (64, 16, deg + 1, 32), cached per device: the prover's alpha,
+        int32 (64, 16, deg + 1, 24), cached per device: the prover's alpha,
         eta and ry masks multiply these fixed points in every round."""
         key = str(device)
         if key not in self._device_tables:

@@ -36,12 +36,19 @@ LIBRARIES = {
             "bppt_horner": [_VP, _VP, _VP],
         },
     ),
-    "pow": ("pow.cu", {"bppt_pow_p58": [_VP, _VP, _LONG, _VP]}),
+    "pow": (
+        "pow.cu",
+        {
+            "bppt_pow_p58": [_VP, _VP, _LONG, _LONG, _VP],
+            "bppt_sqrt_ratio_m1": [_VP, _LONG, _VP, _VP, _VP, _LONG, _LONG, _VP],
+            "bppt_field_latency": [_VP, _VP, _LONG, _LONG, _LONG, _VP],
+        },
+    ),
     "fixed": (
         "fixed.cu",
         {
-            "bppt_fixed_acc": [_VP, _VP, _VP, _VP, _LONG, _LONG, _LONG, _VP],
-            "bppt_fixed_fold": [_VP, _VP, _LONG, _LONG, _LONG, _VP],
+            "bppt_fixed_acc": [_VP, _VP, _VP, _VP, _LONG, _LONG, _LONG, _LONG, _VP],
+            "bppt_fixed_fold": [_VP, _VP, _LONG, _LONG, _LONG, _LONG, _VP],
         },
     ),
 }

@@ -1,9 +1,18 @@
-"""K4 wrapper: x^((p-5)/8) through the hand-written CUDA pow-chain kernel.
+"""K4 wrappers: x^((p-5)/8) and the whole SQRT_RATIO_M1 around it through
+the hand-written CUDA kernels of csrc/pow.cu.
 
 Counterpart of bulletproofs_plus_tpu/ops/pallas_pow.py.  `pow_p58` launches
-csrc/pow.cu on a CUDA tensor and runs `pow_p58_plain`, the same addition
-chain in plain torch, on a CPU tensor; any other device raises.  There are
-no size thresholds or fallbacks: the kernel runs for every CUDA input.
+`pow_p58_kernel` on a CUDA tensor and runs `pow_p58_plain`, the same
+addition chain in plain torch, on a CPU tensor; any other device raises.
+`sqrt_ratio_m1_cuda` launches `sqrt_ratio_m1_kernel`, the second entry of
+the same source, which carries the chain's caller (RFC 9496 SQRT_RATIO_M1)
+to its end in one launch; its plain version and its dispatch live with the
+caller, ops/ristretto.sqrt_ratio_m1.  Each entry has two forms, one lane an
+element and four lanes an element; the launcher takes the second up to 4224
+elements, where it is faster, and `lanes=` forces either.  There are no
+fallbacks: the kernels run for every CUDA input.  `field_latency_probe`
+launches the one-warp chain of dependent multiplications or squarings that
+chip_smoke.py times.
 """
 
 from __future__ import annotations
@@ -21,7 +30,15 @@ def pow_p58_plain(x: torch.Tensor) -> torch.Tensor:
     return F.mul25519(F.sqr_n(z_250_0, 2), x)
 
 
-def pow_p58_cuda(x: torch.Tensor) -> torch.Tensor:
+def _lanes_arg(lanes) -> int:
+    """The kernels' form: None lets the launcher pick by the element count
+    (four lanes an element up to 4224 elements, one beyond), 1 or 4 forces it."""
+    if lanes not in (None, 1, 4):
+        raise ValueError(f"lanes an element: expected None, 1 or 4, got {lanes!r}")
+    return lanes or 0
+
+
+def pow_p58_cuda(x: torch.Tensor, lanes=None) -> torch.Tensor:
     """(..., 16) int64 limbs on a CUDA device -> x^(2^252 - 3) by K4.
     Results are below 2^256 but not canonical, like every GF(p) op."""
     lead = x.shape[:-1]
@@ -34,7 +51,7 @@ def pow_p58_cuda(x: torch.Tensor) -> torch.Tensor:
     if n:
         with torch.cuda.device(x.device):
             status = cuda.lib("pow").bppt_pow_p58(
-                xt.data_ptr(), out.data_ptr(), n, torch.cuda.current_stream().cuda_stream
+                xt.data_ptr(), out.data_ptr(), n, _lanes_arg(lanes), torch.cuda.current_stream().cuda_stream
             )
         cuda.check("pow", status, "pow_p58")
         cuda.launches["pow_p58"] += 1
@@ -46,3 +63,52 @@ def pow_p58(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return pow_p58_plain(x)
     return pow_p58_cuda(x)
+
+
+def sqrt_ratio_m1_cuda(u: torch.Tensor, v: torch.Tensor, lanes=None):
+    """Batched SQRT_RATIO_M1(u, v) on CUDA tensors of (..., 16) int64 limbs
+    -> (was_square bool (...), r (..., 16)) in one launch.  r is canonical
+    and non-negative.  A u that broadcasts one value (compress and
+    decompress pass u = 1) is read in place with an element stride of 0."""
+    if u.shape != v.shape or v.shape[-1:] != (NLIMBS,):
+        raise ValueError(f"sqrt_ratio_m1: expected two equal (..., {NLIMBS}) shapes, got {tuple(u.shape)}, {tuple(v.shape)}")
+    lead = v.shape[:-1]
+    n = v.numel() // NLIMBS
+    v_rows = v.reshape(n, NLIMBS).contiguous()
+    cuda.require(v_rows, "sqrt_ratio_m1 v", (n, NLIMBS))
+    if n and u.stride(-1) == 1 and all(st == 0 or sz == 1 for st, sz in zip(u.stride()[:-1], lead)):
+        u_rows, u_stride = u[(0,) * len(lead)].reshape(1, NLIMBS), 0
+    else:
+        u_rows, u_stride = u.reshape(n, NLIMBS).contiguous(), NLIMBS
+    cuda.require(u_rows, "sqrt_ratio_m1 u", (n if u_stride else 1, NLIMBS))
+    was_square = torch.empty((n,), dtype=torch.bool, device=v.device)
+    r = torch.empty((n, NLIMBS), dtype=torch.int64, device=v.device)
+    if n:
+        with torch.cuda.device(v.device):
+            status = cuda.lib("pow").bppt_sqrt_ratio_m1(
+                u_rows.data_ptr(), u_stride, v_rows.data_ptr(), was_square.data_ptr(), r.data_ptr(), n,
+                _lanes_arg(lanes), torch.cuda.current_stream().cuda_stream,
+            )
+        cuda.check("pow", status, "sqrt_ratio_m1")
+        cuda.launches["sqrt_ratio_m1"] += 1
+    return was_square.reshape(lead), r.reshape(lead + (NLIMBS,))
+
+
+def field_latency_probe(x: torch.Tensor, op: str, iters: int, warps: int = 1) -> torch.Tensor:
+    """One block of `warps` warps (1 to 32), every thread running `iters`
+    dependent field multiplications (op "mul", acc <- acc * x) or squarings
+    (op "sqr") from x, (16,) int64 limbs on a CUDA device; returns the
+    chain's end.  One warp gives the dependent latency of an operation, 32
+    warps (eight on each of the SM's four schedulers) what a busy scheduler
+    takes for one.  Not a kernel of any path, so it counts no launch."""
+    cuda.require(x, "field_latency_probe x", (NLIMBS,))
+    if not 1 <= warps <= 32:
+        raise ValueError("field_latency_probe: 1 to 32 warps")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = cuda.lib("pow").bppt_field_latency(
+            x.data_ptr(), out.data_ptr(), {"mul": 0, "sqr": 1}[op], iters, warps,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda.check("pow", status, "field_latency_probe")
+    return out

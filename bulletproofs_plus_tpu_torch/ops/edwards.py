@@ -29,7 +29,7 @@ class PointArray(NamedTuple):
     t: torch.Tensor
 
 
-_D2 = 2 * hr.D % hr.P
+D2 = 2 * hr.D % hr.P  # 2d, the constant of the addition formulas
 
 
 def identity(batch_shape=(), device="cuda") -> PointArray:
@@ -53,7 +53,7 @@ def add(p: PointArray, q: PointArray) -> PointArray:
         torch.stack([diffs[1], sums[1], q.t, q.z]),
     )
     a, b, pt_qt, pz_qz = prods[0], prods[1], prods[2], prods[3]
-    c = F.mul25519(pt_qt, F.limbs_const(_D2, pt_qt))
+    c = F.mul25519(pt_qt, F.limbs_const(D2, pt_qt))
     d = F.mul_small25519(pz_qz, 2)
     ef = F.sub25519(torch.stack([b, d]), torch.stack([a, c]))
     gh = F.add25519(torch.stack([d, b]), torch.stack([c, a]))

@@ -275,6 +275,12 @@ def chain_250(x: torch.Tensor):
     return z_250_0, z11
 
 
+def inv25519(x: torch.Tensor) -> torch.Tensor:
+    """x^(p - 2) = x^(2^255 - 21) by the addition chain; inv(0) = 0."""
+    z_250_0, z11 = chain_250(x)
+    return mul25519(sqr_n(z_250_0, 5), z11)
+
+
 def pow_p58(x: torch.Tensor) -> torch.Tensor:
     """x^((p-5)/8) = x^(2^252 - 3), the sqrt-ratio exponent (RFC 9496).
     Launches the pow-chain kernel on a CUDA tensor (ops/cuda_pow.py)."""

@@ -1,0 +1,274 @@
+"""Word-exact model of csrc/field25519.cuh in plain Python.
+
+The CUDA field code cannot run without a card, and its carry logic is where
+it can go wrong.  This module repeats that file step by step on eight
+32-bit words, every PTX carry-flag instruction a method of `Carry` with the
+flag as its state, every loop in the order of the CUDA loop.  Where the CUDA
+code relies on a bound (a carry that cannot occur, a word that cannot
+overflow), the model asserts it.  tests/test_torch_field.py holds the model
+against Python integers; nothing else uses it.
+"""
+
+from __future__ import annotations
+
+M32 = 0xFFFFFFFF
+P = 2**255 - 19
+
+
+class Carry:
+    """The PTX carry flag CC.CF and the PTX operations that read or set it."""
+
+    def __init__(self):
+        self.cf = 0
+
+    def _set(self, wide: int) -> int:
+        self.cf = (wide >> 32) & 1
+        assert wide >> 33 == 0
+        return wide & M32
+
+    def add_cc(self, a, b):
+        return self._set(a + b)
+
+    def addc_cc(self, a, b):
+        return self._set(a + b + self.cf)
+
+    def addc(self, a, b):
+        wide = a + b + self.cf
+        assert wide <= M32, "addc dropped a carry"
+        return wide
+
+    def _borrow(self, diff: int) -> int:
+        self.cf = 1 if diff < 0 else 0
+        return diff & M32
+
+    def sub_cc(self, a, b):
+        return self._borrow(a - b)
+
+    def subc_cc(self, a, b):
+        return self._borrow(a - b - self.cf)
+
+    def subc(self, a, b):
+        return (a - b - self.cf) & M32
+
+    def mad_lo_cc(self, a, b, c):
+        return self._set(((a * b) & M32) + c)
+
+    def madc_lo_cc(self, a, b, c):
+        return self._set(((a * b) & M32) + c + self.cf)
+
+    def madc_hi_cc(self, a, b, c):
+        return self._set(((a * b) >> 32) + c + self.cf)
+
+
+def to_words(value: int) -> list:
+    if not 0 <= value < 2**256:
+        raise ValueError("a field element is a value below 2^256")
+    return [(value >> (32 * k)) & M32 for k in range(8)]
+
+
+def from_words(words) -> int:
+    assert len(words) == 8 and all(0 <= w <= M32 for w in words)
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
+def fe_fold_top(cc: Carry, r: list, c: int) -> None:
+    assert c < 1 << 26
+    r[0] = cc.add_cc(r[0], 38 * c)
+    for k in range(1, 8):
+        r[k] = cc.addc_cc(r[k], 0)
+    last = r[0] + 38 * cc.addc(0, 0)
+    assert last <= M32, "the last 38 carried"
+    r[0] = last
+
+
+def fe_add(a: list, b: list) -> list:
+    cc = Carry()
+    r = [0] * 8
+    r[0] = cc.add_cc(a[0], b[0])
+    for k in range(1, 8):
+        r[k] = cc.addc_cc(a[k], b[k])
+    fe_fold_top(cc, r, cc.addc(0, 0))
+    return r
+
+
+def fe_sub(a: list, b: list) -> list:
+    cc = Carry()
+    r = [0] * 8
+    r[0] = cc.sub_cc(a[0], b[0])
+    for k in range(1, 8):
+        r[k] = cc.subc_cc(a[k], b[k])
+    r[0] = cc.sub_cc(r[0], 38 & cc.subc(0, 0))
+    for k in range(1, 8):
+        r[k] = cc.subc_cc(r[k], 0)
+    last = r[0] - (38 & cc.subc(0, 0))
+    assert last >= 0, "the last 38 borrowed"
+    r[0] = last
+    return r
+
+
+def fe_neg(a: list) -> list:
+    return fe_sub([0] * 8, a)
+
+
+def _mad_pair(cc: Carry, acc: list, p: int, x: int, y: int, first: bool) -> None:
+    acc[p] = cc.mad_lo_cc(x, y, acc[p]) if first else cc.madc_lo_cc(x, y, acc[p])
+    acc[p + 1] = cc.madc_hi_cc(x, y, acc[p + 1])
+
+
+def _mad_chain_end(cc: Carry, acc: list, p: int) -> None:
+    if p < 16:
+        acc[p] = cc.addc(acc[p], 0)
+    else:
+        assert cc.cf == 0, "a carry left the accumulator"
+
+
+def fe_reduce_wide(cc: Carry, e: list, o: list) -> list:
+    assert o[15] == 0
+    t = [0] * 16
+    t[0] = e[0]
+    t[1] = cc.add_cc(e[1], o[0])
+    for k in range(2, 16):
+        t[k] = cc.addc_cc(e[k], o[k - 1])
+    assert cc.cf == 0, "the product reached 2^512"
+    s = [t[k + 8] * 38 + t[k] for k in range(8)]
+    r = [0] * 8
+    r[0] = s[0] & M32
+    r[1] = cc.add_cc(s[1] & M32, s[0] >> 32)
+    for k in range(2, 8):
+        r[k] = cc.addc_cc(s[k] & M32, s[k - 1] >> 32)
+    fe_fold_top(cc, r, cc.addc(s[7] >> 32, 0))
+    return r
+
+
+def wide_mul(a: list, b: list):
+    """The two accumulators of fe_mul before the reduction: (e, o)."""
+    cc = Carry()
+    e, o = [0] * 16, [0] * 16
+    for i in range(8):
+        j0 = i & 1
+        j1 = 1 - j0
+        for j in range(j0, 8, 2):
+            _mad_pair(cc, e, i + j, a[j], b[i], j == j0)
+        _mad_chain_end(cc, e, i + j0 + 8)
+        for j in range(j1, 8, 2):
+            _mad_pair(cc, o, i + j - 1, a[j], b[i], j == j1)
+        _mad_chain_end(cc, o, i + j1 + 7)
+    return e, o
+
+
+def fe_mul(a: list, b: list) -> list:
+    e, o = wide_mul(a, b)
+    return fe_reduce_wide(Carry(), e, o)
+
+
+def wide_sqr(a: list):
+    """The two accumulators of fe_sqr before the reduction: (e, o)."""
+    cc = Carry()
+    d = [0] * 9
+    d[0] = (a[0] << 1) & M32
+    for k in range(1, 8):
+        d[k] = ((a[k] << 1) & M32) | (a[k - 1] >> 31)
+    d[8] = a[7] >> 31
+    e, o = [0] * 16, [0] * 16
+    for i in range(8):
+        m = [a[i] if j == i else ((a[j] << 1) & M32) if (j == i + 1 and j < 8) else d[j] for j in range(9)]
+        last = 7 if i == 7 else 8
+        j0, j1 = i, i + 1
+        for j in range(j0, last + 1, 2):
+            _mad_pair(cc, e, i + j, a[i], m[j], j == j0)
+        _mad_chain_end(cc, e, i + j0 + 2 * ((last - j0) // 2) + 2)
+        for j in range(j1, last + 1, 2):
+            _mad_pair(cc, o, i + j - 1, a[i], m[j], j == j1)
+        if j1 <= last:
+            _mad_chain_end(cc, o, i + j1 + 2 * ((last - j1) // 2) + 1)
+    return e, o
+
+
+def fe_sqr(a: list) -> list:
+    e, o = wide_sqr(a)
+    return fe_reduce_wide(Carry(), e, o)
+
+
+def wide_value(e: list, o: list) -> int:
+    """The integer the two accumulators hold."""
+    return sum(w << (32 * k) for k, w in enumerate(e)) + sum(w << (32 * (k + 1)) for k, w in enumerate(o))
+
+
+def fe_canon(a: list) -> list:
+    cc = Carry()
+    r = list(a)
+    q = r[7] >> 31
+    r[7] &= 0x7FFFFFFF
+    r[0] = cc.add_cc(r[0], 19 * q)
+    for k in range(1, 7):
+        r[k] = cc.addc_cc(r[k], 0)
+    r[7] = cc.addc(r[7], 0)
+    t = [0] * 8
+    t[0] = cc.add_cc(r[0], 19)
+    for k in range(1, 7):
+        t[k] = cc.addc_cc(r[k], 0)
+    t[7] = cc.addc(r[7], 0)
+    ge_p = (t[7] >> 31) != 0
+    t[7] &= 0x7FFFFFFF
+    return t if ge_p else r
+
+
+def fe_eq(a: list, b: list) -> bool:
+    ca, cb = fe_canon(a), fe_canon(b)
+    diff = 0
+    for k in range(8):
+        diff |= ca[k] ^ cb[k]
+    return diff == 0
+
+
+def fe_is_negative(a: list) -> bool:
+    return (fe_canon(a)[0] & 1) != 0
+
+
+def fe_select(c: bool, a: list, b: list) -> list:
+    return list(a) if c else list(b)
+
+
+def fe_abs(a: list) -> list:
+    c = fe_canon(a)
+    return fe_select((c[0] & 1) != 0, fe_canon(fe_neg(c)), c)
+
+
+def fe_sqr_n(x: list, n: int) -> list:
+    for _ in range(n):
+        x = fe_sqr(x)
+    return x
+
+
+def fe_pow_p58(v: list) -> list:
+    """csrc/pow.cu fe_pow_p58: v^(2^252 - 3)."""
+    z2 = fe_sqr(v)
+    z9 = fe_mul(v, fe_sqr_n(z2, 2))
+    z11 = fe_mul(z2, z9)
+    z_5_0 = fe_mul(z9, fe_sqr(z11))
+    z_10_0 = fe_mul(fe_sqr_n(z_5_0, 5), z_5_0)
+    z_20_0 = fe_mul(fe_sqr_n(z_10_0, 10), z_10_0)
+    z_40_0 = fe_mul(fe_sqr_n(z_20_0, 20), z_20_0)
+    z_50_0 = fe_mul(fe_sqr_n(z_40_0, 10), z_10_0)
+    z_100_0 = fe_mul(fe_sqr_n(z_50_0, 50), z_50_0)
+    z_200_0 = fe_mul(fe_sqr_n(z_100_0, 100), z_100_0)
+    z_250_0 = fe_mul(fe_sqr_n(z_200_0, 50), z_50_0)
+    return fe_mul(fe_sqr_n(z_250_0, 2), v)
+
+
+SQRT_M1 = pow(2, (P - 1) // 4, P)
+
+
+def sqrt_ratio_m1(u: list, v: list):
+    """csrc/pow.cu sqrt_ratio_m1_kernel for one element: (was_square, r)."""
+    sqrt_m1 = to_words(SQRT_M1)
+    v3 = fe_mul(fe_sqr(v), v)
+    v7 = fe_mul(fe_sqr(v3), v)
+    r = fe_mul(fe_mul(u, v3), fe_pow_p58(fe_mul(u, v7)))
+    check = fe_mul(v, fe_sqr(r))
+    neg_u = fe_neg(u)
+    correct = fe_eq(check, u)
+    flipped = fe_eq(check, neg_u)
+    flipped_i = fe_eq(check, fe_mul(neg_u, sqrt_m1))
+    r = fe_select(flipped or flipped_i, fe_mul(r, sqrt_m1), r)
+    return correct or flipped, fe_abs(r)

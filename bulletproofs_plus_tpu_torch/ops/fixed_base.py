@@ -6,8 +6,9 @@ Counterpart of bulletproofs_plus_tpu/ops/fixed_base.py.  For fixed points
 
     T[j, d, i] = d * 16^j * P_i      j in 0..64, d in 0..16
 
-are built once per generator set, so an MSM over S fixed points is 64 table
-reads and 64 * S point additions with no doublings at all.  Every
+are built once per generator set and stored affine, precomputed for the
+mixed addition (y + x, y - x, 2d x y), so an MSM over S fixed points is 64
+table reads and 64 * S mixed additions with no doublings at all.  Every
 fixed-base MSM runs K5 then K6 (ops/cuda_fixed.py): the CUDA kernels on CUDA
 tensors whatever the width, their plain torch versions on CPU tensors.  The
 table lookup is a gather; the JAX package's one-hot matrix product and its
@@ -20,11 +21,14 @@ digit tables on chip anyway).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from . import edwards as ed
-from .cuda_fixed import N_DIGITS, N_WINDOWS, fixed_acc, fixed_fold
+from . import field as F
+from .cuda_fixed import N_DIGITS, N_WINDOWS, fixed_acc, fixed_fold, limbs_to_words, pick_wsplit
 from .edwards import PointArray
 from .limbs import NLIMBS
 from .msm import msm_kernel
@@ -32,14 +36,52 @@ from .msm import msm_kernel
 WINDOW_BITS = 4
 
 
-def build_tables(points: PointArray) -> PointArray:
-    """(S,) points -> (64, 16, S) table of d * 16^j * P_i, as a PointArray
-    with coords (64, 16, S, 16): the JAX package's `build_tables`.
+class NielsArray(NamedTuple):
+    """Affine points precomputed for the mixed addition: y + x, y - x and
+    2d * x * y as (..., 16) canonical limb tensors.  (1, 1, 0) is the
+    identity."""
+
+    yp: torch.Tensor
+    ym: torch.Tensor
+    t2d: torch.Tensor
+
+
+def _batch_inverse(z: torch.Tensor) -> torch.Tensor:
+    """1 / z for (K, ..., 16) nonzero field elements with one Fermat
+    inversion over the trailing batch: Montgomery's trick along axis 0 (3K
+    multiplications of a K-th of the elements besides)."""
+    prefix = [z[0]]
+    for k in range(1, z.shape[0]):
+        prefix.append(F.mul25519(prefix[-1], z[k]))
+    running = F.inv25519(prefix[-1])
+    out = [None] * z.shape[0]
+    for k in range(z.shape[0] - 1, 0, -1):
+        out[k] = F.mul25519(running, prefix[k - 1])
+        running = F.mul25519(running, z[k])
+    out[0] = running
+    return torch.stack(out)
+
+
+def to_niels(points: PointArray) -> NielsArray:
+    """Extended points of batch shape (K, ...) -> their affine precomputed
+    form, canonical: the inversion of Z is batched along the first axis."""
+    zinv = _batch_inverse(points.z)
+    x = F.mul25519(points.x, zinv)
+    y = F.mul25519(points.y, zinv)
+    t2d = F.mul25519(F.mul25519(x, y), F.limbs_const(ed.D2, x))
+    return NielsArray(F.canon25519(F.add25519(y, x)), F.canon25519(F.sub25519(y, x)), F.canon25519(t2d))
+
+
+def build_tables(points: PointArray) -> NielsArray:
+    """(S,) points -> (64, 16, S) table of d * 16^j * P_i in the form the
+    kernels' mixed addition consumes, a NielsArray with coords
+    (64, 16, S, 16): the JAX package's `build_tables`, made affine.
 
     The 64 window bases 16^j * P come from one chain of 252 doublings over
     the S lanes; the 16 multiples of all 64 windows are then built together
     by 15 additions, so the build is 267 batched point operations and not
-    64 * 20."""
+    64 * 20; one batched inversion of Z (along the digit axis) then makes
+    every entry affine."""
     bases = [points]
     for _ in range(N_WINDOWS - 1):
         nxt = bases[-1]
@@ -50,29 +92,28 @@ def build_tables(points: PointArray) -> PointArray:
     multiples = [ed.identity(base.x.shape[:-1], device=base.x.device), base]
     for _ in range(N_DIGITS - 2):
         multiples.append(ed.add(multiples[-1], base))
-    return PointArray(*(torch.stack([m[c] for m in multiples], dim=1) for c in range(4)))
+    extended = PointArray(*(torch.stack([m[c] for m in multiples]) for c in range(4)))  # (16, 64, S)
+    return NielsArray(*(c.transpose(0, 1) for c in to_niels(extended)))
 
 
-def pack_tables(tables: PointArray) -> torch.Tensor:
-    """`build_tables` coords (64, 16, S, 16 limbs) x 4 -> the kernels' table:
-    int32 (64, 16, S, 32), entry = the 8 32-bit words of x, y, z, t."""
-    limbs = torch.stack(list(tables), dim=-2)  # (64, 16, S, 4, 16)
-    words = limbs[..., 0::2] | (limbs[..., 1::2] << 16)  # (64, 16, S, 4, 8), each below 2^32
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)  # the same bits as int32
-    return words.reshape(words.shape[:-2] + (32,)).to(torch.int32).contiguous()
+def pack_tables(tables: NielsArray) -> torch.Tensor:
+    """`build_tables` coords (64, 16, S, 16 limbs) x 3 -> the kernels' table:
+    int32 (64, 16, S, 24), entry = the 8 32-bit words of y + x, y - x, 2d x y."""
+    return limbs_to_words(torch.stack(list(tables), dim=-2))  # (64, 16, S, 3, 16) -> words
 
 
 def _fixed_msm(flat: torch.Tensor, tables: torch.Tensor, groups: int, lanes) -> torch.Tensor:
     """(F, S, 16) scalars -> (4, 16, F, groups) points by K5 then K6."""
-    s = flat.shape[1]
+    f, s = flat.shape[:2]
     if s == 0 or s % groups:
         raise ValueError(f"{s} scalar lanes do not split into {groups} groups")
     lanes = np.arange(s) if lanes is None else np.asarray(lanes, dtype=np.int64)
     if lanes.shape != (s,) or lanes.min() < 0 or lanes.max() >= tables.shape[2]:
         raise ValueError(f"{s} scalar lanes need {s} table lanes below {tables.shape[2]}")
     lane_idx = torch.as_tensor(lanes, dtype=torch.int64, device=flat.device)
-    parts = fixed_acc(tables, lane_idx, flat.movedim(-1, 0).contiguous())
-    return fixed_fold(parts, groups)
+    wsplit = pick_wsplit(f, s)
+    parts = fixed_acc(tables, lane_idx, flat.movedim(-1, 0).contiguous(), wsplit)
+    return fixed_fold(parts, groups, wsplit)
 
 
 def fixed_msm_batched(scalars: torch.Tensor, tables: torch.Tensor, lanes=None) -> PointArray:

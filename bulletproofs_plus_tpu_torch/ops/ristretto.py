@@ -1,8 +1,9 @@
 """Batched ristretto255 encoding, decoding and equality (RFC 9496), plain torch.
 
 Counterpart of bulletproofs_plus_tpu/ops/ristretto.py.  Compression and
-decompression handle a whole batch in one pass; their sqrt-ratio exponent is
-the pow-chain kernel K4 on CUDA tensors (field.pow_p58).  Canonicality
+decompression handle a whole batch in one pass; their SQRT_RATIO_M1 is one
+launch of K4's fused entry on CUDA tensors (csrc/pow.cu
+`sqrt_ratio_m1_kernel`) and plain torch on CPU tensors.  Canonicality
 failures (non-canonical field element, negative sign, non-square) come back
 as a boolean mask, like `CompressedRistretto::decompress` returning `Option`.
 """
@@ -13,15 +14,17 @@ import torch
 
 from . import field as F
 from . import host_ristretto as hr
+from .cuda_pow import pow_p58_plain, sqrt_ratio_m1_cuda
 from .edwards import PointArray, identity, select
 
 
-def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor):
-    """Batched SQRT_RATIO_M1(u, v) -> (was_square mask, r)."""
+def sqrt_ratio_m1_plain(u: torch.Tensor, v: torch.Tensor):
+    """Batched SQRT_RATIO_M1(u, v) -> (was_square mask, r), plain torch (any
+    device): the version the kernel is held against."""
     sqrt_m1 = F.limbs_const(hr.SQRT_M1, u)
     v3 = F.mul25519(F.sqr25519(v), v)
     v7 = F.mul25519(F.sqr25519(v3), v)
-    r = F.mul25519(F.mul25519(u, v3), F.pow25519(F.mul25519(u, v7), (hr.P - 5) // 8))
+    r = F.mul25519(F.mul25519(u, v3), pow_p58_plain(F.mul25519(u, v7)))
     check = F.mul25519(v, F.sqr25519(r))
     neg_u = F.neg25519(u)
     correct = F.eq25519(check, u)
@@ -29,6 +32,14 @@ def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor):
     flipped_i = F.eq25519(check, F.mul25519(neg_u, sqrt_m1.expand(u.shape)))
     r = F.select(flipped | flipped_i, F.mul25519(r, sqrt_m1.expand(r.shape)), r)
     return correct | flipped, F.abs25519(r)
+
+
+def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor):
+    """Batched SQRT_RATIO_M1(u, v) -> (was_square mask, r): one kernel launch
+    on CUDA tensors, the plain version on CPU tensors."""
+    if v.device.type == "cpu":
+        return sqrt_ratio_m1_plain(u, v)
+    return sqrt_ratio_m1_cuda(u, v)
 
 
 def compress(p: PointArray) -> torch.Tensor:

@@ -17,21 +17,35 @@ and, last, {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
 Without a CUDA device, or without the package beside it, it exits non-zero
 with no result.
 
-Tolerance: exact.  The kernels do integer arithmetic, so K4 must equal its
-plain version mod p, and K1-K3 and K5-K7 must give the same points
-(compared as canonical affine coordinates, since tilings differ in
-projective Z); `max_abs_err` is the largest limb difference found, and must
-be 0.  The prover must reproduce golden proof 3 byte for byte.
+Tolerance: exact.  The kernels do integer arithmetic, so both entries of K4
+must equal their plain versions mod p, and K1-K3 and K5-K7 must give the
+same points (compared as canonical affine coordinates, since tilings differ
+in projective Z); `max_abs_err` is the largest limb difference found, and
+must be 0.  The prover must reproduce golden proof 3 byte for byte.
 
 Bounds (`bound_ms`) are the larger of bytes moved over 3.35 TB/s and the
 32-bit integer multiply-adds the work needs over the card's rate: 132 SMs x
 64 IMAD/clock x 1.98 GHz = 16.7e12/s, half the FMA rate behind the 67
-TFLOP/s float32 peak (H100 SXM data sheet, 700 W).  A field multiplication
-counts 128 multiply-adds (8 x 8 32-bit words, low and high halves), a point
-addition 9 multiplications, a doubling 8.  K5 does 60 additions for each
-(row, lane) and reads the lanes' table entries, the scalars and the lane
-map once; K6 the additions of its tree; K7 as K1 with 7 table operations
-for each lane instead of 14.
+TFLOP/s float32 peak (H100 SXM data sheet, 700 W).  The counts follow the
+cheapest arithmetic each function admits, so that no kernel can pass its
+bound by doing less than the bound assumed: a field multiplication counts
+128 multiply-adds (8 x 8 32-bit words, low and high halves), a squaring 72
+(its 36 distinct word products), an addition of two extended points 9
+multiplications, a mixed addition of a precomputed affine point 7, a
+doubling 4 multiplications and 4 squarings.  K5 does, for each (row, lane,
+window range), one multiplication for the range's first window and a mixed
+addition for each other, and reads the lanes' table entries, the scalars and
+the lane map once; K6 the additions of its tree; K7 as K1 with 7 table
+operations for each lane instead of 14.
+
+`chain_ms`, on the rows where few threads run long chains (K3, K4, K5 and K6
+at the Pedersen shape), is the other floor: the field multiplications and
+squarings that the busiest thread runs one after another, each at the
+dependent latency that the one-warp probe measured in this run
+(`fe_mul_ns`, `fe_sqr_ns`).  It is what the kernel takes if nothing
+overlaps within a thread; `bound_ms` stays the rate bound.  The same rows
+carry `graph_ms`, the launch's time replayed from a CUDA graph: `ms` times
+the wrapper called back to back, and below some 0.02 ms that is the host.
 """
 
 from __future__ import annotations
@@ -48,11 +62,17 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 132 * 64 * 1.98e9
 MULADDS_PER_FMUL = 128
-FMUL_PER_ADD, FMUL_PER_DBL = 9, 8
+MULADDS_PER_FSQR = 72
+FMUL_PER_ADD, FMUL_PER_MIXED_ADD = 9, 7
+DBL_FMUL, DBL_FSQR = 4, 4
 POW_SQR, POW_MUL = 251, 11  # the x^((p-5)/8) addition chain
+RATIO_SQR, RATIO_MUL = 3, 8  # SQRT_RATIO_M1 around the chain: v^3, v^7, u v^3, u v^7, r, v r^2, two by sqrt(-1)
 LIMB_BYTES = 8 * 16  # one field element as 16 int64 limbs
 POINT_BYTES = 4 * LIMB_BYTES
-ENTRY_BYTES = 128  # one table entry: 32 packed 32-bit words
+ENTRY_BYTES = 96  # one table entry: 24 packed 32-bit words
+PART_BYTES = 128  # one K5 partial: 32 packed 32-bit words
+K4_SHAPES = (128, 256, 4100)  # elements a launch: a prove's two widths, a 256-proof verify's
+K4_MANY = 32768  # beyond the launchers' switch to one lane an element (4224): where that form must win
 PROVE_BATCH = 128
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "golden_vectors.json")
 
@@ -95,6 +115,30 @@ def kernel_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one launch with the host out of the way: `reps` calls
+    captured into a CUDA graph, CUDA events around `replays` replays.  Where a
+    kernel takes less than its wrapper's host time (some 0.02 ms), `kernel_ms`
+    measures the host; this does not."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def ptxas_report(log: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads}} from nvcc -Xptxas -v output."""
     out, current = {}, None
@@ -110,6 +154,29 @@ def ptxas_report(log: str) -> dict:
         if m and current:
             out[current]["registers"] = int(m.group(1))
     return out
+
+
+def sass_histogram(cuda, library: str, kernels) -> dict:
+    """{kernel: {opcode: count}} from `cuobjdump -sass` of a built library, or
+    {"unavailable": reason}.  Opcodes keep their first two dotted parts
+    (IMAD.WIDE, IADD3.X), which tells multiplies from the rest."""
+    tool = os.path.join(os.path.dirname(cuda.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"unavailable": "no cuobjdump beside nvcc"}
+    res = subprocess.run([tool, "-sass", cuda.so_path(library)], capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        return {"unavailable": res.stderr.strip()[-200:]}
+    out, current = {}, None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = next((k for k in kernels if k in m.group(1)), None)
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)?)", line)
+        if m and current:
+            counts = out.setdefault(current, {})
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return {k: dict(sorted(v.items(), key=lambda kv: -kv[1])) for k, v in out.items()}
 
 
 def nvidia_smi() -> str:
@@ -135,8 +202,9 @@ def phase_build(torch, cuda) -> dict:
             regs.update(ptxas_report(f.read()))
     for name in cuda.LIBRARIES:
         cuda.lib(name)
+    sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel"))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
-            "power": nvidia_smi(), "ptxas": regs}
+            "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
 
 def _rand_points(torch, ed, hr, n: int, rs: random.Random, dev):
@@ -159,31 +227,73 @@ def _point_err(F, torch, got, want) -> float:
     return float((_affine(F, torch, got) - _affine(F, torch, want)).abs().max())
 
 
-def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int) -> dict:
-    """K5 and K6 on one shape against their plain versions: {kernel: row}."""
+def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int, probe: dict) -> dict:
+    """K5 and K6 on one shape against their plain versions, at the window
+    split the wrapper picks, then both timed at every split: {kernel: row}."""
     sc_t = scalars.movedim(-1, 0).contiguous()  # (16, f, s)
     _, f, s = sc_t.shape
+    wsplit = cf.pick_wsplit(f, s)
     parts = cf.fixed_acc(tables, lane_idx, sc_t)
-    err5 = _point_err(F, torch, parts, cf.fixed_acc_plain(tables, lane_idx, sc_t))
-    out = cf.fixed_fold(parts, groups)
-    err6 = _point_err(F, torch, out, cf.fixed_fold_plain(parts, groups))
+    if tuple(parts.shape) != (f, wsplit * s, cf.POINT_WORDS):
+        raise AssertionError(f"fixed_acc did not split {wsplit} ways: {tuple(parts.shape)}")
+    want = cf.fixed_acc_plain(tables, lane_idx, sc_t, wsplit)
+    err5 = _point_err(F, torch, cf.words_to_coords(parts), cf.words_to_coords(want))
+    out = cf.fixed_fold(parts, groups, wsplit)
+    err6 = _point_err(F, torch, out, cf.fixed_fold_plain(parts, groups, wsplit))
     for name, err in (("fixed_acc", err5), ("fixed_fold", err6)):
         if err != 0:
             raise AssertionError(f"{name} (rows {f}, lanes {s}, groups {groups}) disagrees with its plain version "
                                  f"(max_abs_err {err})")
-    n_parts = f * cf.WSPLIT * s
-    b5 = bound_ms(cf.N_WINDOWS * cf.N_DIGITS * s * ENTRY_BYTES + f * s * LIMB_BYTES + 8 * s + n_parts * POINT_BYTES,
-                  f * s * (cf.N_WINDOWS - cf.WSPLIT) * FMUL_PER_ADD * MULADDS_PER_FMUL)
-    b6 = bound_ms((n_parts + f * groups) * POINT_BYTES, (n_parts - f * groups) * FMUL_PER_ADD * MULADDS_PER_FMUL)
-    shape = {"rows": f, "lanes": s, "groups": groups}
+    wpt = cf.N_WINDOWS // wsplit
+    n_parts = f * wsplit * s
+    b5 = bound_ms(cf.N_WINDOWS * cf.N_DIGITS * s * ENTRY_BYTES + f * s * LIMB_BYTES + 8 * s + n_parts * PART_BYTES,
+                  n_parts * (1 + (wpt - 1) * FMUL_PER_MIXED_ADD) * MULADDS_PER_FMUL)
+    b6 = bound_ms(n_parts * PART_BYTES + f * groups * POINT_BYTES,
+                  (n_parts - f * groups) * FMUL_PER_ADD * MULADDS_PER_FMUL)
+    by_split = {}
+    for w in cf.WSPLITS:  # the settings tried: K5 alone, K6 on its partials
+        p_w = cf.fixed_acc(tables, lane_idx, sc_t, w)
+        by_split[w] = {"fixed_acc_ms": kernel_ms(lambda: cf.fixed_acc(tables, lane_idx, sc_t, w)),
+                       "fixed_fold_ms": kernel_ms(lambda: cf.fixed_fold(p_w, groups, w)),
+                       "fixed_acc_graph_ms": graph_ms(lambda: cf.fixed_acc(tables, lane_idx, sc_t, w)),
+                       "fixed_fold_graph_ms": graph_ms(lambda: cf.fixed_fold(p_w, groups, w))}
+    # one thread's chain: K5 a multiplication and wpt - 1 mixed additions; K6 its loop's additions, then the tree
+    count = wsplit * s // groups
+    loop_adds = -(-count // 128)
+    tree_adds = (min(count, 128) - 1).bit_length()
+    shape = {"rows": f, "lanes": s, "groups": groups, "wsplit": wsplit, "by_wsplit": by_split}
     return {
-        "fixed_acc": {"max_abs_err": err5, "ms": kernel_ms(lambda: cf.fixed_acc(tables, lane_idx, sc_t)),
-                      "plain_ms": median_ms(lambda: cf.fixed_acc_plain(tables, lane_idx, sc_t), 3),
-                      "bound_ms": b5[0], "bound_by": b5[1], **shape},
-        "fixed_fold": {"max_abs_err": err6, "ms": kernel_ms(lambda: cf.fixed_fold(parts, groups)),
-                       "plain_ms": median_ms(lambda: cf.fixed_fold_plain(parts, groups), 3),
-                       "bound_ms": b6[0], "bound_by": b6[1], **shape},
+        "fixed_acc": {"max_abs_err": err5, "ms": by_split[wsplit]["fixed_acc_ms"],
+                      "graph_ms": by_split[wsplit]["fixed_acc_graph_ms"],
+                      "plain_ms": median_ms(lambda: cf.fixed_acc_plain(tables, lane_idx, sc_t, wsplit), 3),
+                      "bound_ms": b5[0], "bound_by": b5[1],
+                      "chain_ms": (1 + (wpt - 1) * FMUL_PER_MIXED_ADD) * probe["fe_mul_ns"] * 1e-6, **shape},
+        "fixed_fold": {"max_abs_err": err6, "ms": by_split[wsplit]["fixed_fold_ms"],
+                       "graph_ms": by_split[wsplit]["fixed_fold_graph_ms"],
+                       "plain_ms": median_ms(lambda: cf.fixed_fold_plain(parts, groups, wsplit), 3),
+                       "bound_ms": b6[0], "bound_by": b6[1],
+                       "chain_ms": (loop_adds + tree_adds) * FMUL_PER_ADD * probe["fe_mul_ns"] * 1e-6, **shape},
     }
+
+
+def _latency_probe(torch, cp, F, pack_ints, int_from_limbs, rs) -> dict:
+    """Dependent latency of one fe_mul and one fe_sqr (`fe_*_ns`): a one-warp
+    chain of 1280 against one of 256, the difference over 1024; the ends
+    checked.  `fe_*_busy_ns` is the same with 32 warps, over the eight that
+    share a scheduler: what one operation takes where the SM is kept busy."""
+    v = rs.randrange(2**256)
+    x = torch.as_tensor(pack_ints([v]).astype("int64")[0], device="cuda")
+    out = {}
+    for op in ("mul", "sqr"):
+        got = int_from_limbs(cp.field_latency_probe(x, op, 40).cpu().numpy()) % F.P
+        if got != (pow(v, 41, F.P) if op == "mul" else pow(v, 2**40, F.P)):
+            raise AssertionError(f"latency probe: a chain of 40 fe_{op} is wrong")
+        for key, warps in ((f"fe_{op}_ns", 1), (f"fe_{op}_busy_ns", 32)):
+            short = kernel_ms(lambda: cp.field_latency_probe(x, op, 256, warps))
+            long = kernel_ms(lambda: cp.field_latency_probe(x, op, 1280, warps))
+            # 32 warps are eight on each of the SM's four schedulers: an eighth of a step is one operation
+            out[key] = (long - short) * 1e6 / 1024 / (warps // 4 or 1)
+    return out
 
 
 def phase_kernels(torch, bp, params, rows: dict) -> dict:
@@ -193,6 +303,7 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     from bulletproofs_plus_tpu_torch.ops import edwards as ed
     from bulletproofs_plus_tpu_torch.ops import field as F
     from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
+    from bulletproofs_plus_tpu_torch.ops import ristretto as rist
     from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs, pack_ints
     from bulletproofs_plus_tpu_torch.ops.msm import host_msm, msm_kernel
 
@@ -200,20 +311,64 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     rs = random.Random(20260416)
     out = {}
 
-    # K4 on 4096 random lanes plus edge values, compared mod p (and with python pow on the edges)
-    edges = [0, 1, F.P - 1, 2**256 - 30]
-    vals = [rs.randrange(2**256) for _ in range(4096)] + edges
+    probe = _latency_probe(torch, cp, F, pack_ints, int_from_limbs, rs)
+    out.update(probe)
+    dbl_ns = DBL_FMUL * probe["fe_mul_ns"] + DBL_FSQR * probe["fe_sqr_ns"]
+    add_ns = FMUL_PER_ADD * probe["fe_mul_ns"]
+
+    # K4, both entries, on 4087 random lanes plus edge values (4100, a 256-proof verify's count), compared
+    # mod p (and with python pow on the edges); then timed at a prove's widths too
+    edges = [0, 1, F.P - 1, F.P, F.P + 1, 2**255 - 1, 2**256 - 1, 2**256 - 38, 2**256 - 30]
+    vals = [rs.randrange(2**256) for _ in range(K4_SHAPES[-1] - 4 - len(edges))] + [4, 2, 0, 9] + edges
     x = torch.as_tensor(pack_ints(vals).astype("int64"), device=dev)
     got, want = cp.pow_p58_cuda(x), cp.pow_p58_plain(x)
     err = float((F.canon25519(got) - F.canon25519(want)).abs().max())
     tail = [int_from_limbs(r) % F.P for r in got[-len(edges):].cpu().numpy()]
     if err != 0 or tail != [pow(v, (F.P - 5) // 8, F.P) for v in edges]:
         raise AssertionError(f"K4 pow_p58 disagrees with its plain version (max_abs_err {err})")
+    # the fused entry: u = 1 broadcast as compress and decompress call it, then u a tensor of its own
+    one = F.limbs_const(1, x).expand(x.shape)
+    u_own = torch.as_tensor(pack_ints(vals[::-1]).astype("int64"), device=dev)
+    err_ratio = 0.0
+    for u in (one, u_own):
+        (sq, r), (sq_want, r_want) = cp.sqrt_ratio_m1_cuda(u, x), rist.sqrt_ratio_m1_plain(u, x)
+        err_ratio = max(err_ratio, float((r - F.canon25519(r_want)).abs().max()), float((sq != sq_want).sum()))
+    if err_ratio != 0 or not bool(sq_want.any()) or bool(sq_want.all()):
+        raise AssertionError(f"K4 sqrt_ratio_m1 disagrees with its plain version (max_abs_err {err_ratio})")
     n = x.shape[0]
-    b_ms, b_by = bound_ms(2 * n * LIMB_BYTES, n * (POW_SQR + POW_MUL) * MULADDS_PER_FMUL)
+    ratio_muladds = (POW_SQR + RATIO_SQR) * MULADDS_PER_FSQR + (POW_MUL + RATIO_MUL) * MULADDS_PER_FMUL
+    b_ms, b_by = bound_ms(n * (3 * LIMB_BYTES + 1), n * ratio_muladds)
+    bp_ms, _ = bound_ms(2 * n * LIMB_BYTES, n * (POW_SQR * MULADDS_PER_FSQR + POW_MUL * MULADDS_PER_FMUL))
+    by_lanes = {}
+    for k in K4_SHAPES:  # both forms of both entries in turns: one lane an element, four, four, one
+        xk, onek = x[-k:].contiguous(), one[-k:]
+        for entry, call in (("pow_p58", lambda form: cp.pow_p58_cuda(xk, lanes=form)),
+                            ("sqrt_ratio_m1", lambda form: cp.sqrt_ratio_m1_cuda(onek, xk, lanes=form))):
+            turns = [kernel_ms(lambda: call(form)) for form in (1, 4, 4, 1)]
+            by_lanes.setdefault(k, {}).update({
+                f"{entry}_one_lane_ms": statistics.mean((turns[0], turns[3])),
+                f"{entry}_four_lanes_ms": statistics.mean(turns[1:3]),
+                f"{entry}_ms": kernel_ms(lambda: call(None)),  # the launcher's own pick
+                f"{entry}_one_lane_graph_ms": graph_ms(lambda: call(1)),
+                f"{entry}_four_lanes_graph_ms": graph_ms(lambda: call(4)),
+            })
+    many = x.repeat(-(-K4_MANY // n), 1)[:K4_MANY].contiguous()
+    by_lanes[K4_MANY] = {f"pow_p58_{name}_graph_ms": graph_ms(lambda: cp.pow_p58_cuda(many, lanes=form), reps=5)
+                         for name, form in (("one_lane", 1), ("four_lanes", 4))}
+    for lanes_form in (1, 4):  # each form forced, against the launcher's pick checked above
+        sq_f, r_f = cp.sqrt_ratio_m1_cuda(u_own, x, lanes=lanes_form)
+        if not (torch.equal(sq_f, sq) and torch.equal(r_f, r)
+                and torch.equal(F.canon25519(cp.pow_p58_cuda(x, lanes=lanes_form)), F.canon25519(got))):
+            raise AssertionError(f"K4 with {lanes_form} lanes an element disagrees with the launcher's pick")
+    pow_chain_ms = (POW_SQR * probe["fe_sqr_ns"] + POW_MUL * probe["fe_mul_ns"]) * 1e-6
     rows["pow_p58"] = {
-        "max_abs_err": err, "ms": kernel_ms(lambda: cp.pow_p58_cuda(x)),
-        "plain_ms": median_ms(lambda: cp.pow_p58_plain(x), 3), "bound_ms": b_ms, "bound_by": b_by, "lanes": n,
+        "max_abs_err": max(err, err_ratio), "entry": "sqrt_ratio_m1", "ms": by_lanes[n]["sqrt_ratio_m1_ms"],
+        "graph_ms": by_lanes[n]["sqrt_ratio_m1_four_lanes_graph_ms"],
+        "plain_ms": median_ms(lambda: rist.sqrt_ratio_m1_plain(one, x), 3), "bound_ms": b_ms, "bound_by": b_by,
+        "chain_ms": pow_chain_ms + (RATIO_SQR * probe["fe_sqr_ns"] + RATIO_MUL * probe["fe_mul_ns"]) * 1e-6,
+        "lanes": n, "pow_p58_ms": by_lanes[n]["pow_p58_ms"],
+        "pow_p58_plain_ms": median_ms(lambda: cp.pow_p58_plain(x), 3), "pow_p58_bound_ms": bp_ms,
+        "pow_p58_chain_ms": pow_chain_ms, "by_lanes": by_lanes,
     }
 
     # K1-K3 on the main path's MSM shape: 4098 dynamic lanes padded to 4608
@@ -242,7 +397,8 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     b1 = bound_ms(n * (LIMB_BYTES + point_bytes) + tiles * 64 * point_bytes,
                   n * (14 * FMUL_PER_ADD + 64 * FMUL_PER_ADD) * MULADDS_PER_FMUL)
     b2 = bound_ms((tiles + 1) * 64 * point_bytes, 64 * (tiles - 1) * FMUL_PER_ADD * MULADDS_PER_FMUL)
-    b3 = bound_ms(65 * point_bytes, (252 * FMUL_PER_DBL + 63 * FMUL_PER_ADD) * MULADDS_PER_FMUL)
+    b3 = bound_ms(65 * point_bytes, 252 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
+                  + 63 * FMUL_PER_ADD * MULADDS_PER_FMUL)
     rows["dyn_acc"] = {"max_abs_err": err1, "ms": kernel_ms(lambda: cm.dyn_acc(sc_t, pts_t)),
                        "plain_ms": median_ms(lambda: cm.dyn_acc_plain(sc_t, pts_t), 3),
                        "bound_ms": b1[0], "bound_by": b1[1], "lanes": n}
@@ -250,8 +406,10 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
                          "plain_ms": median_ms(lambda: cm.lane_fold_plain(parts), 3),
                          "bound_ms": b2[0], "bound_by": b2[1], "tiles": tiles}
     rows["horner"] = {"max_abs_err": err3, "ms": kernel_ms(lambda: cm.horner(wsum)),
+                      "graph_ms": graph_ms(lambda: cm.horner(wsum)),
                       "plain_ms": median_ms(lambda: cm.horner_plain(wsum), 3),
-                      "bound_ms": b3[0], "bound_by": b3[1]}
+                      "bound_ms": b3[0], "bound_by": b3[1],
+                      "chain_ms": (252 * dbl_ns + 6 * add_ns) * 1e-6}  # thread 63: 252 doublings, 6 tree levels
 
     # K7 on K1's inputs, then K1 against K7 in turns (the A/B of the two digit recodings)
     parts7 = cm.dyn_acc_signed(sc_t, pts_t)
@@ -292,7 +450,7 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     )
     out["fixed_shapes"] = {}
     for label, tab, lane_idx, scal, groups in shapes:
-        got = _fixed_rows(torch, cf, F, tab, lane_idx, scal, groups)
+        got = _fixed_rows(torch, cf, F, tab, lane_idx, scal, groups, probe)
         out["fixed_shapes"][label] = got
         if label == "round":  # the shape the prover launches most: the kernels table's row
             rows.update(got)
@@ -303,7 +461,9 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     got16 = msm_kernel(torch.as_tensor(pack_ints(small_sc).astype("int64"), device=dev), ed.from_host(small, device=dev))
     if not hr.point_equal(ed.to_host(got16), host_msm(small_sc, small)):
         raise AssertionError("16-lane MSM disagrees with the host Pippenger")
-    out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "plain_ms", "bound_ms")} for k, v in rows.items()}
+    out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "chain_ms") if kk in v}
+                      for k, v in rows.items()}
+    out["k4"] = rows["pow_p58"]
     out["host_pippenger_16"] = "equal"
     return out
 
@@ -352,8 +512,10 @@ def _verify(bp, statements, proofs):
     )
 
 
-VERIFY_KERNELS = ("dyn_acc", "lane_fold", "horner", "pow_p58")
-PROVE_KERNELS = ("fixed_acc", "fixed_fold", "pow_p58")
+# K4 is reached through its fused entry, `sqrt_ratio_m1`: once a verify, eight times a prove
+VERIFY_KERNELS = ("dyn_acc", "lane_fold", "horner", "sqrt_ratio_m1")
+PROVE_KERNELS = ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")
+PROVE_LAUNCHES = {"fixed_acc": 15, "fixed_fold": 15, "sqrt_ratio_m1": 8}
 
 
 def _signed_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
@@ -372,7 +534,8 @@ def _signed_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
         else:
             os.environ["BPPT_MSM_SIGNED"] = before
     counts = {k: cuda.launches[k] for k in ("dyn_acc_signed",) + VERIFY_KERNELS}
-    if not counts["dyn_acc_signed"] or counts["dyn_acc"] or not all(counts[k] for k in ("lane_fold", "horner", "pow_p58")):
+    if (not counts["dyn_acc_signed"] or counts["dyn_acc"]
+            or not all(counts[k] for k in ("lane_fold", "horner", "sqrt_ratio_m1"))):
         raise AssertionError(f"signed verify: wrong kernels launched: {counts}")
     launches["dyn_acc_signed"] = counts["dyn_acc_signed"]
     return {"proofs": len(proofs), "seconds": seconds, "launches": counts}
@@ -391,10 +554,11 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
-        if not all(counts.values()):
-            raise AssertionError(f"{label}: a kernel of the path never launched: {counts}")
+        if not all(counts.values()) or counts["sqrt_ratio_m1"] != 1 or cuda.launches["pow_p58"]:
+            raise AssertionError(f"{label}: wrong kernel launches: {dict(cuda.launches)}")
         if seed == 3:
             launches.update(counts)
+            launches["pow_p58"] = counts["sqrt_ratio_m1"]  # K4's row: its chain ran inside the fused entry
             out["b64_m1_x256_signed"] = _signed_arm(torch, bp, cuda, statements, proofs, launches)
         samples = []
         for _ in range(5):
@@ -441,9 +605,10 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     torch.cuda.synchronize()
     out["first_s"] = time.perf_counter() - t0
     counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
-    if not all(counts.values()):
-        raise AssertionError(f"prove: a kernel of the path never launched: {counts}")
+    if counts != PROVE_LAUNCHES or cuda.launches["pow_p58"]:
+        raise AssertionError(f"prove: expected launches {PROVE_LAUNCHES}, got {dict(cuda.launches)}")
     launches.update({k: counts[k] for k in ("fixed_acc", "fixed_fold")})
+    launches["pow_p58_prove"] = counts["sqrt_ratio_m1"]
     out["launches"] = dict(cuda.launches)
     if proofs[0].to_bytes().hex() != cell["proof"]:
         raise AssertionError("prove: lane 0 is not golden proof 3")
@@ -545,7 +710,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": f"bulletproofs_plus_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
          "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
-         "bound_by": rows[k]["bound_by"], "library_ms": None}
+         "bound_by": rows[k]["bound_by"], "library_ms": None,
+         **{extra: rows[k][extra] for extra in ("chain_ms", "graph_ms", "entry", "pow_p58_ms") if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]
     print(nvidia_smi())

@@ -11,7 +11,7 @@ with `RangeProof.prove_batch_with_rng` of the port
   * "prove_ms": median of 5 whole proves with the tables built;
   * "stages_ms": one prove with a device synchronise around each stage, so
     device time is charged where it was enqueued: the fixed-base MSMs (K5 +
-    K6 and their glue), `compress` (K4 inside), the A commitment's masked
+    K6 and their glue), `compress` (K4's fused entry inside), the A commitment's masked
     halving sums, the readbacks of compressed points, the host transcript
     (challenges, RNG rebuilds and draws), the argument checks (each
     witness's commitment recomputed in host integers), and the rest: the
@@ -137,7 +137,7 @@ def main() -> int:
         name = e.name.split("<")[0].split("(")[0]  # template arguments dropped: one entry per kernel family
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    ours = {k: v / 1e3 for k, v in by_name.items() if k.endswith("_kernel") and ("fixed_" in k or "pow_p58" in k)}
+    ours = {k: v / 1e3 for k, v in by_name.items() if k.endswith("_kernel") and ("fixed_" in k or "pow_p58" in k or "sqrt_ratio" in k)}
     print(json.dumps({
         "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                     "idle_share": 1 - busy_us / 1e3 / wall_ms if wall_ms else None,

@@ -17,6 +17,7 @@ from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
 from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
 from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
 from bulletproofs_plus_tpu_torch.ops import edwards as ed
+from bulletproofs_plus_tpu_torch.ops import field as F
 from bulletproofs_plus_tpu_torch.ops import fixed_base as fb
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import ristretto as rist
@@ -68,13 +69,62 @@ def test_msm_kernels_match_plain(card):
     assert bool(rist.point_equal(pa(cm.horner(wsum)), pa(cm.horner_plain(wsum))))
 
 
+FIELD_EDGES = [0, 1, P - 1, P, P + 1, 2**255 - 1, 2**256 - 1, 2**256 - 38, 2**256 - 30]
+
+
 def test_pow_p58_kernel_matches_python(card):
+    """K4 alone, the field edge values among its lanes: 251 squarings and 11
+    products of the header's carry-flag code for each."""
     rs = np.random.RandomState(4)
-    vals = [int.from_bytes(rs.bytes(32), "little") for _ in range(300)] + [0, 1, P - 1, 2**256 - 30]
+    vals = [int.from_bytes(rs.bytes(32), "little") for _ in range(300)] + FIELD_EDGES
     x = torch.as_tensor(pack_ints(vals).astype(np.int64), device=card)
-    got = cp.pow_p58_cuda(x).cpu().numpy()
-    assert [int_from_limbs(r) % P for r in got] == [pow(v, (P - 5) // 8, P) for v in vals]
+    want = [pow(v, (P - 5) // 8, P) for v in vals]
+    for lanes in (None, 1, 4):  # the launcher's pick, then each form forced
+        got = cp.pow_p58_cuda(x, lanes=lanes).cpu().numpy()
+        assert [int_from_limbs(r) % P for r in got] == want
+    odd = cp.pow_p58_cuda(x[:37], lanes=4).cpu().numpy()  # a last warp with idle groups
+    assert [int_from_limbs(r) % P for r in odd] == want[:37]
     assert cp.pow_p58_cuda(x[:0]).shape == (0, 16)
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_field_probe_chains_match_python(card, op):
+    """The latency probe's chains of dependent fe_mul and fe_sqr from each
+    edge value: x^(n + 1) and x^(2^n)."""
+    for v in FIELD_EDGES + [2**255 + 12345]:
+        x = torch.as_tensor(pack_ints([v]).astype(np.int64)[0], device=card)
+        for n in (1, 2, 37):
+            got = int_from_limbs(cp.field_latency_probe(x, op, n).cpu().numpy()) % P
+            assert got == (pow(v, n + 1, P) if op == "mul" else pow(v, 2**n, P))
+
+
+@pytest.mark.parametrize("broadcast_u", [False, True])
+def test_sqrt_ratio_m1_kernel_matches_plain(card, broadcast_u):
+    """K4's fused entry against the plain version: squares, non-squares,
+    v = 0, u = 0, edge values and random lanes across a block boundary."""
+    rs = np.random.RandomState(12)
+    rnd = [int.from_bytes(rs.bytes(32), "little") for _ in range(2 * 151)]
+    us = [1, 1, 4, 7, 0, 0, 2**256 - 1, P + 1] + FIELD_EDGES + rnd[:151]
+    vs = [4, 2, 9, 0, 5, 0, 3, 2**256 - 30] + FIELD_EDGES[::-1] + rnd[151:]
+    v = torch.as_tensor(pack_ints(vs).astype(np.int64), device=card)
+    u = torch.as_tensor(pack_ints(us).astype(np.int64), device=card)
+    if broadcast_u:
+        u = F.limbs_const(1, v).expand(v.shape)
+    cuda.reset_launches()
+    was_square, r = rist.sqrt_ratio_m1(u, v)
+    assert cuda.launches["sqrt_ratio_m1"] == 1 and cuda.launches["pow_p58"] == 0
+    want_sq, want_r = rist.sqrt_ratio_m1_plain(u, v)
+    assert was_square.dtype == torch.bool and torch.equal(was_square, want_sq)
+    assert torch.equal(r, F.canon25519(want_r))
+    for lanes in (1, 4):
+        sq_l, r_l = cp.sqrt_ratio_m1_cuda(u, v, lanes=lanes)
+        assert torch.equal(sq_l, want_sq) and torch.equal(r_l, r)
+    if not broadcast_u:
+        assert was_square.tolist()[:6] == [True, False, True, False, True, True]
+    shaped_sq, shaped_r = rist.sqrt_ratio_m1(u.reshape(2, -1, 16)[:, :80], v.reshape(2, -1, 16)[:, :80])
+    assert shaped_sq.shape == (2, 80) and torch.equal(shaped_r, r.reshape(2, -1, 16)[:, :80])
+    empty_sq, empty_r = cp.sqrt_ratio_m1_cuda(u[:0], v[:0])
+    assert empty_sq.shape == (0,) and empty_r.shape == (0, 16)
 
 
 @pytest.mark.parametrize("n", [1, 16, 40])
@@ -123,9 +173,16 @@ def test_fixed_kernels_match_host_and_plain(card, fixed_setup, rows, lanes, grou
             want = host_msm(scal[row][grp * per : (grp + 1) * per], [pts[i] for i in idx])
             assert hr.point_equal(flat[row * groups + grp], want)
     sc_t = sc.movedim(-1, 0).contiguous()
-    parts = cf.fixed_acc(tables, lane_idx, sc_t)
-    assert bool(rist.point_equal(pa(parts), pa(cf.fixed_acc_plain(tables, lane_idx, sc_t))).all())
-    assert bool(rist.point_equal(pa(cf.fixed_fold(parts, groups)), pa(cf.fixed_fold_plain(parts, groups))).all())
+    for wsplit in (1,) + cf.WSPLITS + (64,):  # every split the wrapper picks, and the kernels' two extremes
+        parts = cf.fixed_acc(tables, lane_idx, sc_t, wsplit)
+        assert tuple(parts.shape) == (rows, wsplit * lanes, cf.POINT_WORDS)
+        want = cf.fixed_acc_plain(tables, lane_idx, sc_t, wsplit)
+        assert bool(rist.point_equal(pa(cf.words_to_coords(parts)), pa(cf.words_to_coords(want))).all())
+        folded = cf.fixed_fold(parts, groups, wsplit)
+        assert bool(rist.point_equal(pa(folded), pa(cf.fixed_fold_plain(parts, groups, wsplit))).all())
+        for row in range(0, rows, max(1, rows // 4)):
+            for grp in range(groups):
+                assert hr.point_equal(ed.to_host(ed.PointArray(*(c[:, row, grp] for c in folded))), flat[row * groups + grp])
 
 
 def test_compress_on_card_matches_host(card):
@@ -136,5 +193,5 @@ def test_compress_on_card_matches_host(card):
 
     cuda.reset_launches()
     got = bytes_from_limbs(rist.compress(points).cpu().numpy())
-    assert cuda.launches["pow_p58"] == 1
+    assert (cuda.launches["sqrt_ratio_m1"], cuda.launches["pow_p58"]) == (1, 0)
     assert [r.tobytes() for r in got] == [hr.compress(p) for p in ed.to_host(points)]

@@ -2,7 +2,9 @@
 
 Inputs come from seeded numpy; both packages get the same limbs and must
 agree exactly mod p (GF(p) results are lazily reduced) or exactly (GF(l)
-results and canonical forms).  Tolerance: exact integer equality.
+results and canonical forms).  The CUDA header's carry logic, which no CPU
+can run, is held against Python integers through its word-exact model
+(ops/field_model.py).  Tolerance: exact integer equality.
 """
 
 import numpy as np
@@ -16,8 +18,10 @@ from bulletproofs_plus_tpu.ops import pfield as jpf
 from bulletproofs_plus_tpu.ops.limbs import int_from_limbs, pack_ints
 from bulletproofs_plus_tpu_torch.ops import edwards as ed
 from bulletproofs_plus_tpu_torch.ops import field as F
+from bulletproofs_plus_tpu_torch.ops import field_model as fm
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import pfield as pf
+from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 
 P, L = F.P, F.L
 torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers off each other's cores
@@ -188,3 +192,103 @@ def test_identity_add_chain_regression():
     assert hr.point_equal(_host_of(acc, 1)[0], hr.point_mul(2, hr.BASEPOINT))
     x = ed.from_host(hr.BASEPOINT, device="cpu")
     assert hr.point_equal(ed.to_host(ed.double(x)), hr.point_mul(2, hr.BASEPOINT))
+
+
+# ---------------------------------------------------------------------------
+# The word-exact model of csrc/field25519.cuh (ops/field_model.py) against
+# Python integers.  The model asserts the bounds the CUDA code relies on (no
+# dropped carry), so a pass also says those held on these operands.
+# ---------------------------------------------------------------------------
+
+MODEL_EDGES = [
+    0, 1, 2, 19, 38, P - 1, P, P + 1, 2**255 - 1, 2**255, 2**255 + 18, 2**255 + 19, 2**256 - 1, 2**256 - 38,
+    2**256 - 39, 2**256 - 30, 2**256 - 19, 2**256 - 2**32, 2**32 - 1, 2**32, 2**224 - 1,
+    int("ffffffff00000000" * 4, 16), int("00000000ffffffff" * 4, 16), int("80000000" * 8, 16), int("7fffffff" * 8, 16),
+]
+
+
+def _model_operands():
+    rs = np.random.RandomState(20260416)
+    return MODEL_EDGES + _rand_ints(rs, 40, 2**256)
+
+
+def _lands_in_carry_out_window(a, b):
+    """Whether a * b, folded as fe_reduce_wide folds it, reaches 2^256 again
+    after the top carry was folded: the case the last `+38` exists for."""
+    t = a * b
+    s = (t % 2**256) + 38 * (t >> 256)
+    return (s % 2**256) + 38 * (s >> 256) >= 2**256
+
+
+@pytest.mark.parametrize("op", ["mul", "sqr", "add", "sub", "neg"])
+def test_field_model_matches_integers(op):
+    vals = _model_operands()
+    W, V = fm.to_words, fm.from_words
+    for a in vals:
+        if op == "sqr":
+            e, o = fm.wide_sqr(W(a))
+            assert fm.wide_value(e, o) == a * a  # the 43-product accumulation, before any fold
+            assert V(fm.fe_sqr(W(a))) % P == a * a % P
+            continue
+        if op == "neg":
+            assert V(fm.fe_neg(W(a))) % P == -a % P
+            continue
+        for b in vals:
+            if op == "mul":
+                e, o = fm.wide_mul(W(a), W(b))
+                assert fm.wide_value(e, o) == a * b
+                assert V(fm.fe_mul(W(a), W(b))) % P == a * b % P
+            elif op == "add":
+                assert V(fm.fe_add(W(a), W(b))) % P == (a + b) % P
+            else:
+                assert V(fm.fe_sub(W(a), W(b))) % P == (a - b) % P
+
+
+@pytest.mark.parametrize("op", ["canon", "eq", "is_negative", "abs", "select"])
+def test_field_model_predicates(op):
+    vals = _model_operands()
+    W, V = fm.to_words, fm.from_words
+    for i, a in enumerate(vals):
+        if op == "canon":
+            assert V(fm.fe_canon(W(a))) == a % P
+        elif op == "is_negative":
+            assert fm.fe_is_negative(W(a)) == bool(a % P & 1)
+        elif op == "abs":
+            assert V(fm.fe_abs(W(a))) == (P - a % P if a % P & 1 else a % P)
+        elif op == "select":
+            b = vals[-1 - i]
+            assert V(fm.fe_select(True, W(a), W(b))) == a and V(fm.fe_select(False, W(a), W(b))) == b
+        else:
+            for b in vals:
+                assert fm.fe_eq(W(a), W(b)) == ((a - b) % P == 0)
+
+
+@pytest.mark.parametrize(
+    "a, b",
+    [(2**256 - 30, 2**256 - 30), (2**256 - 1, 2**256 - 1), (2**256 - 1, 2**256 - 36), (2**256 - 19, 2**256 - 2)],
+)
+def test_field_model_carry_out_window(a, b):
+    """Operands whose last fold lands in [2^256, 2^256 + 38q): the product
+    must still be right, by fe_mul and, for a square, by fe_sqr."""
+    assert _lands_in_carry_out_window(a, b)
+    W, V = fm.to_words, fm.from_words
+    assert V(fm.fe_mul(W(a), W(b))) % P == a * b % P
+    if a == b:
+        assert V(fm.fe_sqr(W(a))) % P == a * a % P
+
+
+def test_field_model_pow_p58_and_sqrt_ratio():
+    """The kernels' chain and the whole SQRT_RATIO_M1 on the model: the
+    power against python pow, the ratio against the plain torch version, on a
+    square, a non-square, v = 0 and u = 0."""
+    W, V = fm.to_words, fm.from_words
+    for v in (0, 1, 2, P - 1, 2**256 - 30, 2**255 + 7):
+        assert V(fm.fe_pow_p58(W(v))) % P == pow(v, (P - 5) // 8, P)
+    us = [1, 1, 4, 7, 0, 1, 2**256 - 1]
+    vs = [4, 2, 9, 0, 5, 2**256 - 30, 3]  # 1/4 is a square, 1/2 is not (2 is a non-residue mod p)
+    want_sq, want_r = rist.sqrt_ratio_m1_plain(*(torch.as_tensor(pack_ints(x).astype(np.int64)) for x in (us, vs)))
+    for i, (u, v) in enumerate(zip(us, vs)):
+        was_square, r = fm.sqrt_ratio_m1(W(u), W(v))
+        assert was_square == bool(want_sq[i])
+        assert V(r) == _ints(F.canon25519(want_r[i : i + 1]))[0]
+    assert want_sq.tolist()[:2] == [True, False]

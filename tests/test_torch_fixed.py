@@ -67,23 +67,42 @@ def tables():
     return fb.pack_tables(fb.build_tables(ed.from_host(BASE_PTS, device="cpu")))
 
 
+@pytest.fixture(params=cf.WSPLITS)
+def wsplit(request, monkeypatch):
+    """Every window split the wrapper can pick, forced for the test."""
+    monkeypatch.setattr(fb, "pick_wsplit", lambda rows, lanes: request.param)
+    return request.param
+
+
+def _niels_ints(point):
+    """A host point -> its table entry (y + x, y - x, 2d x y) as canonical integers."""
+    zinv = pow(point[2], hr.P - 2, hr.P)
+    x, y = point[0] * zinv % hr.P, point[1] * zinv % hr.P
+    return [(y + x) % hr.P, (y - x) % hr.P, 2 * hr.D * x * y % hr.P]
+
+
 def test_build_tables_matches_jax(jax_tables, tables):
-    """Entry for entry the same points as the JAX package's tables carried
-    across with convert.tables_from_jax_numpy (ristretto-equal: both hold
-    lazily reduced projective coordinates), and T[j, d, i] = d * 16^j * P_i."""
+    """Entry for entry the words of the JAX package's tables carried across
+    with convert.tables_from_jax_numpy (exact: both are canonical affine,
+    precomputed for the mixed addition), digit 0 the identity (1, 1, 0), and
+    T[j, d, i] = d * 16^j * P_i."""
     carried = tables_from_jax_numpy(*(np.asarray(c) for c in jax_tables), device="cpu")
     assert tables.dtype == carried.dtype == torch.int32
-    assert tuple(tables.shape) == tuple(carried.shape) == (64, 16, S_TAB, 32)
-
-    def points(words):
-        return ed.PointArray(*(c.movedim(0, -1) for c in cf.words_to_coords(words)))
-
-    assert bool(rist.point_equal(points(tables), points(carried)).all())
-    assert bool(rist.is_identity(points(tables[:, 0])).all())
-    got = points(tables)
+    assert tuple(tables.shape) == tuple(carried.shape) == (64, 16, S_TAB, cf.ENTRY_WORDS)
+    assert torch.equal(tables, carried)
+    limbs = cf.words_to_limbs(tables).numpy()  # (64, 16, S, 3, 16)
+    identity = pack_ints([1, 1, 0])
+    assert (limbs[:, 0] == identity).all()
     for j, d, i in ((0, 1, 0), (1, 15, 3), (37, 8, 5), (63, 15, 7)):
-        entry = ed.to_host(ed.PointArray(*(c[j, d, i] for c in got)))
-        assert hr.point_equal(entry, hr.point_mul(d * 16**j, BASE_PTS[i]))
+        want = _niels_ints(hr.point_mul(d * 16**j, BASE_PTS[i]))
+        assert np.array_equal(limbs[j, d, i], pack_ints(want))
+
+
+@pytest.mark.parametrize("rows, lanes, want", [(128, 128, 4), (256, 2, 16), (128, 2, 16), (1, 1, 16), (4096, 128, 4)])
+def test_pick_wsplit(rows, lanes, want):
+    """The prover's wide shape takes 4 ranges (one wave of resident
+    threads), its Pedersen shapes the finest split; nothing leaves WSPLITS."""
+    assert cf.pick_wsplit(rows, lanes) == want and want in cf.WSPLITS
 
 
 def test_tables_from_jax_numpy_checks_layout(jax_tables):
@@ -104,45 +123,60 @@ def test_generator_tables_are_cached_per_size_and_device():
     pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(2))
     gens = tbp.BulletproofGens(2, 2)
     full = gens.fixed_tables("cpu")
-    assert tuple(full.shape) == (64, 16, 8, 32) and gens.fixed_tables_sliced(8, "cpu") is full
+    assert tuple(full.shape) == (64, 16, 8, 24) and gens.fixed_tables_sliced(8, "cpu") is full
     half = gens.fixed_tables_sliced(4, "cpu")
     assert half is gens.fixed_tables_sliced(4, "cpu") and torch.equal(half, full[:, :, :4])
     bases = pc.device_base_tables("cpu")
-    assert tuple(bases.shape) == (64, 16, 3, 32) and bases is pc.device_base_tables("cpu")
+    assert tuple(bases.shape) == (64, 16, 3, 24) and bases is pc.device_base_tables("cpu")
     # [G_1, G_2, H]: a scalar on the last lane multiplies the value base H
     got = fb.fixed_msm_batched(_t(pack_ints([0, 0, 5])), bases)
     assert hr.point_equal(ed.to_host(got), hr.point_mul(5, pc.h_base))
 
 
-def test_fixed_msm_batched_matches_pallas_and_host(jax_tables, tables, monkeypatch):
+@pytest.fixture(scope="module")
+def pallas_batched(jax_tables):
     """S = 6, B = 3 (tests/test_pallas_msm.py's shape) over an 8-lane table:
-    the one interpret-mode run of the TPU kernels K5 and K6."""
-    monkeypatch.setattr(pm, "_INTERPRET", True)
-    s, b = 6, 3
-    scal = _scalars(b, s, 11)
-    arr = _pack(scal)
-    got = _host(fb.fixed_msm_batched(_t(arr), tables))
-    jgot = pm.fixed_msm_batched_pallas(jnp.asarray(arr), jfb.transpose_tables(jax_tables))
-    for row in range(b):
-        want = host_msm(scal[row], BASE_PTS[:s])
+    the one interpret-mode run of the TPU kernels K5 and K6, as host points."""
+    scal = _scalars(3, 6, 11)
+    before = pm._INTERPRET
+    pm._INTERPRET = True
+    try:
+        jgot = pm.fixed_msm_batched_pallas(jnp.asarray(_pack(scal)), jfb.transpose_tables(jax_tables))
+        return scal, [jed.to_host(jed.PointArray(*(c[row] for c in jgot))) for row in range(3)]
+    finally:
+        pm._INTERPRET = before
+
+
+def test_fixed_msm_batched_matches_pallas_and_host(pallas_batched, tables, wsplit):
+    """The port at each window split, the TPU kernels in interpret mode and
+    the host oracle give the same points."""
+    scal, jgot = pallas_batched
+    got = _host(fb.fixed_msm_batched(_t(_pack(scal)), tables))
+    for row in range(len(scal)):
+        want = host_msm(scal[row], BASE_PTS[: len(scal[row])])
         assert hr.point_equal(got[row], want)
-        assert hr.point_equal(jed.to_host(jed.PointArray(*(c[row] for c in jgot))), want)
+        assert hr.point_equal(jgot[row], want)
 
 
-def test_fixed_msm_grouped_matches_jax_and_host(jax_tables, tables):
-    """S = 8, B = 2, G = 2 against the JAX package's plain reference."""
+@pytest.fixture(scope="module")
+def jax_grouped(jax_tables):
+    """S = 8, B = 2, G = 2 through the JAX package's plain reference, as host points."""
+    scal = _scalars(2, 8, 5)
+    jgot = jfb.fixed_msm_grouped(jnp.asarray(_pack(scal)), jax_tables, 2, allow_pallas=False)
+    return scal, [[jed.to_host(jed.PointArray(*(c[row, grp] for c in jgot))) for grp in range(2)] for row in range(2)]
+
+
+def test_fixed_msm_grouped_matches_jax_and_host(jax_grouped, tables, wsplit):
     s, b, g = 8, 2, 2
-    scal = _scalars(b, s, 5)
-    arr = _pack(scal)
-    got = fb.fixed_msm_grouped(_t(arr), tables, g)
+    scal, jgot = jax_grouped
+    got = fb.fixed_msm_grouped(_t(_pack(scal)), tables, g)
     assert tuple(got.x.shape) == (b, g, 16)
-    jgot = jfb.fixed_msm_grouped(jnp.asarray(arr), jax_tables, g, allow_pallas=False)
     half = s // g
     for row in range(b):
         for grp in range(g):
             want = host_msm(scal[row][grp * half : (grp + 1) * half], BASE_PTS[grp * half : (grp + 1) * half])
             assert hr.point_equal(ed.to_host(ed.PointArray(*(c[row, grp] for c in got))), want)
-            assert hr.point_equal(jed.to_host(jed.PointArray(*(c[row, grp] for c in jgot))), want)
+            assert hr.point_equal(jgot[row][grp], want)
 
 
 def test_fixed_msm_lane_permutation(tables):
@@ -157,8 +191,9 @@ def test_fixed_msm_lane_permutation(tables):
 
 
 @pytest.mark.parametrize("lead, s", [((1,), 5), ((3,), 7), ((2, 2), 3), ((), 1)])
-def test_fixed_msm_ragged_shapes(tables, lead, s):
-    """Widths and batches that fill no tile, and leading axes of any rank."""
+def test_fixed_msm_ragged_shapes(tables, lead, s, wsplit):
+    """Widths and batches that fill no tile, and leading axes of any rank,
+    at each window split."""
     rows = int(np.prod(lead)) if lead else 1
     scal = _scalars(rows, s, 100 + s)
     got = fb.fixed_msm_batched(_t(_pack(scal)).reshape(lead + (s, 16)), tables)
@@ -167,14 +202,14 @@ def test_fixed_msm_ragged_shapes(tables, lead, s):
         assert hr.point_equal(pt, host_msm(scal[row], BASE_PTS[:s]))
 
 
-def test_fixed_msm_zero_and_single_digit_rows(tables):
+def test_fixed_msm_zero_and_single_digit_rows(tables, wsplit):
     """A row of zero scalars is a chain of identity additions through K5 and
     K6 (the field fold's carry-out window), and must give the identity; a row
     with one non-zero digit gives that one table entry."""
     s = 8
     scal = [[0] * s, [0] * 3 + [7 << (4 * 41)] + [0] * 4, _scalars(1, s, 9)[0]]
-    parts = cf.fixed_acc(tables, torch.arange(s), _t(_pack(scal)).movedim(-1, 0).contiguous())
-    assert tuple(parts.shape) == (4, 16, 3, cf.WSPLIT * s)
+    parts = cf.fixed_acc(tables, torch.arange(s), _t(_pack(scal)).movedim(-1, 0).contiguous(), wsplit)
+    assert tuple(parts.shape) == (3, wsplit * s, cf.POINT_WORDS) and parts.dtype == torch.int32
     got = _host(fb.fixed_msm_batched(_t(_pack(scal)), tables))
     assert hr.is_identity(got[0])
     assert hr.point_equal(got[1], hr.point_mul(7 * 16**41, BASE_PTS[3]))
@@ -192,6 +227,10 @@ def test_fixed_msm_refuses_bad_shapes(tables):
         fb.fixed_msm_batched(torch.zeros((2, 2, 16), dtype=torch.int64), tables, lanes=[0, 1, 2])  # 3 lanes, 2 scalars
     with pytest.raises(ValueError):
         cf.fixed_acc(tables[:, :8], torch.arange(2), torch.zeros((16, 1, 2), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        cf.fixed_acc(tables, torch.arange(2), torch.zeros((16, 1, 2), dtype=torch.int64), 3)  # not a power of two
+    with pytest.raises(ValueError):
+        cf.fixed_fold(torch.zeros((1, 12, 32), dtype=torch.int32), 1, 8)  # 12 partials, 8 ranges
 
 
 def test_signed_digits4_reconstructs_and_matches_jax():
@@ -286,7 +325,7 @@ def test_wrappers_refuse_other_devices(tables):
     with pytest.raises(ValueError):
         cf.fixed_acc(meta, torch.arange(4, device="meta"), torch.zeros((16, 2, 4), dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError):
-        cf.fixed_fold(torch.zeros((4, 16, 2, 16), dtype=torch.int64, device="meta"), 2)
+        cf.fixed_fold(torch.zeros((2, 16, 32), dtype=torch.int32, device="meta"), 2, 4)
     with pytest.raises(ValueError):
         cm.dyn_acc_signed(torch.zeros((16, 4), dtype=torch.int64, device="meta"),
                           torch.zeros((4, 16, 4), dtype=torch.int64, device="meta"))

@@ -22,6 +22,7 @@ from bulletproofs_plus_tpu.ops.pallas_pow import pow_p58_pallas
 from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
 from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
 from bulletproofs_plus_tpu_torch.ops import edwards as ed
+from bulletproofs_plus_tpu_torch.ops import field as F
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 from bulletproofs_plus_tpu_torch.ops.msm import host_msm, msm_kernel
@@ -109,6 +110,53 @@ def test_wrappers_refuse_other_devices():
         cm.lane_fold(torch.zeros((4, 16, 64, 2), dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError):
         cm.horner(torch.zeros((4, 16, 64), dtype=torch.int64, device="meta"))
+
+
+def _ratio_inputs():
+    """u, v for SQRT_RATIO_M1: squares, non-squares, v = 0, u = 0, both 0, and
+    values at the reduction edges."""
+    rs = np.random.RandomState(6)
+    rnd = [int.from_bytes(rs.bytes(32), "little") for _ in range(8)]
+    us = [1, 1, 4, 7, 0, 0, 2**256 - 1, P + 1] + rnd[:4]
+    vs = [4, 2, 9, 0, 5, 0, 3, 2**256 - 30] + rnd[4:]
+    return pack_ints(us), pack_ints(vs)
+
+
+def test_sqrt_ratio_m1_matches_jax():
+    """The plain version, which CPU tensors take, against the JAX package:
+    the same mask and, mod p, the same root."""
+    ua, va = _ratio_inputs()
+    was_square, r = rist.sqrt_ratio_m1(torch.as_tensor(ua.astype(np.int64)), torch.as_tensor(va.astype(np.int64)))
+    jsq, jr = jrist.sqrt_ratio_m1(jnp.asarray(ua), jnp.asarray(va))
+    assert was_square.tolist() == np.asarray(jsq).tolist()
+    assert was_square.tolist()[:6] == [True, False, True, False, True, True]
+    got = [int_from_limbs(x) % P for x in r.numpy()]
+    assert got == [int_from_limbs(x) % P for x in np.asarray(jr)]
+    assert all(g % 2 == 0 for g in got)  # the non-negative root
+
+
+@pytest.mark.parametrize("broadcast_u", [False, True])
+def test_sqrt_ratio_m1_dispatch(monkeypatch, broadcast_u):
+    """CPU tensors take the plain version and never reach the launcher; any
+    other device goes to the launcher, which refuses what is not on a card."""
+    ua, va = _ratio_inputs()
+    v = torch.as_tensor(va.astype(np.int64))
+    u = F.limbs_const(1, v).expand(v.shape) if broadcast_u else torch.as_tensor(ua.astype(np.int64))
+
+    def no_launch(*a):
+        raise AssertionError("the kernel launcher was called for a CPU tensor")
+
+    monkeypatch.setattr(rist, "sqrt_ratio_m1_cuda", no_launch)
+    was_square, r = rist.sqrt_ratio_m1(u, v)
+    want_sq, want_r = rist.sqrt_ratio_m1_plain(u, v)
+    assert torch.equal(was_square, want_sq) and torch.equal(r, want_r)
+    monkeypatch.undo()
+    with pytest.raises(ValueError):
+        rist.sqrt_ratio_m1(u.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError):
+        cp.sqrt_ratio_m1_cuda(u, v)  # a CPU tensor handed to the launcher itself
+    with pytest.raises(ValueError):
+        cp.sqrt_ratio_m1_cuda(u[:2], v)  # shapes differ
 
 
 def _encodings():
