@@ -420,6 +420,126 @@ __device__ __forceinline__ ge ge_dbl(const ge &p) {
     return r;
 }
 
+// ---------------------------------------------------------------------------
+// Point operations that four lanes of a warp share
+// ---------------------------------------------------------------------------
+//
+// A point operation is a few field operations deep but many wide: the four
+// squarings of a doubling do not depend on each other, nor do its four
+// products, nor the four first and four last products of an addition.  One
+// thread runs them one after another all the same (ge_dbl is 4 fe_sqr + 4
+// fe_mul deep, ge_add 9 fe_mul), and where a kernel is a chain of dependent
+// point operations (the Horner doublings, a fold's tree) that depth is its
+// time.  ge_dbl4 and ge_add4 give one point to a group of four adjacent lanes
+// (lane & 3 = c) and let lane c run a whole, different field operation of
+// each phase: SIMT runs the four in one instruction slot, so a doubling is
+// 1 fe_sqr + 1 fe_mul deep and an addition 3 fe_mul.  Same formulas as ge_dbl
+// and ge_add, so the same projective coordinates come out.
+//
+// Layout: lane c holds coordinate c of (X, Y, Z, T), one fe, and not the
+// whole point.  Holding all 32 words in every lane would save the exchange
+// before phase 1 (16 shuffles) but would need the four results spread to all
+// four lanes after the last phase (32), and a tree level would move 32 words
+// between groups instead of 8; it would also hold 24 more registers a lane.
+// A doubling exchanges 48 words a lane and an addition 40.
+//
+// Exchanges are warp shuffles of the 8 words of an fe with the full mask
+// (an exchange through shared memory and __syncwarp measured 4-10% slower an
+// operation on a probe): every lane of the warp must call these functions
+// together, in uniform control flow.  Groups with nothing to do carry the
+// identity (ge4_identity) or keep their value behind a select, and store
+// nothing.
+// ops/pfield.py (pdbl4, padd4) runs the same lane schedule on torch tensors.
+
+// Lane `src` of the warp's v (each lane names its own source): 8 shuffles.
+__device__ __forceinline__ fe fe_from_lane(const fe &v, int src) {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r.w[k] = __shfl_sync(0xFFFFFFFFu, v.w[k], src);
+    return r;
+}
+
+// Coordinate c of the identity (0 : 1 : 1 : 0).
+__device__ __forceinline__ fe ge4_identity(int c) {
+    fe r = fe_zero();
+    r.w[0] = (c == 1 || c == 2) ? 1u : 0u;
+    return r;
+}
+
+// dbl-2008-hwcd for a = -1 over four lanes; v is this lane's coordinate.
+__device__ __forceinline__ fe ge_dbl4(const fe &v) {
+    const int lane = threadIdx.x & 31, c = lane & 3, base = lane & 28;
+    // exchange 1: X from lane 0 and Y from lane 1; only lane 3 uses them, for X + Y
+    const fe px = fe_from_lane(v, base), py = fe_from_lane(v, base + 1);
+    // phase 1: lane 0 A = X^2, lane 1 B = Y^2, lane 2 Z^2, lane 3 (X + Y)^2
+    const fe sq = fe_sqr(fe_select(c == 3, fe_add(px, py), v));
+    // exchange 2: every lane takes all four squares and forms E, F, G, H as ge_dbl does
+    const fe a = fe_from_lane(sq, base), b = fe_from_lane(sq, base + 1);
+    const fe zz = fe_from_lane(sq, base + 2), xy2 = fe_from_lane(sq, base + 3);
+    const fe cc = fe_add(zz, zz);
+    const fe ab = fe_add(a, b);
+    const fe e = fe_sub(xy2, ab);
+    const fe g = fe_sub(b, a);
+    const fe f = fe_sub(g, cc);
+    const fe h = fe_neg(ab);
+    // phase 2: lane 0 X3 = E F, lane 1 Y3 = G H, lane 2 Z3 = G F, lane 3 T3 = E H
+    return fe_mul(fe_select(c == 0 || c == 3, e, g), fe_select((c & 1) != 0, h, f));
+}
+
+// add-2008-hwcd-3 for a = -1 over four lanes; p and q are this lane's
+// coordinates of the two points.  Beside the products a lone warp pays about
+// a nanosecond for every instruction, so the additions and subtractions
+// (some 20 instructions each) are shared out too: four of them (sub, add,
+// sub, add) on operands that differ by lane, where one thread's ge_add runs
+// nine, at the price of three short exchanges more; and the factor 2 of D
+// goes through the multiplier of phase 2, which every lane runs anyway.
+// (The same sharing in ge_dbl4 measured no faster: it trades three of six
+// chains for as many selects and a third dependent exchange.)
+__device__ __forceinline__ fe ge_add4(const fe &p, const fe &q) {
+    const int lane = threadIdx.x & 31, c = lane & 3, base = lane & 28;
+    const bool odd = (c & 1) != 0;
+    // exchange 1: lane 0 takes Y1 from lane 1, lane 1 takes X2 from lane 0 (lanes 2 and 3 mirror them and
+    // ignore it), so that lane 0 holds X1 and Y1, lane 1 X2 and Y2
+    const fe got = fe_from_lane(fe_select(odd, p, q), lane ^ 1);
+    const fe xx = fe_select(odd, got, p), yy = fe_select(odd, q, got);
+    // sub, add: lane 0 Y1 - X1 and Y1 + X1, lane 1 Y2 - X2 and Y2 + X2
+    const fe diff = fe_sub(yy, xx), sum = fe_add(yy, xx);
+    // exchange 2: lane 0 takes Y2 - X2 from lane 1, lane 1 takes Y1 + X1 from lane 0
+    const fe other = fe_from_lane(fe_select(odd, diff, sum), lane ^ 1);
+    // phase 1: lane 0 A = (Y1 - X1)(Y2 - X2), lane 1 B = (Y1 + X1)(Y2 + X2), lane 2 Z1 Z2, lane 3 T1 T2
+    const fe m = fe_mul(fe_select(c == 0, diff, fe_select(c == 1, other, p)),
+                        fe_select(c == 0, other, fe_select(c == 1, sum, q)));
+    // phase 2: lane 2 D = 2 Z1 Z2, lane 3 C = 2d T1 T2; lanes 0 and 1 multiply by 1, which changes no word
+    fe k = fe_one();
+    k.w[0] = c == 2 ? 2u : 1u;
+    const fe m2 = fe_mul(m, fe_select(c == 3, fe_d2(), k));
+    // exchange 3: lanes 0 and 1 swap A and B, lanes 2 and 3 D and C
+    const fe partner = fe_from_lane(m2, lane ^ 1);
+    const bool holds_hi = c == 1 || c == 2;  // B and D are the minuends
+    const fe hi = fe_select(holds_hi, m2, partner), lo = fe_select(holds_hi, partner, m2);
+    // sub, add: lanes 0 and 1 E = B - A and H = B + A, lanes 2 and 3 F = D - C and G = D + C
+    const fe d = fe_sub(hi, lo), s = fe_add(hi, lo);
+    // exchange 4: lane 1 takes F from lane 3, lane 3 takes H from lane 1
+    const fe far = fe_from_lane(fe_select(c < 2, s, d), lane ^ 2);
+    // phase 3: lane 0 T3 = E H, lane 1 X3 = E F, lane 2 Z3 = F G, lane 3 Y3 = G H
+    const fe r = fe_mul(fe_select(c == 3, s, d), fe_select(odd, far, s));
+    // exchange 5: back to (X, Y, Z, T): lane 0 from lane 1, lane 1 from lane 3, lane 3 from lane 0
+    return fe_from_lane(r, base + (c == 0 ? 1 : c == 1 ? 3 : c == 2 ? 2 : 0));
+}
+
+// The sum of the points that the warp's lane groups hold, left in every
+// group: levels at distances of 1, 2 and 4 groups, as many as `n_groups` (a
+// power of two) asks for.
+__device__ __forceinline__ fe ge4_warp_sum(fe acc, int n_groups) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll 1
+    for (int s = 1; s < n_groups && s < 8; s <<= 1) {
+        const fe other = fe_from_lane(acc, lane ^ (4 * s));
+        acc = ge_add4(acc, other);
+    }
+    return acc;
+}
+
 // Radix-2^16 int64 limbs -> words.  Limb i of the element sits at
 // base[i * limb_stride].
 __device__ __forceinline__ fe fe_load(const int64_t *__restrict__ base, long limb_stride) {
@@ -462,6 +582,15 @@ __device__ __forceinline__ void ge_store(int64_t *__restrict__ base, long coord_
 // Eight packed words (32-byte aligned) as two 16-byte accesses.
 __device__ __forceinline__ fe fe_load_words(const uint4 *__restrict__ v) {
     const uint4 lo = __ldg(v), hi = __ldg(v + 1);
+    fe r;
+    r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
+    r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
+    return r;
+}
+
+// The same from shared memory, which the read-only path of __ldg does not serve.
+__device__ __forceinline__ fe fe_load_words_shared(const uint4 *v) {
+    const uint4 lo = v[0], hi = v[1];
     fe r;
     r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
     r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;

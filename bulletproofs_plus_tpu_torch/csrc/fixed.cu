@@ -13,8 +13,8 @@
 // outside the kernels.  Here blocks run in no order, so a K5 thread owns one
 // (row, lane, window range), walks its windows in a loop with the
 // accumulator in registers and writes one partial; K6 gives each (row,
-// group) a block that sums that group's partials with a shared-memory tree,
-// which also takes over the sum across lane chunks.
+// group) a block that sums that group's partials with a tree of four-lane
+// additions, which also takes over the sum across lane chunks.
 //
 // Table: T[w, d, lane] = d * 16^w * P_lane, stored as the affine point in
 // the form the addition consumes: (y + x, y - x, 2d x y), canonical, 24
@@ -52,7 +52,7 @@
 #define POINT_WORDS 32
 #define ACC_THREADS 128
 #define ACC_MIN_BLOCKS 4  // blocks an SM: caps the kernel at 65536 / (4 * 128) = 128 registers
-#define FOLD_THREADS 128
+#define FOLD_MAX_THREADS 512
 
 __device__ __forceinline__ gn gn_load_words(const u32 *__restrict__ entry) {
     const uint4 *v = reinterpret_cast<const uint4 *>(entry);
@@ -95,38 +95,70 @@ __global__ void __launch_bounds__(ACC_THREADS, ACC_MIN_BLOCKS)
     ge_store_words(out + ((row * wsplit + q) * s + pos) * POINT_WORDS, acc);
 }
 
+// Coordinate c of partial i of a block's `count` (range i / per, lane i % per of the group), or of the
+// identity past the count; `mine` points at coordinate c of the row's first partial.
+__device__ __forceinline__ fe fold_partial(const u32 *__restrict__ mine, int i, int count, int per, int s,
+                                           int lane0, int c) {
+    if (i >= count) return ge4_identity(c);
+    const long at = (long)(i / per) * s + lane0 + i % per;
+    return fe_load_words(reinterpret_cast<const uint4 *>(mine + at * POINT_WORDS));
+}
+
 // parts: (f, wsplit * s, 32) words -> out: (4, 16, f, groups) int64 limbs;
 // block (row, group) sums the partials of lanes [group * s / groups,
 // (group + 1) * s / groups) over all window ranges.
-__global__ void __launch_bounds__(FOLD_THREADS) fixed_fold_kernel(const u32 *__restrict__ parts,
-                                                                  int64_t *__restrict__ out, long f, long s,
-                                                                  long groups, int wsplit) {
-    __shared__ u32 sh[FOLD_THREADS * GE_SMEM_STRIDE];
-    const int tid = threadIdx.x;
+//
+// What bounds it: a block's sum is a chain of dependent additions (its rate
+// and byte bounds are 6 to 30 times lower), so the design shortens each
+// addition and the chain.  Additions are ge_add4 of field25519.cuh, 3 fe_mul
+// deep instead of 9: a group of four lanes is one adder, lane c holding
+// coordinate c, and a block of T threads has T / 4 adders.  Adder a loads
+// partial a (a 32-byte piece of the point's 128-byte line a lane) and adds
+// partials a + T / 4, a + 2 T / 4, ... to it; then a tree sums the adders,
+// first across the warps through shared memory (adder k of a warp to adder k
+// of another: every lane of a warp that adds has work, where a tree inside
+// each warp would leave half, then three quarters, of them idle), then
+// three levels inside warp 0 by shuffles.  The block is not short of
+// latency alone: at the prover's wide shapes its warps also queue for the
+// schedulers' multiplier, so an addition that half the lanes waste costs
+// time.  Adders past the count hold the identity, and a warp all of whose
+// adders do skips the loop's additions (the condition is the same for its
+// 32 lanes, so the shuffles still find whole warps).  The wrapper
+// sizes the block from the count of partials a block sums and the number of
+// blocks.
+__global__ void __launch_bounds__(FOLD_MAX_THREADS, 1) fixed_fold_kernel(const u32 *__restrict__ parts,
+                                                                         int64_t *__restrict__ out, long f, long s,
+                                                                         long groups, int wsplit) {
+    __shared__ __align__(16) u32 sh[(FOLD_MAX_THREADS / 32) * 32 * 8];  // a coordinate a lane
+    const int tid = threadIdx.x, lane = tid & 31, c = tid & 3, warp = tid >> 5;
+    const int a = tid >> 2, adders = blockDim.x >> 2, first_of_warp = a & ~7;
     const long row = blockIdx.x / groups;
-    const long grp = blockIdx.x % groups;
-    const long per = s / groups;
-    const long count = wsplit * per;
-    const u32 *row_parts = parts + row * wsplit * s * POINT_WORDS;
-    ge acc = ge_identity();  // threads past `count` contribute the identity
+    const int grp = (int)(blockIdx.x % groups);
+    const int per = (int)(s / groups);
+    const int count = wsplit * per;
+    const u32 *mine = parts + row * wsplit * s * POINT_WORDS + c * 8;  // coordinate c of the row's partials
+    // the first partial is loaded, not added to the identity; each next one is in flight while an addition runs
+    fe acc = fold_partial(mine, a, count, per, (int)s, grp * per, c);
+    fe part = fold_partial(mine, adders + a, count, per, (int)s, grp * per, c);
 #pragma unroll 1
-    for (long i = tid; i < count; i += FOLD_THREADS) {
-        const long at = (i / per) * s + grp * per + (i % per);
-        acc = ge_add(acc, ge_load_words(row_parts + at * POINT_WORDS));
+    for (int i0 = adders; i0 + first_of_warp < count; i0 += adders) {  // until the whole warp is past the count
+        const fe next = fold_partial(mine, i0 + adders + a, count, per, (int)s, grp * per, c);
+        acc = ge_add4(acc, part);
+        part = next;
     }
-    int width = 1;  // tree width: the power of two covering the threads that hold a partial
-    while (width < count && width < FOLD_THREADS) width <<= 1;
-    ge_to_smem(&sh[tid * GE_SMEM_STRIDE], acc);
-    __syncthreads();
-#pragma unroll 1
-    for (int h = width / 2; h > 0; h >>= 1) {
-        if (tid < h) {
-            acc = ge_add(acc, ge_from_smem(&sh[(tid + h) * GE_SMEM_STRIDE]));
-            ge_to_smem(&sh[tid * GE_SMEM_STRIDE], acc);
-        }
+    int n = 1;  // adders the tree sums: the power of two covering those that hold a partial
+    while (n < count && n < adders) n <<= 1;
+    // Across the warps first, adder k of one warp to adder k of another, so that all eight adders of a warp
+    // that adds have work; only then the three levels inside warp 0, where they thin out.
+    for (int w = n >> 4; w >= 1; w >>= 1) {  // n / 8 warps hold partials; the upper half hands its sums down
+        if (warp >= w && warp < 2 * w) fe_store_words(reinterpret_cast<uint4 *>(sh + (warp * 32 + lane) * 8), acc);
         __syncthreads();
+        if (warp < w) {
+            acc = ge_add4(acc, fe_load_words_shared(reinterpret_cast<const uint4 *>(sh + ((warp + w) * 32 + lane) * 8)));
+        }
     }
-    if (tid == 0) ge_store(out + row * groups + grp, 16 * f * groups, f * groups, acc);
+    if (warp == 0) acc = ge4_warp_sum(acc, n);
+    if (tid < 4) fe_store(out + c * 16 * f * groups + row * groups + grp, f * groups, acc);
 }
 
 extern "C" const char *bppt_fixed_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
@@ -142,10 +174,12 @@ extern "C" int bppt_fixed_acc(const void *table, const void *lane_idx, const voi
     return (int)cudaGetLastError();
 }
 
-// parts: int32 words; out: int64.
+// parts: int32 words; out: int64.  threads: the block size, a power of two from 32 to 512 (four lanes an
+// adder; the tree halves the adders, so no other size sums right); any other is refused.
 extern "C" int bppt_fixed_fold(const void *parts, void *out, long f, long s, long groups, long wsplit,
-                               void *stream) {
-    fixed_fold_kernel<<<(unsigned)(f * groups), FOLD_THREADS, 0, (cudaStream_t)stream>>>(
+                               long threads, void *stream) {
+    if (threads < 32 || threads > FOLD_MAX_THREADS || (threads & (threads - 1))) return (int)cudaErrorInvalidValue;
+    fixed_fold_kernel<<<(unsigned)(f * groups), (unsigned)threads, 0, (cudaStream_t)stream>>>(
         (const u32 *)parts, (int64_t *)out, f, s, groups, (int)wsplit);
     return (int)cudaGetLastError();
 }

@@ -24,8 +24,9 @@
 // and adds the 16 selected entries.  Table entries are padded to 33 words,
 // so threads reading different digits hit different banks.  K2 gives each
 // window a block that sums the K1 partials with a shared-memory tree.  K3 is
-// one block: thread j doubles W_j 4j times (at most 252 doublings, the
-// chain Horner needs anyway), then a 6-level tree sums the 64 terms.
+// one block on the four-lane point operations of field25519.cuh: a group of
+// four lanes doubles its windows' term up to 252 times (the chain Horner
+// needs anyway), then a tree sums the groups; see horner_kernel.
 
 #include "field25519.cuh"
 
@@ -192,28 +193,42 @@ __global__ void __launch_bounds__(FOLD_THREADS) lane_fold_kernel(const int64_t *
     if (tid == 0) ge_store(out + w, 16 * N_WINDOWS, N_WINDOWS, acc);
 }
 
+#define HORNER_CHUNK 8                              // neighbouring windows a lane group
+#define HORNER_GROUPS (N_WINDOWS / HORNER_CHUNK)    // eight groups of four lanes: one warp
+
 // wsum: (4, 16, 64) window sums W_j, LSB window first -> out: (4, 16, 1) = sum_j 16^j W_j.
-// One block for the whole card, so it is given every register it can use:
-// with a minimum of one block an SM ptxas keeps the doubling's values in
-// registers, where its own choice of 96 spilled some.
-__global__ void __launch_bounds__(N_WINDOWS, 1) horner_kernel(const int64_t *__restrict__ wsum,
-                                                           int64_t *__restrict__ out) {
-    __shared__ u32 sh[N_WINDOWS * GE_SMEM_STRIDE];
-    const int j = threadIdx.x;
-    ge acc = ge_load(wsum + j, 16 * N_WINDOWS, N_WINDOWS);
+//
+// What bounds it: the 252 doublings that 16^63 W_63 needs from a point known
+// only at run time, one after another; beside them the work is nothing (its
+// rate bound is some 16 ns).  So the design shortens each doubling and keeps
+// everything else off its path.  One warp: the 64 windows are cut into eight
+// chunks of eight neighbours, a chunk to a group of four lanes (ge_dbl4,
+// ge_add4: a doubling 1 fe_sqr + 1 fe_mul deep instead of 4 + 4).  Group g
+// runs Horner's rule over its own windows from the top (seven times four
+// doublings and an addition), doubles the result 32 g times, and three tree
+// levels by shuffles sum the groups: 28 + 224 doublings and 7 + 3 additions
+// deep.  Every group loops to the longest count and the shorter ones keep
+// their value behind a select, so that the shuffles always find the whole
+// warp.  More warps shorten the additions (four warps: 1 + 5 deep) but read
+// no faster: they need shared memory and a barrier, and the compiler guards
+// every shuffle of a block whose warps part ways with a WARPSYNC.
+__global__ void __launch_bounds__(4 * HORNER_GROUPS, 1)
+    horner_kernel(const int64_t *__restrict__ wsum, int64_t *__restrict__ out) {
+    const int tid = threadIdx.x, c = tid & 3;
+    const int g = tid >> 2;  // this group's chunk
+    const int64_t *mine = wsum + c * 16 * N_WINDOWS + g * HORNER_CHUNK;  // coordinate c of the chunk's windows
+    fe acc = fe_load(mine + HORNER_CHUNK - 1, N_WINDOWS);
 #pragma unroll 1
-    for (int i = 0; i < 4 * j; ++i) acc = ge_dbl(acc);
-    ge_to_smem(&sh[j * GE_SMEM_STRIDE], acc);
-    __syncthreads();
+    for (int i = HORNER_CHUNK - 2; i >= 0; --i) {
 #pragma unroll 1
-    for (int s = N_WINDOWS / 2; s > 0; s >>= 1) {
-        if (j < s) {
-            acc = ge_add(acc, ge_from_smem(&sh[(j + s) * GE_SMEM_STRIDE]));
-            ge_to_smem(&sh[j * GE_SMEM_STRIDE], acc);
-        }
-        __syncthreads();
+        for (int k = 0; k < 4; ++k) acc = ge_dbl4(acc);
+        acc = ge_add4(acc, fe_load(mine + i, N_WINDOWS));
     }
-    if (j == 0) ge_store(out, 16, 1, acc);
+    const int own = 4 * HORNER_CHUNK * g;
+#pragma unroll 1
+    for (int i = 0; i < 4 * HORNER_CHUNK * (HORNER_GROUPS - 1); ++i) acc = fe_select(i < own, ge_dbl4(acc), acc);
+    acc = ge4_warp_sum(acc, HORNER_GROUPS);
+    if (tid < 4) fe_store(out + c * 16, 1, acc);
 }
 
 extern "C" const char *bppt_msm_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
@@ -238,6 +253,6 @@ extern "C" int bppt_lane_fold(const void *parts, void *out, long nb, void *strea
 }
 
 extern "C" int bppt_horner(const void *wsum, void *out, void *stream) {
-    horner_kernel<<<1, N_WINDOWS, 0, (cudaStream_t)stream>>>((const int64_t *)wsum, (int64_t *)out);
+    horner_kernel<<<1, 4 * HORNER_GROUPS, 0, (cudaStream_t)stream>>>((const int64_t *)wsum, (int64_t *)out);
     return (int)cudaGetLastError();
 }

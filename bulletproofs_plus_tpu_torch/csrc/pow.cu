@@ -43,7 +43,8 @@
 //
 // `field_mul_latency_kernel` and `field_sqr_latency_kernel` are the probe
 // behind the `chain_ms` figures: every warp of one block runs a chain of
-// dependent fe_mul or fe_sqr.
+// dependent fe_mul or fe_sqr.  The `point*_latency_kernel`s do the same for
+// the point operations, one lane a point and four lanes a point.
 
 #include "field25519.cuh"
 
@@ -243,6 +244,32 @@ __global__ void __launch_bounds__(1024) field_sqr_latency_kernel(const int64_t *
     field_latency_chain<true>(x, out, iters);
 }
 
+// The same probe for the point operations: every thread of one block runs
+// `iters` dependent doublings (acc <- 2 acc) or additions (acc <- acc + p)
+// from p, (4, 16) limbs, and the chain's end goes to out.  In the one-lane
+// form a thread runs ge_dbl or ge_add on a whole point; in the four-lane
+// form a group of four lanes runs ge_dbl4 or ge_add4 on a coordinate each.
+template <bool ADD>
+__global__ void __launch_bounds__(1024) point_latency_kernel(const int64_t *__restrict__ p,
+                                                            int64_t *__restrict__ out, int iters) {
+    const ge start = ge_load(p, 16, 1);
+    ge acc = start;
+#pragma unroll 1
+    for (int i = 0; i < iters; ++i) acc = ADD ? ge_add(acc, start) : ge_dbl(acc);
+    if (threadIdx.x == 0) ge_store(out, 16, 1, acc);
+}
+
+template <bool ADD>
+__global__ void __launch_bounds__(1024) point4_latency_kernel(const int64_t *__restrict__ p,
+                                                             int64_t *__restrict__ out, int iters) {
+    const int c = threadIdx.x & 3;
+    const fe start = fe_load(p + c * 16, 1);
+    fe acc = start;
+#pragma unroll 1
+    for (int i = 0; i < iters; ++i) acc = ADD ? ge_add4(acc, start) : ge_dbl4(acc);
+    if (threadIdx.x < 4) fe_store(out + c * 16, 1, acc);
+}
+
 extern "C" const char *bppt_pow_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
 // Lanes an element: what the caller asks for (1 or 4), or by the count.
@@ -289,6 +316,24 @@ extern "C" int bppt_field_latency(const void *x, void *out, long op, long iters,
     } else {
         field_sqr_latency_kernel<<<1, threads, 0, (cudaStream_t)stream>>>((const int64_t *)x, (int64_t *)out,
                                                                           (int)iters);
+    }
+    return (int)cudaGetLastError();
+}
+
+// One block of `warps` warps (1 to 32), every thread (or group of four lanes) the same chain of point
+// operations.  op: 0 ge_dbl, 1 ge_add, 2 ge_dbl4, 3 ge_add4.
+extern "C" int bppt_point_latency(const void *p, void *out, long op, long iters, long warps, void *stream) {
+    const unsigned threads = 32u * (unsigned)warps;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int64_t *in = (const int64_t *)p;
+    int64_t *o = (int64_t *)out;
+    const int n = (int)iters;
+    switch (op) {
+        case 0: point_latency_kernel<false><<<1, threads, 0, st>>>(in, o, n); break;
+        case 1: point_latency_kernel<true><<<1, threads, 0, st>>>(in, o, n); break;
+        case 2: point4_latency_kernel<false><<<1, threads, 0, st>>>(in, o, n); break;
+        case 3: point4_latency_kernel<true><<<1, threads, 0, st>>>(in, o, n); break;
+        default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }

@@ -42,13 +42,14 @@ LIBRARIES = {
             "bppt_pow_p58": [_VP, _VP, _LONG, _LONG, _VP],
             "bppt_sqrt_ratio_m1": [_VP, _LONG, _VP, _VP, _VP, _LONG, _LONG, _VP],
             "bppt_field_latency": [_VP, _VP, _LONG, _LONG, _LONG, _VP],
+            "bppt_point_latency": [_VP, _VP, _LONG, _LONG, _LONG, _VP],
         },
     ),
     "fixed": (
         "fixed.cu",
         {
             "bppt_fixed_acc": [_VP, _VP, _VP, _VP, _LONG, _LONG, _LONG, _LONG, _VP],
-            "bppt_fixed_fold": [_VP, _VP, _LONG, _LONG, _LONG, _LONG, _VP],
+            "bppt_fixed_fold": [_VP, _VP, _LONG, _LONG, _LONG, _LONG, _LONG, _VP],
         },
     ),
 }

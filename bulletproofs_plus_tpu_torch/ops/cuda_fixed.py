@@ -36,8 +36,10 @@ N_DIGITS = 16
 ENTRY_WORDS = 24  # packed 32-bit words per table entry: y + x, y - x, 2d x y
 POINT_WORDS = 32  # packed 32-bit words per partial point: x, y, z, t
 WSPLITS = (4, 8, 16)  # window splits the wrapper picks from; the kernels take any power of two up to 64
-# Threads K5 keeps resident on an H100: 132 SMs x 4 blocks x 128 threads (csrc/fixed.cu).
-RESIDENT_THREADS = 132 * 4 * 128
+FOLD_THREADS = (128, 256, 512)  # K6's block sizes: a quarter as many four-lane adders
+N_SMS = 132  # streaming multiprocessors of an H100
+# Threads K5 keeps resident: 4 blocks of 128 threads an SM (csrc/fixed.cu).
+RESIDENT_THREADS = N_SMS * 4 * 128
 
 
 def pick_wsplit(rows: int, lanes: int) -> int:
@@ -47,6 +49,17 @@ def pick_wsplit(rows: int, lanes: int) -> int:
     that does not fit."""
     fitting = [w for w in WSPLITS if rows * lanes * w <= RESIDENT_THREADS]
     return max(fitting) if fitting else min(WSPLITS)
+
+
+def pick_fold_threads(count: int, blocks: int) -> int:
+    """K6's block size for `blocks` blocks of `count` partials each: a
+    quarter as many four-lane adders.  Few partials take a small block (a
+    shallow tree, no idle warps); many take the largest where every block
+    has an SM of its own, since more blocks than SMs queue for the
+    multipliers and gain nothing from wider blocks."""
+    if count <= 32:
+        return 128
+    return 512 if count > 256 and blocks <= N_SMS else 256
 
 
 def words_to_limbs(words: torch.Tensor) -> torch.Tensor:
@@ -152,10 +165,14 @@ def fixed_acc(table: torch.Tensor, lane_idx: torch.Tensor, scalars_t: torch.Tens
     return out
 
 
-def fixed_fold(parts: torch.Tensor, groups: int, wsplit: int) -> torch.Tensor:
+def fixed_fold(parts: torch.Tensor, groups: int, wsplit: int, threads: int | None = None) -> torch.Tensor:
     """K6: (F, wsplit * S, 32) partial words -> (4, 16, F, groups) points; S
-    must split into `groups` equal contiguous lane groups."""
+    must split into `groups` equal contiguous lane groups.  `threads` forces
+    the kernel's block size (one of `FOLD_THREADS`); by default
+    `pick_fold_threads` takes it from the shape."""
     _check_wsplit(wsplit)
+    if threads is not None and threads not in FOLD_THREADS:
+        raise ValueError(f"fixed_fold: expected one of {FOLD_THREADS} threads a block, got {threads!r}")
     if (groups < 1 or parts.dim() != 3 or parts.shape[2] != POINT_WORDS or parts.shape[1] % (wsplit * groups)
             or 0 in parts.shape):
         raise ValueError(f"fixed_fold: partials {tuple(parts.shape)} do not split into {wsplit} ranges of {groups} groups")
@@ -167,7 +184,9 @@ def fixed_fold(parts: torch.Tensor, groups: int, wsplit: int) -> torch.Tensor:
     out = torch.empty((4, NLIMBS, f, groups), dtype=torch.int64, device=parts.device)
     with torch.cuda.device(parts.device):
         status = cuda.lib("fixed").bppt_fixed_fold(
-            parts.data_ptr(), out.data_ptr(), f, s, groups, wsplit, torch.cuda.current_stream().cuda_stream
+            parts.data_ptr(), out.data_ptr(), f, s, groups, wsplit,
+            threads or pick_fold_threads(wsplit * s // groups, f * groups),
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda.check("fixed", status, "fixed_fold")
     cuda.launches["fixed_fold"] += 1

@@ -37,6 +37,7 @@ TILE = 16  # lanes per K1 block (csrc/msm.cu)
 N_WINDOWS = 64
 N_DIGITS = 16
 _PLAIN_CHUNK_TILES = 16  # tiles per step of dyn_acc_plain: bounds its memory
+HORNER_GROUPS = 8  # K3's groups of four lanes, eight windows each (csrc/msm.cu): one warp
 
 
 def coords_t(points: PointArray) -> torch.Tensor:

@@ -12,7 +12,7 @@ element and four lanes an element; the launcher takes the second up to 4224
 elements, where it is faster, and `lanes=` forces either.  There are no
 fallbacks: the kernels run for every CUDA input.  `field_latency_probe`
 launches the one-warp chain of dependent multiplications or squarings that
-chip_smoke.py times.
+chip_smoke.py times, `point_latency_probe` the chains of point operations.
 """
 
 from __future__ import annotations
@@ -111,4 +111,27 @@ def field_latency_probe(x: torch.Tensor, op: str, iters: int, warps: int = 1) ->
             torch.cuda.current_stream().cuda_stream,
         )
     cuda.check("pow", status, "field_latency_probe")
+    return out
+
+
+POINT_PROBE_OPS = ("dbl", "add", "dbl4", "add4")
+
+
+def point_latency_probe(p: torch.Tensor, op: str, iters: int, warps: int = 1) -> torch.Tensor:
+    """The same for the point operations of csrc/field25519.cuh: `iters`
+    dependent doublings (acc <- 2 acc) or additions (acc <- acc + p) from p,
+    (4, 16) int64 limbs on a CUDA device; returns the chain's end, 2^iters p
+    or (iters + 1) p.  "dbl" and "add" run ge_dbl and ge_add, a thread a
+    point; "dbl4" and "add4" run ge_dbl4 and ge_add4, four lanes a point.
+    Counts no launch."""
+    cuda.require(p, "point_latency_probe p", (4, NLIMBS))
+    if not 1 <= warps <= 32:
+        raise ValueError("point_latency_probe: 1 to 32 warps")
+    out = torch.empty_like(p)
+    with torch.cuda.device(p.device):
+        status = cuda.lib("pow").bppt_point_latency(
+            p.data_ptr(), out.data_ptr(), POINT_PROBE_OPS.index(op), iters, warps,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda.check("pow", status, "point_latency_probe")
     return out

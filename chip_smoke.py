@@ -38,14 +38,19 @@ addition for each other, and reads the lanes' table entries, the scalars and
 the lane map once; K6 the additions of its tree; K7 as K1 with 7 table
 operations for each lane instead of 14.
 
-`chain_ms`, on the rows where few threads run long chains (K3, K4, K5 and K6
-at the Pedersen shape), is the other floor: the field multiplications and
-squarings that the busiest thread runs one after another, each at the
-dependent latency that the one-warp probe measured in this run
-(`fe_mul_ns`, `fe_sqr_ns`).  It is what the kernel takes if nothing
-overlaps within a thread; `bound_ms` stays the rate bound.  The same rows
-carry `graph_ms`, the launch's time replayed from a CUDA graph: `ms` times
-the wrapper called back to back, and below some 0.02 ms that is the host.
+`chain_ms`, on the rows where few threads run long chains (K3, K4, K5 and
+K6), is the other floor: the field multiplications and squarings that lie
+one after another on the kernel's longest path, each at the dependent
+latency that the one-warp probe measured in this run (`fe_mul_ns`,
+`fe_sqr_ns`).  K3 and K6 spread a point operation over four lanes
+(ge_dbl4, ge_add4: a doubling is a squaring and a multiplication deep, an
+addition three multiplications), and their `serial_chain_ms` is the figure
+of the one-thread design they replaced (4 + 4 and 9 deep).  `bound_ms`
+stays the rate bound.  Every row carries `graph_ms`, the launch's time
+replayed from a CUDA graph: `ms` times the wrapper called back to back, and
+below some 0.02 ms that is the host.  The probe also times the point
+operations themselves for one warp (`ge_dbl_ns`, `ge_add_ns`, `ge_dbl4_ns`,
+`ge_add4_ns`), their chains' ends checked against the host's integers.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 MULADDS_PER_FMUL = 128
 MULADDS_PER_FSQR = 72
 FMUL_PER_ADD, FMUL_PER_MIXED_ADD = 9, 7
+FMUL_DEEP_ADD4 = 3  # an addition spread over four lanes (ge_add4): three multiplications one after another
 DBL_FMUL, DBL_FSQR = 4, 4
 POW_SQR, POW_MUL = 251, 11  # the x^((p-5)/8) addition chain
 RATIO_SQR, RATIO_MUL = 3, 8  # SQRT_RATIO_M1 around the chain: v^3, v^7, u v^3, u v^7, r, v r^2, two by sqrt(-1)
@@ -217,7 +223,7 @@ def _rand_points(torch, ed, hr, n: int, rs: random.Random, dev):
 
 def _affine(F, torch, coords):
     """(4, 16, ...) points -> canonical affine (x, y) limbs, for exact comparison."""
-    zinv = F.pow25519(coords[2].movedim(0, -1), F.P - 2)
+    zinv = F.inv25519(coords[2].movedim(0, -1))
     x = F.canon25519(F.mul25519(coords[0].movedim(0, -1), zinv))
     y = F.canon25519(F.mul25519(coords[1].movedim(0, -1), zinv))
     return torch.stack([x, y])
@@ -229,7 +235,8 @@ def _point_err(F, torch, got, want) -> float:
 
 def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int, probe: dict) -> dict:
     """K5 and K6 on one shape against their plain versions, at the window
-    split the wrapper picks, then both timed at every split: {kernel: row}."""
+    split the wrapper picks (K6 at every block size there, and once at
+    another split), then both timed at every split: {kernel: row}."""
     sc_t = scalars.movedim(-1, 0).contiguous()  # (16, f, s)
     _, f, s = sc_t.shape
     wsplit = cf.pick_wsplit(f, s)
@@ -238,12 +245,18 @@ def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int, probe: dic
         raise AssertionError(f"fixed_acc did not split {wsplit} ways: {tuple(parts.shape)}")
     want = cf.fixed_acc_plain(tables, lane_idx, sc_t, wsplit)
     err5 = _point_err(F, torch, cf.words_to_coords(parts), cf.words_to_coords(want))
-    out = cf.fixed_fold(parts, groups, wsplit)
-    err6 = _point_err(F, torch, out, cf.fixed_fold_plain(parts, groups, wsplit))
+    want6 = cf.fixed_fold_plain(parts, groups, wsplit)
+    other = next(w for w in cf.WSPLITS if w != wsplit)  # a split the wrapper does not pick here
+    parts_other = cf.fixed_acc(tables, lane_idx, sc_t, other)
+    err6 = max(
+        _point_err(F, torch, torch.stack([cf.fixed_fold(parts, groups, wsplit)]
+                                         + [cf.fixed_fold(parts, groups, wsplit, threads=t) for t in cf.FOLD_THREADS],
+                                         dim=-1), want6[..., None]),
+        _point_err(F, torch, cf.fixed_fold(parts_other, groups, other), cf.fixed_fold_plain(parts_other, groups, other)))
     for name, err in (("fixed_acc", err5), ("fixed_fold", err6)):
         if err != 0:
-            raise AssertionError(f"{name} (rows {f}, lanes {s}, groups {groups}) disagrees with its plain version "
-                                 f"(max_abs_err {err})")
+            raise AssertionError(f"{name} (rows {f}, lanes {s}, groups {groups}; fixed_fold at {cf.FOLD_THREADS} threads "
+                                 f"and at split {other} too) disagrees with its plain version (max_abs_err {err})")
     wpt = cf.N_WINDOWS // wsplit
     n_parts = f * wsplit * s
     b5 = bound_ms(cf.N_WINDOWS * cf.N_DIGITS * s * ENTRY_BYTES + f * s * LIMB_BYTES + 8 * s + n_parts * PART_BYTES,
@@ -256,11 +269,18 @@ def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int, probe: dic
         by_split[w] = {"fixed_acc_ms": kernel_ms(lambda: cf.fixed_acc(tables, lane_idx, sc_t, w)),
                        "fixed_fold_ms": kernel_ms(lambda: cf.fixed_fold(p_w, groups, w)),
                        "fixed_acc_graph_ms": graph_ms(lambda: cf.fixed_acc(tables, lane_idx, sc_t, w)),
-                       "fixed_fold_graph_ms": graph_ms(lambda: cf.fixed_fold(p_w, groups, w))}
-    # one thread's chain: K5 a multiplication and wpt - 1 mixed additions; K6 its loop's additions, then the tree
+                       "fixed_fold_graph_ms": graph_ms(lambda: cf.fixed_fold(p_w, groups, w)),
+                       "fixed_fold_threads": cf.pick_fold_threads(w * s // groups, f * groups)}
+        if w == wsplit:  # every block size timed at the split the wrapper picks
+            by_split[w]["fixed_fold_graph_ms_by_threads"] = {
+                t: graph_ms(lambda: cf.fixed_fold(p_w, groups, w, threads=t)) for t in cf.FOLD_THREADS}
+    # the longest chain: K5 a multiplication and wpt - 1 mixed additions in a thread; K6 an adder's loop
+    # additions, then the tree's levels, each 3 multiplications deep over four lanes (9 in one thread, as
+    # `serial_chain_ms` counts them for the one-thread design of 128 adders that this one replaced)
     count = wsplit * s // groups
-    loop_adds = -(-count // 128)
-    tree_adds = (min(count, 128) - 1).bit_length()
+    adders = cf.pick_fold_threads(count, f * groups) // 4
+    fold_adds = -(-count // adders) - 1 + (min(count, adders) - 1).bit_length()
+    serial_adds = -(-count // 128) + (min(count, 128) - 1).bit_length()
     shape = {"rows": f, "lanes": s, "groups": groups, "wsplit": wsplit, "by_wsplit": by_split}
     return {
         "fixed_acc": {"max_abs_err": err5, "ms": by_split[wsplit]["fixed_acc_ms"],
@@ -272,7 +292,9 @@ def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int, probe: dic
                        "graph_ms": by_split[wsplit]["fixed_fold_graph_ms"],
                        "plain_ms": median_ms(lambda: cf.fixed_fold_plain(parts, groups, wsplit), 3),
                        "bound_ms": b6[0], "bound_by": b6[1],
-                       "chain_ms": (loop_adds + tree_adds) * FMUL_PER_ADD * probe["fe_mul_ns"] * 1e-6, **shape},
+                       "chain_ms": fold_adds * FMUL_DEEP_ADD4 * probe["fe_mul_ns"] * 1e-6,
+                       "serial_chain_ms": serial_adds * FMUL_PER_ADD * probe["fe_mul_ns"] * 1e-6,
+                       "threads": 4 * adders, **shape},
     }
 
 
@@ -296,6 +318,48 @@ def _latency_probe(torch, cp, F, pack_ints, int_from_limbs, rs) -> dict:
     return out
 
 
+POINT_PROBE_KEYS = {"dbl": "ge_dbl_ns", "add": "ge_add_ns", "dbl4": "ge_dbl4_ns", "add4": "ge_add4_ns"}
+
+
+def _point_latency_probe(torch, cp, ed, hr, rs) -> dict:
+    """Dependent latency of one point operation for one warp: ge_dbl and
+    ge_add (a thread a point) beside ge_dbl4 and ge_add4 (four lanes a
+    point).  A chain of 320
+    against one of 64, the difference over 256; the ends of a chain of 40
+    checked against the host's integers (2^40 P and 41 P)."""
+    point = hr.point_mul(rs.randrange(1, hr.L), hr.BASEPOINT)
+    p = torch.stack(list(ed.from_host(point, device="cuda"))).contiguous()  # (4, 16)
+    out = {}
+    for op, key in POINT_PROBE_KEYS.items():
+        got = ed.to_host(ed.PointArray(*cp.point_latency_probe(p, op, 40)))
+        want = hr.point_mul(2**40 if op.startswith("dbl") else 41, point)
+        if not hr.point_equal(got, want):
+            raise AssertionError(f"latency probe: a chain of 40 {op} is wrong")
+        short = kernel_ms(lambda: cp.point_latency_probe(p, op, 64))
+        long = kernel_ms(lambda: cp.point_latency_probe(p, op, 320))
+        out[key] = (long - short) * 1e6 / 256
+    return out
+
+
+def _horner_edges(torch, F, wsum, int_from_limbs, pack_ints) -> dict:
+    """K3's edge inputs from the window sums of the main shape, (4, 16, 64)
+    each: every window the identity; only W_63, only W_0 not the identity; and
+    coordinates that are not canonical: windows 0 to 31 with p added to every
+    coordinate (values in [p, 2p)), windows 32 to 63 the identity written as
+    (2p : p + 1 : p + 1 : 2p), 2p = 2^256 - 38 being the largest value a
+    coordinate can hold that is 0 mod p."""
+    identity = torch.zeros_like(wsum)
+    identity[1:3, 0] = 1
+    only_top, only_low = identity.clone(), identity.clone()
+    only_top[..., 63], only_low[..., 0] = wsum[..., 63], wsum[..., 0]
+    host = wsum.cpu().numpy()
+    ints = [[int_from_limbs(host[c, :, w]) % F.P + F.P if w < 32 else (2 * F.P, F.P + 1, F.P + 1, 2 * F.P)[c]
+             for w in range(64)] for c in range(4)]
+    above_p = torch.as_tensor(pack_ints([v for row in ints for v in row]).astype("int64"), device=wsum.device)
+    above_p = above_p.reshape(4, 64, 16).transpose(1, 2).contiguous()
+    return {"all_identity": identity, "only_w63": only_top, "only_w0": only_low, "not_canonical": above_p}
+
+
 def phase_kernels(torch, bp, params, rows: dict) -> dict:
     from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
     from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
@@ -309,10 +373,18 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
 
     dev = "cuda"
     rs = random.Random(20260416)
-    out = {}
+    out = {"section_s": {}}
+    clock = [time.perf_counter()]
+
+    def section_done(name: str) -> None:  # where the phase's seconds go
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["section_s"][name], clock[0] = now - clock[0], now
 
     probe = _latency_probe(torch, cp, F, pack_ints, int_from_limbs, rs)
     out.update(probe)
+    out.update(_point_latency_probe(torch, cp, ed, hr, rs))
+    section_done("probes")
     dbl_ns = DBL_FMUL * probe["fe_mul_ns"] + DBL_FSQR * probe["fe_sqr_ns"]
     add_ns = FMUL_PER_ADD * probe["fe_mul_ns"]
 
@@ -371,6 +443,8 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
         "pow_p58_chain_ms": pow_chain_ms, "by_lanes": by_lanes,
     }
 
+    section_done("k4")
+
     # K1-K3 on the main path's MSM shape: 4098 dynamic lanes padded to 4608
     # (zero scalar, identity) plus 128 static lanes.
     n_dyn, n_pad, n_static = 4098, 510, 128
@@ -387,8 +461,12 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     err1 = _point_err(F, torch, parts, cm.dyn_acc_plain(sc_t, pts_t))
     wsum = cm.lane_fold(parts)
     err2 = _point_err(F, torch, wsum, cm.lane_fold_plain(parts))
+    # K3 on the main path's window sums and on its edge inputs, against one batched run of its plain version
+    edges = _horner_edges(torch, F, wsum, int_from_limbs, pack_ints)
+    horner_inputs = [wsum] + list(edges.values())
+    horner_want = cm.horner_plain(torch.stack(horner_inputs, dim=-1))  # (4, 16, 5)
     res = cm.horner(wsum)
-    err3 = _point_err(F, torch, res[..., None], cm.horner_plain(wsum)[..., None])
+    err3 = _point_err(F, torch, torch.stack([res] + [cm.horner(w) for w in edges.values()], dim=-1), horner_want)
     for name, err in (("dyn_acc", err1), ("lane_fold", err2), ("horner", err3)):
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version (max_abs_err {err})")
@@ -399,17 +477,28 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     b2 = bound_ms((tiles + 1) * 64 * point_bytes, 64 * (tiles - 1) * FMUL_PER_ADD * MULADDS_PER_FMUL)
     b3 = bound_ms(65 * point_bytes, 252 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
                   + 63 * FMUL_PER_ADD * MULADDS_PER_FMUL)
+    # the plain versions of K1, K3 and K7 take one to two seconds a call: timed once, already warm
     rows["dyn_acc"] = {"max_abs_err": err1, "ms": kernel_ms(lambda: cm.dyn_acc(sc_t, pts_t)),
-                       "plain_ms": median_ms(lambda: cm.dyn_acc_plain(sc_t, pts_t), 3),
+                       "graph_ms": graph_ms(lambda: cm.dyn_acc(sc_t, pts_t)),
+                       "plain_ms": median_ms(lambda: cm.dyn_acc_plain(sc_t, pts_t), 1),
                        "bound_ms": b1[0], "bound_by": b1[1], "lanes": n}
     rows["lane_fold"] = {"max_abs_err": err2, "ms": kernel_ms(lambda: cm.lane_fold(parts)),
+                         "graph_ms": graph_ms(lambda: cm.lane_fold(parts)),
                          "plain_ms": median_ms(lambda: cm.lane_fold_plain(parts), 3),
                          "bound_ms": b2[0], "bound_by": b2[1], "tiles": tiles}
+
+    # the longest chain: 252 doublings, each a squaring and a multiplication deep over four lanes, then the
+    # addition of a group's own pair of windows and those of the tree's levels, each 3 multiplications deep
+    horner_adds = 64 // cm.HORNER_GROUPS - 1 + (cm.HORNER_GROUPS - 1).bit_length()
     rows["horner"] = {"max_abs_err": err3, "ms": kernel_ms(lambda: cm.horner(wsum)),
                       "graph_ms": graph_ms(lambda: cm.horner(wsum)),
-                      "plain_ms": median_ms(lambda: cm.horner_plain(wsum), 3),
+                      "plain_ms": median_ms(lambda: cm.horner_plain(wsum), 1),
                       "bound_ms": b3[0], "bound_by": b3[1],
-                      "chain_ms": (252 * dbl_ns + 6 * add_ns) * 1e-6}  # thread 63: 252 doublings, 6 tree levels
+                      "chain_ms": (252 * (probe["fe_sqr_ns"] + probe["fe_mul_ns"])
+                                   + horner_adds * FMUL_DEEP_ADD4 * probe["fe_mul_ns"]) * 1e-6,
+                      # one thread's 252 doublings and 6 tree levels: the design this one replaced
+                      "serial_chain_ms": (252 * dbl_ns + 6 * add_ns) * 1e-6,
+                      "groups": cm.HORNER_GROUPS, "edge_inputs": list(edges)}
 
     # K7 on K1's inputs, then K1 against K7 in turns (the A/B of the two digit recodings)
     parts7 = cm.dyn_acc_signed(sc_t, pts_t)
@@ -421,9 +510,11 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
                   n * (7 * FMUL_PER_ADD + 64 * FMUL_PER_ADD) * MULADDS_PER_FMUL)
     turns = [kernel_ms(lambda: fn(sc_t, pts_t)) for fn in (cm.dyn_acc, cm.dyn_acc_signed, cm.dyn_acc_signed, cm.dyn_acc)]
     rows["dyn_acc_signed"] = {"max_abs_err": err7, "ms": statistics.mean(turns[1:3]),
-                              "plain_ms": median_ms(lambda: cm.dyn_acc_signed_plain(sc_t, pts_t), 3),
+                              "graph_ms": graph_ms(lambda: cm.dyn_acc_signed(sc_t, pts_t)),
+                              "plain_ms": median_ms(lambda: cm.dyn_acc_signed_plain(sc_t, pts_t), 1),
                               "bound_ms": b7[0], "bound_by": b7[1], "lanes": n}
     out["k1_k7_k7_k1_ms"] = turns
+    section_done("k1_k2_k3_k7")
 
     # K5 and K6 at the prover's shapes: the round MSM (128 proofs x 128
     # generator lanes, permuted, L and R as two groups), the A1 MSM (one
@@ -434,6 +525,7 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     torch.cuda.synchronize()
     out["table_build_s"] = time.perf_counter() - t0
     out["table_bytes"] = {"generators": gihi.numel() * 4, "pedersen": pedersen.numel() * 4}
+    section_done("tables")
 
     def rand_scalars(f, s):
         vals = [[rs.randrange(hr.L) for _ in range(s)] for _ in range(f)]
@@ -454,6 +546,7 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
         out["fixed_shapes"][label] = got
         if label == "round":  # the shape the prover launches most: the kernels table's row
             rows.update(got)
+        section_done(f"k5_k6_{label}")
 
     # The whole chain against the host Pippenger on 16 lanes
     small = [hr.point_mul(rs.randrange(1, hr.L), hr.BASEPOINT) for _ in range(16)]
@@ -461,9 +554,11 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     got16 = msm_kernel(torch.as_tensor(pack_ints(small_sc).astype("int64"), device=dev), ed.from_host(small, device=dev))
     if not hr.point_equal(ed.to_host(got16), host_msm(small_sc, small)):
         raise AssertionError("16-lane MSM disagrees with the host Pippenger")
-    out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "chain_ms") if kk in v}
+    out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "chain_ms", "serial_chain_ms")
+                          if kk in v}
                       for k, v in rows.items()}
     out["k4"] = rows["pow_p58"]
+    out["k3"] = rows["horner"]
     out["host_pippenger_16"] = "equal"
     return out
 
@@ -711,7 +806,8 @@ def main() -> int:
          "replaces": replaces, "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
          "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
          "bound_by": rows[k]["bound_by"], "library_ms": None,
-         **{extra: rows[k][extra] for extra in ("chain_ms", "graph_ms", "entry", "pow_p58_ms") if extra in rows[k]}}
+         **{extra: rows[k][extra] for extra in ("chain_ms", "serial_chain_ms", "graph_ms", "entry", "pow_p58_ms")
+            if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]
     print(nvidia_smi())

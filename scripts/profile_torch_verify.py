@@ -11,7 +11,8 @@ one JSON line per measurement:
     weights, packing, scalar pass, decompression, MSM, identity check);
   * "profile": torch.profiler over one whole `verify_batch`: device busy
     time (sum of kernel times), wall time, the idle share, the number of
-    kernel launches, and the five kernels with the most device time.
+    kernel launches, the five kernels with the most device time, and the
+    device time of each hand-written kernel (K1-K3, K4's fused entry).
 Ends with the card's name and power limit.  Needs a CUDA device.
 """
 
@@ -125,10 +126,13 @@ def main() -> int:
         name = e.name.split("<")[0].split("(")[0]  # template arguments dropped: one entry per kernel family
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ours = {k: v / 1e3 for k, v in by_name.items()
+            if k.endswith("_kernel") and any(s in k for s in ("dyn_acc", "lane_fold", "horner", "sqrt_ratio", "pow_p58"))}
     print(json.dumps({
         "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                     "idle_share": 1 - busy_us / 1e3 / wall_ms if wall_ms else None,
-                    "device_ops": len(kernels), "top_ms": {k: v / 1e3 for k, v in top}},
+                    "device_ops": len(kernels), "top_ms": {k: v / 1e3 for k, v in top},
+                    "hand_written_kernels_ms": ours},
     }), flush=True)
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

@@ -98,6 +98,88 @@ def test_field_probe_chains_match_python(card, op):
             assert got == (pow(v, n + 1, P) if op == "mul" else pow(v, 2**n, P))
 
 
+@pytest.mark.parametrize("op", cp.POINT_PROBE_OPS)
+def test_point_probe_chains_match_python(card, op):
+    """The chains of dependent point operations, one lane a point (ge_dbl,
+    ge_add) and four lanes a point (ge_dbl4, ge_add4), from a random point,
+    the identity and a point with
+    coordinates at and above p: 2^n P and (n + 1) P by the host's integers."""
+    base = hr.point_mul(0x1234567 + len(op), hr.BASEPOINT)
+    for point in (base, hr.IDENTITY, tuple(v + P for v in base), (2 * P, P + 1, P + 1, 2 * P)):
+        p = torch.as_tensor(pack_ints(list(point)).astype(np.int64), device=card)
+        for n, warps in ((0, 1), (1, 1), (2, 1), (37, 1), (5, 3)):
+            got = ed.to_host(ed.PointArray(*cp.point_latency_probe(p, op, n, warps)))
+            want = hr.point_mul(2**n if op.startswith("dbl") else n + 1, tuple(v % P for v in point))
+            assert hr.point_equal(got, want)
+
+
+def _random_projective(card, n, seed):
+    """n points on the card with Z != 1: sums of two of 64 host multiples of the base point."""
+    rs = np.random.RandomState(seed)
+    pool = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(64)], device=card)
+    i, j = (torch.as_tensor(rs.randint(0, 64, size=n), device=card) for _ in range(2))
+    return ed.add(ed.PointArray(*(c[i] for c in pool)), ed.PointArray(*(c[j] for c in pool)))
+
+
+@pytest.mark.parametrize("case", ["random", "all_identity", "only_w63", "only_w0", "not_canonical"])
+def test_horner_kernel_edge_inputs(card, case):
+    """K3 against its plain version and, through it, the host: nothing to
+    sum, only the window with the longest chain of doublings, only the window
+    with none, limbs at and above p."""
+    pts = _random_projective(card, 64, 7)
+    wsum = cm.coords_t(pts)
+    identity = cm.coords_t(ed.identity((64,), device=card))
+    if case == "all_identity":
+        wsum = identity
+    elif case == "only_w63":
+        wsum = torch.cat([identity[..., :63], wsum[..., 63:]], dim=-1)
+    elif case == "only_w0":
+        wsum = torch.cat([wsum[..., :1], identity[..., 1:]], dim=-1)
+    elif case == "not_canonical":
+        host = [tuple(v + P for v in p) for p in ed.to_host(pts)[:32]] + [(2 * P, P + 1, P + 1, 2 * P)] * 32
+        coords = [pack_ints([p[i] for p in host]).astype(np.int64) for i in range(4)]
+        wsum = torch.as_tensor(np.stack(coords), device=card).transpose(1, 2).contiguous()
+    want = pa(cm.horner_plain(wsum))
+    host_w = ed.to_host(ed.PointArray(*(c.t() for c in wsum)))
+    assert hr.point_equal(ed.to_host(want), host_msm([16**j for j in range(64)], [tuple(v % P for v in p) for p in host_w]))
+    cuda.reset_launches()
+    assert bool(rist.point_equal(pa(cm.horner(wsum)), want))
+    assert cuda.launches["horner"] == 1
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 16, 32, 96, 256, 8192])
+def test_fixed_fold_kernel_counts(card, count):
+    """K6 alone at each count of partials a block, in 1 to 3 lane groups,
+    at every window split that divides the count and every block size: a
+    count below the number of adders, one that fills no tree, loops of many
+    partials an adder; three rows, one of them all identities."""
+    rows = 3
+    for groups in (1, 2, 3):
+        for wsplit in (w for w in (1, 4, 16, 64) if count % w == 0):
+            s = groups * count // wsplit
+            pts = _random_projective(card, rows * wsplit * s, count + groups)
+            parts = cf.limbs_to_words(torch.stack(list(pts), dim=1)).reshape(rows, wsplit * s, cf.POINT_WORDS)
+            parts[1] = cf.limbs_to_words(torch.stack(list(ed.identity((wsplit * s,), device=card)), dim=1))
+            want = pa(cf.fixed_fold_plain(parts, groups, wsplit))
+            assert bool(rist.is_identity(ed.PointArray(*(c[1] for c in want))).all())
+            for threads in (None,) + cf.FOLD_THREADS:
+                got = cf.fixed_fold(parts, groups, wsplit, threads=threads)
+                assert tuple(got.shape) == (4, 16, rows, groups)
+                assert bool(rist.point_equal(pa(got), want).all())
+
+
+@pytest.mark.parametrize("threads", [0, 16, 96, 384, 1024])
+def test_fixed_fold_entry_refuses_block_sizes_its_tree_cannot_sum(card, threads):
+    """The C entry itself, below the wrapper's own check: a block size that
+    is not a power of two from 32 to 512 is an error, not a wrong sum."""
+    parts = torch.zeros((1, 4, cf.POINT_WORDS), dtype=torch.int32, device=card)
+    out = torch.empty((4, 16, 1, 1), dtype=torch.int64, device=card)
+    status = cuda.lib("fixed").bppt_fixed_fold(parts.data_ptr(), out.data_ptr(), 1, 4, 1, 1, threads,
+                                               torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError):
+        cuda.check("fixed", status, "fixed_fold")
+
+
 @pytest.mark.parametrize("broadcast_u", [False, True])
 def test_sqrt_ratio_m1_kernel_matches_plain(card, broadcast_u):
     """K4's fused entry against the plain version: squares, non-squares,

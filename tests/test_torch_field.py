@@ -184,6 +184,47 @@ def test_pfield_twin_matches_jax(op):
         assert hr.point_equal(g, w)
 
 
+def _four_lane_cases():
+    """(P, Q) pairs, limb-major: random points, the identity on either side,
+    a point with itself and with its negative, and the same points with
+    coordinates moved into [p, 2^256): p added to each, and the identity
+    written as (2p : p + 1 : p + 1 : 2p), 2p = 2^256 - 38."""
+    pts = _host_points(6, 21)
+    neg = [((P - x) % P, y, z, (P - t) % P) for x, y, z, t in pts]
+    left = pts + [hr.IDENTITY, pts[0], pts[1], pts[2]]
+    right = pts[::-1] + [pts[3], hr.IDENTITY, pts[1], neg[2]]
+    above = lambda p: tuple(v + P for v in p)  # noqa: E731
+    top_identity = (2 * P, P + 1, P + 1, 2 * P)
+    left += [above(p) for p in pts] + [top_identity, above(pts[4])]
+    right += [above(p) for p in pts[::-1]] + [above(pts[5]), top_identity]
+    to_s = lambda ps: pf.PointS(  # noqa: E731
+        *(torch.as_tensor(pack_ints([p[i] for p in ps]).T.astype(np.int64)).contiguous() for i in range(4)))
+    return left, right, to_s(left), to_s(right)
+
+
+@pytest.mark.parametrize("op", ["pdbl4", "padd4"])
+def test_four_lane_schedule_equals_one_lane_limb_for_limb(op):
+    """`pdbl4` and `padd4`, the lane schedule of csrc ge_dbl4 and ge_add4,
+    return the limbs of `pdbl` and `padd`, and of the JAX package's `pdbl`
+    and `padd` on the same packed inputs, not only the same points; and the
+    points are right by the host's integers."""
+    left, right, tp, tq = _four_lane_cases()
+    n = len(left)
+    jp, jq = (jpf.PointS(*(jnp.asarray(c.numpy().astype(np.uint32)) for c in pt)) for pt in (tp, tq))
+    if op == "pdbl4":
+        got, want, jax_want = pf.pdbl4(tp), pf.pdbl(tp), jpf.pdbl(jp)
+        host = [hr.point_add(a, a) for a in left]
+    else:
+        got, want, jax_want = pf.padd4(tp, tq), pf.padd(tp, tq), jpf.padd(jp, jq)
+        host = [hr.point_add(a, b) for a, b in zip(left, right)]
+    for g, w, jw in zip(got, want, jax_want):
+        assert g.shape == w.shape == (16, n) and torch.equal(g, w)
+        assert np.array_equal(g.numpy(), np.asarray(jw).astype(np.int64))  # the JAX package's limbs on the same inputs
+    for g, h in zip(_host_of(got, n), host):
+        assert hr.point_equal(g, h)
+    assert hr.is_identity(_host_of(got, n)[9]) == (op == "padd4")  # P + (-P)
+
+
 def test_identity_add_chain_regression():
     """id + id + B + B == 2B: identity add chains reach the fold's carry-out
     window (tests/test_pfield.py::test_fold16_carry_out_edge)."""

@@ -216,6 +216,96 @@ def test_fixed_msm_zero_and_single_digit_rows(tables, wsplit):
     assert hr.point_equal(got[2], host_msm(scal[2], BASE_PTS))
 
 
+class _Ref:
+    """What a Pallas kernel body reads and writes, for running it eagerly."""
+
+    def __init__(self, value=None):
+        self.value = value
+
+    def __getitem__(self, key):
+        return self.value[key]
+
+    def __setitem__(self, key, value):
+        self.value = value
+
+
+FOLD_COUNTS, FOLD_GROUPS = [1, 3, 32, 96], [1, 3]
+FOLD_WIDTH = 128  # lanes the JAX package pads a fold to
+
+
+def _fold_case(count, groups):
+    """Two rows of partials for `groups` lane groups of `count` partials each
+    (count = wsplit * lanes a group), the second row with the identity among
+    them: (parts words, wsplit, the pool of host points, indices into it)."""
+    wsplit = 1 if count < 32 else 16
+    s = groups * count // wsplit
+    rs = np.random.RandomState(count * 10 + groups)
+    pool = [hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(7)] + [hr.IDENTITY]
+    pick = rs.randint(0, 7, size=(2, wsplit * s))
+    pick[1, ::3] = 7
+    pa = ed.from_host([pool[i] for i in pick.reshape(-1)], device="cpu")
+    parts = cf.limbs_to_words(torch.stack(list(pa), dim=1)).reshape(2, wsplit * s, cf.POINT_WORDS)
+    return parts, wsplit, pool, pick
+
+
+@pytest.fixture(scope="module")
+def jax_folds():
+    """The TPU kernel's body, `pm._fixed_fold_kernel`, run eagerly once on
+    the partials of every case: each (row, group)'s partials along its lane
+    axis, filled up to 128 lanes with the identity as the JAX package pads
+    them -> {(count, groups): host points, row-major over (row, group)}."""
+    blocks, index = [], {}
+    for count in FOLD_COUNTS:
+        for groups in FOLD_GROUPS:
+            parts, wsplit, _, _ = _fold_case(count, groups)
+            f, s = parts.shape[0], parts.shape[1] // wsplit
+            coords = cf.words_to_coords(parts).reshape(4, 16, f, wsplit, groups, s // groups)
+            coords = coords.movedim(3, 4).reshape(4, 16, f * groups, count).numpy().astype(np.uint32)
+            padded = np.zeros((4, 16, f * groups, FOLD_WIDTH), np.uint32)
+            padded[1:3, 0] = 1  # the identity (0 : 1 : 1 : 0)
+            padded[..., :count] = coords
+            index[count, groups] = (sum(b.shape[2] for b in blocks), f * groups)
+            blocks.append(padded)
+    outs = [_Ref() for _ in range(4)]
+    pm._fixed_fold_kernel(*(_Ref(jnp.asarray(c)[None]) for c in np.concatenate(blocks, axis=2)), *outs)
+    host = jed.to_host(jed.PointArray(*(jnp.transpose(o.value, (1, 0)) for o in outs)))
+    return {key: host[at : at + n] for key, (at, n) in index.items()}
+
+
+@pytest.mark.parametrize("groups", FOLD_GROUPS)
+@pytest.mark.parametrize("count", FOLD_COUNTS)
+def test_fixed_fold_plain_counts(jax_folds, count, groups):
+    """K6's plain version at counts of partials a block that fill no tree (1,
+    3), one exactly (32) and one and a half (96), in one and three lane
+    groups: against the JAX package's `_fixed_fold_kernel` body on the same
+    partials and the host's sums of the same points."""
+    parts, wsplit, pool, pick = _fold_case(count, groups)
+    s = parts.shape[1] // wsplit
+    got = cf.fixed_fold(parts, groups, wsplit)  # CPU tensor: the plain version
+    assert tuple(got.shape) == (4, 16, 2, groups)
+    assert torch.equal(got, cf.fixed_fold(parts, groups, wsplit, threads=512))  # the block size is the kernel's own
+    per = s // groups
+    for row in range(2):
+        for grp in range(groups):
+            mine = [pool[pick[row, q * s + grp * per + i]] for q in range(wsplit) for i in range(per)]
+            assert len(mine) == count
+            have = ed.to_host(ed.PointArray(*(c[:, row, grp] for c in got)))
+            assert hr.point_equal(have, host_msm([1] * count, mine))
+            assert hr.point_equal(have, jax_folds[count, groups][row * groups + grp])
+    with pytest.raises(ValueError):
+        cf.fixed_fold(parts, groups, wsplit, threads=64)
+
+
+@pytest.mark.parametrize(
+    "count, blocks, want", [(1, 256, 128), (32, 256, 128), (33, 8, 256), (256, 256, 256), (512, 128, 512), (512, 256, 256)]
+)
+def test_pick_fold_threads(count, blocks, want):
+    """The prover's shapes: Pedersen (32 partials a block), round (256 in 256
+    blocks), A1 (512 in 128 blocks, a block an SM); and the round shape at a
+    split of 8, where 256 blocks of 512 partials keep 256 threads."""
+    assert cf.pick_fold_threads(count, blocks) == want and want in cf.FOLD_THREADS
+
+
 def test_fixed_msm_refuses_bad_shapes(tables):
     with pytest.raises(ValueError):
         fb.fixed_msm_batched(torch.zeros((2, S_TAB + 1, 16), dtype=torch.int64), tables)  # more lanes than the table

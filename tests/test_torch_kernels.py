@@ -80,6 +80,88 @@ def test_msm_stages_compose():
     assert hr.point_equal(ed.to_host(ed.PointArray(*res)), host_msm(scalars, pts))
 
 
+def _window_sums(seed):
+    """64 window sums as host points and as the (4, 16, 64) tensor K3 takes."""
+    rs = np.random.RandomState(seed)
+    pts = [hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(64)]
+    return pts, cm.coords_t(ed.from_host(pts, device="cpu"))
+
+
+def _not_canonical(pts):
+    """The same points with p added to every coordinate of windows 0 to 31,
+    and windows 32 to 63 the identity written as (2p : p + 1 : p + 1 : 2p)."""
+    moved = [tuple(v + P for v in p) for p in pts[:32]] + [(2 * P, P + 1, P + 1, 2 * P)] * 32
+    coords = [pack_ints([p[i] for p in moved]).astype(np.int64) for i in range(4)]
+    return pts[:32] + [hr.IDENTITY] * 32, torch.as_tensor(np.stack(coords)).transpose(1, 2).contiguous()
+
+
+HORNER_CASES = ["all_identity", "only_w63", "only_w0", "not_canonical"]
+
+
+class _Ref:
+    """What a Pallas kernel body reads and writes, for running it eagerly."""
+
+    def __init__(self, value=None):
+        self.value = value
+
+    def __getitem__(self, key):
+        return self.value[key]
+
+    def __setitem__(self, key, value):
+        self.value = value
+
+
+@pytest.fixture(scope="module")
+def horner_edges():
+    """K3's edge inputs, the four stacked on a trailing axis, through the
+    plain version (CPU tensor: one call of the wrapper's path) and through
+    the TPU kernel's body, `pm._horner_kernel`, run eagerly on the same limbs
+    in its bit-reversed window order: {case: (host window sums, torch
+    result, JAX result)}, results as host points."""
+    pts, wsum = _window_sums(63)
+    identity = cm.coords_t(ed.identity((64,), device="cpu"))
+    moved_host, moved = _not_canonical(pts)
+    assert int(moved.max()) < 2**16 and int_from_limbs(moved[0, :, 40].numpy()) == 2**256 - 38
+    inputs = {
+        "all_identity": ([hr.IDENTITY] * 64, identity),
+        "only_w63": ([hr.IDENTITY] * 63 + [pts[63]], torch.cat([identity[..., :63], wsum[..., 63:]], dim=-1)),
+        "only_w0": ([pts[0]] + [hr.IDENTITY] * 63, torch.cat([wsum[..., :1], identity[..., 1:]], dim=-1)),
+        "not_canonical": (moved_host, moved),
+    }
+    stacked = torch.stack([inputs[c][1] for c in HORNER_CASES], dim=-1)  # (4, 16, 64, 4)
+    got = cm.horner_plain(stacked)  # (4, 16, 4)
+    ins = [_Ref(jnp.asarray(stacked[c].numpy().astype(np.uint32))[:, pm._BREV6]) for c in range(4)]
+    outs = [_Ref() for _ in range(4)]
+    pm._horner_kernel(*ins, *outs)
+    want = [np.asarray(o.value) for o in outs]  # 4 x (16, 1, 4)
+    return {
+        case: (
+            inputs[case][0],
+            inputs[case][1],
+            tuple(int_from_limbs(got[c, :, k].numpy()) % P for c in range(4)),
+            tuple(int_from_limbs(want[c][:, 0, k]) % P for c in range(4)),
+        )
+        for k, case in enumerate(HORNER_CASES)
+    }
+
+
+@pytest.mark.parametrize("case", HORNER_CASES)
+def test_horner_plain_edge_inputs_match_host(horner_edges, case):
+    """K3's plain version on the inputs where a Horner kernel can go wrong:
+    nothing to sum, only the window with the longest chain of doublings,
+    only the window with none, and limbs at and above p.  Held against the
+    JAX package's `_horner_kernel` on the same limbs and against the host's
+    integers."""
+    host, wsum, got, jax_got = horner_edges[case]
+    assert hr.point_equal(got, jax_got)
+    assert hr.point_equal(got, host_msm([16**j for j in range(64)], host))
+    assert hr.is_identity(got) == (case == "all_identity")
+    if case == "only_w0":  # the wrapper on a CPU tensor is the plain version, one input at a time too
+        alone = cm.horner(wsum)
+        assert tuple(alone.shape) == (4, 16)
+        assert hr.point_equal(tuple(int_from_limbs(c.numpy()) % P for c in alone), got)
+
+
 def test_msm_kernel_matches_host_16_lanes():
     scalars, pts = _msm_inputs(16, 9)
     got = msm_kernel(torch.as_tensor(pack_ints(scalars).astype(np.int64)), ed.from_host(pts, device="cpu"))
