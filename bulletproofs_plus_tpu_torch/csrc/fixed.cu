@@ -44,7 +44,7 @@
 // limbs.  Partials go to K6 as 32 packed words a point (128 bytes, one line
 // a thread) instead of 64 int64 limbs (512 bytes): K6 is bound by bytes.
 
-#include "field25519.cuh"
+#include "fold4.cuh"
 
 #define N_WINDOWS 64
 #define N_DIGITS 16
@@ -52,7 +52,6 @@
 #define POINT_WORDS 32
 #define ACC_THREADS 128
 #define ACC_MIN_BLOCKS 4  // blocks an SM: caps the kernel at 65536 / (4 * 128) = 128 registers
-#define FOLD_MAX_THREADS 512
 
 __device__ __forceinline__ gn gn_load_words(const u32 *__restrict__ entry) {
     const uint4 *v = reinterpret_cast<const uint4 *>(entry);
@@ -95,70 +94,29 @@ __global__ void __launch_bounds__(ACC_THREADS, ACC_MIN_BLOCKS)
     ge_store_words(out + ((row * wsplit + q) * s + pos) * POINT_WORDS, acc);
 }
 
-// Coordinate c of partial i of a block's `count` (range i / per, lane i % per of the group), or of the
-// identity past the count; `mine` points at coordinate c of the row's first partial.
-__device__ __forceinline__ fe fold_partial(const u32 *__restrict__ mine, int i, int count, int per, int s,
-                                           int lane0, int c) {
-    if (i >= count) return ge4_identity(c);
-    const long at = (long)(i / per) * s + lane0 + i % per;
-    return fe_load_words(reinterpret_cast<const uint4 *>(mine + at * POINT_WORDS));
-}
-
 // parts: (f, wsplit * s, 32) words -> out: (4, 16, f, groups) int64 limbs;
 // block (row, group) sums the partials of lanes [group * s / groups,
-// (group + 1) * s / groups) over all window ranges.
-//
-// What bounds it: a block's sum is a chain of dependent additions (its rate
-// and byte bounds are 6 to 30 times lower), so the design shortens each
-// addition and the chain.  Additions are ge_add4 of field25519.cuh, 3 fe_mul
-// deep instead of 9: a group of four lanes is one adder, lane c holding
-// coordinate c, and a block of T threads has T / 4 adders.  Adder a loads
-// partial a (a 32-byte piece of the point's 128-byte line a lane) and adds
-// partials a + T / 4, a + 2 T / 4, ... to it; then a tree sums the adders,
-// first across the warps through shared memory (adder k of a warp to adder k
-// of another: every lane of a warp that adds has work, where a tree inside
-// each warp would leave half, then three quarters, of them idle), then
-// three levels inside warp 0 by shuffles.  The block is not short of
-// latency alone: at the prover's wide shapes its warps also queue for the
-// schedulers' multiplier, so an addition that half the lanes waste costs
-// time.  Adders past the count hold the identity, and a warp all of whose
-// adders do skips the loop's additions (the condition is the same for its
-// 32 lanes, so the shuffles still find whole warps).  The wrapper
-// sizes the block from the count of partials a block sums and the number of
-// blocks.
+// (group + 1) * s / groups) over all window ranges, on the four-lane adders
+// of fold4.cuh.  The wrapper sizes the block from the count of partials a
+// block sums and the number of blocks.
 __global__ void __launch_bounds__(FOLD_MAX_THREADS, 1) fixed_fold_kernel(const u32 *__restrict__ parts,
                                                                          int64_t *__restrict__ out, long f, long s,
                                                                          long groups, int wsplit) {
-    __shared__ __align__(16) u32 sh[(FOLD_MAX_THREADS / 32) * 32 * 8];  // a coordinate a lane
-    const int tid = threadIdx.x, lane = tid & 31, c = tid & 3, warp = tid >> 5;
-    const int a = tid >> 2, adders = blockDim.x >> 2, first_of_warp = a & ~7;
+    __shared__ __align__(16) u32 sh[FOLD_SMEM_WORDS];
+    const int c = threadIdx.x & 3;
     const long row = blockIdx.x / groups;
     const int grp = (int)(blockIdx.x % groups);
     const int per = (int)(s / groups);
-    const int count = wsplit * per;
+    const int lane0 = grp * per, si = (int)s;
     const u32 *mine = parts + row * wsplit * s * POINT_WORDS + c * 8;  // coordinate c of the row's partials
-    // the first partial is loaded, not added to the identity; each next one is in flight while an addition runs
-    fe acc = fold_partial(mine, a, count, per, (int)s, grp * per, c);
-    fe part = fold_partial(mine, adders + a, count, per, (int)s, grp * per, c);
-#pragma unroll 1
-    for (int i0 = adders; i0 + first_of_warp < count; i0 += adders) {  // until the whole warp is past the count
-        const fe next = fold_partial(mine, i0 + adders + a, count, per, (int)s, grp * per, c);
-        acc = ge_add4(acc, part);
-        part = next;
-    }
-    int n = 1;  // adders the tree sums: the power of two covering those that hold a partial
-    while (n < count && n < adders) n <<= 1;
-    // Across the warps first, adder k of one warp to adder k of another, so that all eight adders of a warp
-    // that adds have work; only then the three levels inside warp 0, where they thin out.
-    for (int w = n >> 4; w >= 1; w >>= 1) {  // n / 8 warps hold partials; the upper half hands its sums down
-        if (warp >= w && warp < 2 * w) fe_store_words(reinterpret_cast<uint4 *>(sh + (warp * 32 + lane) * 8), acc);
-        __syncthreads();
-        if (warp < w) {
-            acc = ge_add4(acc, fe_load_words_shared(reinterpret_cast<const uint4 *>(sh + ((warp + w) * 32 + lane) * 8)));
-        }
-    }
-    if (warp == 0) acc = ge4_warp_sum(acc, n);
-    if (tid < 4) fe_store(out + c * 16 * f * groups + row * groups + grp, f * groups, acc);
+    // partial i of the block: range i / per, lane i % per of the group
+    const fe acc = ge4_block_sum(
+        [&](int i) {
+            const long at = (long)(i / per) * si + lane0 + i % per;
+            return fe_load_words(reinterpret_cast<const uint4 *>(mine + at * POINT_WORDS));
+        },
+        wsplit * per, sh);
+    if (threadIdx.x < 4) fe_store(out + c * 16 * f * groups + row * groups + grp, f * groups, acc);
 }
 
 extern "C" const char *bppt_fixed_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }

@@ -15,80 +15,181 @@
 // only made its Horner fold contiguous.
 //
 // Bound on this card: operations.  A complete point addition is 9 field
-// multiplications of about 128 32-bit multiply-adds each, and per lane K1
-// does 14 of them for the table and 64 for the windows, against 640 bytes
-// of scalar and point limbs read.  Design: a K1 block takes a tile of 16
-// lanes.  Its 64 threads first build the 16 lanes' tables in shared memory,
-// four threads per lane (T[1..4] by doublings, then T[d+4] = T[d] + T[4], a
-// chain of 5 point operations instead of 14); then thread w owns window w
-// and adds the 16 selected entries.  Table entries are padded to 33 words,
-// so threads reading different digits hit different banks.  K2 gives each
-// window a block that sums the K1 partials with a shared-memory tree.  K3 is
-// one block on the four-lane point operations of field25519.cuh: a group of
-// four lanes doubles its windows' term up to 252 times (the chain Horner
-// needs anyway), then a tree sums the groups; see horner_kernel.
+// multiplications of about 128 32-bit multiply-adds each; per lane the
+// table takes 14 point operations and the windows 64 additions, against
+// 640 bytes of scalar and point limbs read.
+//
+// K1's design.  A block takes a tile of `tile` lanes (the wrapper picks it
+// from n: see below) and has 256 threads, capped at 128 registers so that
+// two blocks share an SM: 16 warps, four a scheduler, where a lone warp
+// would wait out each multiplication's latency.  It first builds the tile's
+// tables T[d] = d*P in shared memory in four levels:
+//   1: T2 = 2 T1;  2: T3 = T2 + T1, T4 = 2 T2;
+//   3: T[5 + j] = T4 + T[1 + j], j < 3, and T8 = 2 T4;
+//   4: T[9 + j] = T8 + T[1 + j], j < 7.
+// Levels 1 and 2 have a few warps' work, so there each operation's latency
+// is the time: they run on the four-lane ge_dbl4 and ge_add4, a third of
+// it.  Levels 3 and 4 keep many warps busy and run one thread a point (a
+// four-lane operation issues 1.8 times the instructions).  No warp splits
+// between an addition and a doubling: the doublings take warps of their
+// own, and a level's additions are (entry, lane) jobs laid flat over the
+// first warps.
+// Then thread (q, w), q the quarter and w the window, sums the selected
+// entries T_l[digit_w(s_l)] of lanes l = q, q + 4, q + 8, ..., and a group
+// of four lanes a window adds the quarters, (Q0 + Q1) + (Q2 + Q3), on
+// ge_add4: for a tile of 18 lanes 4 + 4 + 2 point operations deep (four of
+// them over four lanes).  Quarters are warp-major (warps 2q and 2q + 1 hold
+// quarter q), so no warp of the window phase parts.  A lane's table is 16
+// entries of 33 words plus one: with that odd stride the 32 lanes of a
+// table level hit 32 banks, and in the window phase, where a warp reads one
+// lane's table, different digits fall in different banks and equal digits
+// are one broadcast.
+//
+// The tile width sets the grid.  The wrapper reads the card's SM count and,
+// through bppt_msm_occupancy, the K1 blocks an SM holds (two on an H100,
+// where the register cap allows two), and takes the narrowest tile from 16
+// lanes whose blocks the card holds all at once: on an H100 18 lanes for
+// the 4736 of a 256-proof verify, 264 blocks, one wave, where 16-lane tiles
+// make 296 blocks, 32 of them a second wave.  Tiles below 16 lanes do not
+// pay: where they would fill an SM's second block (the 2048 lanes of a
+// 64 x m4 verify at 8 lanes), K2's extra partials cost what K1 gains.
+// Wider tiles move window additions from K2 into K1 and back: the two
+// together always add 64 (n - 1) points.
+//
+// The hand-off.  K1 writes each tile's 64 window partials as 32 packed
+// words a point (128 bytes, one line a thread, a quarter of int64 limbs),
+// window major, (64, tiles, 32), which is the (rows, partials) layout of K6's input.
+// K2 is then K6's fold (fold4.cuh) with a window a row: a block sums a
+// window's partials on four-lane adders.  K3 is one block on the four-lane
+// point operations of field25519.cuh: a group of four lanes doubles its
+// windows' term up to 252 times (the chain Horner needs anyway), then a
+// tree sums the groups; see horner_kernel.
 
-#include "field25519.cuh"
+#include "fold4.cuh"
 
 #define N_WINDOWS 64
 #define N_DIGITS 16
-#define TILE 16  // lanes per K1 block; K1 blocks have N_WINDOWS = 4 * TILE threads
+#define POINT_WORDS 32
+#define K1_THREADS 256
+#define K1_MIN_BLOCKS 2                              // blocks an SM: caps K1 at 65536 / (2 * 256) = 128 registers
+#define K1_QUARTERS (K1_THREADS / N_WINDOWS)         // threads a window
+#define MAX_TILE 32                                  // a table doubling takes one warp of lanes
+#define LANE_WORDS (N_DIGITS * GE_SMEM_STRIDE + 1)   // a lane's table, an odd stride
+#define K1_TREE_WORDS (K1_THREADS * GE_SMEM_STRIDE)  // the quarters' sums, in the table's room
 
-// scalars: (16, n) limb-major; pts: (4, 16, n); out: (4, 16, 64, nb), nb = ceil(n / TILE).
-__global__ void __launch_bounds__(N_WINDOWS) dyn_acc_kernel(const int64_t *__restrict__ scalars,
-                                                            const int64_t *__restrict__ pts,
-                                                            int64_t *__restrict__ out, long n, long nb) {
-    __shared__ u32 tab[TILE * N_DIGITS * GE_SMEM_STRIDE];
-    __shared__ u32 sc[TILE][8];
-    const int tid = threadIdx.x;
+__host__ __device__ constexpr int k1_smem_words(int tile) {
+    return (tile * LANE_WORDS > K1_TREE_WORDS ? tile * LANE_WORDS : K1_TREE_WORDS) + tile * 8;
+}
+
+// One coordinate (8 of a point's 33 words) in shared memory, as a four-lane operation holds it.
+__device__ __forceinline__ fe fe_from_smem(const u32 *s) {
+    fe r;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r.w[k] = s[k];
+    return r;
+}
+__device__ __forceinline__ void fe_to_smem(u32 *s, const fe &a) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[k] = a.w[k];
+}
+
+// Entries of one lane's table (`row`): T[dst] = T[a] + T[b], and T[dst] = 2 T[a].
+__device__ __forceinline__ void table_add(u32 *row, int dst, int a, int b) {
+    ge_to_smem(row + dst * GE_SMEM_STRIDE,
+               ge_add(ge_from_smem(row + a * GE_SMEM_STRIDE), ge_from_smem(row + b * GE_SMEM_STRIDE)));
+}
+__device__ __forceinline__ void table_dbl(u32 *row, int dst, int a) {
+    ge_to_smem(row + dst * GE_SMEM_STRIDE, ge_dbl(ge_from_smem(row + a * GE_SMEM_STRIDE)));
+}
+
+// scalars: (16, n) limb-major; pts: (4, 16, n); out: (64, nb, 32) words,
+// nb = ceil(n / tile), tile from 1 to MAX_TILE; dynamic shared memory
+// k1_smem_words(tile) words.
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
+    dyn_acc_kernel(const int64_t *__restrict__ scalars, const int64_t *__restrict__ pts, u32 *__restrict__ out,
+                   long n, int tile, int nb) {
+    extern __shared__ u32 smem[];
+    u32 *const sc = smem + k1_smem_words(tile) - tile * 8;  // the tile's scalars, eight words a lane
+    const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
     const long blk = blockIdx.x;
 
-    // Phase 1: tables.  Thread (lane l, part k) makes T[k+1], then T[k+5],
-    // T[k+9], T[k+13] by adding T[4].
-    const int l = tid & (TILE - 1);
-    const int k = tid / TILE;
-    const long lane = blk * TILE + l;
-    const bool live = lane < n;  // lanes past n: zero scalar, identity point
-    ge p = live ? ge_load(pts + lane, 16 * n, n) : ge_identity();
-    if (k == 0) {
+    // The scalars: lane l of warp 0 for tile lane l (lanes past n: zero scalar).
+    if (tid < tile) {
+        const long lane = blk * tile + tid;
+        const bool live = lane < n;
+#pragma unroll
         for (int q = 0; q < 8; ++q) {
-            u32 lo = live ? (u32)scalars[(2 * q) * n + lane] : 0u;
-            u32 hi = live ? (u32)scalars[(2 * q + 1) * n + lane] : 0u;
-            sc[l][q] = lo | (hi << 16);
+            const u32 lo = live ? (u32)scalars[(2 * q) * n + lane] : 0u;
+            const u32 hi = live ? (u32)scalars[(2 * q + 1) * n + lane] : 0u;
+            sc[tid * 8 + q] = lo | (hi << 16);
         }
-        ge_to_smem(&tab[(l * N_DIGITS + 0) * GE_SMEM_STRIDE], ge_identity());
     }
-    ge d2 = ge_dbl(p);
-    ge tk;
-    if (k == 0) {
-        tk = p;
-    } else if (k == 1) {
-        tk = d2;
-    } else if (k == 2) {
-        tk = ge_add(d2, p);
-    } else {
-        tk = ge_dbl(d2);
+    // The tables, levels 1 and 2 on four-lane point operations: lane group g = tid / 4 for tile lane g (in
+    // level 2 counted from the group's half), lane c of the group for coordinate c.  Only a few warps work
+    // here and each waits out its operation's latency, which four lanes cut to a third.  A warp's eight
+    // groups run one operation in one control flow, as the shuffles need; groups past the tile run it on the
+    // identity (level 1) or on lane 0's entries (level 2) and store nothing.
+    const int g = tid >> 2, c = tid & 3;
+    const int half = (tile + 7) / 8;  // warps that cover the tile's lanes, four lanes each
+    if (warp < half) {  // level 1: T0 the identity, T1 = P (lanes past n: the identity), T2 = 2P
+        const long lane = blk * tile + g;
+        const bool mine = g < tile;
+        const fe p = mine && lane < n ? fe_load(pts + c * 16 * n + lane, n) : ge4_identity(c);
+        const fe p2 = ge_dbl4(p);
+        if (mine) {
+            u32 *r = smem + g * LANE_WORDS + c * 8;
+            fe_to_smem(r, ge4_identity(c));
+            fe_to_smem(r + GE_SMEM_STRIDE, p);
+            fe_to_smem(r + 2 * GE_SMEM_STRIDE, p2);
+        }
     }
-    ge_to_smem(&tab[(l * N_DIGITS + k + 1) * GE_SMEM_STRIDE], tk);
     __syncthreads();
-    const ge t4 = ge_from_smem(&tab[(l * N_DIGITS + 4) * GE_SMEM_STRIDE]);
-#pragma unroll 1
-    for (int d = k + 5; d < N_DIGITS; d += 4) {
-        tk = ge_add(tk, t4);
-        ge_to_smem(&tab[(l * N_DIGITS + d) * GE_SMEM_STRIDE], tk);
+    if (warp < 2 * half) {  // level 2: T3 = T2 + T1 in the first half of the warps, T4 = 2 T2 in the second
+        const bool adds = warp < half;
+        const int gl = adds ? g : g - 8 * half;
+        const bool mine = gl < tile;
+        u32 *r = smem + (mine ? gl : 0) * LANE_WORDS + c * 8;
+        const fe t2 = fe_from_smem(r + 2 * GE_SMEM_STRIDE);
+        fe t;
+        if (adds) {
+            t = ge_add4(t2, fe_from_smem(r + GE_SMEM_STRIDE));
+        } else {
+            t = ge_dbl4(t2);
+        }
+        if (mine) fe_to_smem(r + (adds ? 3 : 4) * GE_SMEM_STRIDE, t);
     }
+    __syncthreads();
+    // levels 3 and 4: the additions are jobs (entry, lane) laid flat over the first warps, so that a tile of
+    // 18 lanes fills four warps for level 4 and not seven halves; level 3's doubling takes the warp after
+    const int adds3 = (3 * tile + 31) / 32;  // warps of level 3's additions
+    if (tid < 3 * tile) table_add(smem + (tid % tile) * LANE_WORDS, 5 + tid / tile, 4, 1 + tid / tile);
+    if (warp == adds3 && l < tile) table_dbl(smem + l * LANE_WORDS, 8, 4);
+    __syncthreads();
+    if (tid < 7 * tile) table_add(smem + (tid % tile) * LANE_WORDS, 9 + tid / tile, 8, 1 + tid / tile);
     __syncthreads();
 
-    // Phase 2: thread w sums T_l[digit_w(s_l)] over the tile's lanes.
-    const int w = tid;
+    // The windows: thread (q, w) sums T_l[digit_w(s_l)] over lanes l = q, q + 4, ...
+    const int w = tid & (N_WINDOWS - 1), q = tid / N_WINDOWS;
     const int word = w >> 3, shift = 4 * (w & 7);
-    ge acc = ge_from_smem(&tab[((sc[0][word] >> shift) & 15) * GE_SMEM_STRIDE]);
+    ge acc = ge_identity();
+    if (q < tile) {
+        acc = ge_from_smem(smem + q * LANE_WORDS + ((sc[q * 8 + word] >> shift) & 15) * GE_SMEM_STRIDE);
 #pragma unroll 1
-    for (int j = 1; j < TILE; ++j) {
-        int digit = (sc[j][word] >> shift) & 15;
-        acc = ge_add(acc, ge_from_smem(&tab[(j * N_DIGITS + digit) * GE_SMEM_STRIDE]));
+        for (int j = q + K1_QUARTERS; j < tile; j += K1_QUARTERS) {
+            const int digit = (sc[j * 8 + word] >> shift) & 15;
+            acc = ge_add(acc, ge_from_smem(smem + j * LANE_WORDS + digit * GE_SMEM_STRIDE));
+        }
     }
-    ge_store(out + (long)w * nb + blk, 16L * N_WINDOWS * nb, (long)N_WINDOWS * nb, acc);
+    __syncthreads();  // every table read: the room takes the quarters' sums
+    // The quarters' sums on four-lane additions, lane group g for window g: (Q0 + Q1) + (Q2 + Q3).  Every
+    // warp adds, so the shuffles find whole warps.
+    ge_to_smem(smem + tid * GE_SMEM_STRIDE, acc);
+    __syncthreads();
+    const u32 *qs = smem + g * GE_SMEM_STRIDE + c * 8;  // coordinate c of quarter 0's sum for window g
+    const int qstride = N_WINDOWS * GE_SMEM_STRIDE;
+    const fe lo = ge_add4(fe_from_smem(qs), fe_from_smem(qs + qstride));
+    const fe hi = ge_add4(fe_from_smem(qs + 2 * qstride), fe_from_smem(qs + 3 * qstride));
+    fe_store_words(reinterpret_cast<uint4 *>(out + ((long)g * nb + blk) * POINT_WORDS + c * 8), ge_add4(lo, hi));
 }
 
 #define N_SIGNED 9  // signed-digit table: identity, P .. 8P
@@ -106,25 +207,30 @@ __device__ __forceinline__ ge signed_select(const u32 *tab_lane, u32 nibble) {
     return e;
 }
 
-// K7, replacing _dyn_acc_signed_kernel (:340): dyn_acc_kernel with the
+#define K7_TILE 16  // lanes a K7 block
+
+// K7, replacing _dyn_acc_signed_kernel (:340): K1's function with the
 // scalar recoded to signed digits d_j in [-8, 7], sum_j d_j 16^j = s.  The
 // recoding is the constant-add of ops/msm.signed_digits4, done here in the
 // prologue: nibble j of s + 0x88..8 is d_j + 8, and a scalar below 2^253
 // (every canonical scalar) cannot carry out of the top nibble.  The table
 // per lane shrinks to 8 multiples (19 KB of shared memory instead of 34),
 // built by a chain of depth 3 (2P; 3P, 4P; then T[d + 4] = T[d] + 4P).
-// Same arguments and output as dyn_acc_kernel.
+// A block of 64 threads takes a tile of K7_TILE lanes: four threads a lane
+// build the table, then thread w sums window w over the tile.  Output as
+// K1's, (64, nb, 32) words with nb = ceil(n / K7_TILE), so that K2 folds
+// either.
 __global__ void __launch_bounds__(N_WINDOWS) dyn_acc_signed_kernel(const int64_t *__restrict__ scalars,
                                                                    const int64_t *__restrict__ pts,
-                                                                   int64_t *__restrict__ out, long n, long nb) {
-    __shared__ u32 tab[TILE * N_SIGNED * GE_SMEM_STRIDE];
-    __shared__ u32 sc[TILE][8];
+                                                                   u32 *__restrict__ out, long n, long nb) {
+    __shared__ u32 tab[K7_TILE * N_SIGNED * GE_SMEM_STRIDE];
+    __shared__ u32 sc[K7_TILE][8];
     const int tid = threadIdx.x;
     const long blk = blockIdx.x;
 
-    const int l = tid & (TILE - 1);
-    const int k = tid / TILE;
-    const long lane = blk * TILE + l;
+    const int l = tid & (K7_TILE - 1);
+    const int k = tid / K7_TILE;
+    const long lane = blk * K7_TILE + l;
     const bool live = lane < n;  // lanes past n: zero scalar (all digits 0), identity point
     ge p = live ? ge_load(pts + lane, 16 * n, n) : ge_identity();
     if (k == 0) {
@@ -160,37 +266,24 @@ __global__ void __launch_bounds__(N_WINDOWS) dyn_acc_signed_kernel(const int64_t
     const int word = w >> 3, shift = 4 * (w & 7);
     ge acc = signed_select(&tab[0], (sc[0][word] >> shift) & 15);
 #pragma unroll 1
-    for (int j = 1; j < TILE; ++j) {
+    for (int j = 1; j < K7_TILE; ++j) {
         acc = ge_add(acc, signed_select(&tab[j * N_SIGNED * GE_SMEM_STRIDE], (sc[j][word] >> shift) & 15));
     }
-    ge_store(out + (long)w * nb + blk, 16L * N_WINDOWS * nb, (long)N_WINDOWS * nb, acc);
+    ge_store_words(out + ((long)w * nb + blk) * POINT_WORDS, acc);
 }
 
-#define FOLD_THREADS 128
-
-// parts: (4, 16, 64, nb) -> out: (4, 16, 64); one block per window.
-__global__ void __launch_bounds__(FOLD_THREADS) lane_fold_kernel(const int64_t *__restrict__ parts,
-                                                                 int64_t *__restrict__ out, long nb) {
-    __shared__ u32 sh[FOLD_THREADS * GE_SMEM_STRIDE];
-    const int tid = threadIdx.x;
-    const long w = blockIdx.x;
-    const long limb_stride = (long)N_WINDOWS * nb;
-    ge acc = ge_identity();
-#pragma unroll 1
-    for (long b = tid; b < nb; b += FOLD_THREADS) {
-        acc = ge_add(acc, ge_load(parts + w * nb + b, 16 * limb_stride, limb_stride));
-    }
-    ge_to_smem(&sh[tid * GE_SMEM_STRIDE], acc);
-    __syncthreads();
-#pragma unroll 1
-    for (int s = FOLD_THREADS / 2; s > 0; s >>= 1) {
-        if (tid < s) {
-            acc = ge_add(acc, ge_from_smem(&sh[(tid + s) * GE_SMEM_STRIDE]));
-            ge_to_smem(&sh[tid * GE_SMEM_STRIDE], acc);
-        }
-        __syncthreads();
-    }
-    if (tid == 0) ge_store(out + w, 16 * N_WINDOWS, N_WINDOWS, acc);
+// K2, replacing _lane_fold_kernel (:422): parts (64, nb, 32) words -> out
+// (4, 16, 64) int64 limbs, a block a window summing its nb partials on the
+// four-lane adders of fold4.cuh (K6's fold, a window a row).  The wrapper
+// sizes the block from nb as it does K6's.
+__global__ void __launch_bounds__(FOLD_MAX_THREADS, 1) lane_fold_kernel(const u32 *__restrict__ parts,
+                                                                        int64_t *__restrict__ out, int nb) {
+    __shared__ __align__(16) u32 sh[FOLD_SMEM_WORDS];
+    const int c = threadIdx.x & 3;
+    const u32 *mine = parts + (long)blockIdx.x * nb * POINT_WORDS + c * 8;  // coordinate c of the window's partials
+    const fe acc = ge4_block_sum(
+        [&](int i) { return fe_load_words(reinterpret_cast<const uint4 *>(mine + (long)i * POINT_WORDS)); }, nb, sh);
+    if (threadIdx.x < 4) fe_store(out + c * 16 * N_WINDOWS + blockIdx.x, N_WINDOWS, acc);
 }
 
 #define HORNER_CHUNK 8                              // neighbouring windows a lane group
@@ -233,22 +326,49 @@ __global__ void __launch_bounds__(4 * HORNER_GROUPS, 1)
 
 extern "C" const char *bppt_msm_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
-// All arrays int64, contiguous, on the current device.
-extern "C" int bppt_dyn_acc(const void *scalars, const void *pts, void *out, long n, long nb, void *stream) {
-    dyn_acc_kernel<<<(unsigned)nb, N_WINDOWS, 0, (cudaStream_t)stream>>>(
-        (const int64_t *)scalars, (const int64_t *)pts, (int64_t *)out, n, nb);
+// Above 48 KB a block's dynamic shared memory must be allowed first: once a process, for the widest tile.
+static cudaError_t k1_allow_smem() {
+    static const cudaError_t allowed = cudaFuncSetAttribute(
+        dyn_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k1_smem_words(MAX_TILE) * (int)sizeof(u32));
+    return allowed;
+}
+
+// scalars, pts: int64 limbs; out: int32 words; all contiguous, on the current device.  tile: 1 to MAX_TILE.
+extern "C" int bppt_dyn_acc(const void *scalars, const void *pts, void *out, long n, long tile, long nb,
+                            void *stream) {
+    if (tile < 1 || tile > MAX_TILE || nb != (n + tile - 1) / tile) return (int)cudaErrorInvalidValue;
+    const cudaError_t allowed = k1_allow_smem();
+    if (allowed != cudaSuccess) return (int)allowed;
+    dyn_acc_kernel<<<(unsigned)nb, K1_THREADS, k1_smem_words((int)tile) * sizeof(u32), (cudaStream_t)stream>>>(
+        (const int64_t *)scalars, (const int64_t *)pts, (u32 *)out, n, (int)tile, (int)nb);
     return (int)cudaGetLastError();
+}
+
+// Blocks of a kernel that one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *blocks: kernel 0 is K1 at a tile of `tile` lanes (its dynamic shared memory), 1 is K2 at `threads`.
+extern "C" int bppt_msm_occupancy(long kernel, long threads, long tile, int *blocks) {
+    if (kernel == 0) {
+        if (tile < 1 || tile > MAX_TILE) return (int)cudaErrorInvalidValue;
+        const cudaError_t allowed = k1_allow_smem();
+        if (allowed != cudaSuccess) return (int)allowed;
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dyn_acc_kernel, K1_THREADS,
+                                                                  k1_smem_words((int)tile) * sizeof(u32));
+    }
+    if (kernel == 1) return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lane_fold_kernel, threads, 0);
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int bppt_dyn_acc_signed(const void *scalars, const void *pts, void *out, long n, long nb, void *stream) {
     dyn_acc_signed_kernel<<<(unsigned)nb, N_WINDOWS, 0, (cudaStream_t)stream>>>(
-        (const int64_t *)scalars, (const int64_t *)pts, (int64_t *)out, n, nb);
+        (const int64_t *)scalars, (const int64_t *)pts, (u32 *)out, n, nb);
     return (int)cudaGetLastError();
 }
 
-extern "C" int bppt_lane_fold(const void *parts, void *out, long nb, void *stream) {
-    lane_fold_kernel<<<N_WINDOWS, FOLD_THREADS, 0, (cudaStream_t)stream>>>((const int64_t *)parts,
-                                                                          (int64_t *)out, nb);
+// parts: int32 words; out: int64.  threads: a power of two from 32 to FOLD_MAX_THREADS; any other is refused.
+extern "C" int bppt_lane_fold(const void *parts, void *out, long nb, long threads, void *stream) {
+    if (threads < 32 || threads > FOLD_MAX_THREADS || (threads & (threads - 1))) return (int)cudaErrorInvalidValue;
+    lane_fold_kernel<<<N_WINDOWS, (unsigned)threads, 0, (cudaStream_t)stream>>>((const u32 *)parts, (int64_t *)out,
+                                                                               (int)nb);
     return (int)cudaGetLastError();
 }
 

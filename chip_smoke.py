@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from csrc/, holds each kernel against
-its plain torch version on the card, replays and verifies the golden
+its plain torch version on the card (K1 and K2 at the MSM widths of both
+verify batches below, 4736 and 2048 lanes), replays and verifies the golden
 proofs, verifies the 256 x 64-bit and 64 x m4 batches through
 `RangeProof.verify_batch(engine="device")` (once more with the signed-digit
 MSM kernel selected), proves 128 x 64-bit statements with
@@ -35,17 +36,26 @@ multiplications, a mixed addition of a precomputed affine point 7, a
 doubling 4 multiplications and 4 squarings.  K5 does, for each (row, lane,
 window range), one multiplication for the range's first window and a mixed
 addition for each other, and reads the lanes' table entries, the scalars and
-the lane map once; K6 the additions of its tree; K7 as K1 with 7 table
-operations for each lane instead of 14.
+the lane map once; K6 the additions of its tree.  K1 does, for each lane,
+its table at the cheapest schedule (each even multiple a doubling of its
+half, each odd one an addition: 7 doublings and 7 additions for 2P..15P)
+and, for each window, the additions that sum its tile's lanes (64 (n -
+tiles) in all), and reads the scalars and points once and writes packed
+partials; K2 the 64 (tiles - 1) additions left; K7 as K1 with a table of
+4 doublings and 3 additions (2P..8P).
 
-`chain_ms`, on the rows where few threads run long chains (K3, K4, K5 and
-K6), is the other floor: the field multiplications and squarings that lie
+`chain_ms` (every row but K7's) is the other floor: the field multiplications and squarings that lie
 one after another on the kernel's longest path, each at the dependent
 latency that the one-warp probe measured in this run (`fe_mul_ns`,
 `fe_sqr_ns`).  K3 and K6 spread a point operation over four lanes
 (ge_dbl4, ge_add4: a doubling is a squaring and a multiplication deep, an
 addition three multiplications), and their `serial_chain_ms` is the figure
-of the one-thread design they replaced (4 + 4 and 9 deep).  `bound_ms`
+of the one-thread design they replaced (4 + 4 and 9 deep); K1's first two
+table levels and its quarters' sums and all of K2 do the same.  K1 and K2
+also give their grid (`blocks`, `threads`, `waves`: blocks over those the
+card holds at once, its SM count times the kernel's blocks an SM by the
+CUDA occupancy calculator, both read in this run) and ptxas's registers and
+spill.  `bound_ms`
 stays the rate bound.  Every row carries `graph_ms`, the launch's time
 replayed from a CUDA graph: `ms` times the wrapper called back to back, and
 below some 0.02 ms that is the host.  The probe also times the point
@@ -79,6 +89,9 @@ ENTRY_BYTES = 96  # one table entry: 24 packed 32-bit words
 PART_BYTES = 128  # one K5 partial: 32 packed 32-bit words
 K4_SHAPES = (128, 256, 4100)  # elements a launch: a prove's two widths, a 256-proof verify's
 K4_MANY = 32768  # beyond the launchers' switch to one lane an element (4224): where that form must win
+# The b64_m4_x64 verify's MSM: 64 proofs x 23 points (4 commitments, A, A1, B, 8 L and 8 R) and the base
+# points padded to 1536 dynamic lanes, then 512 static (G_i, H_i for 256 bits)
+M4_LANES = 1536 + 512
 PROVE_BATCH = 128
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "golden_vectors.json")
 
@@ -198,7 +211,8 @@ def nvidia_smi() -> str:
 # ---------------------------------------------------------------------------
 
 
-def phase_build(torch, cuda) -> dict:
+def phase_build(torch, cuda, ptxas: dict) -> dict:
+    """Builds every library; `ptxas` gets each kernel's registers and spill bytes."""
     t0 = time.perf_counter()
     per_lib = cuda.build(force=True)
     seconds = time.perf_counter() - t0
@@ -206,6 +220,7 @@ def phase_build(torch, cuda) -> dict:
     for name in cuda.LIBRARIES:
         with open(cuda.log_path(name)) as f:
             regs.update(ptxas_report(f.read()))
+    ptxas.update(regs)
     for name in cuda.LIBRARIES:
         cuda.lib(name)
     sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel"))
@@ -360,7 +375,7 @@ def _horner_edges(torch, F, wsum, int_from_limbs, pack_ints) -> dict:
     return {"all_identity": identity, "only_w63": only_top, "only_w0": only_low, "not_canonical": above_p}
 
 
-def phase_kernels(torch, bp, params, rows: dict) -> dict:
+def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
     from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
     from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
     from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
@@ -455,12 +470,17 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     sc_t = torch.as_tensor(pack_ints(scal).astype("int64"), device=dev).t().contiguous()
     pts_t = cm.coords_t(pts)
     n = sc_t.shape[1]
-    tiles = -(-n // cm.TILE)
-
+    resident = cm.resident_tiles(dev)  # tile -> K1 blocks this card holds at once
+    tile = cm.pick_tile(n, resident)
+    tiles = -(-n // tile)
     parts = cm.dyn_acc(sc_t, pts_t)
-    err1 = _point_err(F, torch, parts, cm.dyn_acc_plain(sc_t, pts_t))
+    if tuple(parts.shape) != (64, tiles, cm.POINT_WORDS):
+        raise AssertionError(f"dyn_acc did not take {tiles} tiles of {tile} lanes: {tuple(parts.shape)}")
+    err1 = _point_err(F, torch, cf.words_to_coords(parts), cf.words_to_coords(cm.dyn_acc_plain(sc_t, pts_t)))
     wsum = cm.lane_fold(parts)
-    err2 = _point_err(F, torch, wsum, cm.lane_fold_plain(parts))
+    want2 = cm.lane_fold_plain(parts)
+    err2 = max(_point_err(F, torch, w, want2)
+               for w in [wsum] + [cm._launch_lane_fold(parts, t) for t in cf.FOLD_THREADS])
     # K3 on the main path's window sums and on its edge inputs, against one batched run of its plain version
     edges = _horner_edges(torch, F, wsum, int_from_limbs, pack_ints)
     horner_inputs = [wsum] + list(edges.values())
@@ -471,21 +491,75 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version (max_abs_err {err})")
 
-    point_bytes = 4 * LIMB_BYTES
-    b1 = bound_ms(n * (LIMB_BYTES + point_bytes) + tiles * 64 * point_bytes,
-                  n * (14 * FMUL_PER_ADD + 64 * FMUL_PER_ADD) * MULADDS_PER_FMUL)
-    b2 = bound_ms((tiles + 1) * 64 * point_bytes, 64 * (tiles - 1) * FMUL_PER_ADD * MULADDS_PER_FMUL)
-    b3 = bound_ms(65 * point_bytes, 252 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
+    # K1 and K2 at the b64_m4_x64 verify's MSM too, and at each shape once more at the tile width the wrapper
+    # turns down, K2 on each K1's partials: at 4736 lanes 16 (296 blocks, a second wave), at 2048 lanes 8 (256
+    # blocks, two an SM, where the picked 16 makes 128, one an SM)
+    pts4 = _rand_points(torch, ed, hr, M4_LANES, rs, dev)
+    sc4 = torch.as_tensor(pack_ints([rs.randrange(hr.L) for _ in range(M4_LANES)]).astype("int64"), device=dev)
+    shapes = {n: (sc_t, pts_t, parts, wsum), M4_LANES: (sc4.t().contiguous(), cm.coords_t(pts4), None, None)}
+    other_tile = {n: 16, M4_LANES: 8}
+    by_shape = {}
+    for lanes, (sc_s, pts_s, parts_s, wsum_s) in shapes.items():
+        if parts_s is None:
+            parts_s = cm.dyn_acc(sc_s, pts_s)
+            err1 = max(err1, _point_err(F, torch, cf.words_to_coords(parts_s),
+                                        cf.words_to_coords(cm.dyn_acc_plain(sc_s, pts_s))))
+            wsum_s = cm.lane_fold(parts_s)
+            err2 = max(err2, _point_err(F, torch, wsum_s, cm.lane_fold_plain(parts_s)))
+        t_o = other_tile[lanes]
+        p_o = cm._launch_dyn_acc(sc_s, pts_s, t_o)
+        if _point_err(F, torch, cm.lane_fold(p_o)[..., None], wsum_s[..., None]) != 0:
+            raise AssertionError(f"dyn_acc at {t_o} lanes a tile and lane_fold disagree with the picked tile ({lanes} lanes)")
+        t_s = cm.pick_tile(lanes, resident)
+        by_shape[lanes] = {"tile": t_s, "tiles": parts_s.shape[1], "waves": parts_s.shape[1] / resident(t_s),
+                           "dyn_acc_graph_ms": graph_ms(lambda: cm.dyn_acc(sc_s, pts_s)),
+                           "lane_fold_graph_ms": graph_ms(lambda: cm.lane_fold(parts_s)),
+                           "other_tile": {"tile": t_o, "tiles": p_o.shape[1], "waves": p_o.shape[1] / resident(t_o),
+                                          "dyn_acc_graph_ms": graph_ms(lambda: cm._launch_dyn_acc(sc_s, pts_s, t_o)),
+                                          "lane_fold_graph_ms": graph_ms(lambda: cm.lane_fold(p_o))}}
+    out["k1_k2_by_shape"] = by_shape
+    for name, err in (("dyn_acc", err1), ("lane_fold", err2)):
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version at {M4_LANES} lanes (max_abs_err {err})")
+    fold_threads = cf.pick_fold_threads(tiles, 64)
+
+    # K1 per tile: tables (7 additions and 7 doublings a lane), then 64 window sums of its lanes; K2 the
+    # rest of the 64 (n - 1) additions; packed 128-byte partials between them
+    k1_table = 7 * FMUL_PER_ADD * MULADDS_PER_FMUL + 7 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
+    b1 = bound_ms(n * (LIMB_BYTES + POINT_BYTES) + tiles * 64 * PART_BYTES,
+                  n * k1_table + 64 * (n - tiles) * FMUL_PER_ADD * MULADDS_PER_FMUL)
+    b2 = bound_ms(tiles * 64 * PART_BYTES + 64 * POINT_BYTES, 64 * (tiles - 1) * FMUL_PER_ADD * MULADDS_PER_FMUL)
+    b3 = bound_ms(65 * POINT_BYTES, 252 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
                   + 63 * FMUL_PER_ADD * MULADDS_PER_FMUL)
+    # the longest chains: K1 a doubling and an addition over four lanes for the table's first levels, one
+    # thread a point two additions for the others and the quarter's window additions, then two additions
+    # over four lanes for the quarters' sums ((Q0 + Q1) beside (Q2 + Q3), then their sum); K2 an adder's
+    # loop additions and the tree's levels, each 3 multiplications deep over four lanes
+    k1_adds = 2 + (-(-tile // 4) - 1)
+    adders = fold_threads // 4
+    k2_adds = -(-tiles // adders) - 1 + (min(tiles, adders) - 1).bit_length()
+    regs = ptxas.get("dyn_acc_kernel", {}), ptxas.get("lane_fold_kernel", {})
+    dev_index = torch.cuda.current_device()
     # the plain versions of K1, K3 and K7 take one to two seconds a call: timed once, already warm
     rows["dyn_acc"] = {"max_abs_err": err1, "ms": kernel_ms(lambda: cm.dyn_acc(sc_t, pts_t)),
-                       "graph_ms": graph_ms(lambda: cm.dyn_acc(sc_t, pts_t)),
+                       "graph_ms": by_shape[n]["dyn_acc_graph_ms"],
                        "plain_ms": median_ms(lambda: cm.dyn_acc_plain(sc_t, pts_t), 1),
-                       "bound_ms": b1[0], "bound_by": b1[1], "lanes": n}
+                       "bound_ms": b1[0], "bound_by": b1[1],
+                       "chain_ms": ((k1_adds * FMUL_PER_ADD + 1 + 3 * FMUL_DEEP_ADD4) * probe["fe_mul_ns"]
+                                    + probe["fe_sqr_ns"]) * 1e-6,
+                       "lanes": n, "tile": tile, "blocks": tiles, "threads": cm.K1_THREADS,
+                       "waves": by_shape[n]["waves"], "sms": cm.sm_count(dev),
+                       "blocks_per_sm": cm.occupancy("dyn_acc", dev_index, tile=tile), **regs[0]}
+    k2_per_sm = cm.occupancy("lane_fold", dev_index, threads=fold_threads)
     rows["lane_fold"] = {"max_abs_err": err2, "ms": kernel_ms(lambda: cm.lane_fold(parts)),
-                         "graph_ms": graph_ms(lambda: cm.lane_fold(parts)),
+                         "graph_ms": by_shape[n]["lane_fold_graph_ms"],
+                         "graph_ms_by_threads": {t: graph_ms(lambda: cm._launch_lane_fold(parts, t))
+                                                 for t in cf.FOLD_THREADS},
                          "plain_ms": median_ms(lambda: cm.lane_fold_plain(parts), 3),
-                         "bound_ms": b2[0], "bound_by": b2[1], "tiles": tiles}
+                         "bound_ms": b2[0], "bound_by": b2[1],
+                         "chain_ms": k2_adds * FMUL_DEEP_ADD4 * probe["fe_mul_ns"] * 1e-6,
+                         "tiles": tiles, "blocks": 64, "threads": fold_threads,
+                         "waves": 64 / (cm.sm_count(dev) * k2_per_sm), "blocks_per_sm": k2_per_sm, **regs[1]}
 
     # the longest chain: 252 doublings, each a squaring and a multiplication deep over four lanes, then the
     # addition of a group's own pair of windows and those of the tree's levels, each 3 multiplications deep
@@ -502,17 +576,20 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
 
     # K7 on K1's inputs, then K1 against K7 in turns (the A/B of the two digit recodings)
     parts7 = cm.dyn_acc_signed(sc_t, pts_t)
-    err7 = _point_err(F, torch, parts7, cm.dyn_acc_signed_plain(sc_t, pts_t))
+    err7 = _point_err(F, torch, cf.words_to_coords(parts7), cf.words_to_coords(cm.dyn_acc_signed_plain(sc_t, pts_t)))
     res7 = cm.horner(cm.lane_fold(parts7))  # the window sums differ with the recoding; the MSM does not
     if err7 != 0 or _point_err(F, torch, res7[..., None], res[..., None]) != 0:
         raise AssertionError(f"dyn_acc_signed disagrees with its plain version or with K1 (max_abs_err {err7})")
-    b7 = bound_ms(n * (LIMB_BYTES + point_bytes) + tiles * 64 * point_bytes,
-                  n * (7 * FMUL_PER_ADD + 64 * FMUL_PER_ADD) * MULADDS_PER_FMUL)
+    tiles7 = parts7.shape[1]  # K7 keeps 16-lane tiles: 3 additions and 4 doublings a lane for its table
+    k7_table = 3 * FMUL_PER_ADD * MULADDS_PER_FMUL + 4 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
+    b7 = bound_ms(n * (LIMB_BYTES + POINT_BYTES) + tiles7 * 64 * PART_BYTES,
+                  n * k7_table + 64 * (n - tiles7) * FMUL_PER_ADD * MULADDS_PER_FMUL)
     turns = [kernel_ms(lambda: fn(sc_t, pts_t)) for fn in (cm.dyn_acc, cm.dyn_acc_signed, cm.dyn_acc_signed, cm.dyn_acc)]
     rows["dyn_acc_signed"] = {"max_abs_err": err7, "ms": statistics.mean(turns[1:3]),
                               "graph_ms": graph_ms(lambda: cm.dyn_acc_signed(sc_t, pts_t)),
                               "plain_ms": median_ms(lambda: cm.dyn_acc_signed_plain(sc_t, pts_t), 1),
-                              "bound_ms": b7[0], "bound_by": b7[1], "lanes": n}
+                              "bound_ms": b7[0], "bound_by": b7[1], "lanes": n, "blocks": tiles7,
+                              **ptxas.get("dyn_acc_signed_kernel", {})}
     out["k1_k7_k7_k1_ms"] = turns
     section_done("k1_k2_k3_k7")
 
@@ -554,7 +631,9 @@ def phase_kernels(torch, bp, params, rows: dict) -> dict:
     got16 = msm_kernel(torch.as_tensor(pack_ints(small_sc).astype("int64"), device=dev), ed.from_host(small, device=dev))
     if not hr.point_equal(ed.to_host(got16), host_msm(small_sc, small)):
         raise AssertionError("16-lane MSM disagrees with the host Pippenger")
-    out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "chain_ms", "serial_chain_ms")
+    out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "chain_ms",
+                                               "serial_chain_ms", "graph_ms_by_threads", "blocks", "threads", "waves",
+                                               "blocks_per_sm")
                           if kk in v}
                       for k, v in rows.items()}
     out["k4"] = rows["pow_p58"]
@@ -776,10 +855,10 @@ def main() -> int:
 
     # the prover's parameters: 64 bits, one commitment, extension degree 1 (golden cell 3's)
     params = bp.RangeParameters.init(64, 1, bp.create_pedersen_gens_with_extension_degree(bp.ExtensionDegree(1)))
-    rows, launches = {}, {}
+    rows, launches, ptxas = {}, {}, {}
     phases = (
-        ("build", lambda: phase_build(torch, cuda)),
-        ("kernels", lambda: phase_kernels(torch, bp, params, rows)),
+        ("build", lambda: phase_build(torch, cuda, ptxas)),
+        ("kernels", lambda: phase_kernels(torch, bp, params, rows, ptxas)),
         ("golden", lambda: phase_golden(bp, hr, cells)),
         ("main", lambda: phase_main(torch, bp, hr, cells, launches)),
         ("prove", lambda: phase_prove(torch, bp, hr, params, cells, launches)),
@@ -806,7 +885,8 @@ def main() -> int:
          "replaces": replaces, "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
          "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
          "bound_by": rows[k]["bound_by"], "library_ms": None,
-         **{extra: rows[k][extra] for extra in ("chain_ms", "serial_chain_ms", "graph_ms", "entry", "pow_p58_ms")
+         **{extra: rows[k][extra] for extra in ("chain_ms", "serial_chain_ms", "graph_ms", "entry", "pow_p58_ms",
+                                                "blocks", "threads", "waves", "registers", "spill_stores")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

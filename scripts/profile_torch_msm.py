@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""K1 (`dyn_acc`) and K2 (`lane_fold`) of the port's dynamic MSM, timed on one GPU.
+
+    python3 scripts/profile_torch_msm.py [--lanes 4736 2048] [--tiles 4 6 8 10 12 16 18 24 32]
+
+Run from the root of a checkout (it imports the port and chip_smoke.py from
+there), so that two trees can be compared on one card, one after the other.  For
+each lane count (4736: the MSM of a 256 x 64-bit verify; 2048: that of a
+64 x (64-bit, m=4) verify) it makes random points and canonical scalars,
+runs K1 then K2 through the wrappers' own choices, checks the window sums
+against the plain versions' (ristretto point equality, exact), and prints
+one JSON line: K1's and K2's CUDA-graph time (chip_smoke.graph_ms), their
+sum, the tile width and grid, and, where the tree has the fixed-width
+launcher, K1 at every width of --tiles with K2 on its partials.  The first
+line gives ptxas's registers and spill bytes of both kernels and, from
+`cuobjdump -sass`, K1's spill instructions (STL, LDL) between each two of
+its barriers, with a mark where that stretch of code branches back (a loop);
+the last, the card's name and power limit.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def spill_by_phase(cuda) -> list | dict:
+    """K1's SASS cut at its barriers (BAR): for each stretch, its instruction
+    count, its spill stores (STL) and loads (LDL), and whether it branches
+    back within itself.  {"unavailable": reason} without cuobjdump."""
+    tool = os.path.join(os.path.dirname(cuda.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"unavailable": "no cuobjdump beside nvcc"}
+    res = subprocess.run([tool, "-sass", cuda.so_path("msm")], capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        return {"unavailable": res.stderr.strip()[-200:]}
+    phases, mine = [], False
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            mine = re.fullmatch(r"_Z\d+dyn_acc_kernel\w*", m.group(1)) is not None
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*)", line)
+        if not (mine and m):
+            continue
+        at, op, operands = int(m.group(1), 16), m.group(2), m.group(3)
+        if not phases or op.startswith("BAR"):
+            phases.append({"from": at, "instructions": 0, "stl": 0, "ldl": 0, "loops": False})
+        ph = phases[-1]
+        ph["instructions"] += 1
+        ph["stl"] += op.startswith("STL")
+        ph["ldl"] += op.startswith("LDL")
+        target = re.search(r"0x([0-9a-f]+)", operands) if op.startswith("BRA") else None
+        if target and ph["from"] <= int(target.group(1), 16) < at:
+            ph["loops"] = True
+    return phases
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lanes", type=int, nargs="+", default=[4736, 2048])
+    ap.add_argument("--tiles", type=int, nargs="*", default=[4, 6, 8, 10, 12, 16, 18, 24, 32])
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_msm: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from bulletproofs_plus_tpu_torch.native import cuda
+    from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
+    from bulletproofs_plus_tpu_torch.ops import edwards as ed
+    from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
+    from bulletproofs_plus_tpu_torch.ops import ristretto as rist
+    from bulletproofs_plus_tpu_torch.ops.limbs import pack_ints
+
+    cuda.build(["msm"])  # if stale; its log has ptxas's report either way
+    with open(cuda.log_path("msm")) as f:
+        regs = cs.ptxas_report(f.read())
+    print(json.dumps({"ptxas": {k: regs.get(k) for k in ("dyn_acc_kernel", "lane_fold_kernel")},
+                      "dyn_acc_spill_by_phase": spill_by_phase(cuda)}), flush=True)
+
+    def windows_equal(a, b) -> bool:
+        return bool(rist.point_equal(ed.PointArray(*(c.t() for c in a)), ed.PointArray(*(c.t() for c in b))).all())
+
+    rs = random.Random(20261017)
+    fixed = getattr(cm, "_launch_dyn_acc", None)  # K1 at a given width, where the tree has one
+    for n in args.lanes:
+        pts_t = cm.coords_t(cs._rand_points(torch, ed, hr, n, rs, "cuda"))
+        sc_t = torch.as_tensor(pack_ints([rs.randrange(hr.L) for _ in range(n)]).astype("int64"),
+                               device="cuda").t().contiguous()
+        parts = cm.dyn_acc(sc_t, pts_t)
+        wsum = cm.lane_fold(parts)
+        if not windows_equal(wsum, cm.lane_fold_plain(cm.dyn_acc_plain(sc_t, pts_t))):
+            raise AssertionError(f"{n} lanes: K1 -> K2 disagrees with the plain versions")
+        k1, k2 = cs.graph_ms(lambda: cm.dyn_acc(sc_t, pts_t)), cs.graph_ms(lambda: cm.lane_fold(parts))
+        tiles = parts.shape[-2] if parts.dim() == 3 else parts.shape[-1]
+        row = {"lanes": n, "tiles": tiles, "dyn_acc_graph_ms": k1, "lane_fold_graph_ms": k2, "k1_k2_ms": k1 + k2}
+        if fixed is not None:
+            row["tile"] = cm.pick_tile(n, cm.resident_tiles(sc_t.device))
+            by_tile = {}
+            for t in args.tiles:
+                p_t = fixed(sc_t, pts_t, t)
+                if not windows_equal(cm.lane_fold(p_t), wsum):
+                    raise AssertionError(f"{n} lanes: K1 at {t} lanes a tile disagrees with the picked width")
+                a, b = cs.graph_ms(lambda: fixed(sc_t, pts_t, t)), cs.graph_ms(lambda: cm.lane_fold(p_t))
+                by_tile[t] = {"tiles": p_t.shape[1], "dyn_acc_graph_ms": a, "lane_fold_graph_ms": b, "k1_k2_ms": a + b,
+                              "waves": p_t.shape[1] / cm.resident_tiles(sc_t.device)(t)}
+            row["by_tile"] = by_tile
+        print(json.dumps(row), flush=True)
+    print(cs.nvidia_smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -57,16 +57,80 @@ def pa(coords):
     return ed.PointArray(*(c.movedim(0, -1) for c in coords))
 
 
-def test_msm_kernels_match_plain(card):
-    scalars, pts = _msm_inputs(100, 3)
-    sc_t = torch.as_tensor(pack_ints(scalars).astype(np.int64), device=card).t().contiguous()
-    pts_t = cm.coords_t(ed.from_host(pts, device=card))
-    parts = cm.dyn_acc(sc_t, pts_t)
-    want = cm.dyn_acc_plain(sc_t, pts_t)
-    assert bool(rist.point_equal(pa(parts), pa(want)).all())
+def _random_scalars(card, n, seed):
+    """(16, n) canonical scalar limbs on the card, lane 0 a zero scalar where n > 1."""
+    rs = np.random.RandomState(seed)
+    vals = [int.from_bytes(rs.bytes(32), "little") % hr.L for _ in range(n)]
+    if n > 1:
+        vals[0] = 0
+    return torch.as_tensor(pack_ints(vals).astype(np.int64), device=card).t().contiguous()
+
+
+# (lanes, K1's tile or the wrapper's pick): one lane; one full 16-lane tile; a ragged last tile of 18; 37 tiles,
+# a count no block size of K2 divides into whole rounds of adders; 100 lanes; the MSMs of a 256 x 64-bit verify
+# (4736 lanes) and of a 64 x (64-bit, m=4) one (2048)
+@pytest.mark.parametrize("n, tile", [(1, None), (16, 16), (40, 18), (592, 16), (100, None), (4736, None),
+                                     (2048, None)])
+def test_msm_kernels_match_plain(card, n, tile):
+    """K1 against its plain version, K2 against its own at every block size,
+    K3 after them, and K7 through the same K2 to the same MSM; a zero scalar
+    and an identity point (lanes 0 and n - 1, where n > 1) go through all of
+    them."""
+    sc_t = _random_scalars(card, n, n)
+    pts = _random_projective(card, n, n + 1)
+    if n > 1:
+        pts = ed.cat([ed.PointArray(*(c[: n - 1] for c in pts)), ed.identity((1,), device=card)])
+    pts_t = cm.coords_t(pts)
+    picked = cm.pick_tile(n, cm.resident_tiles(card))
+    tile = tile or picked
+    cuda.reset_launches()
+    parts = cm._launch_dyn_acc(sc_t, pts_t, tile) if tile != picked else cm.dyn_acc(sc_t, pts_t)
+    assert tuple(parts.shape) == (64, -(-n // tile), cm.POINT_WORDS) and cuda.launches["dyn_acc"] == 1
+    want = cm.dyn_acc_plain(sc_t, pts_t, tile)
+    assert bool(rist.point_equal(pa(cf.words_to_coords(parts)), pa(cf.words_to_coords(want))).all())
     wsum = cm.lane_fold(parts)
-    assert bool(rist.point_equal(pa(wsum), pa(cm.lane_fold_plain(parts))).all())
-    assert bool(rist.point_equal(pa(cm.horner(wsum)), pa(cm.horner_plain(wsum))))
+    want2 = pa(cm.lane_fold_plain(parts))
+    for threads in cf.FOLD_THREADS:
+        assert bool(rist.point_equal(pa(cm._launch_lane_fold(parts, threads)), want2).all())
+    assert bool(rist.point_equal(pa(wsum), want2).all())
+    res = cm.horner(wsum)
+    assert bool(rist.point_equal(pa(res), pa(cm.horner_plain(wsum))))
+    parts7 = cm.dyn_acc_signed(sc_t, pts_t)
+    assert bool(rist.point_equal(pa(cf.words_to_coords(parts7)),
+                                 pa(cf.words_to_coords(cm.dyn_acc_signed_plain(sc_t, pts_t)))).all())
+    assert bool(rist.point_equal(pa(cm.horner(cm.lane_fold(parts7))), pa(res)))
+
+
+def test_k1_grid_is_one_wave_of_two_blocks_an_sm(card):
+    """The card holds two K1 blocks an SM at every tile width (the design's
+    cap of 128 registers for 256 threads), and the width the wrapper picks
+    for each MSM of the verify paths makes one wave of them."""
+    resident = cm.resident_tiles(card)
+    sms = cm.sm_count(torch.device(card))
+    for tile in range(1, cm.MAX_TILE + 1):
+        assert cm.occupancy("dyn_acc", torch.cuda.current_device(), tile=tile) >= 2
+        assert resident(tile) >= 2 * sms
+    for n in (16, 2048, 4736):
+        assert -(-n // cm.pick_tile(n, resident)) <= resident(cm.pick_tile(n, resident))
+    assert cm.occupancy("lane_fold", torch.cuda.current_device(), threads=512) >= 1
+
+
+@pytest.mark.parametrize("tile, threads", [(0, 128), (33, 128), (16, 16), (16, 96), (16, 1024)])
+def test_msm_entries_refuse_bad_launch_parameters(card, tile, threads):
+    """The C entries themselves, below the wrappers' checks: K1 refuses a
+    tile its warps cannot hold, K2 a block size its tree cannot sum."""
+    n = 4
+    sc_t = torch.zeros((16, n), dtype=torch.int64, device=card)
+    pts_t = cm.coords_t(ed.identity((n,), device=card))
+    out = torch.empty((64, 1, cm.POINT_WORDS), dtype=torch.int32, device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    if tile != 16:
+        status = cuda.lib("msm").bppt_dyn_acc(sc_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tile, 1, stream)
+    else:
+        wsum = torch.empty((4, 16, 64), dtype=torch.int64, device=card)
+        status = cuda.lib("msm").bppt_lane_fold(out.data_ptr(), wsum.data_ptr(), 1, threads, stream)
+    with pytest.raises(RuntimeError):
+        cuda.check("msm", status, "msm entry")
 
 
 FIELD_EDGES = [0, 1, P - 1, P, P + 1, 2**255 - 1, 2**256 - 1, 2**256 - 38, 2**256 - 30]
@@ -219,7 +283,8 @@ def test_signed_msm_kernel_matches_host_and_plain(card, n):
     assert hr.point_equal(ed.to_host(msm_kernel(sc, points, signed=True)), host_msm(scalars, pts))
     assert [cuda.launches[k] for k in ("dyn_acc_signed", "dyn_acc", "lane_fold", "horner")] == [1, 0, 1, 1]
     sc_t, pts_t = sc.t().contiguous(), cm.coords_t(points)
-    assert bool(rist.point_equal(pa(cm.dyn_acc_signed(sc_t, pts_t)), pa(cm.dyn_acc_signed_plain(sc_t, pts_t))).all())
+    got, want = cm.dyn_acc_signed(sc_t, pts_t), cm.dyn_acc_signed_plain(sc_t, pts_t)
+    assert bool(rist.point_equal(pa(cf.words_to_coords(got)), pa(cf.words_to_coords(want))).all())
 
 
 @pytest.fixture(scope="module")

@@ -367,7 +367,8 @@ def test_dyn_acc_signed_plain_matches_jax_kernel_body():
     scalars, pts = _msm_inputs(n, 17)
     arr = pack_ints(scalars)
     got = cm.dyn_acc_signed(_t(arr).t().contiguous(), cm.coords_t(ed.from_host(pts, device="cpu")))
-    assert tuple(got.shape) == (4, 16, 64, 1)
+    assert tuple(got.shape) == (64, 1, cm.POINT_WORDS)  # one tile of packed partials
+    got = cf.words_to_coords(got)
     jpt = jpf.PointS(*(jnp.transpose(c, (1, 0)) for c in jed.from_host(pts)))
     jsel = pm._dyn_select_signed(jpt, pm.signed_digits4(jnp.asarray(arr)), n)
     jsum = jpf.lane_halve_sum(jsel, axis=2, width=n)  # (16, 64, 1)

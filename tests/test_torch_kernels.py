@@ -2,8 +2,11 @@
 
 On the CPU the wrappers of K1-K4 take their plain versions; these tests hold
 those against the TPU kernels they replace, run as the JAX package's own
-tests run them (Pallas interpret mode, lane tile 8), and against the host
-Pippenger.  MSM results compare with ristretto point equality, pow results
+tests run them (Pallas interpret mode, or the kernel body run eagerly), or,
+for the K1 -> K2 -> K3 chain, against the JAX package's plain MSM (its
+`msm_kernel`, which takes no Pallas path on the CPU; tests/test_pallas_msm.py
+holds the Pallas MSM against the host at the same shape), and against the
+host Pippenger.  MSM results compare with ristretto point equality, pow results
 mod p; both are exact.  The CUDA kernels themselves are checked on the card
 by tests/test_torch_cuda.py and chip_smoke.py.
 """
@@ -15,10 +18,12 @@ import torch
 import jax.numpy as jnp
 
 from bulletproofs_plus_tpu.ops import edwards as jed
+from bulletproofs_plus_tpu.ops import msm as jmsm
 from bulletproofs_plus_tpu.ops import pallas_msm as pm
 from bulletproofs_plus_tpu.ops import ristretto as jrist
 from bulletproofs_plus_tpu.ops.limbs import int_from_limbs, limbs_from_bytes, pack_ints
 from bulletproofs_plus_tpu.ops.pallas_pow import pow_p58_pallas
+from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
 from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
 from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
 from bulletproofs_plus_tpu_torch.ops import edwards as ed
@@ -44,16 +49,64 @@ def _msm_inputs(n, seed):
     return scalars, pts
 
 
-def test_dyn_msm_plain_matches_pallas_and_host(_interpret_mode):
-    """One shape only: the interpret-mode Pallas MSM costs about two minutes
-    of XLA CPU work (the same n = 8, lc = 8 case as test_pallas_msm.py)."""
+@pytest.fixture(scope="module")
+def msm8():
+    """Eight lanes (a zero scalar, the identity among the points) and their
+    MSM by the JAX package's plain `msm_kernel`: one XLA compile a module."""
     scalars, pts = _msm_inputs(8, 8)
     arr = pack_ints(scalars)
-    got = cm.dyn_msm_plain(torch.as_tensor(arr.astype(np.int64)), ed.from_host(pts, device="cpu"))
-    jax_pt = pm.msm_kernel_pallas(jnp.asarray(arr), jed.from_host(pts), lc=8)
+    jax_pt = jed.to_host(jmsm.msm_kernel(jnp.asarray(arr), jed.from_host(pts)))
+    return scalars, pts, torch.as_tensor(arr.astype(np.int64)), jax_pt
+
+
+def test_dyn_msm_plain_matches_pallas_and_host(msm8):
+    """The plain K1 -> K2 -> K3 chain, the JAX package's MSM and the host
+    Pippenger agree at n = 8 (the n = 8 case of test_pallas_msm.py)."""
+    scalars, pts, sc, jax_pt = msm8
+    got = cm.dyn_msm_plain(sc, ed.from_host(pts, device="cpu"))
     want = host_msm(scalars, pts)
     assert hr.point_equal(ed.to_host(got), want)
-    assert hr.point_equal(jed.to_host(jax_pt), want)
+    assert hr.point_equal(jax_pt, want)
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8])  # eight one-lane tiles; two of three and a ragged one of two; one tile
+def test_dyn_acc_tile_widths_match_jax_and_host(msm8, tile):
+    """K1's tile width moves additions between K1 and K2 and changes no
+    result: each packed partial [w, b] is the sum over tile b's lanes of
+    digit_w(s) P, K2 sums them to the window sums, and the chain's MSM is the
+    JAX package's and the host's."""
+    scalars, pts, sc, jax_pt = msm8
+    parts = cm.dyn_acc_plain(sc.t().contiguous(), cm.coords_t(ed.from_host(pts, device="cpu")), tile)
+    tiles = -(-8 // tile)
+    assert tuple(parts.shape) == (64, tiles, cm.POINT_WORDS) and parts.dtype == torch.int32
+    coords = cf.words_to_coords(parts)  # (4, 16, 64, tiles)
+    for w in (0, 63):
+        digits = [(s >> (4 * w)) & 15 for s in scalars]
+        for b in range(tiles):
+            got = tuple(int_from_limbs(coords[c, :, w, b].numpy()) % P for c in range(4))
+            lanes = slice(b * tile, (b + 1) * tile)
+            assert hr.point_equal(got, host_msm(digits[lanes], pts[lanes]))
+    res = ed.to_host(ed.PointArray(*cm.horner(cm.lane_fold(parts))))
+    assert hr.point_equal(res, jax_pt) and hr.point_equal(res, host_msm(scalars, pts))
+
+
+def test_pick_tile_fills_one_wave():
+    """The tile width the K1 wrapper picks: 16 lanes while 16-lane tiles fit
+    in one wave of resident blocks, then the narrowest that does, at most
+    32.  On the CPU the plain version tiles for an H100's 264 (18
+    lanes for the 4736 of a 256-proof verify); on a card that held one block
+    an SM the same MSM would take 36 tiles of 132 and so the widest tile."""
+    cpu = cm.resident_tiles("cpu")
+    lanes = (1, 16, 2048, 4224, 4225, 4736, 8448, 8449, 10**6)
+    assert [cm.pick_tile(n, cpu) for n in lanes] == [16, 16, 16, 16, 17, 18, 32, 32, 32]
+    for n in (4225, 4736, 6000, 8448):
+        assert -(-n // cm.pick_tile(n, cpu)) <= cm.CPU_RESIDENT_TILES
+    assert cm.pick_tile(4736, lambda tile: 132) == cm.MAX_TILE
+    assert cm.pick_tile(2048, lambda tile: 132) == 16
+    assert tuple(cm.dyn_acc(torch.zeros((16, 20), dtype=torch.int64), cm.coords_t(ed.identity((20,), device="cpu"))).shape) \
+        == (64, -(-20 // cm.MIN_TILE), cm.POINT_WORDS)  # the CPU wrapper takes the plain version at the picked width
+    with pytest.raises(ValueError):
+        cm.dyn_acc_plain(torch.zeros((16, 4), dtype=torch.int64), torch.zeros((4, 16, 4), dtype=torch.int64), 33)
 
 
 @pytest.mark.parametrize("n", [1, 21, 40])  # 21: a ragged K1 tile; 40: a K2 fold over 3 tiles
@@ -70,7 +123,7 @@ def test_msm_stages_compose():
     sc_t = torch.as_tensor(pack_ints(scalars).astype(np.int64)).t().contiguous()
     pts_t = cm.coords_t(ed.from_host(pts, device="cpu"))
     parts = cm.dyn_acc(sc_t, pts_t)  # CPU tensor: the plain version
-    assert tuple(parts.shape) == (4, 16, 64, 2)
+    assert tuple(parts.shape) == (64, 2, cm.POINT_WORDS)  # two 16-lane tiles of packed partials, the last ragged
     wsum = cm.lane_fold(parts)
     host_w = [ed.to_host(ed.PointArray(*(c[:, w] for c in wsum))) for w in range(64)]
     for w in (0, 17, 63):
@@ -189,7 +242,7 @@ def test_wrappers_refuse_other_devices():
         cm.dyn_acc(torch.zeros((16, 4), dtype=torch.int64, device="meta"),
                    torch.zeros((4, 16, 4), dtype=torch.int64, device="meta"))
     with pytest.raises(ValueError):
-        cm.lane_fold(torch.zeros((4, 16, 64, 2), dtype=torch.int64, device="meta"))
+        cm.lane_fold(torch.zeros((64, 2, cm.POINT_WORDS), dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
         cm.horner(torch.zeros((4, 16, 64), dtype=torch.int64, device="meta"))
 
