@@ -70,15 +70,19 @@
 #define N_WINDOWS 64
 #define N_DIGITS 16
 #define POINT_WORDS 32
-#define K1_THREADS 256
-#define K1_MIN_BLOCKS 2                              // blocks an SM: caps K1 at 65536 / (2 * 256) = 128 registers
+#define K1_THREADS 256                               // K1's and K7's blocks
+#define K1_MIN_BLOCKS 2                              // blocks an SM: caps K1 and K7 at 65536 / (2 * 256) = 128 registers
 #define K1_QUARTERS (K1_THREADS / N_WINDOWS)         // threads a window
 #define MAX_TILE 32                                  // a table doubling takes one warp of lanes
 #define LANE_WORDS (N_DIGITS * GE_SMEM_STRIDE + 1)   // a lane's table, an odd stride
 #define K1_TREE_WORDS (K1_THREADS * GE_SMEM_STRIDE)  // the quarters' sums, in the table's room
+#define N_SIGNED 9                                   // K7's table: the identity, P .. 8P
+#define K7_LANE_WORDS (N_SIGNED * GE_SMEM_STRIDE)    // 297 words, odd without a pad word
 
-__host__ __device__ constexpr int k1_smem_words(int tile) {
-    return (tile * LANE_WORDS > K1_TREE_WORDS ? tile * LANE_WORDS : K1_TREE_WORDS) + tile * 8;
+// Dynamic shared memory of a K1 or K7 block: `tile` lane tables of `lane_words` (or the quarters' sums, where
+// those take more), then the tile's scalars, eight words a lane.
+__host__ __device__ constexpr int msm_smem_words(int tile, int lane_words) {
+    return (tile * lane_words > K1_TREE_WORDS ? tile * lane_words : K1_TREE_WORDS) + tile * 8;
 }
 
 // One coordinate (8 of a point's 33 words) in shared memory, as a four-lane operation holds it.
@@ -102,33 +106,36 @@ __device__ __forceinline__ void table_dbl(u32 *row, int dst, int a) {
     ge_to_smem(row + dst * GE_SMEM_STRIDE, ge_dbl(ge_from_smem(row + a * GE_SMEM_STRIDE)));
 }
 
-// scalars: (16, n) limb-major; pts: (4, 16, n); out: (64, nb, 32) words,
-// nb = ceil(n / tile), tile from 1 to MAX_TILE; dynamic shared memory
-// k1_smem_words(tile) words.
-__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
-    dyn_acc_kernel(const int64_t *__restrict__ scalars, const int64_t *__restrict__ pts, u32 *__restrict__ out,
-                   long n, int tile, int nb) {
-    extern __shared__ u32 smem[];
-    u32 *const sc = smem + k1_smem_words(tile) - tile * 8;  // the tile's scalars, eight words a lane
-    const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
-    const long blk = blockIdx.x;
-
-    // The scalars: lane l of warp 0 for tile lane l (lanes past n: zero scalar).
+// The tile's scalars into `sc`, eight packed words a lane: lane l of warp 0 for tile lane l (lanes past n: zero).
+// K7 recodes as it loads (`recode`): s + 0x88..8, whose nibble j is the signed digit d_j + 8 (ops/msm.py
+// signed_digits4); a scalar below 2^253, as every canonical one is, cannot carry out of the top nibble.
+__device__ __forceinline__ void load_scalars(u32 *sc, const int64_t *__restrict__ scalars, long n, long blk, int tile,
+                                             bool recode) {
+    const int tid = threadIdx.x;
     if (tid < tile) {
         const long lane = blk * tile + tid;
         const bool live = lane < n;
+        u64 c = 0;
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
             const u32 lo = live ? (u32)scalars[(2 * q) * n + lane] : 0u;
             const u32 hi = live ? (u32)scalars[(2 * q + 1) * n + lane] : 0u;
-            sc[tid * 8 + q] = lo | (hi << 16);
+            c += (u64)(lo | (hi << 16)) + (recode ? 0x88888888u : 0u);
+            sc[tid * 8 + q] = (u32)c;
+            c >>= 32;
         }
     }
-    // The tables, levels 1 and 2 on four-lane point operations: lane group g = tid / 4 for tile lane g (in
-    // level 2 counted from the group's half), lane c of the group for coordinate c.  Only a few warps work
-    // here and each waits out its operation's latency, which four lanes cut to a third.  A warp's eight
-    // groups run one operation in one control flow, as the shuffles need; groups past the tile run it on the
-    // identity (level 1) or on lane 0's entries (level 2) and store nothing.
+}
+
+// The tables' levels 1 and 2, shared by K1 and K7 (a lane's table `lane_words` apart), on four-lane point
+// operations: lane group g = tid / 4 for tile lane g (in level 2 counted from the group's half), lane c of the
+// group for coordinate c.  Only a few warps work here and each waits out its operation's latency, which four
+// lanes cut to a third.  A warp's eight groups run one operation in one control flow, as the shuffles need;
+// groups past the tile run it on the identity (level 1) or on lane 0's entries (level 2) and store nothing.
+// Ends on a barrier: T0 .. T4 stored.
+__device__ __forceinline__ void table_levels_12(u32 *smem, int lane_words, const int64_t *__restrict__ pts, long n,
+                                                long blk, int tile) {
+    const int tid = threadIdx.x, warp = tid >> 5;
     const int g = tid >> 2, c = tid & 3;
     const int half = (tile + 7) / 8;  // warps that cover the tile's lanes, four lanes each
     if (warp < half) {  // level 1: T0 the identity, T1 = P (lanes past n: the identity), T2 = 2P
@@ -137,7 +144,7 @@ __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
         const fe p = mine && lane < n ? fe_load(pts + c * 16 * n + lane, n) : ge4_identity(c);
         const fe p2 = ge_dbl4(p);
         if (mine) {
-            u32 *r = smem + g * LANE_WORDS + c * 8;
+            u32 *r = smem + g * lane_words + c * 8;
             fe_to_smem(r, ge4_identity(c));
             fe_to_smem(r + GE_SMEM_STRIDE, p);
             fe_to_smem(r + 2 * GE_SMEM_STRIDE, p2);
@@ -148,7 +155,7 @@ __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
         const bool adds = warp < half;
         const int gl = adds ? g : g - 8 * half;
         const bool mine = gl < tile;
-        u32 *r = smem + (mine ? gl : 0) * LANE_WORDS + c * 8;
+        u32 *r = smem + (mine ? gl : 0) * lane_words + c * 8;
         const fe t2 = fe_from_smem(r + 2 * GE_SMEM_STRIDE);
         fe t;
         if (adds) {
@@ -159,6 +166,36 @@ __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
         if (mine) fe_to_smem(r + (adds ? 3 : 4) * GE_SMEM_STRIDE, t);
     }
     __syncthreads();
+}
+
+// The window phase's end, shared by K1 and K7: thread (q, w) holds its quarter's sum for window w; a group of
+// four lanes a window adds the quarters on ge_add4, (Q0 + Q1) + (Q2 + Q3), and stores the tile's partial as
+// packed words.  Every warp adds, so the shuffles find whole warps.
+__device__ __forceinline__ void quarters_sum_store(u32 *smem, const ge &acc, u32 *__restrict__ out, int nb,
+                                                   long blk) {
+    const int tid = threadIdx.x, g = tid >> 2, c = tid & 3;
+    __syncthreads();  // every table read: the room takes the quarters' sums
+    ge_to_smem(smem + tid * GE_SMEM_STRIDE, acc);
+    __syncthreads();
+    const u32 *qs = smem + g * GE_SMEM_STRIDE + c * 8;  // coordinate c of quarter 0's sum for window g
+    const int qstride = N_WINDOWS * GE_SMEM_STRIDE;
+    const fe lo = ge_add4(fe_from_smem(qs), fe_from_smem(qs + qstride));
+    const fe hi = ge_add4(fe_from_smem(qs + 2 * qstride), fe_from_smem(qs + 3 * qstride));
+    fe_store_words(reinterpret_cast<uint4 *>(out + ((long)g * nb + blk) * POINT_WORDS + c * 8), ge_add4(lo, hi));
+}
+
+// scalars: (16, n) limb-major; pts: (4, 16, n); out: (64, nb, 32) words,
+// nb = ceil(n / tile), tile from 1 to MAX_TILE; dynamic shared memory
+// msm_smem_words(tile, LANE_WORDS) words.
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
+    dyn_acc_kernel(const int64_t *__restrict__ scalars, const int64_t *__restrict__ pts, u32 *__restrict__ out,
+                   long n, int tile, int nb) {
+    extern __shared__ u32 smem[];
+    u32 *const sc = smem + msm_smem_words(tile, LANE_WORDS) - tile * 8;
+    const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+    const long blk = blockIdx.x;
+    load_scalars(sc, scalars, n, blk, tile, false);
+    table_levels_12(smem, LANE_WORDS, pts, n, blk, tile);
     // levels 3 and 4: the additions are jobs (entry, lane) laid flat over the first warps, so that a tile of
     // 18 lanes fills four warps for level 4 and not seven halves; level 3's doubling takes the warp after
     const int adds3 = (3 * tile + 31) / 32;  // warps of level 3's additions
@@ -180,96 +217,140 @@ __global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
             acc = ge_add(acc, ge_from_smem(smem + j * LANE_WORDS + digit * GE_SMEM_STRIDE));
         }
     }
-    __syncthreads();  // every table read: the room takes the quarters' sums
-    // The quarters' sums on four-lane additions, lane group g for window g: (Q0 + Q1) + (Q2 + Q3).  Every
-    // warp adds, so the shuffles find whole warps.
-    ge_to_smem(smem + tid * GE_SMEM_STRIDE, acc);
-    __syncthreads();
-    const u32 *qs = smem + g * GE_SMEM_STRIDE + c * 8;  // coordinate c of quarter 0's sum for window g
-    const int qstride = N_WINDOWS * GE_SMEM_STRIDE;
-    const fe lo = ge_add4(fe_from_smem(qs), fe_from_smem(qs + qstride));
-    const fe hi = ge_add4(fe_from_smem(qs + 2 * qstride), fe_from_smem(qs + 3 * qstride));
-    fe_store_words(reinterpret_cast<uint4 *>(out + ((long)g * nb + blk) * POINT_WORDS + c * 8), ge_add4(lo, hi));
+    quarters_sum_store(smem, acc, out, nb, blk);
 }
 
-#define N_SIGNED 9  // signed-digit table: identity, P .. 8P
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
+//
+// K7, replacing _dyn_acc_signed_kernel (:340): K1's function with each
+// scalar recoded to signed digits d_j in [-8, 7], sum_j d_j 16^j = s, so that
+// a lane's table holds 9 entries (the identity, P .. 8P) and not 16.  Bound
+// as K1 by operations: the window additions, 64 (n - tiles) of them, and a
+// table half as deep.
+//
+// The design is K1's (256 threads, two blocks an SM, the tile width from
+// the card's occupancy, quarters, packed partials for K2), with three
+// differences.  The recoding is done as the scalars are loaded (add
+// 0x88..8).  The table is three levels deep: 2P; then 3P and 4P, both on the
+// four-lane operations as in K1; then T[4 + j] = 4P + T[j] for j = 1 .. 4,
+// (entry, lane) jobs laid flat over the first warps.  And the table is then
+// rewritten in the cached form (Y + X, Y - X, 2d T, 2 Z), one product an
+// entry, so that a window addition takes 8 products and not 9
+// (ge_add_cached_signed).  A negative digit costs no subtraction chain: -Q =
+// (-X, Y, Z, -T) swaps Y + X with Y - X, which the addition reads from
+// shared memory at swapped offsets, and turns C = T1 2d T2 into -C, which
+// swaps F = D - C with G = D + C, two selects.  A quarter's first entry
+// becomes an extended point by one product (cached_to_ge).  A lane's table
+// is 9 x 33 = 297 words, an odd stride without a pad word.  The same kernel
+// on the extended table (9 products an addition, Y2 - X2 and Y2 + X2 formed
+// and selected by the sign) read 3-4% slower on an H100 and took 128
+// registers with 64 bytes of spill, where this form takes 120 and none.
 
-// Entry for signed digit d = nibble - 8 in [-8, 7]: |d| * P from the lane's
-// table, with x and t negated where d < 0 (fe_neg returns a value below
-// 2^256, which is all the complete addition asks of its inputs).
-__device__ __forceinline__ ge signed_select(const u32 *tab_lane, u32 nibble) {
-    const int d = (int)nibble - 8;
-    ge e = ge_from_smem(&tab_lane[(d < 0 ? -d : d) * GE_SMEM_STRIDE]);
-    if (d < 0) {
-        e.x = fe_neg(e.x);
-        e.t = fe_neg(e.t);
-    }
-    return e;
+// 1/d and -1/d mod p, d = -121665/121666: a cached entry's 2d T back to 2T, with the digit's sign.
+__device__ __forceinline__ fe fe_inv_d() {
+    fe r;
+    r.w[0] = 0xcdc9f843u; r.w[1] = 0x25e0f276u; r.w[2] = 0x4279542eu; r.w[3] = 0x0b5dd698u;
+    r.w[4] = 0xcdb9cf66u; r.w[5] = 0x2b162114u; r.w[6] = 0x14d5ce43u; r.w[7] = 0x40907ed2u;
+    return r;
+}
+__device__ __forceinline__ fe fe_minus_inv_d() {
+    fe r;
+    r.w[0] = 0x323607aau; r.w[1] = 0xda1f0d89u; r.w[2] = 0xbd86abd1u; r.w[3] = 0xf4a22967u;
+    r.w[4] = 0x32463099u; r.w[5] = 0xd4e9deebu; r.w[6] = 0xeb2a31bcu; r.w[7] = 0x3f6f812du;
+    return r;
 }
 
-#define K7_TILE 16  // lanes a K7 block
+// A table entry in place, extended (X, Y, Z, T) -> cached (Y + X, Y - X, 2d T, 2 Z).
+__device__ __forceinline__ void entry_to_cached(u32 *e) {
+    const ge p = ge_from_smem(e);
+    fe_to_smem(e, fe_add(p.y, p.x));
+    fe_to_smem(e + 8, fe_sub(p.y, p.x));
+    fe_to_smem(e + 2 * 8, fe_mul(p.t, fe_d2()));
+    fe_to_smem(e + 3 * 8, fe_add(p.z, p.z));
+}
 
-// K7, replacing _dyn_acc_signed_kernel (:340): K1's function with the
-// scalar recoded to signed digits d_j in [-8, 7], sum_j d_j 16^j = s.  The
-// recoding is the constant-add of ops/msm.signed_digits4, done here in the
-// prologue: nibble j of s + 0x88..8 is d_j + 8, and a scalar below 2^253
-// (every canonical scalar) cannot carry out of the top nibble.  The table
-// per lane shrinks to 8 multiples (19 KB of shared memory instead of 34),
-// built by a chain of depth 3 (2P; 3P, 4P; then T[d + 4] = T[d] + 4P).
-// A block of 64 threads takes a tile of K7_TILE lanes: four threads a lane
-// build the table, then thread w sums window w over the tile.  Output as
-// K1's, (64, nb, 32) words with nb = ceil(n / K7_TILE), so that K2 folds
-// either.
-__global__ void __launch_bounds__(N_WINDOWS) dyn_acc_signed_kernel(const int64_t *__restrict__ scalars,
-                                                                   const int64_t *__restrict__ pts,
-                                                                   u32 *__restrict__ out, long n, long nb) {
-    __shared__ u32 tab[K7_TILE * N_SIGNED * GE_SMEM_STRIDE];
-    __shared__ u32 sc[K7_TILE][8];
+// The cached entry of nibble v = d + 8 in lane table `row`: |d| P's, read with its Y + X and Y - X swapped
+// where d < 0, which makes them -|d| P's (its 2d T keeps the wrong sign).  `yp_at`: the offset to read Y + X at.
+__device__ __forceinline__ const u32 *signed_entry(const u32 *row, u32 nibble, bool &neg, int &yp_at) {
+    neg = nibble < 8u;
+    yp_at = neg ? 8 : 0;
+    return row + (int)(neg ? 8u - nibble : nibble - 8u) * GE_SMEM_STRIDE;
+}
+
+// d P as an extended point from the cached table: (2X : 2Y : 2Z : 2T) by one product.
+__device__ __forceinline__ ge cached_to_ge(const u32 *row, u32 nibble) {
+    bool neg;
+    int yp_at;
+    const u32 *e = signed_entry(row, nibble, neg, yp_at);
+    const fe yp = fe_from_smem(e + yp_at), ym = fe_from_smem(e + 8 - yp_at);
+    ge r;
+    r.x = fe_sub(yp, ym);
+    r.y = fe_add(yp, ym);
+    r.z = fe_from_smem(e + 3 * 8);
+    r.t = fe_mul(fe_from_smem(e + 2 * 8), fe_select(neg, fe_minus_inv_d(), fe_inv_d()));
+    return r;
+}
+
+// p + d P, d the nibble's signed digit: add-2008-hwcd-3 (ge_add's formulas) on a cached second operand, 8
+// products.  For d < 0 the entry's Y + X and Y - X are read swapped and F and G trade places.
+__device__ __forceinline__ ge ge_add_cached_signed(const ge &p, const u32 *row, u32 nibble) {
+    bool neg;
+    int yp_at;
+    const u32 *e = signed_entry(row, nibble, neg, yp_at);
+    const fe a = fe_mul(fe_sub(p.y, p.x), fe_from_smem(e + 8 - yp_at));
+    const fe b = fe_mul(fe_add(p.y, p.x), fe_from_smem(e + yp_at));
+    const fe c = fe_mul(p.t, fe_from_smem(e + 2 * 8));
+    const fe d = fe_mul(p.z, fe_from_smem(e + 3 * 8));
+    const fe ee = fe_sub(b, a), h = fe_add(b, a);
+    const fe dc = fe_sub(d, c), ds = fe_add(d, c);
+    const fe f = fe_select(neg, ds, dc), g = fe_select(neg, dc, ds);
+    ge r;
+    r.x = fe_mul(ee, f);
+    r.y = fe_mul(g, h);
+    r.z = fe_mul(f, g);
+    r.t = fe_mul(ee, h);
+    return r;
+}
+
+// scalars, pts, out as K1's; dynamic shared memory msm_smem_words(tile, K7_LANE_WORDS) words.
+__global__ void __launch_bounds__(K1_THREADS, K1_MIN_BLOCKS)
+    dyn_acc_signed_kernel(const int64_t *__restrict__ scalars, const int64_t *__restrict__ pts, u32 *__restrict__ out,
+                          long n, int tile, int nb) {
+    extern __shared__ u32 smem[];
+    u32 *const sc = smem + msm_smem_words(tile, K7_LANE_WORDS) - tile * 8;
     const int tid = threadIdx.x;
     const long blk = blockIdx.x;
-
-    const int l = tid & (K7_TILE - 1);
-    const int k = tid / K7_TILE;
-    const long lane = blk * K7_TILE + l;
-    const bool live = lane < n;  // lanes past n: zero scalar (all digits 0), identity point
-    ge p = live ? ge_load(pts + lane, 16 * n, n) : ge_identity();
-    if (k == 0) {
-        u64 c = 0;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-            u32 lo = live ? (u32)scalars[(2 * q) * n + lane] : 0u;
-            u32 hi = live ? (u32)scalars[(2 * q + 1) * n + lane] : 0u;
-            c += (u64)(lo | (hi << 16)) + 0x88888888u;
-            sc[l][q] = (u32)c;
-            c >>= 32;
-        }
-        ge_to_smem(&tab[(l * N_SIGNED + 0) * GE_SMEM_STRIDE], ge_identity());
-    }
-    ge d2 = ge_dbl(p);
-    ge tk;
-    if (k == 0) {
-        tk = p;
-    } else if (k == 1) {
-        tk = d2;
-    } else if (k == 2) {
-        tk = ge_add(d2, p);
-    } else {
-        tk = ge_dbl(d2);
-    }
-    ge_to_smem(&tab[(l * N_SIGNED + k + 1) * GE_SMEM_STRIDE], tk);
+    load_scalars(sc, scalars, n, blk, tile, true);
+    table_levels_12(smem, K7_LANE_WORDS, pts, n, blk, tile);
+    // level 3: T[5 + j] = T4 + T[1 + j], j < 4, (entry, lane) jobs laid flat over the first warps
+    if (tid < 4 * tile) table_add(smem + (tid % tile) * K7_LANE_WORDS, 5 + tid / tile, 4, 1 + tid / tile);
     __syncthreads();
-    tk = ge_add(tk, ge_from_smem(&tab[(l * N_SIGNED + 4) * GE_SMEM_STRIDE]));
-    ge_to_smem(&tab[(l * N_SIGNED + k + 5) * GE_SMEM_STRIDE], tk);
+    // T1 .. T8 rewritten in the cached form, a job (entry, lane) a thread; T0 the identity's, (1, 1, 0, 2)
+    if (tid < 8 * tile) entry_to_cached(smem + (tid % tile) * K7_LANE_WORDS + (1 + tid / tile) * GE_SMEM_STRIDE);
+    if (tid < tile) {
+        u32 *e = smem + tid * K7_LANE_WORDS;
+        fe two = fe_zero();
+        two.w[0] = 2u;
+        fe_to_smem(e, fe_one());
+        fe_to_smem(e + 8, fe_one());
+        fe_to_smem(e + 2 * 8, fe_zero());
+        fe_to_smem(e + 3 * 8, two);
+    }
     __syncthreads();
 
-    const int w = tid;
+    // The windows: thread (q, w) sums d_w(s_l) P_l over lanes l = q, q + 4, ...
+    const int w = tid & (N_WINDOWS - 1), q = tid / N_WINDOWS;
     const int word = w >> 3, shift = 4 * (w & 7);
-    ge acc = signed_select(&tab[0], (sc[0][word] >> shift) & 15);
+    ge acc = ge_identity();
+    if (q < tile) {
+        acc = cached_to_ge(smem + q * K7_LANE_WORDS, (sc[q * 8 + word] >> shift) & 15u);
 #pragma unroll 1
-    for (int j = 1; j < K7_TILE; ++j) {
-        acc = ge_add(acc, signed_select(&tab[j * N_SIGNED * GE_SMEM_STRIDE], (sc[j][word] >> shift) & 15));
+        for (int j = q + K1_QUARTERS; j < tile; j += K1_QUARTERS)
+            acc = ge_add_cached_signed(acc, smem + j * K7_LANE_WORDS, (sc[j * 8 + word] >> shift) & 15u);
     }
-    ge_store_words(out + ((long)w * nb + blk) * POINT_WORDS, acc);
+    quarters_sum_store(smem, acc, out, nb, blk);
 }
 
 // K2, replacing _lane_fold_kernel (:422): parts (64, nb, 32) words -> out
@@ -326,42 +407,60 @@ __global__ void __launch_bounds__(4 * HORNER_GROUPS, 1)
 
 extern "C" const char *bppt_msm_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
-// Above 48 KB a block's dynamic shared memory must be allowed first: once a process, for the widest tile.
-static cudaError_t k1_allow_smem() {
-    static const cudaError_t allowed = cudaFuncSetAttribute(
-        dyn_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k1_smem_words(MAX_TILE) * (int)sizeof(u32));
-    return allowed;
+// Above 48 KB a block's dynamic shared memory must be allowed first: once a process and kernel, for the widest tile.
+static cudaError_t msm_allow_smem(int kernel) {
+    static const cudaError_t k1 = cudaFuncSetAttribute(dyn_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                       msm_smem_words(MAX_TILE, LANE_WORDS) * (int)sizeof(u32));
+    static const cudaError_t k7 = cudaFuncSetAttribute(
+        dyn_acc_signed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        msm_smem_words(MAX_TILE, K7_LANE_WORDS) * (int)sizeof(u32));
+    return kernel == 0 ? k1 : k7;
+}
+
+static bool tile_ok(long n, long tile, long nb) {
+    return tile >= 1 && tile <= MAX_TILE && nb == (n + tile - 1) / tile;
 }
 
 // scalars, pts: int64 limbs; out: int32 words; all contiguous, on the current device.  tile: 1 to MAX_TILE.
 extern "C" int bppt_dyn_acc(const void *scalars, const void *pts, void *out, long n, long tile, long nb,
                             void *stream) {
-    if (tile < 1 || tile > MAX_TILE || nb != (n + tile - 1) / tile) return (int)cudaErrorInvalidValue;
-    const cudaError_t allowed = k1_allow_smem();
+    if (!tile_ok(n, tile, nb)) return (int)cudaErrorInvalidValue;
+    const cudaError_t allowed = msm_allow_smem(0);
     if (allowed != cudaSuccess) return (int)allowed;
-    dyn_acc_kernel<<<(unsigned)nb, K1_THREADS, k1_smem_words((int)tile) * sizeof(u32), (cudaStream_t)stream>>>(
-        (const int64_t *)scalars, (const int64_t *)pts, (u32 *)out, n, (int)tile, (int)nb);
+    dyn_acc_kernel<<<(unsigned)nb, K1_THREADS, msm_smem_words((int)tile, LANE_WORDS) * sizeof(u32),
+                     (cudaStream_t)stream>>>((const int64_t *)scalars, (const int64_t *)pts, (u32 *)out, n, (int)tile,
+                                             (int)nb);
+    return (int)cudaGetLastError();
+}
+
+// K7, with K1's arguments and refusals.
+extern "C" int bppt_dyn_acc_signed(const void *scalars, const void *pts, void *out, long n, long tile, long nb,
+                                   void *stream) {
+    if (!tile_ok(n, tile, nb)) return (int)cudaErrorInvalidValue;
+    const cudaError_t allowed = msm_allow_smem(2);
+    if (allowed != cudaSuccess) return (int)allowed;
+    dyn_acc_signed_kernel<<<(unsigned)nb, K1_THREADS, msm_smem_words((int)tile, K7_LANE_WORDS) * sizeof(u32),
+                            (cudaStream_t)stream>>>((const int64_t *)scalars, (const int64_t *)pts, (u32 *)out, n,
+                                                    (int)tile, (int)nb);
     return (int)cudaGetLastError();
 }
 
 // Blocks of a kernel that one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
-// *blocks: kernel 0 is K1 at a tile of `tile` lanes (its dynamic shared memory), 1 is K2 at `threads`.
+// *blocks: kernel 0 is K1 and 2 is K7, each at a tile of `tile` lanes (its dynamic shared memory); 1 is K2 at
+// `threads`.
 extern "C" int bppt_msm_occupancy(long kernel, long threads, long tile, int *blocks) {
-    if (kernel == 0) {
+    if (kernel == 0 || kernel == 2) {
         if (tile < 1 || tile > MAX_TILE) return (int)cudaErrorInvalidValue;
-        const cudaError_t allowed = k1_allow_smem();
+        const cudaError_t allowed = msm_allow_smem((int)kernel);
         if (allowed != cudaSuccess) return (int)allowed;
-        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dyn_acc_kernel, K1_THREADS,
-                                                                  k1_smem_words((int)tile) * sizeof(u32));
+        if (kernel == 0)
+            return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                blocks, dyn_acc_kernel, K1_THREADS, msm_smem_words((int)tile, LANE_WORDS) * sizeof(u32));
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, dyn_acc_signed_kernel, K1_THREADS, msm_smem_words((int)tile, K7_LANE_WORDS) * sizeof(u32));
     }
     if (kernel == 1) return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lane_fold_kernel, threads, 0);
     return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int bppt_dyn_acc_signed(const void *scalars, const void *pts, void *out, long n, long nb, void *stream) {
-    dyn_acc_signed_kernel<<<(unsigned)nb, N_WINDOWS, 0, (cudaStream_t)stream>>>(
-        (const int64_t *)scalars, (const int64_t *)pts, (u32 *)out, n, nb);
-    return (int)cudaGetLastError();
 }
 
 // parts: int32 words; out: int64.  threads: a power of two from 32 to FOLD_MAX_THREADS; any other is refused.

@@ -74,12 +74,12 @@ class BulletproofGens:
 
     def interleaved_device(self, device="cuda"):
         """PointArray of the interleaved generators on `device` (cached per
-        device)."""
-        key = str(device)
-        if key not in self._interleaved_device:
-            from ..ops.edwards import from_host
+        device, `ops.edwards.resolve_device`)."""
+        from ..ops.edwards import from_host, resolve_device
 
-            self._interleaved_device[key] = from_host(self.interleaved(), device=device)
+        key = resolve_device(device)
+        if key not in self._interleaved_device:
+            self._interleaved_device[key] = from_host(self.interleaved(), device=key)
         return self._interleaved_device[key]
 
     def fixed_tables(self, device="cuda"):
@@ -91,11 +91,12 @@ class BulletproofGens:
         """Tables over the first n_static interleaved generators, affine and
         precomputed for the mixed addition: int32 (64, 16, n_static, 24)
         words (96 KB per generator), built once per size and device."""
-        key = (n_static, str(device))
+        from ..ops.edwards import PointArray, resolve_device
+
+        key = (n_static, resolve_device(device))
         if key not in self._fixed_tables:
-            from ..ops.edwards import PointArray
             from ..ops.fixed_base import build_tables, pack_tables
 
-            points = PointArray(*(c[:n_static] for c in self.interleaved_device(device)))
+            points = PointArray(*(c[:n_static] for c in self.interleaved_device(key[1])))
             self._fixed_tables[key] = pack_tables(build_tables(points))
         return self._fixed_tables[key]

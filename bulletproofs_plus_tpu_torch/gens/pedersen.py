@@ -75,14 +75,14 @@ class PedersenGens:
 
     def device_bases(self, device="cuda"):
         """(g_bases PointArray (deg,), h_base PointArray (1,)) on `device`,
-        cached per device."""
-        key = str(device)
-        if key not in self._device_bases:
-            from ..ops.edwards import from_host
+        cached per device (`ops.edwards.resolve_device`)."""
+        from ..ops.edwards import from_host, resolve_device
 
+        key = resolve_device(device)
+        if key not in self._device_bases:
             self._device_bases[key] = (
-                from_host(self.g_base_vec, device=device),
-                from_host([self.h_base], device=device),
+                from_host(self.g_base_vec, device=key),
+                from_host([self.h_base], device=key),
             )
         return self._device_bases[key]
 
@@ -90,12 +90,13 @@ class PedersenGens:
         """Packed fixed-base digit tables over [G_1..G_deg, H] on `device`,
         int32 (64, 16, deg + 1, 24), cached per device: the prover's alpha,
         eta and ry masks multiply these fixed points in every round."""
-        key = str(device)
+        from ..ops.edwards import from_host, resolve_device
+
+        key = resolve_device(device)
         if key not in self._device_tables:
-            from ..ops.edwards import from_host
             from ..ops.fixed_base import build_tables, pack_tables
 
-            points = from_host(list(self.g_base_vec) + [self.h_base], device=device)
+            points = from_host(list(self.g_base_vec) + [self.h_base], device=key)
             self._device_tables[key] = pack_tables(build_tables(points))
         return self._device_tables[key]
 

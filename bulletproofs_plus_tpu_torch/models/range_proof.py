@@ -2,11 +2,12 @@
 
 Counterpart of bulletproofs_plus_tpu/models/range_proof.py, in part: the
 sequential host prover and the batched device prover (reference
-src/range_proof.rs:221-608), the device engine's batch verifier for one
-shape group with the JAX package's host Fiat-Shamir replay
-(range_proof.rs:610-1065), and the proof codec (range_proof.rs:1112-1309).
-The host oracle verifier, mesh sharding, the device transcript replay and
-the pipelined stream are later slices of the port.
+src/range_proof.rs:221-608), the batch verifier's two engines
+(range_proof.rs:610-1065) -- the exact-integer host oracle, and the device
+engine for one shape group with the JAX package's host Fiat-Shamir replay --
+and the proof codec with its pickle hooks (range_proof.rs:1112-1309).  Mesh
+sharding, the device transcript replay, the device engine's mixed-shape
+batches and the pipelined stream are later slices of the port.
 
 The `verify_batch` 256-proof cap — including the reference quirk that proofs
 beyond the first chunk are silently ignored (range_proof.rs:740-749) — is
@@ -28,7 +29,7 @@ from ..errors import (
 )
 from ..gens.pedersen import ExtensionDegree
 from ..ops import host_ristretto as hr
-from ..ops.msm import host_msm
+from ..ops.msm import msm
 from ..utils.hashing import nonce
 from ..utils.merlin import NullRng, OsRng, Transcript
 from .statement import ExtendedMask, RangeStatement, RangeWitness
@@ -52,6 +53,13 @@ class VerifyAction(enum.Enum):
 
 def _inv(x: int) -> int:
     return pow(x, -1, L)
+
+
+def _decompress_or(name: str, data: bytes) -> hr.Point:
+    p = hr.decompress(data)
+    if p is None:
+        raise InvalidArgument(f"Member '{name}' was not the canonical encoding of a point")
+    return p
 
 
 class RangeProof:
@@ -90,6 +98,16 @@ class RangeProof:
             return NotImplemented
         return self.to_bytes() == other.to_bytes()
 
+    # Pickle through the canonical byte codec — the serde analog
+    # (range_proof.rs:1270-1309 serializes as canonical bytes too).
+    def __getstate__(self):
+        return self.to_bytes()
+
+    def __setstate__(self, state: bytes):
+        other = RangeProof.from_bytes(state)
+        for slot in self.__slots__:
+            setattr(self, slot, getattr(other, slot))
+
     # ------------------------------------------------------------------
     # Prover
     # ------------------------------------------------------------------
@@ -127,10 +145,14 @@ class RangeProof:
         statement: RangeStatement,
         witness: RangeWitness,
         rng,
+        msm_backend: Optional[str] = None,
+        device="cuda",
     ) -> "RangeProof":
         """Create one range proof on the host in exact integer arithmetic
         (range_proof.rs:232-608 parity): the sequential prover the batched
-        one is held against."""
+        one is held against.  Its five MSMs go through `ops.msm.msm`:
+        `msm_backend` "device" runs them on `device`, "host" (the default)
+        as host integers."""
         gens = statement.generators
         bit_length = gens.bit_length()
         aggregation_factor = len(statement.commitments)
@@ -200,7 +222,7 @@ class RangeProof:
             a_points += [g, h]
         a_scalars += alpha
         a_points += gens.g_bases()
-        a = host_msm(a_scalars, a_points)
+        a = msm(a_scalars, a_points, backend=msm_backend, device=device)
 
         y_list, z_list = rpt.challenges_y_z(hr.compress(a))
         y, z = y_list[0], z_list[0]
@@ -264,8 +286,14 @@ class RangeProof:
             c_l = sum(a * y_powers[1 + i] % L * b for i, (a, b) in enumerate(zip(a_lo, b_hi))) % L
             c_r = sum(a * y_powers[n + 1 + i] % L * b for i, (a, b) in enumerate(zip(a_hi, b_lo))) % L
 
-            li.append(host_msm([c_l] + d_l + a_lo_offset + b_hi, [h_base] + g_base + gi_hi + hi_lo))
-            ri.append(host_msm([c_r] + d_r + a_hi_offset + b_lo, [h_base] + g_base + gi_lo + hi_hi))
+            li.append(
+                msm([c_l] + d_l + a_lo_offset + b_hi, [h_base] + g_base + gi_hi + hi_lo, backend=msm_backend,
+                    device=device)
+            )
+            ri.append(
+                msm([c_r] + d_r + a_hi_offset + b_lo, [h_base] + g_base + gi_lo + hi_hi, backend=msm_backend,
+                    device=device)
+            )
 
             e = rpt.challenge_round_e(hr.compress(li[-1]), hr.compress(ri[-1]))[0]
             e_square = e * e % L
@@ -299,11 +327,13 @@ class RangeProof:
             eta = [rpt.rng().random_not_zero()[0] for _ in range(extension_degree)]
 
         y1 = y_powers[1]
-        a1 = host_msm(
+        a1 = msm(
             [r, s, (r * y1 % L * a_ri[0] + s * y1 % L * a_li[0]) % L] + d_mask,
             [gi_base[0], hi_base[0], h_base] + g_base,
+            backend=msm_backend,
+            device=device,
         )
-        b_point = host_msm([r * y1 % L * s % L] + eta, [h_base] + g_base)
+        b_point = msm([r * y1 % L * s % L] + eta, [h_base] + g_base, backend=msm_backend, device=device)
 
         e = rpt.challenge_final_e(hr.compress(a1), hr.compress(b_point))[0]
         e_square = e * e % L
@@ -403,16 +433,21 @@ class RangeProof:
         statements: Sequence[RangeStatement],
         proofs: Sequence["RangeProof"],
         action: VerifyAction,
+        msm_backend: Optional[str] = None,
         engine: str = "device",
         device="cuda",
     ) -> List[Optional[ExtendedMask]]:
-        """Verify a batch of proofs with one folded MSM on `device`.
+        """Verify a batch of proofs with one folded MSM.
 
-        Only engine="device" is ported: host Fiat-Shamir replay and weight
-        draws, then the scalar pass, batched decompression and the MSM as
-        torch tensors on `device` (models/verifier_kernels.py), whose pow
-        chain and MSM are CUDA kernels on a CUDA device.  Pass device="cpu"
-        to run the kernels' plain torch versions instead.
+        engine="device" (the port's default): host Fiat-Shamir replay and
+        weight draws, then the scalar pass, batched decompression and the MSM
+        as torch tensors on `device` (models/verifier_kernels.py), whose pow
+        chain and MSM are CUDA kernels on a CUDA device; one shape group a
+        batch.  engine="host" (the JAX package's default): the exact-integer
+        oracle, whose one final MSM goes through `ops.msm.msm` with
+        `msm_backend` ("device": on `device`).  Pass device="cpu" to run the
+        kernels' plain torch versions instead.  The two engines word a
+        non-canonical L or R point differently, as the JAX package's do.
 
         Parity quirk (range_proof.rs:740-749): only the FIRST chunk of
         MAX_RANGE_PROOF_BATCH_SIZE=256 proofs is processed; any proofs beyond
@@ -424,15 +459,17 @@ class RangeProof:
             raise InvalidArgument("Range statements and proofs length mismatch")
         if len(transcripts) != len(statements):
             raise InvalidArgument("Range statements and transcripts length mismatch")
-        if engine != "device":
-            raise NotImplementedError(f"engine={engine!r} is not ported; only engine='device'")
-        return RangeProof._verify_device(
+        batch = (
             transcripts[:MAX_RANGE_PROOF_BATCH_SIZE],
             statements[:MAX_RANGE_PROOF_BATCH_SIZE],
             proofs[:MAX_RANGE_PROOF_BATCH_SIZE],
             action,
-            device,
         )
+        if engine == "device":
+            return RangeProof._verify_device(*batch, device)
+        if engine == "host":
+            return RangeProof._verify(*batch, msm_backend, device)
+        raise ValueError(f"unknown engine {engine!r}: expected 'host' or 'device'")
 
     @staticmethod
     def _verify_device(
@@ -490,6 +527,182 @@ class RangeProof:
         DeviceVerifier.raise_canonicality(valid.cpu().numpy(), m, rounds)
         if not bool(ok):
             raise VerificationFailed("Range proof batch not valid")
+        return masks
+
+    @staticmethod
+    def _verify(
+        transcripts: List[Transcript],
+        statements: Sequence[RangeStatement],
+        proofs: Sequence["RangeProof"],
+        action: VerifyAction,
+        msm_backend: Optional[str] = None,
+        device="cuda",
+    ) -> List[Optional[ExtendedMask]]:
+        """The host engine: the JAX package's exact-integer oracle
+        (range_proof.rs:610-1065), its one final MSM through `ops.msm.msm`."""
+        max_mn, max_index = RangeProof._verify_consistency(statements, proofs)
+        first = statements[0]
+        max_statement = statements[max_index]
+
+        gens = first.generators
+        g_base_vec = gens.g_bases()
+        h_base = gens.h_base()
+        bit_length = gens.bit_length()
+        extension_degree = int(gens.extension_degree())
+
+        two_n_minus_one = (pow(2, bit_length, L) - 1) % L
+
+        g_base_scalars = [0] * extension_degree
+        h_base_scalar = 0
+        gi_base_scalars = [0] * max_mn
+        hi_base_scalars = [0] * max_mn
+        dynamic_scalars: List[int] = []
+        dynamic_points: List[hr.Point] = []
+        masks: List[Optional[ExtendedMask]] = []
+
+        # Pass 1: challenge replay + weight transcript (range_proof.rs:810-853)
+        batch_challenges, seeds = RangeProof._replay_challenges(transcripts, statements, proofs)
+        weights = RangeProof._draw_weights(seeds, len(proofs))
+
+        # Pass 2: per-proof scalar accumulation (range_proof.rs:856-1033)
+        for proof, statement, challenge, weight in zip(proofs, statements, batch_challenges, weights):
+            commitments = statement.commitments
+            minimum_value_promises = statement.minimum_value_promises
+            a = _decompress_or("a", proof.a)
+            a1 = _decompress_or("a1", proof.a1)
+            b = _decompress_or("b", proof.b)
+            r1, s1, d1 = proof.r1, proof.s1, proof.d1
+            # an R point is named 'L' too, as in the JAX package's host engine
+            li = [_decompress_or("L", p) for p in proof.li]
+            ri = [_decompress_or("L", p) for p in proof.ri]
+
+            aggregation_factor = len(commitments)
+            full_length = aggregation_factor * bit_length
+            rounds = len(li)
+            if len(li) != len(ri):
+                raise InvalidLength("Vector L length not equal to vector R length")
+            if rounds >= 64:
+                raise SizeOverflow("Vector L/R length not adequate")
+            if (1 << rounds) != full_length:
+                raise InvalidLength("Vector L/R length not adequate")
+
+            y, z, challenges_list, e = challenge
+
+            y_inverse = _inv(y)
+            y_1_inverse = _inv((y - 1) % L)
+            challenges_inv = [_inv(c) for c in challenges_list]
+            challenges_inv_prod = 1
+            for c in challenges_inv:
+                challenges_inv_prod = challenges_inv_prod * c % L
+
+            z_square = z * z % L
+            e_square = e * e % L
+            challenges_sq = [c * c % L for c in challenges_list]
+            challenges_sq_inv = [c * c % L for c in challenges_inv]
+            y_nm = pow(y, full_length, L)
+            y_nm_1 = y_nm * y % L
+            y_sum = y * (y_nm - 1) % L * y_1_inverse % L
+
+            # d vector
+            d = [z_square]
+            for _ in range(1, bit_length):
+                d.append(d[-1] * 2 % L)
+            for j in range(1, aggregation_factor):
+                for i in range(bit_length):
+                    d.append(d[(j - 1) * bit_length + i] * z_square % L)
+
+            # d_sum
+            d_sum = z_square
+            d_sum_temp_z = z_square
+            for _ in range(aggregation_factor.bit_length() - 1):
+                d_sum = (d_sum + d_sum * d_sum_temp_z) % L
+                d_sum_temp_z = d_sum_temp_z * d_sum_temp_z % L
+            d_sum = d_sum * two_n_minus_one % L
+
+            # Mask recovery (range_proof.rs:941-969)
+            if action == VerifyAction.VERIFY_ONLY:
+                masks.append(None)
+            else:
+                masks.append(RangeProof._recover_mask(statement, proof, challenge, extension_degree))
+                if action == VerifyAction.RECOVER_ONLY:
+                    continue
+
+            # s vector via prefix products (range_proof.rs:975-986)
+            s_vec = [challenges_inv_prod]
+            for i in range(1, full_length):
+                log_i = i.bit_length() - 1
+                j = 1 << log_i
+                s_vec.append(s_vec[i - j] * challenges_sq[rounds - log_i - 1] % L)
+
+            r1_e = r1 * e % L
+            s1_e = s1 * e % L
+            e_square_z = e_square * z % L
+            y_inv_i = 1
+            y_nm_i = y_nm
+            for i in range(full_length):
+                g = r1_e * y_inv_i % L * s_vec[i] % L
+                h = s1_e * s_vec[full_length - 1 - i] % L
+                gi_base_scalars[i] = (gi_base_scalars[i] + weight * ((g + e_square_z) % L)) % L
+                hi_base_scalars[i] = (
+                    hi_base_scalars[i] + weight * ((h - e_square * ((d[i] * y_nm_i + z) % L)) % L)
+                ) % L
+                y_inv_i = y_inv_i * y_inverse % L
+                y_nm_i = y_nm_i * y_inverse % L
+
+            # Remaining dynamic terms
+            z_even_powers = 1
+            for minimum_value_promise in minimum_value_promises:
+                z_even_powers = z_even_powers * z_square % L
+                weighted = weight * (-(e_square * z_even_powers % L * y_nm_1 % L)) % L
+                dynamic_scalars.append(weighted)
+                if minimum_value_promise is not None:
+                    h_base_scalar = (h_base_scalar - weighted * minimum_value_promise) % L
+            dynamic_points.extend(commitments)
+
+            h_base_scalar = (
+                h_base_scalar
+                + weight
+                * ((r1 * y % L * s1 + e_square * ((y_nm_1 * z % L * d_sum + (z_square - z) % L * y_sum) % L)) % L)
+            ) % L
+            for k in range(extension_degree):
+                g_base_scalars[k] = (g_base_scalars[k] + weight * d1[k]) % L
+
+            dynamic_scalars.append(weight * (-e) % L)
+            dynamic_points.append(a1)
+            dynamic_scalars.append(-weight % L)
+            dynamic_points.append(b)
+            dynamic_scalars.append(weight * (-e_square) % L)
+            dynamic_points.append(a)
+
+            dynamic_scalars.extend(weight * (-(e_square * c % L)) % L for c in challenges_sq)
+            dynamic_points.extend(li)
+            dynamic_scalars.extend(weight * (-(e_square * c % L)) % L for c in challenges_sq_inv)
+            dynamic_points.extend(ri)
+
+        if action == VerifyAction.RECOVER_ONLY:
+            return masks
+
+        # Pedersen generators
+        dynamic_scalars.extend(g_base_scalars)
+        dynamic_points.extend(g_base_vec)
+        dynamic_scalars.append(h_base_scalar)
+        dynamic_points.append(h_base)
+
+        # Final check: one giant MSM against the identity (range_proof.rs:1044-1062)
+        static_scalars: List[int] = []
+        static_points: List[hr.Point] = []
+        max_gi = max_statement.generators.gi_base()
+        max_hi = max_statement.generators.hi_base()
+        for i in range(max_mn):
+            static_scalars += [gi_base_scalars[i], hi_base_scalars[i]]
+            static_points += [max_gi[i], max_hi[i]]
+
+        result = msm(
+            static_scalars + dynamic_scalars, static_points + dynamic_points, backend=msm_backend, device=device
+        )
+        if not hr.is_identity(result):
+            raise VerificationFailed("Range proof batch not valid")
+
         return masks
 
     @staticmethod
@@ -791,3 +1004,9 @@ class RangeProof:
         return RangeProof(
             a=a, a1=a1, b=b, r1=r1, s1=s1, d1=d1, li=li, ri=ri, extension_degree=extension_degree
         )
+
+    @staticmethod
+    def extension_degree_from_proof_bytes(data: bytes) -> ExtensionDegree:
+        if len(data) < 1:
+            raise InvalidLength("Serialized proof is too short")
+        return ExtensionDegree.from_int(data[0])

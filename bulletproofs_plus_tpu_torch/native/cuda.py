@@ -31,7 +31,7 @@ LIBRARIES = {
         "msm.cu",
         {
             "bppt_dyn_acc": [_VP, _VP, _VP, _LONG, _LONG, _LONG, _VP],
-            "bppt_dyn_acc_signed": [_VP, _VP, _VP, _LONG, _LONG, _VP],
+            "bppt_dyn_acc_signed": [_VP, _VP, _VP, _LONG, _LONG, _LONG, _VP],
             "bppt_lane_fold": [_VP, _VP, _LONG, _LONG, _VP],
             "bppt_horner": [_VP, _VP, _VP],
             "bppt_msm_occupancy": [_LONG, _LONG, _LONG, ctypes.POINTER(ctypes.c_int)],

@@ -10,15 +10,15 @@ tensors:
                   4-bit window w the sum over the tile of T[digit_w]
                   -> (64, tiles, 32) partial points, packed words
   K7 `dyn_acc_signed`  K1 with the scalars recoded to signed digits in
-                  [-8, 7]: tables of 8 multiples, x and t negated where the
-                  digit is negative; tiles of K7_TILE lanes, same layout
+                  [-8, 7]: tables of the identity and 8 multiples, -P
+                  where the digit is negative; same tiling, same layout
   K2 `lane_fold`  sum of the partials over tiles -> (4, 16, 64) window sums
   K3 `horner`     sum_j 16^j W_j -> (4, 16), the result point
 
-K1's tile width is a launch parameter that `pick_tile` takes from the lane
-count and from what the card holds at once (its SMs times the K1 blocks an SM
-holds, which the CUDA runtime's occupancy calculator gives), so that the
-grid is one wave of resident blocks.  Partials cross from
+K1's and K7's tile width is a launch parameter that `pick_tile` takes from
+the lane count and from what the card holds at once (its SMs times the
+kernel's blocks an SM holds, which the CUDA runtime's occupancy calculator
+gives), so that the grid is one wave of resident blocks.  Partials cross from
 K1 (or K7) to K2 as 32 packed 32-bit words a point (ops/cuda_fixed.py's
 `limbs_to_words`), window major: K2 is K6's fold with a window a row.  Window
 sums and the result cross as limb-major (4 coords, 16 limbs, ...) int64
@@ -46,14 +46,14 @@ from .msm import digits4, signed_digits4
 N_WINDOWS = 64
 N_DIGITS = 16
 POINT_WORDS = 32  # packed 32-bit words a partial point: x, y, z, t
-# K1's tile widths: at most a warp of lanes (each table doubling takes one warp); at least 16, as narrower
-# tiles cost K2 what they save K1 (csrc/msm.cu)
+# K1's and K7's tile widths: at most a warp of lanes (each table doubling takes one warp); at least 16, as
+# narrower tiles cost K2 what they save K1 (csrc/msm.cu)
 MIN_TILE, MAX_TILE = 16, 32
-K1_THREADS = 256  # threads a K1 block (csrc/msm.cu)
-# K1 blocks an H100 holds at once (132 SMs, two blocks each): what a CPU
-# tensor's plain version tiles for, so that it cuts lanes as that card does
+K1_THREADS = 256  # threads a K1 or K7 block (csrc/msm.cu)
+# K1 or K7 blocks an H100 holds at once (132 SMs, two blocks each): what a
+# CPU tensor's plain version tiles for, so that it cuts lanes as that card does
 CPU_RESIDENT_TILES = 132 * 2
-K7_TILE = 16  # lanes a K7 block (csrc/msm.cu)
+OCCUPANCY_KERNELS = ("dyn_acc", "lane_fold", "dyn_acc_signed")  # bppt_msm_occupancy's kernel index
 _PLAIN_CHUNK_TILES = 16  # tiles per step of dyn_acc_plain: bounds its memory
 HORNER_GROUPS = 8  # K3's groups of four lanes, eight windows each (csrc/msm.cu): one warp
 
@@ -68,12 +68,13 @@ def pick_tile(n: int, resident) -> int:
 
 @functools.lru_cache(maxsize=None)
 def occupancy(kernel: str, device: int, threads: int = K1_THREADS, tile: int = 1) -> int:
-    """Blocks of `kernel` ("dyn_acc" at a tile of `tile` lanes, or
-    "lane_fold" at `threads` threads a block) that one SM of CUDA device
-    `device` holds at once, by the CUDA runtime's occupancy calculator."""
+    """Blocks of `kernel` ("dyn_acc" or "dyn_acc_signed" at a tile of `tile`
+    lanes, or "lane_fold" at `threads` threads a block) that one SM of CUDA
+    device `device` holds at once, by the CUDA runtime's occupancy
+    calculator."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        status = cuda.lib("msm").bppt_msm_occupancy(("dyn_acc", "lane_fold").index(kernel), threads, tile,
+        status = cuda.lib("msm").bppt_msm_occupancy(OCCUPANCY_KERNELS.index(kernel), threads, tile,
                                                     ctypes.byref(blocks))
     cuda.check("msm", status, f"{kernel} occupancy")
     return blocks.value
@@ -83,20 +84,21 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def resident_tiles(device: torch.device):
-    """tile -> K1 blocks of that width that `device` holds at once: its SMs
-    times `occupancy`, on a CUDA device; CPU_RESIDENT_TILES on the CPU."""
+def resident_tiles(device: torch.device, kernel: str = "dyn_acc"):
+    """tile -> blocks of `kernel` (K1 "dyn_acc" or K7 "dyn_acc_signed") of
+    that width that `device` holds at once: its SMs times `occupancy`, on a
+    CUDA device; CPU_RESIDENT_TILES on the CPU."""
     device = torch.device(device)
     if device.type == "cpu":
         return lambda tile: CPU_RESIDENT_TILES
     index = device.index if device.index is not None else torch.cuda.current_device()
     sms = sm_count(device)
-    return lambda tile: sms * occupancy("dyn_acc", index, tile=tile)
+    return lambda tile: sms * occupancy(kernel, index, tile=tile)
 
 
-def _check_tile(tile: int) -> None:
+def _check_tile(tile: int, name: str = "dyn_acc") -> None:
     if not 1 <= tile <= MAX_TILE:
-        raise ValueError(f"dyn_acc: tile of {tile} lanes, expected 1 to {MAX_TILE}")
+        raise ValueError(f"{name}: tile of {tile} lanes, expected 1 to {MAX_TILE}")
 
 
 def coords_t(points: PointArray) -> torch.Tensor:
@@ -166,11 +168,15 @@ def dyn_acc_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor, tile: int | None
     return _dyn_acc_plain(scalars_t, pts_t, signed=False, tile=tile)
 
 
-def dyn_acc_signed_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
+def dyn_acc_signed_plain(scalars_t: torch.Tensor, pts_t: torch.Tensor, tile: int | None = None) -> torch.Tensor:
     """K7's function: as `dyn_acc_plain` with signed digits d in [-8, 7]
-    (ops/msm.signed_digits4) and tiles of K7_TILE lanes: point = sum over the
-    tile of sign(d) * T_l[|d|].  Scalars must be canonical (below 2^253)."""
-    return _dyn_acc_plain(scalars_t, pts_t, signed=True, tile=K7_TILE)
+    (ops/msm.signed_digits4), tiled as `dyn_acc_signed` tiles on the
+    tensors' device unless `tile` is given: point = sum over the tile of
+    sign(d) * T_l[|d|].  Scalars must be canonical (below 2^253)."""
+    if tile is None:
+        tile = pick_tile(scalars_t.shape[1], resident_tiles(scalars_t.device, "dyn_acc_signed"))
+    _check_tile(tile, "dyn_acc_signed")
+    return _dyn_acc_plain(scalars_t, pts_t, signed=True, tile=tile)
 
 
 def lane_fold_plain(parts: torch.Tensor) -> torch.Tensor:
@@ -243,17 +249,24 @@ def _launch_dyn_acc(scalars_t: torch.Tensor, pts_t: torch.Tensor, tile: int) -> 
 
 def dyn_acc_signed(scalars_t: torch.Tensor, pts_t: torch.Tensor) -> torch.Tensor:
     """K7: K1's arguments and output layout through signed digits in [-8, 7],
-    tiles of K7_TILE lanes.  The scalars must be canonical (below 2^253): the
-    kernel recodes them by adding 0x88..8, which must not carry out of 256
-    bits."""
+    at the tile width `pick_tile` takes from K7's own occupancy.  The scalars
+    must be canonical (below 2^253): the kernel recodes them by adding
+    0x88..8, which must not carry out of 256 bits."""
     if scalars_t.device.type == "cpu":
         return dyn_acc_signed_plain(scalars_t, pts_t)
     n = _check_dyn_args("dyn_acc_signed", scalars_t, pts_t)
-    tiles = -(-n // K7_TILE)
+    return _launch_dyn_acc_signed(scalars_t, pts_t, pick_tile(n, resident_tiles(scalars_t.device, "dyn_acc_signed")))
+
+
+def _launch_dyn_acc_signed(scalars_t: torch.Tensor, pts_t: torch.Tensor, tile: int) -> torch.Tensor:
+    """K7's launch at a given tile width, as `_launch_dyn_acc` is K1's."""
+    _check_tile(tile, "dyn_acc_signed")
+    n = _check_dyn_args("dyn_acc_signed", scalars_t, pts_t)
+    tiles = -(-n // tile)
     out = torch.empty((N_WINDOWS, tiles, POINT_WORDS), dtype=torch.int32, device=scalars_t.device)
     with torch.cuda.device(scalars_t.device):
         status = cuda.lib("msm").bppt_dyn_acc_signed(
-            scalars_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tiles, _stream()
+            scalars_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tile, tiles, _stream()
         )
     cuda.check("msm", status, "dyn_acc_signed")
     cuda.launches["dyn_acc_signed"] += 1

@@ -96,6 +96,16 @@ def cat(parts, dim: int = 0) -> PointArray:
 # ---------------------------------------------------------------------------
 
 
+def resolve_device(device) -> torch.device:
+    """`device` as the torch.device it names: a bare "cuda" is the current
+    card, cuda:<current_device()>, so that per-device caches keep one entry
+    a card and hand back tensors on the card asked for."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def from_host(points, device="cuda") -> PointArray:
     """List of host_ristretto points (or one point) -> PointArray on `device`."""
     single = isinstance(points, tuple) and len(points) == 4 and isinstance(points[0], int)

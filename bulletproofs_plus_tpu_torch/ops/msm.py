@@ -4,10 +4,14 @@ Counterpart of bulletproofs_plus_tpu/ops/msm.py.
   * host: variable-time Pippenger over Python ints (`host_msm`) — the
     correctness oracle.
   * device: `msm_kernel`, the 4-bit windowed MSM whose three stages are the
-    hand-written kernels K1 (or its signed-digit variant K7), K2 and K3 on
+    hand-written kernels K7 (signed digits; or K1, unsigned), K2 and K3 on
     CUDA tensors (ops/cuda_msm.py) and their plain torch versions on CPU
     tensors.  Lanes padded with (zero scalar, identity point) contribute
     nothing.  `tree_reduce` is the plain halving sum over a lane axis.
+  * dispatch: `msm(scalars, points, backend=None, device="cuda")` over host
+    scalar and point lists, "host" (`host_msm`, the default) or "device"
+    (`device_msm` on `device`); `set_default_backend` changes the default.
+    A failure on the device raises: nothing falls back to the host.
 """
 
 from __future__ import annotations
@@ -15,12 +19,13 @@ from __future__ import annotations
 import os
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from . import edwards as ed
 from . import host_ristretto as hr
 from .edwards import PointArray
-from .limbs import NLIMBS
+from .limbs import NLIMBS, pack_ints
 
 # ---------------------------------------------------------------------------
 # Host Pippenger (variable-time, python ints)
@@ -145,14 +150,55 @@ def tree_reduce(points: PointArray) -> PointArray:
 def msm_kernel(scalars: torch.Tensor, points: PointArray, signed: bool | None = None) -> PointArray:
     """sum_i scalars[i] * points[i] for (n, 16) canonical scalar limbs.
 
-    4-bit windowed MSM: per-lane tables T[d] = d*P, per-window sums of the
-    selected entries, then Horner over the 64 window sums — K1, K2 and K3
-    (ops/cuda_msm.py), launched as kernels on CUDA tensors.  signed=True
-    takes K7 in K1's place (digits in [-8, 7], half the table); the default
-    reads BPPT_MSM_SIGNED at call time ("1" selects it, default "0")."""
+    4-bit windowed MSM: per-lane tables of the digits' multiples of P,
+    per-window sums of the selected entries, then Horner over the 64 window
+    sums — K7 (signed digits in [-8, 7], T[d] = d*P for d up to 8) or K1
+    (digits 0..15, 16 entries), then K2 and K3 (ops/cuda_msm.py), launched as
+    kernels on CUDA tensors.  signed=None reads BPPT_MSM_SIGNED at call time:
+    K7 unless it is "0", which selects K1.  Signed digits are the default
+    because K7 + K2 measured faster than K1 + K2 on an H100 at both verify
+    widths (PERF.md); the JAX package defaults to unsigned digits."""
     from .cuda_msm import coords_t, dyn_acc, dyn_acc_signed, horner, lane_fold
 
     if signed is None:
-        signed = os.environ.get("BPPT_MSM_SIGNED", "0") == "1"
+        signed = os.environ.get("BPPT_MSM_SIGNED", "1") != "0"
     acc = dyn_acc_signed if signed else dyn_acc
     return PointArray(*horner(lane_fold(acc(scalars.t().contiguous(), coords_t(points)))))
+
+
+def device_msm(scalars: Sequence[int], points: Sequence[hr.Point], device="cuda") -> hr.Point:
+    """Host-convenience wrapper: python ints and host points -> `msm_kernel`
+    on `device` (K1 or K7, K2, K3 on a card; their plain versions on "cpu")
+    -> host point.  Scalars are taken mod l; lanes are padded as the JAX
+    package pads them."""
+    if len(scalars) != len(points):
+        raise ValueError("scalar/point length mismatch")
+    if len(scalars) == 0:
+        return hr.IDENTITY
+    s = torch.as_tensor(pack_ints([s % hr.L for s in scalars]).astype(np.int64), device=device)
+    s, p = pad_msm_inputs(s, ed.from_host(list(points), device=device))
+    return ed.to_host(msm_kernel(s, p))
+
+
+_BACKENDS = {"host", "device"}
+_default_backend = "host"
+
+
+def _check_backend(name: str) -> None:
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown msm backend {name!r}")
+
+
+def set_default_backend(name: str) -> None:
+    _check_backend(name)
+    global _default_backend
+    _default_backend = name
+
+
+def msm(scalars: Sequence[int], points: Sequence[hr.Point], backend: str | None = None, device="cuda") -> hr.Point:
+    """Dispatching MSM over host scalar/point lists: `backend` "host"
+    (`host_msm`) or "device" (`device_msm` on `device`); by default
+    `set_default_backend`'s, "host" unless changed."""
+    name = backend or _default_backend
+    _check_backend(name)
+    return device_msm(scalars, points, device) if name == "device" else host_msm(scalars, points)

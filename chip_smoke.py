@@ -4,14 +4,16 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from csrc/, holds each kernel against
-its plain torch version on the card (K1 and K2 at the MSM widths of both
+its plain torch version on the card (K1, K7 and K2 at the MSM widths of both
 verify batches below, 4736 and 2048 lanes), replays and verifies the golden
-proofs, verifies the 256 x 64-bit and 64 x m4 batches through
-`RangeProof.verify_batch(engine="device")` (once more with the signed-digit
-MSM kernel selected), proves 128 x 64-bit statements with
-`RangeProof.prove_batch_with_rng` and verifies what it proved, with launch
-counters proving the kernels ran, and checks that tampered and
-non-canonical batches fail with the reference's errors.  Each phase prints
+proofs, proves and verifies golden proof 3 through the sequential prover
+and the host engine with their MSMs on the card (`msm_backend="device"`),
+verifies the 256 x 64-bit and 64 x m4 batches through
+`RangeProof.verify_batch(engine="device")` (their MSM through K7, the
+default signed digits; once more through K1 with BPPT_MSM_SIGNED=0), proves
+128 x 64-bit statements with `RangeProof.prove_batch_with_rng` and verifies
+what it proved, with launch counters proving the kernels ran, and checks
+that tampered and non-canonical batches fail with the reference's errors.  Each phase prints
 one JSON line; then come the card's name and power limit (nvidia-smi), the
 per-kernel table ({"kernels": [...]}: time, bound, plain version's time)
 and, last, {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -32,27 +34,30 @@ cheapest arithmetic each function admits, so that no kernel can pass its
 bound by doing less than the bound assumed: a field multiplication counts
 128 multiply-adds (8 x 8 32-bit words, low and high halves), a squaring 72
 (its 36 distinct word products), an addition of two extended points 9
-multiplications, a mixed addition of a precomputed affine point 7, a
-doubling 4 multiplications and 4 squarings.  K5 does, for each (row, lane,
+multiplications, a mixed addition of a precomputed affine point 7, an
+addition of a point cached as (Y + X, Y - X, 2d T, 2Z) 8 (the cached form
+costs one multiplication to make), a doubling 4 multiplications and 4
+squarings.  K5 does, for each (row, lane,
 window range), one multiplication for the range's first window and a mixed
 addition for each other, and reads the lanes' table entries, the scalars and
 the lane map once; K6 the additions of its tree.  K1 does, for each lane,
 its table at the cheapest schedule (each even multiple a doubling of its
-half, each odd one an addition: 7 doublings and 7 additions for 2P..15P)
-and, for each window, the additions that sum its tile's lanes (64 (n -
-tiles) in all), and reads the scalars and points once and writes packed
-partials; K2 the 64 (tiles - 1) additions left; K7 as K1 with a table of
-4 doublings and 3 additions (2P..8P).
+half, each odd one an addition: 7 doublings and 7 additions for 2P..15P;
+then P..15P cached) and, for each window, the additions of cached entries
+that sum its tile's lanes (64 (n - tiles) in all), and reads the scalars
+and points once and writes packed partials; K2 the 64 (tiles - 1)
+additions left; K7 as K1 with a table of 4 doublings and 3 additions
+(2P..8P) and 8 cached entries.
 
-`chain_ms` (every row but K7's) is the other floor: the field multiplications and squarings that lie
+`chain_ms` is the other floor: the field multiplications and squarings that lie
 one after another on the kernel's longest path, each at the dependent
 latency that the one-warp probe measured in this run (`fe_mul_ns`,
 `fe_sqr_ns`).  K3 and K6 spread a point operation over four lanes
 (ge_dbl4, ge_add4: a doubling is a squaring and a multiplication deep, an
 addition three multiplications), and their `serial_chain_ms` is the figure
 of the one-thread design they replaced (4 + 4 and 9 deep); K1's first two
-table levels and its quarters' sums and all of K2 do the same.  K1 and K2
-also give their grid (`blocks`, `threads`, `waves`: blocks over those the
+table levels and its quarters' sums and all of K2 do the same, and so
+does K7.  K1, K7 and K2 also give their grid (`blocks`, `threads`, `waves`: blocks over those the
 card holds at once, its SM count times the kernel's blocks an SM by the
 CUDA occupancy calculator, both read in this run) and ptxas's registers and
 spill.  `bound_ms`
@@ -79,6 +84,7 @@ IMAD_PER_S = 132 * 64 * 1.98e9
 MULADDS_PER_FMUL = 128
 MULADDS_PER_FSQR = 72
 FMUL_PER_ADD, FMUL_PER_MIXED_ADD = 9, 7
+FMUL_PER_CACHED_ADD = 8  # an addition whose second point is cached as (Y + X, Y - X, 2d T, 2Z)
 FMUL_DEEP_ADD4 = 3  # an addition spread over four lanes (ge_add4): three multiplications one after another
 DBL_FMUL, DBL_FSQR = 4, 4
 POW_SQR, POW_MUL = 251, 11  # the x^((p-5)/8) addition chain
@@ -498,7 +504,7 @@ def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
     sc4 = torch.as_tensor(pack_ints([rs.randrange(hr.L) for _ in range(M4_LANES)]).astype("int64"), device=dev)
     shapes = {n: (sc_t, pts_t, parts, wsum), M4_LANES: (sc4.t().contiguous(), cm.coords_t(pts4), None, None)}
     other_tile = {n: 16, M4_LANES: 8}
-    by_shape = {}
+    by_shape, by_shape_wsum = {}, {}
     for lanes, (sc_s, pts_s, parts_s, wsum_s) in shapes.items():
         if parts_s is None:
             parts_s = cm.dyn_acc(sc_s, pts_s)
@@ -506,6 +512,7 @@ def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
                                         cf.words_to_coords(cm.dyn_acc_plain(sc_s, pts_s))))
             wsum_s = cm.lane_fold(parts_s)
             err2 = max(err2, _point_err(F, torch, wsum_s, cm.lane_fold_plain(parts_s)))
+        by_shape_wsum[lanes] = wsum_s
         t_o = other_tile[lanes]
         p_o = cm._launch_dyn_acc(sc_s, pts_s, t_o)
         if _point_err(F, torch, cm.lane_fold(p_o)[..., None], wsum_s[..., None]) != 0:
@@ -523,11 +530,15 @@ def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
             raise AssertionError(f"{name} disagrees with its plain version at {M4_LANES} lanes (max_abs_err {err})")
     fold_threads = cf.pick_fold_threads(tiles, 64)
 
-    # K1 per tile: tables (7 additions and 7 doublings a lane), then 64 window sums of its lanes; K2 the
-    # rest of the 64 (n - 1) additions; packed 128-byte partials between them
-    k1_table = 7 * FMUL_PER_ADD * MULADDS_PER_FMUL + 7 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
+    # K1 per tile: tables (7 additions and 7 doublings a lane, then a product an entry for the cached form
+    # of P..15P), then 64 window sums of its lanes, each addition of a cached entry 8 products; K2 the rest of
+    # the 64 (n - 1) additions, of extended points; packed 128-byte partials between them.  K7 the same with
+    # a table of 3 additions and 4 doublings (2P..8P) and 8 cached entries
+    dbl_muladds = DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR
+    k1_table = 7 * FMUL_PER_ADD * MULADDS_PER_FMUL + 7 * dbl_muladds + 15 * MULADDS_PER_FMUL
+    k7_table = 3 * FMUL_PER_ADD * MULADDS_PER_FMUL + 4 * dbl_muladds + 8 * MULADDS_PER_FMUL
     b1 = bound_ms(n * (LIMB_BYTES + POINT_BYTES) + tiles * 64 * PART_BYTES,
-                  n * k1_table + 64 * (n - tiles) * FMUL_PER_ADD * MULADDS_PER_FMUL)
+                  n * k1_table + 64 * (n - tiles) * FMUL_PER_CACHED_ADD * MULADDS_PER_FMUL)
     b2 = bound_ms(tiles * 64 * PART_BYTES + 64 * POINT_BYTES, 64 * (tiles - 1) * FMUL_PER_ADD * MULADDS_PER_FMUL)
     b3 = bound_ms(65 * POINT_BYTES, 252 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
                   + 63 * FMUL_PER_ADD * MULADDS_PER_FMUL)
@@ -574,23 +585,47 @@ def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
                       "serial_chain_ms": (252 * dbl_ns + 6 * add_ns) * 1e-6,
                       "groups": cm.HORNER_GROUPS, "edge_inputs": list(edges)}
 
-    # K7 on K1's inputs, then K1 against K7 in turns (the A/B of the two digit recodings)
-    parts7 = cm.dyn_acc_signed(sc_t, pts_t)
-    err7 = _point_err(F, torch, cf.words_to_coords(parts7), cf.words_to_coords(cm.dyn_acc_signed_plain(sc_t, pts_t)))
-    res7 = cm.horner(cm.lane_fold(parts7))  # the window sums differ with the recoding; the MSM does not
-    if err7 != 0 or _point_err(F, torch, res7[..., None], res[..., None]) != 0:
-        raise AssertionError(f"dyn_acc_signed disagrees with its plain version or with K1 (max_abs_err {err7})")
-    tiles7 = parts7.shape[1]  # K7 keeps 16-lane tiles: 3 additions and 4 doublings a lane for its table
-    k7_table = 3 * FMUL_PER_ADD * MULADDS_PER_FMUL + 4 * (DBL_FMUL * MULADDS_PER_FMUL + DBL_FSQR * MULADDS_PER_FSQR)
+    # K7 at both verify widths, held exactly against its plain version at the tile it picks and at 16 and 32
+    # lanes, its MSM against K1's; then the A/B of the two digit recodings, K1 + K2 against K7 + K2 by graph
+    # time in the order K1, K7, K7, K1
+    resident7 = cm.resident_tiles(dev, "dyn_acc_signed")
+    err7, by_shape7 = 0.0, {}
+    for lanes, (sc_s, pts_s, _, _) in shapes.items():
+        res_s = res if lanes == n else cm.horner(by_shape_wsum[lanes])
+        t7 = cm.pick_tile(lanes, resident7)
+        for t in sorted({t7, 16, 32}):
+            p7 = cm.dyn_acc_signed(sc_s, pts_s) if t == t7 else cm._launch_dyn_acc_signed(sc_s, pts_s, t)
+            err7 = max(err7, _point_err(F, torch, cf.words_to_coords(p7),
+                                        cf.words_to_coords(cm.dyn_acc_signed_plain(sc_s, pts_s, t))))
+            if _point_err(F, torch, cm.horner(cm.lane_fold(p7))[..., None], res_s[..., None]) != 0:
+                raise AssertionError(f"dyn_acc_signed at {t} lanes a tile: its MSM is not K1's ({lanes} lanes)")
+        if err7 != 0:
+            raise AssertionError(f"dyn_acc_signed disagrees with its plain version ({lanes} lanes, max_abs_err {err7})")
+        parts7 = cm.dyn_acc_signed(sc_s, pts_s)
+        chains = {"k1": lambda: cm.lane_fold(cm.dyn_acc(sc_s, pts_s)),
+                  "k7": lambda: cm.lane_fold(cm.dyn_acc_signed(sc_s, pts_s))}
+        by_shape7[lanes] = {"tile": t7, "tiles": parts7.shape[1], "waves": parts7.shape[1] / resident7(t7),
+                            "dyn_acc_signed_graph_ms": graph_ms(lambda: cm.dyn_acc_signed(sc_s, pts_s)),
+                            "lane_fold_graph_ms": graph_ms(lambda: cm.lane_fold(parts7)),
+                            "k1_k7_k7_k1_graph_ms": [graph_ms(chains[k]) for k in ("k1", "k7", "k7", "k1")]}
+    out["k7_by_shape"] = by_shape7
+    t7 = by_shape7[n]["tile"]
+    tiles7 = by_shape7[n]["tiles"]
     b7 = bound_ms(n * (LIMB_BYTES + POINT_BYTES) + tiles7 * 64 * PART_BYTES,
-                  n * k7_table + 64 * (n - tiles7) * FMUL_PER_ADD * MULADDS_PER_FMUL)
-    turns = [kernel_ms(lambda: fn(sc_t, pts_t)) for fn in (cm.dyn_acc, cm.dyn_acc_signed, cm.dyn_acc_signed, cm.dyn_acc)]
-    rows["dyn_acc_signed"] = {"max_abs_err": err7, "ms": statistics.mean(turns[1:3]),
-                              "graph_ms": graph_ms(lambda: cm.dyn_acc_signed(sc_t, pts_t)),
+                  n * k7_table + 64 * (n - tiles7) * FMUL_PER_CACHED_ADD * MULADDS_PER_FMUL)
+    # the longest chain: K1's, with one table level of one-thread additions, not two, the cached form's
+    # product before the windows and the first entry's, and the window additions at 8 products
+    k7_chain = ((FMUL_PER_ADD + 2 + (-(-t7 // 4) - 1) * FMUL_PER_CACHED_ADD + 1 + 3 * FMUL_DEEP_ADD4)
+                * probe["fe_mul_ns"] + probe["fe_sqr_ns"]) * 1e-6
+    rows["dyn_acc_signed"] = {"max_abs_err": err7, "ms": kernel_ms(lambda: cm.dyn_acc_signed(sc_t, pts_t)),
+                              "graph_ms": by_shape7[n]["dyn_acc_signed_graph_ms"],
                               "plain_ms": median_ms(lambda: cm.dyn_acc_signed_plain(sc_t, pts_t), 1),
-                              "bound_ms": b7[0], "bound_by": b7[1], "lanes": n, "blocks": tiles7,
+                              "bound_ms": b7[0], "bound_by": b7[1], "chain_ms": k7_chain,
+                              "lanes": n, "tile": t7, "blocks": tiles7, "threads": cm.K1_THREADS,
+                              "waves": by_shape7[n]["waves"], "sms": cm.sm_count(dev),
+                              "blocks_per_sm": cm.occupancy("dyn_acc_signed", dev_index, tile=t7),
+                              "tiles_checked": sorted({t7, 16, 32}),
                               **ptxas.get("dyn_acc_signed_kernel", {})}
-    out["k1_k7_k7_k1_ms"] = turns
     section_done("k1_k2_k3_k7")
 
     # K5 and K6 at the prover's shapes: the round MSM (128 proofs x 128
@@ -632,8 +667,8 @@ def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
     if not hr.point_equal(ed.to_host(got16), host_msm(small_sc, small)):
         raise AssertionError("16-lane MSM disagrees with the host Pippenger")
     out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "chain_ms",
-                                               "serial_chain_ms", "graph_ms_by_threads", "blocks", "threads", "waves",
-                                               "blocks_per_sm")
+                                               "serial_chain_ms", "graph_ms_by_threads", "tile", "blocks", "threads",
+                                               "waves", "blocks_per_sm", "registers", "spill_stores", "spill_loads")
                           if kk in v}
                       for k, v in rows.items()}
     out["k4"] = rows["pow_p58"]
@@ -673,6 +708,51 @@ def phase_golden(bp, hr, cells) -> dict:
     return {"cells": results}
 
 
+def phase_host_engine(torch, bp, hr, cells) -> dict:
+    """Golden proof 3 (64 bits, one commitment) through the sequential prover
+    and the host engine with their MSMs on the card (`msm_backend="device"`):
+    the proof must be the golden bytes, the verify must recover the golden
+    mask and refuse a tampered copy, and the launch counters must show that
+    each MSM went through K1 or K7, K2 and K3."""
+    from bulletproofs_plus_tpu_torch.native import cuda
+
+    cell = next(c for c in cells if c["seed"] == 3)
+    statement = _golden_statement(bp, hr, cell)
+    witness = bp.RangeWitness.init([bp.CommitmentOpening(v, bl) for v, bl in zip(cell["values"], cell["blindings"])])
+    out = {}
+
+    def counted(label, fn):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        counts = {k: cuda.launches[k] for k in ("dyn_acc", "dyn_acc_signed", "lane_fold", "horner")}
+        if not (counts["dyn_acc"] or counts["dyn_acc_signed"]) or not counts["lane_fold"] or not counts["horner"]:
+            raise AssertionError(f"host engine, {label}: the MSM kernels did not run: {counts}")
+        out[label] = {"seconds": time.perf_counter() - t0, "launches": counts}
+        return result
+
+    proof = counted("prove", lambda: bp.RangeProof.prove_with_rng(
+        bp.Transcript(b"golden"), statement, witness, bp.SeededRng(cell["seed"]), msm_backend="device", device="cuda"))
+    if proof.to_bytes().hex() != cell["proof"]:
+        raise AssertionError("host engine: prove_with_rng with its MSMs on the card is not golden proof 3")
+    masks = counted("verify", lambda: bp.RangeProof.verify_batch(
+        [bp.Transcript(b"golden")], [statement], [proof], bp.VerifyAction.RECOVER_AND_VERIFY,
+        msm_backend="device", engine="host", device="cuda"))
+    if [format(b, "064x") for b in masks[0].blindings()] != cell["mask"]:
+        raise AssertionError("host engine: the recovered mask is not golden mask 3")
+    tampered = bp.RangeProof.from_bytes(proof.to_bytes())
+    tampered.s1 = (tampered.s1 + 1) % hr.L
+    try:
+        bp.RangeProof.verify_batch([bp.Transcript(b"golden")], [statement], [tampered], bp.VerifyAction.VERIFY_ONLY,
+                                   msm_backend="device", engine="host", device="cuda")
+        raise AssertionError("host engine: a tampered s1 was accepted")
+    except bp.VerificationFailed:
+        pass
+    out.update(golden_proof="equal", golden_mask="equal", tampered_s1="VerificationFailed")
+    return out
+
+
 def _tiled(bp, hr, cell, batch: int):
     statement = _golden_statement(bp, hr, cell)
     proof = bp.RangeProof.from_bytes(bytes.fromhex(cell["proof"]))
@@ -686,16 +766,17 @@ def _verify(bp, statements, proofs):
     )
 
 
-# K4 is reached through its fused entry, `sqrt_ratio_m1`: once a verify, eight times a prove
-VERIFY_KERNELS = ("dyn_acc", "lane_fold", "horner", "sqrt_ratio_m1")
+# K4 is reached through its fused entry, `sqrt_ratio_m1`: once a verify, eight times a prove; the MSM's first
+# stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0)
+VERIFY_KERNELS = ("dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
 PROVE_KERNELS = ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")
 PROVE_LAUNCHES = {"fixed_acc": 15, "fixed_fold": 15, "sqrt_ratio_m1": 8}
 
 
-def _signed_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
-    """One verify with BPPT_MSM_SIGNED=1 for the call: K7 takes K1's place."""
+def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
+    """One verify with BPPT_MSM_SIGNED=0 for the call: K1 takes K7's place."""
     before = os.environ.get("BPPT_MSM_SIGNED")
-    os.environ["BPPT_MSM_SIGNED"] = "1"
+    os.environ["BPPT_MSM_SIGNED"] = "0"
     try:
         cuda.reset_launches()
         t0 = time.perf_counter()
@@ -707,11 +788,11 @@ def _signed_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
             del os.environ["BPPT_MSM_SIGNED"]
         else:
             os.environ["BPPT_MSM_SIGNED"] = before
-    counts = {k: cuda.launches[k] for k in ("dyn_acc_signed",) + VERIFY_KERNELS}
-    if (not counts["dyn_acc_signed"] or counts["dyn_acc"]
+    counts = {k: cuda.launches[k] for k in ("dyn_acc",) + VERIFY_KERNELS}
+    if (not counts["dyn_acc"] or counts["dyn_acc_signed"]
             or not all(counts[k] for k in ("lane_fold", "horner", "sqrt_ratio_m1"))):
-        raise AssertionError(f"signed verify: wrong kernels launched: {counts}")
-    launches["dyn_acc_signed"] = counts["dyn_acc_signed"]
+        raise AssertionError(f"unsigned verify: wrong kernels launched: {counts}")
+    launches["dyn_acc"] = counts["dyn_acc"]
     return {"proofs": len(proofs), "seconds": seconds, "launches": counts}
 
 
@@ -728,12 +809,13 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
-        if not all(counts.values()) or counts["sqrt_ratio_m1"] != 1 or cuda.launches["pow_p58"]:
+        if (not all(counts.values()) or counts["sqrt_ratio_m1"] != 1 or cuda.launches["pow_p58"]
+                or cuda.launches["dyn_acc"]):
             raise AssertionError(f"{label}: wrong kernel launches: {dict(cuda.launches)}")
         if seed == 3:
             launches.update(counts)
             launches["pow_p58"] = counts["sqrt_ratio_m1"]  # K4's row: its chain ran inside the fused entry
-            out["b64_m1_x256_signed"] = _signed_arm(torch, bp, cuda, statements, proofs, launches)
+            out["b64_m1_x256_unsigned"] = _unsigned_arm(torch, bp, cuda, statements, proofs, launches)
         samples = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -860,6 +942,7 @@ def main() -> int:
         ("build", lambda: phase_build(torch, cuda, ptxas)),
         ("kernels", lambda: phase_kernels(torch, bp, params, rows, ptxas)),
         ("golden", lambda: phase_golden(bp, hr, cells)),
+        ("host_engine", lambda: phase_host_engine(torch, bp, hr, cells)),
         ("main", lambda: phase_main(torch, bp, hr, cells, launches)),
         ("prove", lambda: phase_prove(torch, bp, hr, params, cells, launches)),
         ("reject", lambda: phase_reject(bp, hr, cells)),
@@ -886,7 +969,8 @@ def main() -> int:
          "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"], "bound_ms": rows[k]["bound_ms"],
          "bound_by": rows[k]["bound_by"], "library_ms": None,
          **{extra: rows[k][extra] for extra in ("chain_ms", "serial_chain_ms", "graph_ms", "entry", "pow_p58_ms",
-                                                "blocks", "threads", "waves", "registers", "spill_stores")
+                                                "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
+                                                "spill_stores", "spill_loads")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

@@ -43,13 +43,21 @@ def _msm_inputs(n, seed):
     return scalars, pts
 
 
-@pytest.mark.parametrize("n", [1, 16, 40])  # one lane, one full K1 tile, a ragged third tile
-def test_msm_kernels_match_host(card, n):
+@pytest.mark.parametrize("n", [1, 16, 40])  # one lane, one full tile, a ragged third tile
+def test_msm_kernels_match_host(card, n, monkeypatch):
+    """The MSM through the default digits (K7, signed) and through K1 (BPPT_MSM_SIGNED=0)."""
     scalars, pts = _msm_inputs(n, n)
-    cuda.reset_launches()
-    got = msm_kernel(torch.as_tensor(pack_ints(scalars).astype(np.int64), device=card), ed.from_host(pts, device=card))
-    assert hr.point_equal(ed.to_host(got), host_msm(scalars, pts))
-    assert [cuda.launches[k] for k in ("dyn_acc", "lane_fold", "horner")] == [1, 1, 1]
+    for env, first in ((None, "dyn_acc_signed"), ("0", "dyn_acc")):
+        if env is None:
+            monkeypatch.delenv("BPPT_MSM_SIGNED", raising=False)
+        else:
+            monkeypatch.setenv("BPPT_MSM_SIGNED", env)
+        cuda.reset_launches()
+        got = msm_kernel(torch.as_tensor(pack_ints(scalars).astype(np.int64), device=card),
+                         ed.from_host(pts, device=card))
+        assert hr.point_equal(ed.to_host(got), host_msm(scalars, pts))
+        assert [cuda.launches[k] for k in (first, "lane_fold", "horner")] == [1, 1, 1]
+        assert cuda.launches["dyn_acc"] + cuda.launches["dyn_acc_signed"] == 1
 
 
 def pa(coords):
@@ -73,9 +81,9 @@ def _random_scalars(card, n, seed):
                                      (2048, None)])
 def test_msm_kernels_match_plain(card, n, tile):
     """K1 against its plain version, K2 against its own at every block size,
-    K3 after them, and K7 through the same K2 to the same MSM; a zero scalar
-    and an identity point (lanes 0 and n - 1, where n > 1) go through all of
-    them."""
+    K3 after them, and K7 at the same tile width against its plain version
+    and through the same K2 to the same MSM; a zero scalar and an identity
+    point (lanes 0 and n - 1, where n > 1) go through all of them."""
     sc_t = _random_scalars(card, n, n)
     pts = _random_projective(card, n, n + 1)
     if n > 1:
@@ -95,37 +103,50 @@ def test_msm_kernels_match_plain(card, n, tile):
     assert bool(rist.point_equal(pa(wsum), want2).all())
     res = cm.horner(wsum)
     assert bool(rist.point_equal(pa(res), pa(cm.horner_plain(wsum))))
-    parts7 = cm.dyn_acc_signed(sc_t, pts_t)
-    assert bool(rist.point_equal(pa(cf.words_to_coords(parts7)),
-                                 pa(cf.words_to_coords(cm.dyn_acc_signed_plain(sc_t, pts_t)))).all())
+    picked7 = cm.pick_tile(n, cm.resident_tiles(card, "dyn_acc_signed"))
+    want7 = pa(cf.words_to_coords(cm.dyn_acc_signed_plain(sc_t, pts_t, tile)))
+    cuda.reset_launches()
+    parts7 = cm.dyn_acc_signed(sc_t, pts_t) if tile == picked7 else cm._launch_dyn_acc_signed(sc_t, pts_t, tile)
+    assert tuple(parts7.shape) == (64, -(-n // tile), cm.POINT_WORDS) and cuda.launches["dyn_acc_signed"] == 1
+    assert bool(rist.point_equal(pa(cf.words_to_coords(parts7)), want7).all())
     assert bool(rist.point_equal(pa(cm.horner(cm.lane_fold(parts7))), pa(res)))
 
 
-def test_k1_grid_is_one_wave_of_two_blocks_an_sm(card):
-    """The card holds two K1 blocks an SM at every tile width (the design's
-    cap of 128 registers for 256 threads), and the width the wrapper picks
-    for each MSM of the verify paths makes one wave of them."""
-    resident = cm.resident_tiles(card)
+@pytest.mark.parametrize("kernel", ["dyn_acc", "dyn_acc_signed"])
+def test_k1_grid_is_one_wave_of_two_blocks_an_sm(card, kernel):
+    """The card holds two K1 (or K7) blocks an SM at every tile width (the
+    design's cap of 128 registers for 256 threads), and the width the
+    wrapper picks for each MSM of the verify paths makes one wave of them."""
+    resident = cm.resident_tiles(card, kernel)
     sms = cm.sm_count(torch.device(card))
     for tile in range(1, cm.MAX_TILE + 1):
-        assert cm.occupancy("dyn_acc", torch.cuda.current_device(), tile=tile) >= 2
+        assert cm.occupancy(kernel, torch.cuda.current_device(), tile=tile) >= 2
         assert resident(tile) >= 2 * sms
     for n in (16, 2048, 4736):
         assert -(-n // cm.pick_tile(n, resident)) <= resident(cm.pick_tile(n, resident))
     assert cm.occupancy("lane_fold", torch.cuda.current_device(), threads=512) >= 1
 
 
-@pytest.mark.parametrize("tile, threads", [(0, 128), (33, 128), (16, 16), (16, 96), (16, 1024)])
-def test_msm_entries_refuse_bad_launch_parameters(card, tile, threads):
-    """The C entries themselves, below the wrappers' checks: K1 refuses a
-    tile its warps cannot hold, K2 a block size its tree cannot sum."""
+# (entry, tile, tiles, threads): K1's and K7's tile outside 1-32 and a tile count that is not ceil(n / tile);
+# K2's block sizes that are not a power of two from 32 to 512
+@pytest.mark.parametrize("entry, tile, tiles, threads", [
+    ("dyn_acc", 0, 1, None), ("dyn_acc", 33, 1, None), ("dyn_acc", 2, 1, None),
+    ("dyn_acc_signed", 0, 1, None), ("dyn_acc_signed", 33, 1, None), ("dyn_acc_signed", 2, 1, None),
+    ("lane_fold", None, 1, 16), ("lane_fold", None, 1, 96), ("lane_fold", None, 1, 1024)])
+def test_msm_entries_refuse_bad_launch_parameters(card, entry, tile, tiles, threads):
+    """The C entries themselves, below the wrappers' checks: K1 and K7 refuse
+    a tile their warps cannot hold or a grid that does not cover the lanes,
+    K2 a block size its tree cannot sum."""
     n = 4
     sc_t = torch.zeros((16, n), dtype=torch.int64, device=card)
     pts_t = cm.coords_t(ed.identity((n,), device=card))
     out = torch.empty((64, 1, cm.POINT_WORDS), dtype=torch.int32, device=card)
     stream = torch.cuda.current_stream().cuda_stream
-    if tile != 16:
-        status = cuda.lib("msm").bppt_dyn_acc(sc_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tile, 1, stream)
+    if entry == "dyn_acc":
+        status = cuda.lib("msm").bppt_dyn_acc(sc_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tile, tiles, stream)
+    elif entry == "dyn_acc_signed":
+        status = cuda.lib("msm").bppt_dyn_acc_signed(sc_t.data_ptr(), pts_t.data_ptr(), out.data_ptr(), n, tile,
+                                                     tiles, stream)
     else:
         wsum = torch.empty((4, 16, 64), dtype=torch.int64, device=card)
         status = cuda.lib("msm").bppt_lane_fold(out.data_ptr(), wsum.data_ptr(), 1, threads, stream)

@@ -348,15 +348,17 @@ def test_msm_kernel_signed_matches_host(n, monkeypatch):
     sc, pa = _t(pack_ints(scalars)), ed.from_host(pts, device="cpu")
     want = host_msm(scalars, pts)
     assert hr.point_equal(ed.to_host(msm_kernel(sc, pa, signed=True)), want)
-    # signed=None reads BPPT_MSM_SIGNED at call time
+    # signed=None reads BPPT_MSM_SIGNED at call time: signed digits (K7) unless it is "0"
     calls = []
     monkeypatch.setattr(cm, "dyn_acc_signed", lambda *a: calls.append("signed") or cm.dyn_acc_signed_plain(*a))
     monkeypatch.setattr(cm, "dyn_acc", lambda *a: calls.append("unsigned") or cm.dyn_acc_plain(*a))
+    monkeypatch.setenv("BPPT_MSM_SIGNED", "0")
+    assert hr.point_equal(ed.to_host(msm_kernel(sc, pa)), want)
     monkeypatch.setenv("BPPT_MSM_SIGNED", "1")
     assert hr.point_equal(ed.to_host(msm_kernel(sc, pa)), want)
     monkeypatch.delenv("BPPT_MSM_SIGNED")
     assert hr.point_equal(ed.to_host(msm_kernel(sc, pa)), want)
-    assert calls == ["signed", "unsigned"]
+    assert calls == ["unsigned", "signed", "signed"]
 
 
 def test_dyn_acc_signed_plain_matches_jax_kernel_body():

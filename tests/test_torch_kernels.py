@@ -69,19 +69,25 @@ def test_dyn_msm_plain_matches_pallas_and_host(msm8):
     assert hr.point_equal(jax_pt, want)
 
 
-@pytest.mark.parametrize("tile", [1, 3, 8])  # eight one-lane tiles; two of three and a ragged one of two; one tile
-def test_dyn_acc_tile_widths_match_jax_and_host(msm8, tile):
-    """K1's tile width moves additions between K1 and K2 and changes no
-    result: each packed partial [w, b] is the sum over tile b's lanes of
-    digit_w(s) P, K2 sums them to the window sums, and the chain's MSM is the
-    JAX package's and the host's."""
+# eight one-lane tiles; two of three and a ragged one of two; one tile: K1's, then K7's through the JAX
+# package's signed digits
+@pytest.mark.parametrize("tile, signed", [(1, False), (3, False), (8, False), (1, True), (3, True), (8, True)],
+                         ids=["1", "3", "8", "signed-1", "signed-3", "signed-8"])
+def test_dyn_acc_tile_widths_match_jax_and_host(msm8, tile, signed):
+    """K1's (and K7's) tile width moves additions between K1 and K2 and
+    changes no result: each packed partial [w, b] is the sum over tile b's
+    lanes of digit_w(s) P (for K7 the JAX package's signed digit,
+    `signed_digits4`, in [-8, 7]), K2 sums them to the window sums, and the
+    chain's MSM is the JAX package's and the host's."""
     scalars, pts, sc, jax_pt = msm8
-    parts = cm.dyn_acc_plain(sc.t().contiguous(), cm.coords_t(ed.from_host(pts, device="cpu")), tile)
+    plain = cm.dyn_acc_signed_plain if signed else cm.dyn_acc_plain
+    parts = plain(sc.t().contiguous(), cm.coords_t(ed.from_host(pts, device="cpu")), tile)
     tiles = -(-8 // tile)
     assert tuple(parts.shape) == (64, tiles, cm.POINT_WORDS) and parts.dtype == torch.int32
     coords = cf.words_to_coords(parts)  # (4, 16, 64, tiles)
+    jax_digits = np.asarray(pm.signed_digits4(jnp.asarray(sc.numpy().astype(np.uint32)))) if signed else None
     for w in (0, 63):
-        digits = [(s >> (4 * w)) & 15 for s in scalars]
+        digits = [int(d) for d in jax_digits[w]] if signed else [(s >> (4 * w)) & 15 for s in scalars]
         for b in range(tiles):
             got = tuple(int_from_limbs(coords[c, :, w, b].numpy()) % P for c in range(4))
             lanes = slice(b * tile, (b + 1) * tile)
@@ -91,7 +97,7 @@ def test_dyn_acc_tile_widths_match_jax_and_host(msm8, tile):
 
 
 def test_pick_tile_fills_one_wave():
-    """The tile width the K1 wrapper picks: 16 lanes while 16-lane tiles fit
+    """The tile width the K1 (and K7) wrapper picks: 16 lanes while 16-lane tiles fit
     in one wave of resident blocks, then the narrowest that does, at most
     32.  On the CPU the plain version tiles for an H100's 264 (18
     lanes for the 4736 of a 256-proof verify); on a card that held one block
@@ -107,6 +113,13 @@ def test_pick_tile_fills_one_wave():
         == (64, -(-20 // cm.MIN_TILE), cm.POINT_WORDS)  # the CPU wrapper takes the plain version at the picked width
     with pytest.raises(ValueError):
         cm.dyn_acc_plain(torch.zeros((16, 4), dtype=torch.int64), torch.zeros((4, 16, 4), dtype=torch.int64), 33)
+    # K7 tiles as K1 does, over its own occupancy (on the CPU the same H100 figure)
+    assert cm.resident_tiles("cpu", "dyn_acc_signed")(18) == cm.CPU_RESIDENT_TILES
+    assert tuple(cm.dyn_acc_signed(torch.zeros((16, 20), dtype=torch.int64),
+                                   cm.coords_t(ed.identity((20,), device="cpu"))).shape) \
+        == (64, -(-20 // cm.MIN_TILE), cm.POINT_WORDS)
+    with pytest.raises(ValueError):
+        cm.dyn_acc_signed_plain(torch.zeros((16, 4), dtype=torch.int64), torch.zeros((4, 16, 4), dtype=torch.int64), 0)
 
 
 @pytest.mark.parametrize("n", [1, 21, 40])  # 21: a ragged K1 tile; 40: a K2 fold over 3 tiles

@@ -237,7 +237,11 @@ def test_argument_errors_and_engines():
     proof = tbp.RangeProof.from_bytes(raw)
     with pytest.raises(tbp.InvalidArgument):
         tbp.RangeProof.verify_batch([tbp.Transcript(b"torch")], [st_t, st_t], [proof], tbp.VerifyAction.VERIFY_ONLY)
-    with pytest.raises(NotImplementedError):
+    # engine="host" is the exact-integer oracle (tests/test_torch_host_engine.py); an unknown engine is refused
+    assert tbp.RangeProof.verify_batch(
+        [tbp.Transcript(b"torch")], [st_t], [proof], tbp.VerifyAction.VERIFY_ONLY, engine="host"
+    ) == [None]
+    with pytest.raises(ValueError, match="unknown engine"):
         tbp.RangeProof.verify_batch(
-            [tbp.Transcript(b"torch")], [st_t], [proof], tbp.VerifyAction.VERIFY_ONLY, engine="host"
+            [tbp.Transcript(b"torch")], [st_t], [proof], tbp.VerifyAction.VERIFY_ONLY, engine="oracle"
         )
