@@ -1,13 +1,14 @@
 """Bulletproofs+ range proof: prover, batch verifier, canonical serialization.
 
-Counterpart of bulletproofs_plus_tpu/models/range_proof.py, in part: the
-sequential host prover and the batched device prover (reference
+Counterpart of bulletproofs_plus_tpu/models/range_proof.py: the sequential
+host prover and the batched device prover (reference
 src/range_proof.rs:221-608), the batch verifier's two engines
 (range_proof.rs:610-1065) -- the exact-integer host oracle, and the device
-engine for one shape group with the JAX package's host Fiat-Shamir replay --
-and the proof codec with its pickle hooks (range_proof.rs:1112-1309).  Mesh
-sharding, the device transcript replay, the device engine's mixed-shape
-batches and the pipelined stream are later slices of the port.
+engine with its staged dispatch (Fiat-Shamir replay on the device for a
+single-shape batch, host replay and one scalar pass a shape group for the
+rest), the pipelined stream over it, and the proof codec with its pickle
+hooks (range_proof.rs:1112-1309).  Mesh sharding is a later slice of the
+port.
 
 The `verify_batch` 256-proof cap — including the reference quirk that proofs
 beyond the first chunk are silently ignored (range_proof.rs:740-749) — is
@@ -49,6 +50,86 @@ class VerifyAction(enum.Enum):
     VERIFY_ONLY = "verify_only"
     RECOVER_AND_VERIFY = "recover_and_verify"
     RECOVER_ONLY = "recover_only"
+
+
+class _FetchStage:
+    """A device-engine stage blocked on one device->host fetch.
+
+    `arrays` is a tuple (lists inside allowed) of tensors.  Their copy to the
+    host starts when the stage is made: from a CUDA device into pinned host
+    memory with non_blocking=True, then a CUDA event is recorded behind the
+    copies, so the copy waits in the stream behind the work that makes the
+    values while the host goes on.  `fetch()` waits on that event (not on
+    the whole device) and returns the values as numpy arrays;
+    `cont(values)` returns the final result or another `_FetchStage`.  CPU
+    tensors are read as they are."""
+
+    __slots__ = ("cont", "_host", "_event")
+
+    def __init__(self, arrays, cont):
+        import torch
+
+        self.cont = cont
+        self._event = None
+        cuda_device = None
+
+        def start(t):
+            nonlocal cuda_device
+            if t.device.type != "cuda":
+                return t
+            cuda_device = t.device
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            return host
+
+        self._host = _tree_map(start, arrays)
+        if cuda_device is not None:
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(cuda_device))
+
+    def fetch(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return _tree_map(lambda t: t.numpy(), self._host)
+
+    def run(self):
+        """Fetch and continue: the single-batch path."""
+        return self.cont(self.fetch())
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _pipeline_lookahead() -> int:
+    """BPPT_PIPELINE_LOOKAHEAD: how many fetches of each kind one pump of
+    `verify_batches_pipelined` serves.  2 by default, and wherever the value
+    is not an integer of at least 1."""
+    import os
+
+    try:
+        value = int(os.environ.get("BPPT_PIPELINE_LOOKAHEAD", "2"))
+    except ValueError:
+        return 2
+    return value if value >= 1 else 2
+
+
+def _check_batch_lengths(transcripts, statements, proofs) -> None:
+    if not statements or not proofs or not transcripts:
+        raise InvalidArgument("Range statements or proofs length empty")
+    if len(statements) != len(proofs):
+        raise InvalidArgument("Range statements and proofs length mismatch")
+    if len(transcripts) != len(statements):
+        raise InvalidArgument("Range statements and transcripts length mismatch")
+
+
+def _static_points(max_statement, max_mn: int, device):
+    """The interleaved G_i/H_i generators of the batch's widest statement,
+    the MSM's 2 * max_mn static lanes, on `device`."""
+    interleaved = max_statement.generators.bp_gens.interleaved_device(device)
+    return type(interleaved)(*(c[: 2 * max_mn] for c in interleaved))
 
 
 def _inv(x: int) -> int:
@@ -439,26 +520,25 @@ class RangeProof:
     ) -> List[Optional[ExtendedMask]]:
         """Verify a batch of proofs with one folded MSM.
 
-        engine="device" (the port's default): host Fiat-Shamir replay and
-        weight draws, then the scalar pass, batched decompression and the MSM
-        as torch tensors on `device` (models/verifier_kernels.py), whose pow
-        chain and MSM are CUDA kernels on a CUDA device; one shape group a
-        batch.  engine="host" (the JAX package's default): the exact-integer
-        oracle, whose one final MSM goes through `ops.msm.msm` with
-        `msm_backend` ("device": on `device`).  Pass device="cpu" to run the
-        kernels' plain torch versions instead.  The two engines word a
-        non-canonical L or R point differently, as the JAX package's do.
+        engine="device" (the port's default): the JAX package's device
+        engine on `device`.  A single-shape, well-formed batch replays
+        Fiat-Shamir on the device (models/replay_device.py, the CUDA kernel
+        R1 on a CUDA device), draws the batch weights on the host and runs
+        `verify_group_bytes`; any other batch replays on the host and runs
+        one `group_contrib` a shape group and one `combine_groups_msm`
+        (models/verifier_kernels.py), whose pow chain and MSM are CUDA
+        kernels on a CUDA device.  engine="host" (the JAX package's
+        default): the exact-integer oracle, whose one final MSM goes through
+        `ops.msm.msm` with `msm_backend` ("device": on `device`).  Pass
+        device="cpu" to run the kernels' plain torch versions instead.  The
+        two engines word a non-canonical L or R point differently, as the
+        JAX package's do.
 
         Parity quirk (range_proof.rs:740-749): only the FIRST chunk of
         MAX_RANGE_PROOF_BATCH_SIZE=256 proofs is processed; any proofs beyond
         256 are silently ignored and contribute no masks.
         """
-        if not statements or not proofs or not transcripts:
-            raise InvalidArgument("Range statements or proofs length empty")
-        if len(statements) != len(proofs):
-            raise InvalidArgument("Range statements and proofs length mismatch")
-        if len(transcripts) != len(statements):
-            raise InvalidArgument("Range statements and transcripts length mismatch")
+        _check_batch_lengths(transcripts, statements, proofs)
         batch = (
             transcripts[:MAX_RANGE_PROOF_BATCH_SIZE],
             statements[:MAX_RANGE_PROOF_BATCH_SIZE],
@@ -472,6 +552,92 @@ class RangeProof:
         raise ValueError(f"unknown engine {engine!r}: expected 'host' or 'device'")
 
     @staticmethod
+    def verify_batches_pipelined(
+        batches: Sequence[Tuple[List[Transcript], Sequence["RangeStatement"], Sequence["RangeProof"]]],
+        action: VerifyAction,
+        device="cuda",
+    ) -> List[List[Optional[ExtendedMask]]]:
+        """Verify a stream of proof batches on the device engine, with host
+        and device work overlapped: while the card runs batch k's kernels
+        (launches are asynchronous; only fetches wait), the host replays or
+        packs batch k+1.
+
+        Each batch follows `verify_batch(engine="device")` semantics,
+        including the 256-proof cap.  A batch is a chain of stages, each
+        blocked on one device->host fetch (seeds and flags after the replay,
+        then the verdict); the driver serves the oldest `lookahead` pending
+        fetches of each kind together, in batch order.  `lookahead` is
+        BPPT_PIPELINE_LOOKAHEAD, 2 by default and wherever the value does not
+        parse as an integer of at least 1 (the JAX package's bare `int()`
+        raises there instead).
+
+        Failure ordering: the LOWEST-indexed failing batch raises, even when a
+        later batch's failure surfaces first, and nothing new is dispatched
+        once any failure is known; batches already in flight are abandoned.
+        An extension of the reference, whose API is synchronous per batch.
+        """
+        from ..errors import ProofError
+
+        lookahead = _pipeline_lookahead()
+        b_q: List = []  # (idx, _FetchStage) pending seed fetch
+        c_q: List = []  # (idx, _FetchStage) pending verdict fetch
+        done: dict = {}
+        errors: dict = {}
+        n = 0
+
+        def doomed(idx: int) -> bool:
+            return bool(errors) and min(errors) < idx
+
+        def pump():
+            """Serve the oldest `lookahead` verdict fetches and seed fetches,
+            then run their continuations in batch order."""
+            serve = [c_q.pop(0) for _ in range(min(lookahead, len(c_q)))]
+            serve += [b_q.pop(0) for _ in range(min(lookahead, len(b_q)))]
+            serve = [(idx, st) for idx, st in serve if not doomed(idx)]
+            values = [st.fetch() for _, st in serve]
+            for (idx, st), vals in sorted(zip(serve, values), key=lambda p: p[0][0]):
+                if doomed(idx):  # a lower-indexed continuation in this pump failed
+                    continue
+                try:
+                    step = st.cont(vals)
+                except ProofError as exc:
+                    errors[idx] = exc
+                    continue
+                if isinstance(step, _FetchStage):
+                    c_q.append((idx, step))
+                else:
+                    done[idx] = step
+
+        for transcripts, statements, proofs in batches:
+            if errors:
+                break  # abandon the rest of the stream
+            try:
+                _check_batch_lengths(transcripts, statements, proofs)
+                stage = RangeProof._verify_device_dispatch(
+                    transcripts[:MAX_RANGE_PROOF_BATCH_SIZE],
+                    statements[:MAX_RANGE_PROOF_BATCH_SIZE],
+                    proofs[:MAX_RANGE_PROOF_BATCH_SIZE],
+                    action,
+                    device,
+                )
+            except ProofError as exc:
+                errors[n] = exc
+                n += 1
+                break
+            if isinstance(stage, _FetchStage):
+                b_q.append((n, stage))
+            else:
+                done[n] = stage  # e.g. RECOVER_ONLY after a host replay: masks are host-complete
+            n += 1
+            if len(b_q) >= lookahead:
+                pump()
+        while b_q or c_q:
+            pump()
+        if errors:
+            raise errors[min(errors)]
+        return [done[i] for i in range(n)]
+
+    @staticmethod
     def _verify_device(
         transcripts: List[Transcript],
         statements: Sequence[RangeStatement],
@@ -479,12 +645,28 @@ class RangeProof:
         action: VerifyAction,
         device="cuda",
     ) -> List[Optional[ExtendedMask]]:
-        """Host Fiat-Shamir replay and weights, reference-ordered structural
-        checks and mask recovery, then one device verification of the
-        single shape group."""
-        from .verifier_kernels import DeviceVerifier, verify_group_full
+        """The device engine: dispatch, then run its stages until done."""
+        step = RangeProof._verify_device_dispatch(transcripts, statements, proofs, action, device)
+        while isinstance(step, _FetchStage):
+            step = step.run()
+        return step
+
+    @staticmethod
+    def _verify_device_dispatch(
+        transcripts: List[Transcript],
+        statements: Sequence[RangeStatement],
+        proofs: Sequence["RangeProof"],
+        action: VerifyAction,
+        device="cuda",
+    ):
+        """Run the host half (replay, weights, packing) and launch the device
+        work without waiting for it; returns the masks where nothing is left
+        for the device, else a `_FetchStage` -- the seam that
+        `verify_batches_pipelined` interleaves."""
+        from .verifier_kernels import DeviceVerifier, combine_groups_msm, group_contrib, verify_group_full
 
         max_mn, max_index = RangeProof._verify_consistency(statements, proofs)
+        max_statement = statements[max_index]
         gens = statements[0].generators
         bit_length = gens.bit_length()
         extension_degree = int(gens.extension_degree())
@@ -492,6 +674,23 @@ class RangeProof:
         groups: dict = {}
         for idx, (statement, proof) in enumerate(zip(statements, proofs)):
             groups.setdefault((len(statement.commitments), len(proof.li)), []).append(idx)
+
+        # Fastest path, under the JAX package's condition: one shape group and
+        # well-formed round counts -- the replay runs on the device and only
+        # the weight draws stay on the host.  Malformed round counts take the
+        # host replay, which keeps the reference's error precedence.
+        well_formed = all(
+            len(p.li) == len(p.ri) and len(p.li) < 64 and (1 << len(p.li)) == len(s.commitments) * bit_length
+            for s, p in zip(statements, proofs)
+        )
+        if len(groups) == 1 and well_formed:
+            try:
+                stacked = Transcript.stack(transcripts)
+            except ValueError:
+                stacked = None
+            if stacked is not None:
+                return RangeProof._dispatch_device_replay(stacked, statements, proofs, action, groups,
+                                                          max_statement, device)
 
         batch_challenges, seeds = RangeProof._replay_challenges(transcripts, statements, proofs)
         weights = RangeProof._draw_weights(seeds, len(proofs))
@@ -511,23 +710,150 @@ class RangeProof:
             if action == VerifyAction.RECOVER_ONLY:
                 return masks
 
-        if len(groups) != 1:
-            raise NotImplementedError(
-                "batches mixing (aggregation, rounds) shapes need the mixed-shape "
-                "verifier (group_contrib / combine_groups_msm), a later slice of the port"
-            )
-        ((m, rounds),) = groups.keys()
-        interleaved = statements[max_index].generators.bp_gens.interleaved_device(device)
-        static_points = type(interleaved)(*(c[: 2 * max_mn] for c in interleaved))
+        static_points = _static_points(max_statement, max_mn, device)
         g_base_pts, h_base_pt = gens.pc_gens.device_bases(device)
-        packed = DeviceVerifier.pack(statements, proofs, batch_challenges, weights, device)
-        ok, valid = verify_group_full(
-            *packed, static_points, g_base_pts, h_base_pt, m=m, bit_length=bit_length, max_mn=max_mn,
+
+        if len(groups) == 1:
+            ((m, rounds),) = groups.keys()
+            packed = DeviceVerifier.pack(statements, proofs, batch_challenges, weights, device)
+            ok, valid = verify_group_full(
+                *packed, static_points, g_base_pts, h_base_pt, m=m, bit_length=bit_length, max_mn=max_mn,
+            )
+
+            def finish_group(vals, m=m, rounds=rounds, masks=masks):
+                ok_np, valid_np = vals
+                DeviceVerifier.raise_canonicality(valid_np, m, rounds)
+                if not bool(ok_np):
+                    raise VerificationFailed("Range proof batch not valid")
+                return masks
+
+            return _FetchStage((ok, valid), finish_group)
+
+        # Mixed shapes: one `group_contrib` a shape group, every group's scalar
+        # pass at the batch's max_mn so the static accumulators line up, then
+        # one `combine_groups_msm`; every validity flag and the verdict come
+        # back in one fetch.
+        parts = []
+        group_meta = []  # (indices, m, rounds)
+        for (m, rounds), indices in groups.items():
+            packed = DeviceVerifier.pack(
+                [statements[i] for i in indices],
+                [proofs[i] for i in indices],
+                [batch_challenges[i] for i in indices],
+                [weights[i] for i in indices],
+                device,
+            )
+            parts.append(group_contrib(*packed, m=m, bit_length=bit_length, max_mn=max_mn))
+            group_meta.append((indices, m, rounds))
+        gis, his, gbs, hbs, dyn_scalars, dyn_points, valids = zip(*parts)
+        ok = combine_groups_msm(gis, his, gbs, hbs, dyn_scalars, dyn_points, static_points, g_base_pts, h_base_pt)
+
+        def finish_mixed(vals, masks=masks, group_meta=group_meta):
+            ok_np, valids_np = vals
+            # Canonicality errors in the reference's PROOF order
+            # (range_proof.rs:856-866 iterates the batch in order)
+            by_index = {}
+            for (indices, m, rounds), valid_np in zip(group_meta, valids_np):
+                rows = valid_np.reshape(len(indices), -1)
+                for pos, idx in enumerate(indices):
+                    by_index[idx] = (rows[pos], m, rounds)
+            for idx in sorted(by_index):
+                DeviceVerifier.raise_canonicality_row(*by_index[idx])
+            if not bool(ok_np):
+                raise VerificationFailed("Range proof batch not valid")
+            return masks
+
+        return _FetchStage((ok, list(valids)), finish_mixed)
+
+    @staticmethod
+    def _dispatch_device_replay(
+        stacked: Transcript,
+        statements: Sequence[RangeStatement],
+        proofs: Sequence["RangeProof"],
+        action: VerifyAction,
+        groups: dict,
+        max_statement: RangeStatement,
+        device="cuda",
+    ):
+        """Single-group path with the Fiat-Shamir replay on the device:
+        replay (R1 on a CUDA device) -> one fetch of seeds and flags (and the
+        challenges when masks are wanted) -> host weight draws, structural
+        checks, mask recovery -> `verify_group_bytes` -> one fetch of the
+        verdict.  Host work: one byte-level pack and one native STROBE weight
+        sequence."""
+        import torch
+
+        from ..ops.limbs import pack_ints, unpack_ints
+        from .replay_device import pack_replay_inputs, replay_fn
+        from .verifier_kernels import DeviceVerifier, verify_group_bytes
+
+        ((m, rounds),) = groups.keys()
+        gens = statements[0].generators
+        bit_length = gens.bit_length()
+        extension_degree = int(gens.extension_degree())
+        max_mn = m * bit_length
+        B = len(proofs)
+
+        rep = replay_fn(
+            gens.h_base_compressed(),
+            tuple(gens.g_bases_compressed()),
+            bit_length,
+            extension_degree,
+            m,
+            rounds,
+            stacked.strobe.pos,
+            stacked.strobe.pos_begin,
+            stacked.strobe.cur_flags,
         )
-        DeviceVerifier.raise_canonicality(valid.cpu().numpy(), m, rounds)
-        if not bool(ok):
-            raise VerificationFailed("Range proof batch not valid")
-        return masks
+        buf = torch.as_tensor(pack_replay_inputs(statements, proofs).copy(), device=device)
+        state = torch.as_tensor(stacked.strobe.state, device=device).clone()
+        y, z, es, e, seeds, bad_id, bad_zero = rep(state, buf)
+        # everything the replay made for the host travels in one fetch; mask
+        # recovery takes the challenges along
+        fetch1 = (seeds, bad_id, bad_zero)
+        if action != VerifyAction.VERIFY_ONLY:
+            fetch1 = fetch1 + (y, z, es, e)
+
+        def stage_b(vals):
+            seeds_np, bad_id_np, bad_zero_np = vals[:3]
+            if bad_id_np.any():
+                raise VerificationFailed("Identity element cannot be added to the transcript")
+            if bad_zero_np.any():
+                raise VerificationFailed("Transcript challenge cannot be zero")
+            weights = RangeProof._draw_weights([row.tobytes() for row in seeds_np], B)
+
+            masks: List[Optional[ExtendedMask]] = [None] * B
+            if action != VerifyAction.VERIFY_ONLY:
+                y_np, z_np, es_np, e_np = vals[3:]
+                y_i, z_i, e_i = unpack_ints(y_np), unpack_ints(z_np), unpack_ints(e_np)
+                es_i = unpack_ints(es_np.reshape(B * rounds, -1))
+                RangeProof._device_structural_checks(statements, proofs, bit_length, action, device)
+                masks = [
+                    RangeProof._recover_mask(
+                        st, pr, (y_i[k], z_i[k], es_i[k * rounds : (k + 1) * rounds], e_i[k]), extension_degree,
+                    )
+                    for k, (st, pr) in enumerate(zip(statements, proofs))
+                ]
+                if action == VerifyAction.RECOVER_ONLY:
+                    return masks
+
+            g_base_pts, h_base_pt = gens.pc_gens.device_bases(device)
+            w = torch.as_tensor(pack_ints(weights).astype(np.int64), device=device)
+            ok, valid = verify_group_bytes(
+                y, z, es, e, w, buf, _static_points(max_statement, max_mn, device), g_base_pts, h_base_pt,
+                m=m, bit_length=bit_length, extension_degree=extension_degree, max_mn=max_mn,
+            )
+
+            def stage_c(vals2, masks=masks):
+                ok_np, valid_np = vals2
+                DeviceVerifier.raise_canonicality(valid_np, m, rounds)
+                if not bool(ok_np):
+                    raise VerificationFailed("Range proof batch not valid")
+                return masks
+
+            return _FetchStage((ok, valid), stage_c)
+
+        return _FetchStage(fetch1, stage_b)
 
     @staticmethod
     def _verify(

@@ -1,18 +1,22 @@
 """Device batch verification: scalar pass, batched decompression, one MSM.
 
-Counterpart of bulletproofs_plus_tpu/models/verifier_kernels.py, single
-shape group only.  Implements the verifier's pass-2 scalar accumulation and
-final folded MSM (reference src/range_proof.rs:856-1062) on torch tensors:
+Counterpart of bulletproofs_plus_tpu/models/verifier_kernels.py.  Implements
+the verifier's pass-2 scalar accumulation and final folded MSM (reference
+src/range_proof.rs:856-1062) on torch tensors:
 
   * `scalar_pass`: every per-proof scalar — challenge inversions (one
     Montgomery batch inversion per proof), the s-vector by its bit-product
     closed form, inverse-power ladders by binary decomposition, the gi/hi
     generator accumulators, and the dynamic MSM scalars;
   * one batched ristretto decompression of every proof point (K4 inside);
-  * one MSM against the identity (K1-K3 inside).
+  * one MSM against the identity (K7 or K1, then K2 and K3 inside).
 
-All scalars are (..., 16) int64 limb tensors mod l (ops/field.py).  Fiat-
-Shamir replay stays on the host (models/range_proof.py).
+`group_contrib` does the first two for one shape group and
+`combine_groups_msm` sums the groups and runs the MSM: a mixed-shape batch
+runs one `group_contrib` a group, a single-shape batch one of each
+(`verify_group_full` from limb tensors after a host replay,
+`verify_group_bytes` from the packed byte rows the device replay read).
+All scalars are (..., 16) int64 limb tensors mod l (ops/field.py).
 """
 
 from __future__ import annotations
@@ -202,6 +206,20 @@ def decompress_batch(compressed_limbs: torch.Tensor):
     return rist.decompress(compressed_limbs)
 
 
+def _verify_group_core(
+    y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
+    static_points, g_base_pts, h_base_pt, *, m, bit_length, max_mn,
+):
+    """Shared body of the single-group paths: scalar pass, batched
+    decompression, dynamic scalar assembly, and the mixed static+dynamic
+    MSM identity check.  Returns (ok: bool tensor, valid: (B*K,) mask)."""
+    gi, hi, gb, hb, dyn_s, points, valid = group_contrib(
+        y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs, m=m, bit_length=bit_length, max_mn=max_mn,
+    )
+    ok = combine_groups_msm((gi,), (hi,), (gb,), (hb,), (dyn_s,), (points,), static_points, g_base_pts, h_base_pt)
+    return ok, valid
+
+
 def verify_group_full(
     y, z, round_es, e, weight, r1, s1, d1, min_values,
     comp_limbs,  # (B*K, 16): [commitments, a1, b, a, li, ri] per proof
@@ -210,30 +228,100 @@ def verify_group_full(
     h_base_pt,  # (1,) point
     *, m, bit_length, max_mn,
 ):
-    """Single-group device verification: scalar pass, batched
-    decompression, dynamic scalar assembly, and the mixed static+dynamic
-    MSM against the identity.  Returns (ok: bool tensor, valid: (B*K,)
-    decompression mask)."""
-    from ..ops.fixed_base import mixed_msm
-    from ..ops.msm import pad_msm_inputs
+    """Single-group device verification from limb tensors (the host-replay
+    path).  Returns (ok: bool tensor, valid: (B*K,) decompression mask)."""
+    return _verify_group_core(
+        y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
+        static_points, g_base_pts, h_base_pt, m=m, bit_length=bit_length, max_mn=max_mn,
+    )
+
+
+def _u8_to_limbs(data: torch.Tensor) -> torch.Tensor:
+    """(..., 2k) uint8 LE -> (..., k) int64 limbs (radix 2^16)."""
+    return data[..., 0::2].long() | (data[..., 1::2].long() << 8)
+
+
+def verify_group_bytes(
+    y, z, round_es, e,  # (B, 16) / (B, rounds, 16) canonical limbs: the device replay's output
+    weight,  # (B, 16) limbs (host weight transcript)
+    buf,  # (B, stride) uint8: the SAME packed row buffer the replay read
+    static_points, g_base_pts, h_base_pt,
+    *, m, bit_length, extension_degree, max_mn,
+):
+    """The device-replay path's verification: reads the same packed byte
+    buffer as the replay kernel (one upload a batch, no host repacking, no
+    Python-int scalar work) plus the challenge limbs on the device and the
+    host's weights.  Returns (ok: bool tensor, valid: (B*K,) mask)."""
+    from .replay_device import unpack_row_buffer
 
     B = y.shape[0]
-    K = m + 3 + 2 * round_es.shape[1]
+    rounds = round_es.shape[1]
+    f = unpack_row_buffer(buf, m, rounds, extension_degree)
+    mv = _u8_to_limbs(f["min_vals"])  # (B, m, 4)
+    min_values = torch.cat([mv, mv.new_zeros((B, m, NLIMBS - mv.shape[-1]))], dim=-1)
+    comp = torch.cat([f["commits"], f["a1"][:, None], f["b"][:, None], f["a"][:, None], f["li"], f["ri"]], dim=1)
+    comp_limbs = _u8_to_limbs(comp.reshape(B * (m + 3 + 2 * rounds), 32))
+    return _verify_group_core(
+        y, z, round_es, e, weight, _u8_to_limbs(f["r1"]), _u8_to_limbs(f["s1"]), _u8_to_limbs(f["d1"]),
+        min_values, comp_limbs, static_points, g_base_pts, h_base_pt,
+        m=m, bit_length=bit_length, max_mn=max_mn,
+    )
+
+
+def group_contrib(
+    y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
+    *, m, bit_length, max_mn,
+):
+    """One shape group's whole contribution: scalar pass (its static
+    accumulators padded to the batch's `max_mn`, so every group's line up),
+    batched decompression, and the flattened dynamic scalars.  The
+    mixed-shape path runs one of these a group and feeds
+    `combine_groups_msm`.  Returns (gi, hi, gb, hb, dyn_scalars (B*K, 16),
+    points (B*K,), valid (B*K,))."""
     (gi, hi, gb, hb, commit_s, a1_s, b_s, a_s, li_s, ri_s) = scalar_pass(
         y, z, round_es, e, weight, r1, s1, d1, min_values, m=m, bit_length=bit_length, max_mn=max_mn,
     )
     points, valid = rist.decompress(comp_limbs)
+    # in the packed point order [commitments, a1, b, a, li, ri]
+    dyn = torch.cat([commit_s, a1_s[:, None], b_s[:, None], a_s[:, None], li_s, ri_s], dim=1).reshape(-1, NLIMBS)
+    return gi, hi, gb, hb, dyn, points, valid
 
-    dyn_scalars = torch.cat(
-        [commit_s, a1_s[:, None], b_s[:, None], a_s[:, None], li_s, ri_s], dim=1
-    ).reshape(B * K, NLIMBS)
-    dyn_scalars = torch.cat([dyn_scalars, gb, hb[None]])
-    dyn_points = cat([points, g_base_pts, h_base_pt])
+
+def combine_groups_msm(
+    gis, his, gbs, hbs, dyn_scalar_parts, dyn_point_parts,
+    static_points, g_base_pts, h_base_pt,
+):
+    """The closing step of a verification: sum the groups' static scalar
+    accumulators, concatenate their dynamic halves, and run the one folded
+    mixed MSM against the identity (range_proof.rs:1050-1062)."""
+    from functools import reduce
+
+    from ..ops.msm import pad_msm_inputs
+
+    gi = reduce(F.add_l, gis)
+    hi = reduce(F.add_l, his)
+    gb = reduce(F.add_l, gbs)
+    hb = reduce(F.add_l, hbs)
+    static_scalars = torch.stack([gi, hi], dim=1).reshape(-1, NLIMBS)
+    dyn_scalars = torch.cat(list(dyn_scalar_parts) + [gb, hb[None]])
+    dyn_points = cat(list(dyn_point_parts) + [g_base_pts, h_base_pt])
     dyn_scalars, dyn_points = pad_msm_inputs(dyn_scalars, dyn_points)
+    return mixed_msm_is_identity(static_scalars, static_points, dyn_scalars, dyn_points)
 
-    static_scalars = torch.stack([gi, hi], dim=1).reshape(2 * max_mn, NLIMBS)
-    ok = rist.is_identity(mixed_msm(static_scalars, static_points, dyn_scalars, dyn_points))
-    return ok, valid
+
+def final_msm_is_identity(scalars: torch.Tensor, points) -> torch.Tensor:
+    """One folded MSM, compared against the identity."""
+    from ..ops.msm import msm_kernel
+
+    return rist.is_identity(msm_kernel(scalars, points))
+
+
+def mixed_msm_is_identity(static_scalars, static_points, dynamic_scalars, dynamic_points) -> torch.Tensor:
+    """Static (generator) + dynamic MSM == identity: the final batch-
+    verification check (range_proof.rs:1050-1062)."""
+    from ..ops.fixed_base import mixed_msm
+
+    return rist.is_identity(mixed_msm(static_scalars, static_points, dynamic_scalars, dynamic_points))
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,13 @@ LIBRARIES = {
             "bppt_fixed_fold": [_VP, _VP, _LONG, _LONG, _LONG, _LONG, _LONG, _VP],
         },
     ),
+    "replay": (
+        "replay.cu",
+        {
+            "bppt_replay": [_VP, _VP, _LONG, _VP, _LONG, _VP, _LONG, _VP, _LONG, _VP],
+            "bppt_keccak_latency": [_VP, _VP, _LONG, _VP],
+        },
+    ),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -350,3 +350,17 @@ def pow_l(x: torch.Tensor, exp: int) -> torch.Tensor:
 def inv_l(x: torch.Tensor) -> torch.Tensor:
     """Inverse mod l by Fermat; inv(0) = 0."""
     return pow_l(x, L - 2)
+
+
+def eq_l(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(dim=-1)
+
+
+def is_zero_l(a: torch.Tensor) -> torch.Tensor:
+    return (a == 0).all(dim=-1)
+
+
+def reduce_wide_l(x64: torch.Tensor) -> torch.Tensor:
+    """(..., 32) limbs (512-bit LE) -> canonical scalar, like
+    Scalar::from_bytes_mod_order_wide."""
+    return barrett_reduce(x64)

@@ -67,3 +67,13 @@ def pack_ints(values, nlimbs: int = NLIMBS) -> np.ndarray:
     lo = arr[:, 0::2].astype(np.uint32)
     hi = arr[:, 1::2].astype(np.uint32)
     return lo | (hi << np.uint32(8))
+
+
+def unpack_ints(arr) -> list:
+    """Host: (n, nlimbs) canonical limbs -> list of python ints."""
+    a = np.asarray(arr)
+    if a.shape[0] == 0:
+        return []
+    data = bytes_from_limbs(a).tobytes()
+    w = a.shape[-1] * 2
+    return [int.from_bytes(data[i * w : (i + 1) * w], "little") for i in range(a.shape[0])]

@@ -5,12 +5,15 @@
 
 Builds every CUDA kernel of the port from csrc/, holds each kernel against
 its plain torch version on the card (K1, K7 and K2 at the MSM widths of both
-verify batches below, 4736 and 2048 lanes), replays and verifies the golden
-proofs, proves and verifies golden proof 3 through the sequential prover
+verify batches below, 4736 and 2048 lanes; R1, the Fiat-Shamir replay, at
+both batches' shapes), replays and verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
 and the host engine with their MSMs on the card (`msm_backend="device"`),
 verifies the 256 x 64-bit and 64 x m4 batches through
-`RangeProof.verify_batch(engine="device")` (their MSM through K7, the
-default signed digits; once more through K1 with BPPT_MSM_SIGNED=0), proves
+`RangeProof.verify_batch(engine="device")` (their replay through R1, their
+MSM through K7, the default signed digits; once more through K1 with
+BPPT_MSM_SIGNED=0), verifies a 256-proof batch of two shapes (`mixed`,
+against `engine="host"`) and a stream of nine batches through
+`verify_batches_pipelined` (`pipelined`, against per-batch calls), proves
 128 x 64-bit statements with `RangeProof.prove_batch_with_rng` and verifies
 what it proved, with launch counters proving the kernels ran, and checks
 that tampered and non-canonical batches fail with the reference's errors.  Each phase prints
@@ -47,7 +50,11 @@ then P..15P cached) and, for each window, the additions of cached entries
 that sum its tile's lanes (64 (n - tiles) in all), and reads the scalars
 and points once and writes packed partials; K2 the 64 (tiles - 1)
 additions left; K7 as K1 with a table of 4 doublings and 3 additions
-(2P..8P) and 8 cached entries.
+(2P..8P) and 8 cached entries.  R1 reads each lane's state, row and
+program once and writes its output row and flag, and does, for each lane,
+its program's byte operations (one integer operation each) and
+permutations, each 4320 32-bit integer instructions at the least
+(`KECCAK_INT_OPS`), over the same integer rate.
 
 `chain_ms` is the other floor: the field multiplications and squarings that lie
 one after another on the kernel's longest path, each at the dependent
@@ -65,7 +72,10 @@ stays the rate bound.  Every row carries `graph_ms`, the launch's time
 replayed from a CUDA graph: `ms` times the wrapper called back to back, and
 below some 0.02 ms that is the host.  The probe also times the point
 operations themselves for one warp (`ge_dbl_ns`, `ge_add_ns`, `ge_dbl4_ns`,
-`ge_add4_ns`), their chains' ends checked against the host's integers.
+`ge_add4_ns`), their chains' ends checked against the host's integers,
+and a one-warp chain of Keccak-f[1600] permutations (`keccak_ns`), checked
+against utils/jkeccak.py, behind R1's `chain_ms`: its permutations one
+after another (its byte program's loop is not counted).
 """
 
 from __future__ import annotations
@@ -99,6 +109,12 @@ K4_MANY = 32768  # beyond the launchers' switch to one lane an element (4224): w
 # points padded to 1536 dynamic lanes, then 512 static (G_i, H_i for 256 bits)
 M4_LANES = 1536 + 512
 PROVE_BATCH = 128
+# R1: 32-bit integer instructions a Keccak-f[1600] permutation needs at the least, 180 a round for 25 64-bit
+# lanes as 32-bit halves: theta's column parities 20 (a three-input XOR is one LOP3), its rotations 10 and their
+# application 50 (c[x-1] ^ rot(c[x+1]) ^ a in one LOP3 a half), rho 48 (two funnel shifts a rotation, lane 0
+# unrotated), chi 50 (one LOP3 a half), iota 2
+KECCAK_INT_OPS = 24 * 180
+REPLAY_SHAPES = ((3, 256), (6, 64))  # golden cell and lanes: the b64_m1_x256 and b64_m4_x64 verifies' replays
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "golden_vectors.json")
 
 
@@ -230,6 +246,7 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
     for name in cuda.LIBRARIES:
         cuda.lib(name)
     sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel"))
+    sass.update(sass_histogram(cuda, "replay", ("keccak_latency_kernel", "replay_kernel")))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
             "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
@@ -381,7 +398,105 @@ def _horner_edges(torch, F, wsum, int_from_limbs, pack_ints) -> dict:
     return {"all_identity": identity, "only_w63": only_top, "only_w0": only_low, "not_canonical": above_p}
 
 
-def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
+def _replay_inputs(torch, bp, hr, cell, batch: int, rs: random.Random):
+    """R1's inputs at a verify's shape on the card: the replay of golden
+    `cell`'s shape for `batch` lanes, lane 0 the golden proof from its
+    transcript, every other lane's state and row random bytes (the replay is
+    a function of any bytes, and no lane can stand in for another), and lane
+    batch // 2 + 1's A all zeroes.  -> (replay fn, state, rows, A's lane)."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.models.replay_device import pack_replay_inputs, replay_fn, row_layout
+
+    statement = _golden_statement(bp, hr, cell)
+    proof = bp.RangeProof.from_bytes(bytes.fromhex(cell["proof"]))
+    gens, m, rounds = statement.generators, len(cell["values"]), len(proof.li)
+    stacked = bp.Transcript(b"golden", batch=batch)
+    fn = replay_fn(gens.h_base_compressed(), tuple(gens.g_bases_compressed()), gens.bit_length(),
+                   int(gens.extension_degree()), m, rounds, stacked.strobe.pos, stacked.strobe.pos_begin,
+                   stacked.strobe.cur_flags)
+    state = stacked.strobe.state.copy()
+    buf = pack_replay_inputs([statement] * batch, [proof] * batch).copy()
+    state[1:] = np.frombuffer(rs.randbytes(state[1:].size), dtype=np.uint8).reshape(state[1:].shape)
+    buf[1:] = np.frombuffer(rs.randbytes(buf[1:].size), dtype=np.uint8).reshape(buf[1:].shape)
+    zero_lane = batch // 2 + 1
+    lo = row_layout(m, rounds, len(proof.d1))[0]["a"][0]
+    buf[zero_lane, lo : lo + 32] = 0
+    return fn, torch.as_tensor(state, device="cuda"), torch.as_tensor(buf, device="cuda"), zero_lane
+
+
+def _replay_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict, ptxas: dict) -> None:
+    """R1 against its plain version (the replay sequence on utils/jstrobe.py's
+    tensors) on the card at both verify shapes, exact on the output row (the
+    wide y, z, e_1..e_k, e and the seeds), the flags, and the limbs after the
+    reduction; lane 0 against the golden challenges and the host replay's
+    seed; the zeroed A flagged on its lane only.  Timed at the 256-lane
+    shape, beside the one-warp permutation chain (`keccak_ns`)."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.models.verifier_kernels import _u8_to_limbs
+    from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
+    from bulletproofs_plus_tpu_torch.ops import field as F
+    from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs
+    from bulletproofs_plus_tpu_torch.utils import jkeccak
+
+    words = torch.as_tensor(np.frombuffer(rs.randbytes(200), dtype=np.int64).copy(), device="cuda")
+    want = words.view(torch.uint8).reshape(1, 200)
+    for _ in range(3):
+        want = jkeccak.state_to_bytes(jkeccak.keccak_f1600(jkeccak.bytes_to_state(want)))
+    if not torch.equal(cr.keccak_latency_probe(words, 3).view(torch.uint8).reshape(1, 200), want):
+        raise AssertionError("keccak latency probe: three permutations disagree with utils/jkeccak.py")
+    short = kernel_ms(lambda: cr.keccak_latency_probe(words, 64))
+    long = kernel_ms(lambda: cr.keccak_latency_probe(words, 320))
+    keccak_ns = (long - short) * 1e6 / 256
+    out["keccak_ns"] = keccak_ns
+
+    by_shape = {}
+    for seed, batch in REPLAY_SHAPES:
+        cell = next(c for c in cells if c["seed"] == seed)
+        fn, state, buf, zero_lane = _replay_inputs(torch, bp, hr, cell, batch, rs)
+        program = fn.program
+        got, bad = cr.replay_cuda(program, state, buf)
+        want, want_bad = cr.replay_plain(program, state, buf)
+        err = float((got.long() - want.long()).abs().max())
+        flags = bad.nonzero().flatten().tolist()
+        if err != 0 or not torch.equal(bad, want_bad) or flags != [zero_lane]:
+            raise AssertionError(f"replay ({batch} lanes, seed {seed}) disagrees with its plain version: "
+                                 f"max_abs_err {err}, identity flags on lanes {flags} (want [{zero_lane}])")
+        y, z, es, e, seeds, bad_id, bad_zero = fn(state, buf)
+        rounds = es.shape[1]
+        plain_scalars = F.reduce_wide_l(_u8_to_limbs(want[:, : 64 * (rounds + 3)].reshape(batch, rounds + 3, 64)))
+        kernel_scalars = torch.cat([y[:, None], z[:, None], es, e[:, None]], dim=1)
+        limb_err = float((kernel_scalars - plain_scalars).abs().max())
+        statement = _golden_statement(bp, hr, cell)
+        proof = bp.RangeProof.from_bytes(bytes.fromhex(cell["proof"]))
+        _, host_seeds = bp.RangeProof._replay_challenges([bp.Transcript(b"golden")], [statement], [proof])
+        lane0 = (format(int_from_limbs(y[0].cpu().numpy()), "064x"), format(int_from_limbs(z[0].cpu().numpy()), "064x"),
+                 [format(int_from_limbs(v), "064x") for v in es[0].cpu().numpy()],
+                 format(int_from_limbs(e[0].cpu().numpy()), "064x"))
+        if (limb_err != 0 or lane0 != (cell["y"], cell["z"], cell["round_es"], cell["e"])
+                or seeds[0].cpu().numpy().tobytes() != host_seeds[0] or not torch.equal(seeds, want[:, -32:])
+                or bool(bad_zero.any()) or not torch.equal(bad_id, bad)):
+            raise AssertionError(f"replay_fn ({batch} lanes, seed {seed}): challenges, seeds or flags are wrong "
+                                 f"(limb max_abs_err {limb_err})")
+        stride = buf.shape[1]
+        b_ms, b_by = bound_ms(batch * (200 + stride + program.n_out + 1) + 4 * len(program.ops),
+                              batch * (program.n_permutations * KECCAK_INT_OPS + program.n_byte_ops))
+        by_shape[batch] = {
+            "seed": seed, "lanes": batch, "stride": stride, "out_bytes": program.n_out, "max_abs_err": err,
+            "limb_max_abs_err": limb_err, "permutations": program.n_permutations, "byte_ops": program.n_byte_ops,
+            "ms": kernel_ms(lambda: cr.replay_cuda(program, state, buf)),
+            "graph_ms": graph_ms(lambda: cr.replay_cuda(program, state, buf)),
+            "replay_fn_ms": kernel_ms(lambda: fn(state, buf), reps=10),  # R1, then the reduction's torch ops
+            "plain_ms": median_ms(lambda: cr.replay_plain(program, state, buf), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "chain_ms": program.n_permutations * keccak_ns * 1e-6,
+        }
+    out["replay_by_shape"] = by_shape
+    rows["replay"] = {**by_shape[REPLAY_SHAPES[0][1]], "blocks": -(-REPLAY_SHAPES[0][1] // 32), "threads": 32,
+                      **ptxas.get("replay_kernel", {})}
+
+
+def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
     from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
     from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
@@ -465,6 +580,9 @@ def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
     }
 
     section_done("k4")
+
+    _replay_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
+    section_done("r1")
 
     # K1-K3 on the main path's MSM shape: 4098 dynamic lanes padded to 4608
     # (zero scalar, identity) plus 128 static lanes.
@@ -677,9 +795,10 @@ def phase_kernels(torch, bp, params, rows: dict, ptxas: dict) -> dict:
     return out
 
 
-def _golden_statement(bp, hr, cell):
-    pc = bp.create_pedersen_gens_with_extension_degree(bp.ExtensionDegree(cell["extension_degree"]))
-    params = bp.RangeParameters.init(cell["bits"], len(cell["values"]), pc)
+def _golden_statement(bp, hr, cell, params=None):
+    if params is None:
+        pc = bp.create_pedersen_gens_with_extension_degree(bp.ExtensionDegree(cell["extension_degree"]))
+        params = bp.RangeParameters.init(cell["bits"], len(cell["values"]), pc)
     commitments = [hr.decompress(bytes.fromhex(h)) for h in cell["commitments"]]
     mv = cell["min_values"] if cell["min_values"] is not None else [None] * len(commitments)
     return bp.RangeStatement.init(params, commitments, mv, seed_nonce=cell["seed_nonce"])
@@ -767,8 +886,9 @@ def _verify(bp, statements, proofs):
 
 
 # K4 is reached through its fused entry, `sqrt_ratio_m1`: once a verify, eight times a prove; the MSM's first
-# stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0)
-VERIFY_KERNELS = ("dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
+# stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0); a single-shape verify replays its
+# transcripts once through R1
+VERIFY_KERNELS = ("replay", "dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
 PROVE_KERNELS = ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")
 PROVE_LAUNCHES = {"fixed_acc": 15, "fixed_fold": 15, "sqrt_ratio_m1": 8}
 
@@ -790,7 +910,7 @@ def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
             os.environ["BPPT_MSM_SIGNED"] = before
     counts = {k: cuda.launches[k] for k in ("dyn_acc",) + VERIFY_KERNELS}
     if (not counts["dyn_acc"] or counts["dyn_acc_signed"]
-            or not all(counts[k] for k in ("lane_fold", "horner", "sqrt_ratio_m1"))):
+            or not all(counts[k] for k in ("lane_fold", "horner", "sqrt_ratio_m1")) or counts["replay"] != 1):
         raise AssertionError(f"unsigned verify: wrong kernels launched: {counts}")
     launches["dyn_acc"] = counts["dyn_acc"]
     return {"proofs": len(proofs), "seconds": seconds, "launches": counts}
@@ -809,8 +929,8 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
-        if (not all(counts.values()) or counts["sqrt_ratio_m1"] != 1 or cuda.launches["pow_p58"]
-                or cuda.launches["dyn_acc"]):
+        if (not all(counts.values()) or counts["sqrt_ratio_m1"] != 1 or counts["replay"] != 1
+                or cuda.launches["pow_p58"] or cuda.launches["dyn_acc"]):
             raise AssertionError(f"{label}: wrong kernel launches: {dict(cuda.launches)}")
         if seed == 3:
             launches.update(counts)
@@ -826,6 +946,133 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         out[label] = {"proofs": batch, "first_s": first_s, "median_s": wall, "samples_s": samples,
                       "proofs_per_s": batch / wall, "launches": counts}
     return out
+
+
+def _interleaved_mixed(bp, hr, cells, batch: int = 256):
+    """The mixed batch: golden proof 3 (64-bit, m=1, 6 rounds) at the even
+    positions and golden proof 4 (64-bit, m=2 with minimum values, 7
+    rounds) at the odd ones, all of extension degree 1, on one generator
+    set, as one deployment would hold them."""
+    pc = bp.create_pedersen_gens_with_extension_degree(bp.ExtensionDegree(1))
+    params = bp.RangeParameters.init(64, 2, pc)
+    pairs = [(_golden_statement(bp, hr, cell, params), bp.RangeProof.from_bytes(bytes.fromhex(cell["proof"])))
+             for cell in (next(c for c in cells if c["seed"] == seed) for seed in (3, 4))]
+    return [pairs[i % 2][0] for i in range(batch)], [pairs[i % 2][1] for i in range(batch)]
+
+
+def _outcome(bp, fn):
+    """(error class, message) of fn(), or its result."""
+    try:
+        return fn()
+    except bp.ProofError as exc:
+        return (type(exc).__name__, str(exc))
+
+
+def phase_mixed(torch, bp, hr, cells) -> dict:
+    """256 x 64-bit proofs of two shapes interleaved through the device
+    engine's mixed path (host replay, one `group_contrib` a shape group, one
+    `combine_groups_msm`), in VERIFY_ONLY and RECOVER_AND_VERIFY: verdicts and
+    masks equal `engine="host"`'s on the same batch (its MSM on the card).
+    Then a non-canonical point in a later proof of one group and an earlier
+    proof of the other: the earlier proof's error is raised."""
+    from bulletproofs_plus_tpu_torch.native import cuda
+
+    statements, proofs = _interleaved_mixed(bp, hr, cells)
+    out = {"proofs": len(proofs), "groups": {"m1_rounds6": len(proofs) // 2, "m2_rounds7": len(proofs) // 2}}
+
+    def run(action, proofs=proofs, **kw):
+        return bp.RangeProof.verify_batch([bp.Transcript(b"golden") for _ in proofs], statements, proofs,
+                                          getattr(bp.VerifyAction, action), device="cuda", **kw)
+
+    # decompressions: one a shape group, and one of every proof's points in the structural checks when masks
+    # are recovered
+    for action, decompressions in (("VERIFY_ONLY", 2), ("RECOVER_AND_VERIFY", 3)):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = run(action)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
+        if counts["replay"] or counts["sqrt_ratio_m1"] != decompressions or counts["dyn_acc_signed"] != 1:
+            raise AssertionError(f"mixed {action}: wrong kernel launches {counts} (want no replay, "
+                                 f"{decompressions} decompressions, one MSM)")
+        want = run(action, engine="host", msm_backend="device")
+        masks = [None if m is None else m.blindings() for m in got]
+        if masks != [None if m is None else m.blindings() for m in want]:
+            raise AssertionError(f"mixed {action}: masks differ from engine='host'")
+        if action != "VERIFY_ONLY" and (masks[0] is None or masks[1] is not None):
+            raise AssertionError("mixed: the m=1 lanes must recover masks, the m=2 ones none")
+        out[action] = {"seconds": seconds, "launches": counts, "masks_equal_host": True}
+
+    def noncanonical(a_at, l_at):
+        bad = list(proofs)
+        bad_a = bp.RangeProof.from_bytes(proofs[a_at].to_bytes())
+        bad_a.a = (hr.P + 1).to_bytes(32, "little")
+        bad_l = bp.RangeProof.from_bytes(proofs[l_at].to_bytes())
+        bad_l.li = [bad_l.li[0], (hr.P + 1).to_bytes(32, "little")] + bad_l.li[2:]
+        bad[a_at], bad[l_at] = bad_a, bad_l
+        return bad
+
+    cases = {  # (proof with a bad A in the m=1 group, proof with a bad L in the m=2 group) -> the earlier one's
+        "later_a_200_earlier_l_101": (200, 101, "An item in member 'L' was not the canonical encoding of a point"),
+        "earlier_a_100_later_l_201": (100, 201, "Member 'a' was not the canonical encoding of a point"),
+    }
+    for label, (a_at, l_at, want) in cases.items():
+        got = _outcome(bp, lambda: run("VERIFY_ONLY", proofs=noncanonical(a_at, l_at)))
+        if got != ("InvalidArgument", want):
+            raise AssertionError(f"mixed, {label}: got {got!r}, want InvalidArgument({want!r})")
+        out[label] = want
+    return out
+
+
+STREAM_BATCHES = 8  # 256 x m=1 batches in the pipelined stream, then one mixed batch
+
+
+def phase_pipelined(torch, bp, hr, cells) -> dict:
+    """`verify_batches_pipelined` over 8 batches of 256 x 64-bit m=1 proofs and
+    one mixed batch: results equal per-batch `verify_batch`; a stream with
+    batches 2 and 5 tampered raises batch 2's error; the stream's proofs/s
+    (VERIFY_ONLY, median of 3) beside the sequential calls' on this card."""
+    cell = next(c for c in cells if c["seed"] == 3)
+    st, pr = _tiled(bp, hr, cell, 256)
+    batches = [(st, pr)] * STREAM_BATCHES + [_interleaved_mixed(bp, hr, cells)]
+    n_proofs = sum(len(p) for _, p in batches)
+
+    def stream(action, batches=batches):
+        return bp.RangeProof.verify_batches_pipelined(
+            [([bp.Transcript(b"golden") for _ in p], s, p) for s, p in batches], action, device="cuda")
+
+    def sequential(action):
+        return [bp.RangeProof.verify_batch([bp.Transcript(b"golden") for _ in p], s, p, action, device="cuda")
+                for s, p in batches]
+
+    action = bp.VerifyAction.RECOVER_AND_VERIFY
+    got, want = stream(action), sequential(action)
+    if [[None if m is None else m.blindings() for m in b] for b in got] != [
+            [None if m is None else m.blindings() for m in b] for b in want]:
+        raise AssertionError("pipelined: results differ from per-batch verify_batch")
+
+    tampered = list(batches)
+    bad = bp.RangeProof.from_bytes(pr[0].to_bytes())
+    bad.a = (hr.P + 1).to_bytes(32, "little")
+    tampered[2] = (st, [bad] + pr[1:])  # batch 2: a non-canonical A (InvalidArgument)
+    bad5 = bp.RangeProof.from_bytes(pr[0].to_bytes())
+    bad5.r1 = (bad5.r1 + 1) % hr.L
+    tampered[5] = (st, pr[:17] + [bad5] + pr[18:])  # batch 5: a tampered r1 (VerificationFailed)
+    failure = _outcome(bp, lambda: stream(bp.VerifyAction.VERIFY_ONLY, tampered))
+    want_failure = ("InvalidArgument", "Member 'a' was not the canonical encoding of a point")
+    if failure != want_failure:
+        raise AssertionError(f"pipelined: batches 2 and 5 tampered raised {failure!r}, want batch 2's {want_failure!r}")
+
+    verify_only = bp.VerifyAction.VERIFY_ONLY
+    stream_s = [median_ms(lambda: stream(verify_only), 1) / 1e3 for _ in range(3)]
+    sequential_s = [median_ms(lambda: sequential(verify_only), 1) / 1e3 for _ in range(3)]
+    wall, seq = statistics.median(stream_s), statistics.median(sequential_s)
+    return {"batches": len(batches), "proofs": n_proofs, "equal_to_verify_batch": True,
+            "tampered_2_and_5": f"{failure[0]}: {failure[1]} (batch 2's)", "lookahead": 2,
+            "stream_samples_s": stream_s, "sequential_samples_s": sequential_s,
+            "stream_proofs_per_s": n_proofs / wall, "sequential_proofs_per_s": n_proofs / seq,
+            "card": nvidia_smi()}
 
 
 def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
@@ -940,10 +1187,12 @@ def main() -> int:
     rows, launches, ptxas = {}, {}, {}
     phases = (
         ("build", lambda: phase_build(torch, cuda, ptxas)),
-        ("kernels", lambda: phase_kernels(torch, bp, params, rows, ptxas)),
+        ("kernels", lambda: phase_kernels(torch, bp, params, cells, rows, ptxas)),
         ("golden", lambda: phase_golden(bp, hr, cells)),
         ("host_engine", lambda: phase_host_engine(torch, bp, hr, cells)),
         ("main", lambda: phase_main(torch, bp, hr, cells, launches)),
+        ("mixed", lambda: phase_mixed(torch, bp, hr, cells)),
+        ("pipelined", lambda: phase_pipelined(torch, bp, hr, cells)),
         ("prove", lambda: phase_prove(torch, bp, hr, params, cells, launches)),
         ("reject", lambda: phase_reject(bp, hr, cells)),
     )
@@ -962,6 +1211,7 @@ def main() -> int:
         "fixed_acc": ("fixed.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:536"),
         "fixed_fold": ("fixed.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:567"),
         "dyn_acc_signed": ("msm.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:340"),
+        "replay": ("replay.cu", "bulletproofs_plus_tpu/models/replay_device.py:101"),
     }
     table = [
         {"name": k, "route": "cuda", "source": f"bulletproofs_plus_tpu_torch/csrc/{source}",
@@ -970,7 +1220,8 @@ def main() -> int:
          "bound_by": rows[k]["bound_by"], "library_ms": None,
          **{extra: rows[k][extra] for extra in ("chain_ms", "serial_chain_ms", "graph_ms", "entry", "pow_p58_ms",
                                                 "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
-                                                "spill_stores", "spill_loads")
+                                                "spill_stores", "spill_loads", "lanes", "permutations",
+                                                "replay_fn_ms")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

@@ -363,3 +363,86 @@ def test_compress_on_card_matches_host(card):
     got = bytes_from_limbs(rist.compress(points).cpu().numpy())
     assert (cuda.launches["sqrt_ratio_m1"], cuda.launches["pow_p58"]) == (1, 0)
     assert [r.tobytes() for r in got] == [hr.compress(p) for p in ed.to_host(points)]
+
+
+def _golden_cells():
+    import json
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "golden_vectors.json")) as f:
+        return json.load(f)
+
+
+def _golden_replay(cell, batch, device):
+    """replay_fn of a golden cell's shape, with its state and rows tiled to `batch` lanes on `device`."""
+    import bulletproofs_plus_tpu_torch as tbp
+    from bulletproofs_plus_tpu_torch.models.replay_device import pack_replay_inputs, replay_fn
+
+    pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(cell["extension_degree"]))
+    params = tbp.RangeParameters.init(cell["bits"], len(cell["values"]), pc)
+    commitments = [hr.decompress(bytes.fromhex(h)) for h in cell["commitments"]]
+    mv = cell["min_values"] if cell["min_values"] is not None else [None] * len(commitments)
+    statement = tbp.RangeStatement.init(params, commitments, mv, seed_nonce=cell["seed_nonce"])
+    proof = tbp.RangeProof.from_bytes(bytes.fromhex(cell["proof"]))
+    stacked = tbp.Transcript.stack([tbp.Transcript(b"golden") for _ in range(batch)])
+    fn = replay_fn(params.h_base_compressed(), tuple(params.g_bases_compressed()), cell["bits"],
+                   cell["extension_degree"], len(commitments), len(proof.li),
+                   stacked.strobe.pos, stacked.strobe.pos_begin, stacked.strobe.cur_flags)
+    state = torch.as_tensor(stacked.strobe.state, device=device).clone()
+    buf = torch.as_tensor(pack_replay_inputs([statement] * batch, [proof] * batch).copy(), device=device)
+    return fn, state, buf, (statement, proof)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4, 5, 6])
+def test_replay_kernel_matches_plain(card, seed):
+    """R1 on every golden shape, 40 lanes (two blocks, the second ragged):
+    its output row and flags equal the plain sequence's on the card byte for
+    byte; lane 33's zeroed A raises bad_identity there only; the reduced
+    challenges are the golden ones."""
+    from bulletproofs_plus_tpu_torch.models.replay_device import row_layout
+    from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
+
+    cell = next(c for c in _golden_cells() if c["seed"] == seed)
+    fn, state, buf, (_, proof) = _golden_replay(cell, 40, card)
+    lo = row_layout(len(cell["values"]), len(proof.li), len(proof.d1))[0]["a"][0]
+    buf[33, lo : lo + 32] = 0
+    cuda.reset_launches()
+    out, bad = cr.replay(fn.program, state, buf)
+    assert cuda.launches["replay"] == 1
+    want_out, want_bad = cr.replay_plain(fn.program, state, buf)
+    assert torch.equal(out, want_out) and torch.equal(bad, want_bad)
+    assert bad.nonzero().flatten().tolist() == [33]
+    y, z, es, e, seeds, bad_identity, bad_zero = fn(state, buf)
+    assert format(int_from_limbs(y[0].cpu().numpy()), "064x") == cell["y"]
+    assert [format(int_from_limbs(v), "064x") for v in es[5].cpu().numpy()] == cell["round_es"]
+    assert format(int_from_limbs(e[39].cpu().numpy()), "064x") == cell["e"]
+    assert not bool(bad_zero.any()) and bool(bad_identity[33]) and seeds.shape == (40, 32)
+
+
+def test_keccak_probe_matches_plain(card):
+    """The latency probe's permutation chain against utils/jkeccak.py."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
+    from bulletproofs_plus_tpu_torch.utils import jkeccak
+
+    rs = np.random.RandomState(5)
+    st = torch.as_tensor(rs.randint(0, 256, size=(1, 200), dtype=np.uint8), device=card)
+    want = st
+    for _ in range(3):
+        want = jkeccak.state_to_bytes(jkeccak.keccak_f1600(jkeccak.bytes_to_state(want)))
+    got = cr.keccak_latency_probe(st.view(torch.int64).reshape(25), 3)
+    assert torch.equal(got.view(torch.uint8).reshape(1, 200), want)
+
+
+def test_device_replay_verify_on_card(card):
+    """A single-shape batch verifies through R1 once, the golden mask comes back.
+    Mask recovery decompresses every proof's points for the structural checks
+    before the verification's own decompression: K4's fused entry twice."""
+    import bulletproofs_plus_tpu_torch as tbp
+
+    cell = next(c for c in _golden_cells() if c["seed"] == 3)
+    _, _, _, (statement, proof) = _golden_replay(cell, 1, card)
+    cuda.reset_launches()
+    masks = tbp.RangeProof.verify_batch([tbp.Transcript(b"golden") for _ in range(4)], [statement] * 4,
+                                        [proof] * 4, tbp.VerifyAction.RECOVER_AND_VERIFY, device=card)
+    assert cuda.launches["replay"] == 1 and cuda.launches["sqrt_ratio_m1"] == 2
+    assert all([format(b, "064x") for b in m.blindings()] == cell["mask"] for m in masks)

@@ -134,6 +134,21 @@ def test_fl_ops_match_jax(op):
     assert _ints(got_t) == _ints(got_j) == want
 
 
+def test_wide_reduction_and_scalar_predicates_match_jax():
+    """reduce_wide_l (a 64-byte challenge to its scalar), is_zero_l and eq_l
+    against the JAX package's, zero and l included."""
+    rs = np.random.RandomState(9)
+    wide = [int.from_bytes(rs.bytes(64), "little") for _ in range(8)] + [0, L, 2 * L, 2**512 - 1]
+    arr = pack_ints(wide, 32)
+    got = F.reduce_wide_l(torch.as_tensor(arr.astype(np.int64)))
+    assert _ints(got) == _ints(JF.reduce_wide_l(jnp.asarray(arr))) == [v % L for v in wide]
+    other = torch.cat([got[:6], got[:6].flip(0)])
+    for name, args_t, args_j in (("is_zero_l", (got,), (JF.reduce_wide_l(jnp.asarray(arr)),)),
+                                 ("eq_l", (got, other), (jnp.asarray(got.numpy()), jnp.asarray(other.numpy())))):
+        assert getattr(F, name)(*args_t).tolist() == np.asarray(getattr(JF, name)(*args_j)).tolist()
+    assert F.is_zero_l(got).tolist() == [v % L == 0 for v in wide]
+
+
 def test_fl_select_geq_match_jax():
     rs = np.random.RandomState(8)
     av = _rand_ints(rs, 10, L) + EDGES_L

@@ -195,18 +195,118 @@ def test_golden_challenges_masks_and_verdict(cell):
     assert got == cell["mask"]
 
 
-def test_mixed_shapes_left_for_later_slice():
-    one = _prove(4, [5], max_m=2, seed=21)
-    two = _prove(4, [6, 7], max_m=2, seed=22, seed_nonce=False)
-    cells = [one, two]
-    masks, want = _both(cells, "RECOVER_ONLY")
-    assert masks == want and masks[0] is not None and masks[1] is None
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbp.RangeProof.verify_batch(
-            [tbp.Transcript(b"torch")] * 2, [one[1], two[1]],
-            [tbp.RangeProof.from_bytes(one[2]), tbp.RangeProof.from_bytes(two[2])],
-            tbp.VerifyAction.VERIFY_ONLY, device="cpu",
-        )
+@pytest.fixture(scope="module")
+def mixed4():
+    """Two shape groups interleaved: m=1 (2 rounds), m=2 (3 rounds), m=1, m=2;
+    4-bit proofs, the m=1 ones seeded for mask recovery."""
+    return [_prove(4, [5], max_m=2, seed=21), _prove(4, [6, 7], max_m=2, seed=22, seed_nonce=False),
+            _prove(4, [9], max_m=2, seed=23), _prove(4, [1, 14], max_m=2, seed=24, seed_nonce=False)]
+
+
+def test_mixed_shapes_left_for_later_slice(mixed4):
+    """Mixed shapes were refused (NotImplementedError) until the device engine
+    gained `group_contrib` and `combine_groups_msm`: the batch verifies."""
+    got, want = _both(mixed4, "VERIFY_ONLY")
+    assert got == want == [None] * 4
+
+
+@pytest.mark.parametrize("action", ACTIONS)
+def test_mixed_shape_batch_matches_jax_host(mixed4, action):
+    """Verdict and masks of a two-group batch equal the JAX host engine's."""
+    got, want = _both(mixed4, action)
+    assert got == want
+    if action != "VERIFY_ONLY":
+        assert got[0] is not None and got[1] is None and got[2] is not None
+
+
+def test_mixed_shape_tampered_proof_rejected(mixed4):
+    got, want = _both(mixed4, "VERIFY_ONLY", _set("s1", lambda p: (p.s1 + 1) % hr.L, index=3))
+    assert got == want == ("VerificationFailed", "Range proof batch not valid")
+
+
+@pytest.mark.parametrize("action", ["VERIFY_ONLY", "RECOVER_AND_VERIFY"])
+def test_mixed_shape_noncanonical_reported_in_proof_order(mixed4, action):
+    """Proof 2 (the m=1 group, listed first) has a bad A, proof 1 (the m=2
+    group) a bad L: proof 1's error is raised, in the JAX device engine's
+    wording, whichever group the engine works through first."""
+    mutate = _then(_set("a", lambda p: _ODD, index=2), _set("li", lambda p: [p.li[0], _BIG, p.li[2]], index=1))
+    got, want = _both(mixed4, action, mutate)
+    assert got == _device_wording(want) == (
+        "InvalidArgument", "An item in member 'L' was not the canonical encoding of a point")
+
+
+def test_device_replay_routing(mixed4, batch8, monkeypatch):
+    """The JAX package's condition: a single-shape, well-formed batch whose
+    transcripts stack replays on the device; a mixed batch, and one whose
+    transcripts sit at different sponge positions, replay on the host."""
+    calls = []
+    host_replay = tbp.RangeProof._replay_challenges
+    monkeypatch.setattr(tbp.RangeProof, "_replay_challenges",
+                        staticmethod(lambda *a: calls.append(len(a[0])) or host_replay(*a)))
+    assert _both(batch8, "VERIFY_ONLY")[0] == [None] * 3 and calls == []
+    assert _both(mixed4, "VERIFY_ONLY")[0] == [None] * 4 and calls == [4]
+    st_t, raw = [c[1] for c in batch8[:2]], [c[2] for c in batch8[:2]]
+    proofs = [tbp.RangeProof.from_bytes(b) for b in raw]
+    transcripts = [tbp.Transcript(b"torch"), tbp.Transcript(b"torch")]
+    transcripts[1].append_message(b"x", b"")  # another sponge position: the lanes do not stack
+    with pytest.raises(tbp.VerificationFailed):  # and lane 1's transcript is not the prover's
+        tbp.RangeProof.verify_batch(transcripts, st_t, proofs, tbp.VerifyAction.VERIFY_ONLY, device="cpu")
+    assert calls == [4, 2]
+
+
+def _replay_stage(cells, action):
+    """The device-replay dispatch of a batch, stopped at its first fetch."""
+    from bulletproofs_plus_tpu_torch.models.range_proof import _FetchStage
+
+    statements = [c[1] for c in cells]
+    proofs = [tbp.RangeProof.from_bytes(c[2]) for c in cells]
+    stacked = tbp.Transcript.stack([tbp.Transcript(b"torch") for _ in proofs])
+    groups = {(1, len(proofs[0].li)): list(range(len(proofs)))}
+    stage = tbp.RangeProof._dispatch_device_replay(stacked, statements, proofs, getattr(tbp.VerifyAction, action),
+                                                   groups, statements[0], "cpu")
+    assert isinstance(stage, _FetchStage)
+    return stage
+
+
+@pytest.mark.parametrize("flag", ["bad_identity", "bad_zero"])
+def test_device_replay_flags_raise_before_structural_checks(batch8, flag):
+    """The replay's flags are read before anything else: set by hand (no input
+    reaches a zero challenge) on a batch whose proof 1 also has a
+    non-canonical A, the flag's error wins over the structural check's."""
+    bad_a = _set("a", lambda p: _ODD)([c[2] for c in batch8])
+    cells = [(c[0], c[1], r) for c, r in zip(batch8, bad_a)]
+    stage = _replay_stage(cells, "RECOVER_AND_VERIFY")
+    vals = list(stage.fetch())
+    with pytest.raises(tbp.InvalidArgument, match="Member 'a'"):
+        stage.cont(vals)
+    index = 1 if flag == "bad_identity" else 2
+    vals[index] = vals[index].copy()
+    vals[index][2] = True
+    want = {"bad_identity": "Identity element cannot be added to the transcript",
+            "bad_zero": "Transcript challenge cannot be zero"}[flag]
+    with pytest.raises(tbp.VerificationFailed, match=want):
+        stage.cont(vals)
+
+
+def test_msm_identity_wrappers():
+    """final_msm_is_identity and mixed_msm_is_identity: s P + (l - s) P is the
+    identity, s P + (l - s + 1) P is not."""
+    from bulletproofs_plus_tpu_torch.models.verifier_kernels import final_msm_is_identity, mixed_msm_is_identity
+    from bulletproofs_plus_tpu_torch.ops import edwards as ed
+    from bulletproofs_plus_tpu_torch.ops.limbs import pack_ints
+
+    p = hr.point_mul(12345, hr.BASEPOINT)
+    s = _det("wrapper")
+    pts = ed.from_host([p, p], device="cpu")
+
+    def scalars(values):
+        return torch.as_tensor(pack_ints(values).astype("int64"))
+
+    assert bool(final_msm_is_identity(scalars([s, hr.L - s]), pts))
+    assert not bool(final_msm_is_identity(scalars([s, hr.L - s + 1]), pts))
+    one = ed.from_host([p], device="cpu")
+    assert bool(mixed_msm_is_identity(scalars([s]), one, scalars([hr.L - s]), one))
+    assert not bool(mixed_msm_is_identity(scalars([s]), one, scalars([1]), one))
 
 
 def test_batch_cap_ignores_proof_257():
