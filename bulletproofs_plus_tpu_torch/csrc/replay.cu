@@ -1,44 +1,66 @@
-// R1: the batch verifier's Fiat-Shamir replay, one thread a proof.
+// R1: the batch verifier's Fiat-Shamir replay, a warp a proof, with the wide
+// reduction of its challenges inside.
 //
 // Replaces no Pallas kernel: its counterpart is the XLA program `replay_fn`
 // (bulletproofs_plus_tpu/models/replay_device.py:101), the Merlin/STROBE-128
 // transcript of one proof shape traced over the sponge of utils/jkeccak.py
-// and utils/jstrobe.py.  It computes the same function: from each proof's
-// transcript state and its packed row of bytes (commitments, minimum values,
-// A, A1, B, L, R, r1, s1, d1), the 64-byte wide challenges y, z, e_1..e_k, e,
-// the 32-byte seed of the batch-weight transcript, and whether an appended
-// A, L, R, A1 or B was the identity's encoding (all zeroes).
+// and utils/jstrobe.py, and its reduction of each 64-byte challenge mod l.
+// It computes the same function in one launch: from each proof's transcript
+// state and its packed row of bytes (commitments, minimum values, A, A1, B,
+// L, R, r1, s1, d1), the challenges y, z, e_1..e_k, e as canonical scalars
+// (16 radix-2^16 limbs each), the 32-byte seed of the batch-weight
+// transcript, whether an appended A, L, R, A1 or B was the identity's
+// encoding (all zeroes), and whether a challenge reduced to zero.
 //
 // What is static.  For a fixed proof shape the transcript's op sequence --
 // labels, lengths, framing, and so every sponge position, begin marker and
-// flag -- is the same on every lane; only the data bytes differ.  The host
+// flag -- is the same on every proof; only the data bytes differ.  The host
 // (ops/cuda_replay.py) runs that sequence once through a recording STROBE
-// and hands the kernel the result: a byte program of packed 32-bit ops
-//   kind << 24 | position in the state << 16 | argument
-// with the kinds below.  Every lane executes the same program, so control
-// flow is uniform across the warp and no lane waits on another.
+// and hands the kernel a span program: an op is two 32-bit words,
+//   kind << 16 | position in the state << 8 | length,   argument
+// one op for each run of bytes that STROBE absorbs, overwrites or squeezes
+// between two permutations (the argument is its offset in the row, in the
+// pool of constant bytes uploaded with the program, or in the output row),
+// and single ops for a permutation and for an identity check.  Every warp
+// runs the same program, so control flow is uniform.
 //
 // What bounds it on this card: latency, not rate.  A 64-bit, m=1 proof runs
-// 14 Keccak-f[1600] permutations of 24 rounds and 1,641 byte operations, all
-// one after another in one thread, and a 256-proof batch is 8 warps, one on
-// each of 8 SMs: the card's integer rate would finish the same work some
-// three hundred times sooner (PERF.md).  Two chains add up: the
-// permutations (a one-warp probe times each), and the byte program's loop,
-// whose every op waits on its program word, a row byte and a shared-memory
-// byte.  Design: the 25-word state lives in shared memory while the byte
-// operations edit it (a thread's words at stride 32, so a warp touches
-// consecutive words), and in registers as 64-bit lanes for each
-// permutation, which is the unrolled textbook round.  Later work: a warp a
-// proof (lanes holding state words, theta by shuffles), and byte ops merged
-// into word ops where a message fills whole words.
+// 14 Keccak-f[1600] permutations and some 70 spans one after another, and a
+// 256-proof batch is 256 warps, two an SM: the card's integer rate would do
+// the same work a few hundred times sooner (PERF.md).  So the design cuts the
+// chain.  A warp holds one proof's state, lane w < 25 its 64-bit word w, in
+// registers.  A span op is a few instructions a lane: each lane whose word
+// the span overlaps takes its bytes as one 8-byte window of the source
+// (two aligned shared-memory words and a funnel shift, from a padded copy of
+// the row or of the pool) under a byte mask; a squeeze writes its bytes to the
+// warp's output row in shared memory and zeroes them; an identity check is a
+// ballot over 32 row bytes.  The permutation runs across the lanes: theta's
+// column parities and D by shuffles, rho as a rotation by the lane's own
+// offset, pi and chi as three shuffles of the rotated words (a lane's own
+// and its row neighbours' sources), iota on lane 0.  Lanes 25-31 follow the same control flow, hold
+// junk and write nothing.  After the last op, lane c reduces challenge c mod
+// l (scalar_l.cuh), all of a proof's challenges side by side.  The row, the
+// program and the pool are copied into shared memory once, coalesced; the
+// block is as many warps as the wrapper asks (one, for a batch that the
+// card holds in one wave of one-warp blocks).
 //
-// `keccak_latency_kernel` is the probe behind R1's `chain_ms`: one warp, a
-// chain of dependent permutations.
+// `perm_latency_kernel` is the probe behind R1's `chain_ms`: one warp, a
+// chain of dependent permutations (`perm_ns`).  `keccak_latency_kernel` is
+// the one-thread permutation of the design before this one, kept as its
+// reference (`keccak_ns`).  `reduce_wide_kernel` runs only the epilogue on
+// given 64-byte inputs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define REPLAY_THREADS 32
+#include "scalar_l.cuh"
+
+#define FULL_MASK 0xffffffffu
+#define STATE_WORDS 25
+#define PAD_FRONT 8   // bytes before each source copy in shared memory: a window may start 7 bytes early
+#define PAD_BACK 16   // bytes after it: a window's second aligned word
+#define WIDE_BYTES 64
+#define MAX_WARPS 32
 
 enum ReplayOp { OP_PERMUTE = 0, OP_XOR_CONST = 1, OP_XOR_DATA = 2, OP_SET_CONST = 3, OP_TAKE = 4, OP_CHECK_ZERO = 5 };
 
@@ -51,9 +73,13 @@ __constant__ uint64_t KECCAK_RC[24] = {
     0x8000000080008081ULL, 0x8000000000008080ULL, 0x0000000080000001ULL, 0x8000000080008008ULL,
 };
 
+// rho's rotation of word x + 5y
+__constant__ uint8_t KECCAK_RHO[STATE_WORDS] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
+                                                25, 39, 41, 45, 15, 21, 8,  18, 2,  61, 56, 14};
+
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int n) { return (x << n) | (x >> (64 - n)); }
 
-// Keccak-f[1600] on 25 lanes a[x + 5y] held in registers.
+// Keccak-f[1600] on 25 lanes a[x + 5y] held in one thread's registers (the one-thread reference).
 __device__ __forceinline__ void keccak_f1600(uint64_t a[25]) {
 #pragma unroll 1
     for (int r = 0; r < 24; ++r) {
@@ -100,51 +126,206 @@ __device__ __forceinline__ void keccak_f1600(uint64_t a[25]) {
     }
 }
 
-// state_in: (B, 25) 64-bit words (the (B, 200) byte states); buf: (B, stride) bytes; prog: n_ops packed ops;
-// out: (B, n_out) bytes, every TAKE's byte at its argument; bad_identity: B bytes.
-__global__ void __launch_bounds__(REPLAY_THREADS) replay_kernel(
-    const uint64_t *__restrict__ state_in, const uint8_t *__restrict__ buf, long stride,
-    const int32_t *__restrict__ prog, int n_ops, uint8_t *__restrict__ out, long n_out,
-    uint8_t *__restrict__ bad_identity, long batch) {
-    __shared__ uint64_t st[25][REPLAY_THREADS];
-    const long lane = (long)blockIdx.x * REPLAY_THREADS + threadIdx.x;
-    if (lane >= batch) return;  // no lane reads another's state: the rest of the warp goes on alone
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int w = 0; w < 25; ++w) st[w][t] = state_in[lane * 25 + w];
-    const uint8_t *row = buf + lane * stride;
-    uint8_t *o = out + lane * n_out;
+// ---------------------------------------------------------------------------
+// The permutation across a warp: lane w < 25 holds word w = x + 5y.
+// ---------------------------------------------------------------------------
+
+struct WarpKeccak {
+    int x;         // the lane's column (lanes 25-31: lane % 5, so they read real lanes and write nothing)
+    int d_minus;   // lane holding column x - 1's parity
+    int d_plus;    // lane holding column x + 1's parity
+    int pi_src;    // pi: the lane whose rotated word lands on this lane
+    int pi_chi1;   // pi then chi: the lanes whose rotated words land on words x + 1 and x + 2 of this
+    int pi_chi2;   // lane's row, read straight from the rotated words (one shuffle level, not two)
+    int rot_swap;  // rho: the rotation as a swap of the 32-bit halves and a funnel shift
+    int rot_shift;
+};
+
+// pi: the lane whose word, rotated, lands on lane l (lanes 25-31: themselves)
+__device__ __forceinline__ int pi_source(int l) { return l < STATE_WORDS ? (l % 5 + 3 * (l / 5)) % 5 + 5 * (l % 5) : l; }
+
+__device__ __forceinline__ WarpKeccak warp_keccak_lane(int lane) {
+    WarpKeccak k;
+    const int x = lane % 5, y = lane / 5;
+    const bool live = lane < STATE_WORDS;
+    const int rot = live ? KECCAK_RHO[lane] : 0;
+    k.x = x;
+    k.d_minus = (x + 4) % 5;
+    k.d_plus = (x + 1) % 5;
+    k.pi_src = pi_source(lane);
+    k.pi_chi1 = pi_source(live ? (x + 1) % 5 + 5 * y : lane);
+    k.pi_chi2 = pi_source(live ? (x + 2) % 5 + 5 * y : lane);
+    k.rot_swap = rot >= 32;
+    k.rot_shift = rot & 31;
+    return k;
+}
+
+__device__ __forceinline__ uint64_t rotl_lane(uint64_t v, const WarpKeccak &k) {
+    const u32 lo = (u32)v, hi = (u32)(v >> 32);
+    const u32 l = k.rot_swap ? hi : lo, h = k.rot_swap ? lo : hi;
+    return ((uint64_t)__funnelshift_l(l, h, k.rot_shift) << 32) | __funnelshift_l(h, l, k.rot_shift);
+}
+
+__device__ __forceinline__ uint64_t shfl(uint64_t v, int src) { return __shfl_sync(FULL_MASK, v, src); }
+
+// Keccak-f[1600] across the warp, every exchange a shuffle of 64-bit words:
+// five for theta's column parity, two for D, and three of the rotated words
+// for pi and chi at once, 20 SHFL a round in three dependent levels.  A
+// one-warp probe timed the shuffles 3% below the same rounds through a slab
+// of shared memory (PERF.md).
+__device__ __forceinline__ void keccak_warp(uint64_t &a, const WarpKeccak &k, int lane) {
+#pragma unroll 1
+    for (int r = 0; r < 24; ++r) {
+        const uint64_t c = shfl(a, k.x) ^ shfl(a, k.x + 5) ^ shfl(a, k.x + 10) ^ shfl(a, k.x + 15) ^
+                           shfl(a, k.x + 20);
+        a ^= shfl(c, k.d_minus) ^ rotl64(shfl(c, k.d_plus), 1);
+        const uint64_t rotated = rotl_lane(a, k);
+        const uint64_t b = shfl(rotated, k.pi_src), b1 = shfl(rotated, k.pi_chi1), b2 = shfl(rotated, k.pi_chi2);
+        a = b ^ (~b1 & b2) ^ (lane == 0 ? KECCAK_RC[r] : 0ull);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Shared memory: the program and the pool for the block, then a row and an
+// output row for each warp.  Every piece starts on 8 bytes.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ long round8(long n) { return (n + 7) & ~7L; }
+
+struct ReplayLayout {
+    long prog, pool, warp0, row, out, warp_bytes, total;
+};
+
+__host__ __device__ __forceinline__ ReplayLayout replay_layout(long n_ops, long pool_words, long stride, long n_out,
+                                                               long warps) {
+    ReplayLayout s;
+    s.prog = 0;
+    s.pool = 8 * n_ops;
+    s.warp0 = s.pool + PAD_FRONT + 8 * pool_words + PAD_BACK;
+    s.row = 0;
+    s.out = PAD_FRONT + round8(stride) + PAD_BACK;
+    s.warp_bytes = s.out + round8(n_out);
+    s.total = s.warp0 + warps * s.warp_bytes;
+    return s;
+}
+
+// The bytes [lo, hi) of word w's 8 (lo < hi, both within the word) as a mask.
+__device__ __forceinline__ uint64_t byte_mask(int lo, int hi, int w) {
+    const int nb = hi - lo;
+    return (nb == 8 ? ~0ull : ((1ull << (8 * nb)) - 1)) << (8 * (lo - 8 * w));
+}
+
+// The 8 bytes of a padded source that would land on word w if the span
+// [pos, pos + len) started at `arg` in the source: two aligned words and a shift.
+__device__ __forceinline__ uint64_t window(const uint8_t *padded, int arg, int pos, int w) {
+    const int p = PAD_FRONT + arg - pos + 8 * w;  // >= 1 where the span overlaps word w
+    const uint64_t *words = reinterpret_cast<const uint64_t *>(padded);
+    const int q = p >> 3, sh = 8 * (p & 7);
+    return sh ? (words[q] >> sh) | (words[q + 1] << (64 - sh)) : words[q];
+}
+
+// state: (batch, 25) words; buf: (batch, stride) bytes, 8-byte aligned rows; blob: the program's n_ops ops
+// (two int32 each) then pool_words words of constant bytes; scalars: (batch, n_ch, 16) int64; seeds: (batch,
+// n_seed) bytes; bad_identity, bad_zero: batch bytes.
+__global__ void replay_kernel(const uint64_t *__restrict__ state, const uint8_t *__restrict__ buf, long stride,
+                              const uint64_t *__restrict__ blob, int n_ops, int pool_words, int n_ch, int n_seed,
+                              int64_t *__restrict__ scalars, uint8_t *__restrict__ seeds,
+                              uint8_t *__restrict__ bad_identity, uint8_t *__restrict__ bad_zero, long batch) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+    const int n_out = WIDE_BYTES * n_ch + n_seed;
+    const ReplayLayout lay = replay_layout(n_ops, pool_words, stride, n_out, warps);
+    // the program and the pool, once for the block
+    uint64_t *prog_words = reinterpret_cast<uint64_t *>(smem + lay.prog);
+    uint64_t *pool_words_s = reinterpret_cast<uint64_t *>(smem + lay.pool + PAD_FRONT);
+    for (int k = threadIdx.x; k < n_ops + pool_words; k += blockDim.x) {
+        const uint64_t word = __ldg(blob + k);
+        if (k < n_ops)
+            prog_words[k] = word;
+        else
+            pool_words_s[k - n_ops] = word;
+    }
+    const long proof = (long)blockIdx.x * warps + warp;
+    uint8_t *wsm = smem + lay.warp0 + warp * lay.warp_bytes;
+    uint8_t *row = wsm + lay.row;  // padded: the row's byte i at row[PAD_FRONT + i]
+    uint8_t *out = wsm + lay.out;
+    if (proof < batch) {
+        const uint64_t *src = reinterpret_cast<const uint64_t *>(buf + proof * stride);
+        uint64_t *dst = reinterpret_cast<uint64_t *>(row + PAD_FRONT);
+        for (int k = lane; k < stride / 8; k += 32) dst[k] = __ldg(src + k);
+    }
+    __syncthreads();
+    if (proof >= batch) return;  // a whole warp: the ragged last block's spare warps
+
+    const uint8_t *pool = smem + lay.pool;
+    const int2 *ops = reinterpret_cast<const int2 *>(prog_words);
+    const WarpKeccak k = warp_keccak_lane(lane);
+    const int w = lane;  // the state word this lane holds, if below 25
+    uint64_t a = w < STATE_WORDS ? __ldg(state + proof * STATE_WORDS + w) : 0ull;
     bool bad = false;
+    int2 next = ops[0];
     for (int i = 0; i < n_ops; ++i) {
-        const int32_t op = __ldg(prog + i);
-        const int kind = op >> 24, pos = (op >> 16) & 0xFF, arg = op & 0xFFFF;
-        uint8_t *sb = reinterpret_cast<uint8_t *>(&st[pos >> 3][t]) + (pos & 7);
-        switch (kind) {
-            case OP_XOR_CONST: *sb ^= (uint8_t)arg; break;
-            case OP_XOR_DATA: *sb ^= row[arg]; break;
-            case OP_SET_CONST: *sb = (uint8_t)arg; break;
-            case OP_TAKE:
-                o[arg] = *sb;
-                *sb = 0;
-                break;
-            case OP_CHECK_ZERO: {
-                uint8_t any = 0;
+        const int2 op = next;
+        if (i + 1 < n_ops) next = ops[i + 1];
+        const int kind = op.x >> 16, pos = (op.x >> 8) & 0xFF, len = op.x & 0xFF, arg = op.y;
+        if (kind == OP_PERMUTE) {
+            keccak_warp(a, k, lane);
+            continue;
+        }
+        if (kind == OP_CHECK_ZERO) {
+            bad |= __ballot_sync(FULL_MASK, row[PAD_FRONT + arg + lane] != 0) == 0u;
+            continue;
+        }
+        const int lo = max(8 * w, pos), hi = min(8 * w + 8, pos + len);
+        if (w >= STATE_WORDS || lo >= hi) continue;
+        const uint64_t mask = byte_mask(lo, hi, w);
+        if (kind == OP_TAKE) {
 #pragma unroll
-                for (int k = 0; k < 32; ++k) any |= row[arg + k];
-                bad |= any == 0;
-                break;
+            for (int b = 0; b < 8; ++b) {
+                const int at = 8 * w + b;
+                if (at >= lo && at < hi) out[arg + at - pos] = (uint8_t)(a >> (8 * b));
             }
-            default: {  // OP_PERMUTE
-                uint64_t a[25];
-#pragma unroll
-                for (int w = 0; w < 25; ++w) a[w] = st[w][t];
-                keccak_f1600(a);
-#pragma unroll
-                for (int w = 0; w < 25; ++w) st[w][t] = a[w];
-            }
+            a &= ~mask;
+        } else {
+            const uint64_t v = window(kind == OP_XOR_DATA ? row : pool, arg, pos, w) & mask;
+            a = kind == OP_SET_CONST ? (a & ~mask) | v : a ^ v;
         }
     }
-    bad_identity[lane] = bad;
+    __syncwarp();
+
+    // the epilogue: lane c reduces challenge c mod l
+    bool zero = false;
+    for (int c = lane; c < n_ch; c += 32) {
+        const u32 *x = reinterpret_cast<const u32 *>(out + WIDE_BYTES * c);
+        u32 wide[16], r[8];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) wide[j] = x[j];
+        sc_reduce_wide(wide, r);
+        int64_t *dst = scalars + (proof * n_ch + c) * 16;
+        u32 any = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            dst[2 * j] = r[j] & 0xFFFFu;
+            dst[2 * j + 1] = r[j] >> 16;
+            any |= r[j];
+        }
+        zero |= any == 0u;
+    }
+    zero = __any_sync(FULL_MASK, zero);
+    for (int j = lane; j < n_seed; j += 32) seeds[proof * n_seed + j] = out[WIDE_BYTES * n_ch + j];
+    if (lane == 0) {
+        bad_identity[proof] = bad;
+        bad_zero[proof] = zero;
+    }
+}
+
+// One warp, a chain of `iters` dependent permutations of in's 25 words, lane w holding word w.
+__global__ void perm_latency_kernel(const uint64_t *in, uint64_t *out, int iters) {
+    const int lane = threadIdx.x;
+    const WarpKeccak k = warp_keccak_lane(lane);
+    uint64_t a = lane < STATE_WORDS ? in[lane] : 0ull;
+    for (int i = 0; i < iters; ++i) keccak_warp(a, k, lane);
+    if (lane < STATE_WORDS) out[lane] = a;
 }
 
 // One warp, every thread the same chain of `iters` dependent permutations of in's 25 words.
@@ -159,22 +340,80 @@ __global__ void keccak_latency_kernel(const uint64_t *in, uint64_t *out, int ite
     }
 }
 
+// A thread an input: in (n, 64) bytes -> out (n, 16) int64 limbs, zero n bytes.
+__global__ void reduce_wide_kernel(const u32 *in, int64_t *out, uint8_t *zero, long n) {
+    const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    u32 wide[16], r[8], any = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) wide[j] = in[i * 16 + j];
+    sc_reduce_wide(wide, r);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        out[i * 16 + 2 * j] = r[j] & 0xFFFFu;
+        out[i * 16 + 2 * j + 1] = r[j] >> 16;
+        any |= r[j];
+    }
+    zero[i] = any == 0u;
+}
+
 extern "C" const char *bppt_replay_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
-// state: (batch, 200) bytes, 8-byte aligned; buf: (batch, stride) bytes; prog: n_ops int32; out: (batch, n_out)
-// bytes; bad: batch bytes.  All on the current device.
-extern "C" int bppt_replay(const void *state, const void *buf, long stride, const void *prog, long n_ops, void *out,
-                           long n_out, void *bad, long batch, void *stream) {
-    if (batch <= 0 || n_ops <= 0 || n_ops > (1L << 30)) return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((batch + REPLAY_THREADS - 1) / REPLAY_THREADS);
-    replay_kernel<<<blocks, REPLAY_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint64_t *)state, (const uint8_t *)buf, stride, (const int32_t *)prog, (int)n_ops, (uint8_t *)out,
-        n_out, (uint8_t *)bad, batch);
+static cudaError_t replay_allow_smem(long bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(replay_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+static bool replay_args_ok(long n_ops, long pool_words, long stride, long n_ch, long n_seed, long warps) {
+    return n_ops > 0 && n_ops < (1L << 20) && pool_words >= 0 && pool_words < (1L << 20) && stride > 0 &&
+           stride % 8 == 0 && stride < (1L << 20) && n_ch >= 0 && n_seed >= 0 && n_ch + n_seed > 0 &&
+           WIDE_BYTES * n_ch + n_seed < (1L << 20) && warps >= 1 && warps <= MAX_WARPS;
+}
+
+// Blocks of `warps` warps that one SM holds at once, for a program of this size.
+extern "C" int bppt_replay_occupancy(long n_ops, long pool_words, long stride, long n_ch, long n_seed, long warps,
+                                     int *blocks) {
+    if (!replay_args_ok(n_ops, pool_words, stride, n_ch, n_seed, warps)) return (int)cudaErrorInvalidValue;
+    const long smem = replay_layout(n_ops, pool_words, stride, WIDE_BYTES * n_ch + n_seed, warps).total;
+    const cudaError_t st = replay_allow_smem(smem);
+    if (st != cudaSuccess) return (int)st;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, replay_kernel, 32 * (int)warps, smem);
+}
+
+// state: (batch, 200) bytes, 8-byte aligned; buf: (batch, stride) bytes, 8-byte aligned; blob: the program
+// (n_ops ops, pool_words words of pool); scalars: (batch, n_ch, 16) int64; seeds: (batch, n_seed) bytes;
+// bad_identity, bad_zero: batch bytes.  All on the current device.
+extern "C" int bppt_replay(const void *state, const void *buf, long stride, const void *blob, long n_ops,
+                           long pool_words, long n_ch, long n_seed, void *scalars, void *seeds, void *bad_identity,
+                           void *bad_zero, long batch, long warps, void *stream) {
+    if (batch <= 0 || !replay_args_ok(n_ops, pool_words, stride, n_ch, n_seed, warps))
+        return (int)cudaErrorInvalidValue;
+    const long smem = replay_layout(n_ops, pool_words, stride, WIDE_BYTES * n_ch + n_seed, warps).total;
+    const cudaError_t st = replay_allow_smem(smem);
+    if (st != cudaSuccess) return (int)st;
+    replay_kernel<<<(unsigned)((batch + warps - 1) / warps), 32 * (unsigned)warps, smem, (cudaStream_t)stream>>>(
+        (const uint64_t *)state, (const uint8_t *)buf, stride, (const uint64_t *)blob, (int)n_ops, (int)pool_words,
+        (int)n_ch, (int)n_seed, (int64_t *)scalars, (uint8_t *)seeds, (uint8_t *)bad_identity, (uint8_t *)bad_zero,
+        batch);
+    return (int)cudaGetLastError();
+}
+
+// in, out: 25 64-bit words.
+extern "C" int bppt_perm_latency(const void *in, void *out, long iters, void *stream) {
+    perm_latency_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const uint64_t *)in, (uint64_t *)out, (int)iters);
     return (int)cudaGetLastError();
 }
 
 // in, out: 25 64-bit words.
 extern "C" int bppt_keccak_latency(const void *in, void *out, long iters, void *stream) {
     keccak_latency_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const uint64_t *)in, (uint64_t *)out, (int)iters);
+    return (int)cudaGetLastError();
+}
+
+// in: (n, 64) bytes, 4-byte aligned; out: (n, 16) int64; zero: n bytes.
+extern "C" int bppt_reduce_wide(const void *in, void *out, void *zero, long n, void *stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    reduce_wide_kernel<<<(unsigned)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+        (const u32 *)in, (int64_t *)out, (uint8_t *)zero, n);
     return (int)cudaGetLastError();
 }

@@ -1,0 +1,121 @@
+// The reduction of a 512-bit value mod l, the order of ristretto255's group,
+// on 32-bit words: what Scalar::from_bytes_mod_order_wide computes, and what
+// R1 (replay.cu) does to each 64-byte Fiat-Shamir challenge.
+//
+// Counterpart of the JAX package's `_wide_to_scalar` (models/replay_device.py,
+// F.reduce_wide_l: Barrett on radix-2^16 limbs).  Here it is Barrett's
+// reduction (HAC 14.42) with b = 2^32 and k = 8, since 2^224 <= l < 2^256:
+//   q1 = x >> 224 and mu = floor(2^512 / l), nine words each;
+//   q3 = (q1 mu) >> 288;
+//   r  = (x - q3 l) mod 2^288;
+//   one conditional subtraction of l.
+// HAC allows q3 to fall 2 below floor(x / l); for this l it falls at most 1:
+// x / l - q3 < 1 + frac(2^512 / l) + 2^224 / l < 1.23, so r < 2l.
+// Products are row scanning on the hardware carry flag, as in
+// field25519.cuh: each row adds its low halves in one carry chain and its
+// high halves in another, one word up (9 x 9 words for q1 mu; q3 l only below
+// 2^288, its chains cut at word 8).  It runs once a challenge, nine to
+// eleven a proof side by side on a warp's lanes, so its latency of some 250
+// dependent instructions sits once at R1's end.
+//
+// ops/scalar_model.py repeats this file word for word in Python, with every
+// bound it relies on asserted; tests/test_torch_replay.py holds the model
+// against Python integers and the torch and JAX `reduce_wide_l`.
+
+#pragma once
+
+#include "field25519.cuh"
+
+__device__ __forceinline__ u32 mad_hi_cc(u32 a, u32 b, u32 c) {
+    u32 r;
+    asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 madc_lo(u32 a, u32 b, u32 c) {  // the carry out is dropped
+    u32 r;
+    asm volatile("madc.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+__device__ __forceinline__ u32 madc_hi(u32 a, u32 b, u32 c) {  // the carry out is dropped
+    u32 r;
+    asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+    return r;
+}
+
+#define SC_N 9  // words of q1, mu, q3 and the residues mod 2^288
+
+// r = a * b, NA + NB words (NB >= 2).  Before row i the sum is below
+// 2^(32 (i + NB)), so word i + NB takes only the low chain's carry and the
+// high chain carries out of no row.
+template <int NA, int NB>
+__device__ __forceinline__ void sc_mul_wide(const u32 *a, const u32 *b, u32 *r) {
+#pragma unroll
+    for (int k = 0; k < NA + NB; ++k) r[k] = 0u;
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+        r[i] = mad_lo_cc(a[i], b[0], r[i]);
+#pragma unroll
+        for (int j = 1; j < NB; ++j) r[i + j] = madc_lo_cc(a[i], b[j], r[i + j]);
+        r[i + NB] = addc(r[i + NB], 0u);
+        r[i + 1] = mad_hi_cc(a[i], b[0], r[i + 1]);
+#pragma unroll
+        for (int j = 1; j < NB - 1; ++j) r[i + j + 1] = madc_hi_cc(a[i], b[j], r[i + j + 1]);
+        r[i + NB] = madc_hi(a[i], b[NB - 1], r[i + NB]);
+    }
+}
+
+// r = a * b mod 2^(32 N): row i's chains stop at word N - 1, whose carry out is dropped.
+template <int N>
+__device__ __forceinline__ void sc_mul_lo(const u32 *a, const u32 *b, u32 *r) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) r[k] = 0u;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        const int m = N - i;  // low halves: words i .. N - 1
+        if (m == 1) {
+            r[N - 1] += a[i] * b[0];
+        } else {
+            r[i] = mad_lo_cc(a[i], b[0], r[i]);
+#pragma unroll
+            for (int j = 1; j < m - 1; ++j) r[i + j] = madc_lo_cc(a[i], b[j], r[i + j]);
+            r[N - 1] = madc_lo(a[i], b[m - 1], r[N - 1]);
+        }
+        const int h = m - 1;  // high halves: words i + 1 .. N - 1
+        if (h == 1) {
+            r[N - 1] += __umulhi(a[i], b[0]);
+        } else if (h >= 2) {
+            r[i + 1] = mad_hi_cc(a[i], b[0], r[i + 1]);
+#pragma unroll
+            for (int j = 1; j < h - 1; ++j) r[i + j + 1] = madc_hi_cc(a[i], b[j], r[i + j + 1]);
+            r[N - 1] = madc_hi(a[i], b[h - 1], r[N - 1]);
+        }
+    }
+}
+
+// r - l where that does not borrow, else r.
+__device__ __forceinline__ void sc_sub_l(u32 *r, const u32 *l) {
+    u32 t[SC_N];
+    t[0] = sub_cc(r[0], l[0]);
+#pragma unroll
+    for (int k = 1; k < SC_N; ++k) t[k] = subc_cc(r[k], l[k]);
+    const u32 borrow = subc(0u, 0u);
+#pragma unroll
+    for (int k = 0; k < SC_N; ++k) r[k] = borrow ? r[k] : t[k];
+}
+
+// x: 16 little-endian words, any value below 2^512 -> r: x mod l, 8 words.
+__device__ __forceinline__ void sc_reduce_wide(const u32 x[16], u32 r[8]) {
+    const u32 mu[SC_N] = {0x0a2c131bu, 0xed9ce5a3u, 0x086329a7u, 0x2106215du, 0xffffffebu,
+                          0xffffffffu, 0xffffffffu, 0xffffffffu, 0x0000000fu};
+    const u32 l[SC_N] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u, 0u};
+    u32 q2[2 * SC_N], r2[SC_N], w[SC_N];
+    sc_mul_wide<SC_N, SC_N>(x + 7, mu, q2);
+    sc_mul_lo<SC_N>(q2 + SC_N, l, r2);
+    w[0] = sub_cc(x[0], r2[0]);
+#pragma unroll
+    for (int k = 1; k < SC_N - 1; ++k) w[k] = subc_cc(x[k], r2[k]);
+    w[SC_N - 1] = subc(x[SC_N - 1], r2[SC_N - 1]);
+    sc_sub_l(w, l);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = w[k];
+}

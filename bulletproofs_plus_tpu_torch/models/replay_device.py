@@ -3,9 +3,10 @@
 Counterpart of bulletproofs_plus_tpu/models/replay_device.py.  The host
 replay (range_proof._replay_challenges) advances B numpy sponges; here the
 same Merlin op sequence (models/transcripts.py framing) runs on the card,
-one thread a proof, in the hand-written kernel R1 (csrc/replay.cu through
-ops/cuda_replay.py), and on a CPU tensor as the plain torch sequence over
-utils/jstrobe.py.  Commitments, proof elements and responses come in as one
+a warp a proof, in the hand-written kernel R1 (csrc/replay.cu through
+ops/cuda_replay.py), which also reduces each challenge mod l; on a CPU
+tensor it runs as the plain torch sequence over utils/jstrobe.py and the
+plain reduction.  Commitments, proof elements and responses come in as one
 packed (B, stride) byte buffer, the same one that `verify_group_bytes` reads
 next: one upload a batch.  Challenges come out as canonical scalar limbs on
 the device, ready for the scalar pass.
@@ -28,13 +29,10 @@ import numpy as np
 import torch
 
 from ..ops import cuda_replay
-from ..ops import field as F
+from ..ops.cuda_replay import WIDE  # bytes of a challenge before its reduction
 from .transcripts import DOMAIN_SEPARATOR
-from .verifier_kernels import _u8_to_limbs
 
 __all__ = ["pack_replay_inputs", "replay_fn", "row_layout", "unpack_row_buffer"]
-
-WIDE = 64  # bytes of a challenge before its wide reduction
 
 
 def row_layout(m: int, rounds: int, deg: int):
@@ -156,22 +154,19 @@ def replay_fn(
     Returned fn(state (B, 200) uint8, buf (B, stride) uint8 per row_layout)
       -> (y, z (B, 16), es (B, rounds, 16), e (B, 16) canonical int64 limbs,
           seeds (B, 32) uint8, bad_identity (B,) bool, bad_zero (B,) bool)
-    on the tensors' device: R1 on a CUDA device, the plain sequence on the
-    CPU.  The wide challenges are reduced mod l by one batched
-    `reduce_wide_l` after the kernel.  `fn.program` is the compiled program.
+    on the tensors' device: one R1 launch and views of its outputs on a CUDA
+    device, the plain sequence and reduction on the CPU.  `fn.program` is
+    the compiled program.
     """
     program = cuda_replay.Program(
         replay_sequence(h_base_compressed, g_bases_compressed, bit_length, extension_degree, m, rounds),
         pos, pos_begin, cur_flags,
     )
-    n_wide = WIDE * (rounds + 3)
 
     def replay(state: torch.Tensor, buf: torch.Tensor):
-        out, bad_identity = cuda_replay.replay(program, state, buf)
-        scalars = F.reduce_wide_l(_u8_to_limbs(out[:, :n_wide].reshape(-1, rounds + 3, WIDE)))
-        bad_zero = F.is_zero_l(scalars).any(dim=1)
-        return (scalars[:, 0], scalars[:, 1], scalars[:, 2 : 2 + rounds], scalars[:, 2 + rounds],
-                out[:, n_wide:], bad_identity, bad_zero)
+        scalars, seeds, bad_identity, bad_zero = cuda_replay.replay(program, state, buf)
+        return (scalars[:, 0], scalars[:, 1], scalars[:, 2 : 2 + rounds], scalars[:, 2 + rounds], seeds,
+                bad_identity, bad_zero)
 
     replay.program = program
     return replay

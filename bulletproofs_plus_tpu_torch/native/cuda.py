@@ -56,8 +56,11 @@ LIBRARIES = {
     "replay": (
         "replay.cu",
         {
-            "bppt_replay": [_VP, _VP, _LONG, _VP, _LONG, _VP, _LONG, _VP, _LONG, _VP],
+            "bppt_replay": [_VP, _VP, _LONG, _VP, _LONG, _LONG, _LONG, _LONG, _VP, _VP, _VP, _VP, _LONG, _LONG, _VP],
+            "bppt_replay_occupancy": [_LONG, _LONG, _LONG, _LONG, _LONG, _LONG, ctypes.POINTER(ctypes.c_int)],
+            "bppt_perm_latency": [_VP, _VP, _LONG, _VP],
             "bppt_keccak_latency": [_VP, _VP, _LONG, _VP],
+            "bppt_reduce_wide": [_VP, _VP, _VP, _LONG, _VP],
         },
     ),
 }

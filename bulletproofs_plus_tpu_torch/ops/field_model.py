@@ -59,6 +59,15 @@ class Carry:
     def madc_hi_cc(self, a, b, c):
         return self._set(((a * b) >> 32) + c + self.cf)
 
+    def mad_hi_cc(self, a, b, c):
+        return self._set(((a * b) >> 32) + c)
+
+    def madc_lo(self, a, b, c):  # the carry out is dropped, as PTX drops it
+        return (((a * b) & M32) + c + self.cf) & M32
+
+    def madc_hi(self, a, b, c):  # the carry out is dropped, as PTX drops it
+        return (((a * b) >> 32) + c + self.cf) & M32
+
 
 def to_words(value: int) -> list:
     if not 0 <= value < 2**256:

@@ -10,8 +10,9 @@ integers shared by every lane; only the bytes differ.
 Every state change goes through four byte-level primitives (`_xor`, `_set`,
 `_take`, `_permute`) and every piece of data through `_chunk`/`_join`.
 That keeps the STROBE framing in one place: ops/cuda_replay.py subclasses
-`JStrobe` with primitives that record a byte program instead of running
-it, and the replay kernel (csrc/replay.cu) executes that program.
+`JStrobe` with primitives that record a span program (one op a call)
+instead of running it, and the replay kernel (csrc/replay.cu) executes
+that program.
 
 Bit-exactness contract: given the same inputs, `JStrobe` produces the same
 state bytes as `strobe.Strobe128` (tests/test_torch_replay.py); its

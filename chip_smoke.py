@@ -50,11 +50,12 @@ then P..15P cached) and, for each window, the additions of cached entries
 that sum its tile's lanes (64 (n - tiles) in all), and reads the scalars
 and points once and writes packed partials; K2 the 64 (tiles - 1)
 additions left; K7 as K1 with a table of 4 doublings and 3 additions
-(2P..8P) and 8 cached entries.  R1 reads each lane's state, row and
-program once and writes its output row and flag, and does, for each lane,
-its program's byte operations (one integer operation each) and
-permutations, each 4320 32-bit integer instructions at the least
-(`KECCAK_INT_OPS`), over the same integer rate.
+(2P..8P) and 8 cached entries.  R1 reads each lane's state and row and
+the program once and writes each lane's canonical limbs, seed and two
+flags, and does, for each lane, one integer operation for each byte of its
+program's spans, its permutations, each 4320 32-bit integer instructions
+at the least (`KECCAK_INT_OPS`), and for each challenge the wide
+reduction's products (`REDUCE_MULADDS`), over the same integer rate.
 
 `chain_ms` is the other floor: the field multiplications and squarings that lie
 one after another on the kernel's longest path, each at the dependent
@@ -73,9 +74,15 @@ replayed from a CUDA graph: `ms` times the wrapper called back to back, and
 below some 0.02 ms that is the host.  The probe also times the point
 operations themselves for one warp (`ge_dbl_ns`, `ge_add_ns`, `ge_dbl4_ns`,
 `ge_add4_ns`), their chains' ends checked against the host's integers,
-and a one-warp chain of Keccak-f[1600] permutations (`keccak_ns`), checked
-against utils/jkeccak.py, behind R1's `chain_ms`: its permutations one
-after another (its byte program's loop is not counted).
+and two one-warp chains of Keccak-f[1600] permutations, checked against
+utils/jkeccak.py: R1's, a permutation spread over the warp's lanes
+(`perm_ns`, behind R1's `chain_ms`: its permutations one after another,
+its spans not counted), and the one-thread permutation of the design
+before it (`keccak_ns`).  R1 also gives its span count, its grid (`warps`
+a block, `blocks`, `waves` over the blocks the card holds at once) and
+`replay_fn_ms`, the whole `replay_fn` (one launch and views) called back
+to back; its epilogue alone (`reduce_wide_probe`) is held against Python
+integers at the reduction's edges.
 """
 
 from __future__ import annotations
@@ -114,6 +121,9 @@ PROVE_BATCH = 128
 # application 50 (c[x-1] ^ rot(c[x+1]) ^ a in one LOP3 a half), rho 48 (two funnel shifts a rotation, lane 0
 # unrotated), chi 50 (one LOP3 a half), iota 2
 KECCAK_INT_OPS = 24 * 180
+# R1: 32-bit multiply-adds of one challenge's wide reduction (csrc/scalar_l.cuh): q1 mu, 9 x 9 words at two a
+# product (low and high halves), and q3 l below 2^288, the products with l's five non-zero words only
+REDUCE_MULADDS = 2 * 81 + 59
 REPLAY_SHAPES = ((3, 256), (6, 64))  # golden cell and lanes: the b64_m1_x256 and b64_m4_x64 verifies' replays
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "golden_vectors.json")
 
@@ -246,7 +256,8 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
     for name in cuda.LIBRARIES:
         cuda.lib(name)
     sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel"))
-    sass.update(sass_histogram(cuda, "replay", ("keccak_latency_kernel", "replay_kernel")))
+    sass.update(sass_histogram(cuda, "replay", ("perm_latency_kernel", "keccak_latency_kernel", "replay_kernel",
+                                                "reduce_wide_kernel")))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
             "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
@@ -425,18 +436,26 @@ def _replay_inputs(torch, bp, hr, cell, batch: int, rs: random.Random):
     return fn, torch.as_tensor(state, device="cuda"), torch.as_tensor(buf, device="cuda"), zero_lane
 
 
+def _probe_ns(probe, words) -> float:
+    """One dependent permutation of a one-warp probe, ns: the chain of 320
+    less the chain of 64, over 256."""
+    short = kernel_ms(lambda: probe(words, 64))
+    long = kernel_ms(lambda: probe(words, 320))
+    return (long - short) * 1e6 / 256
+
+
 def _replay_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict, ptxas: dict) -> None:
-    """R1 against its plain version (the replay sequence on utils/jstrobe.py's
-    tensors) on the card at both verify shapes, exact on the output row (the
-    wide y, z, e_1..e_k, e and the seeds), the flags, and the limbs after the
-    reduction; lane 0 against the golden challenges and the host replay's
-    seed; the zeroed A flagged on its lane only.  Timed at the 256-lane
-    shape, beside the one-warp permutation chain (`keccak_ns`)."""
+    """R1 against the plain whole `replay_fn` (the replay sequence on
+    utils/jstrobe.py's tensors, then `reduce_wide_l` and `is_zero_l`) on the
+    card at both verify shapes, exact on the canonical limbs, the seeds and
+    both flags, with lane 0 the golden proof (its challenges and the host
+    replay's seed checked) and a zeroed A flagged on its lane only; at 8
+    lanes of every golden shape; its epilogue alone at the reduction's
+    edges.  Timed at both shapes, beside the one-warp permutation chains
+    (`perm_ns`, `keccak_ns`)."""
     import numpy as np
 
-    from bulletproofs_plus_tpu_torch.models.verifier_kernels import _u8_to_limbs
     from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
-    from bulletproofs_plus_tpu_torch.ops import field as F
     from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs
     from bulletproofs_plus_tpu_torch.utils import jkeccak
 
@@ -444,55 +463,79 @@ def _replay_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict,
     want = words.view(torch.uint8).reshape(1, 200)
     for _ in range(3):
         want = jkeccak.state_to_bytes(jkeccak.keccak_f1600(jkeccak.bytes_to_state(want)))
-    if not torch.equal(cr.keccak_latency_probe(words, 3).view(torch.uint8).reshape(1, 200), want):
-        raise AssertionError("keccak latency probe: three permutations disagree with utils/jkeccak.py")
-    short = kernel_ms(lambda: cr.keccak_latency_probe(words, 64))
-    long = kernel_ms(lambda: cr.keccak_latency_probe(words, 320))
-    keccak_ns = (long - short) * 1e6 / 256
-    out["keccak_ns"] = keccak_ns
+    for name, probe in (("perm", cr.perm_latency_probe), ("keccak", cr.keccak_latency_probe)):
+        if not torch.equal(probe(words, 3).view(torch.uint8).reshape(1, 200), want):
+            raise AssertionError(f"{name} latency probe: three permutations disagree with utils/jkeccak.py")
+    perm_ns = _probe_ns(cr.perm_latency_probe, words)
+    out["perm_ns"] = perm_ns
+    out["keccak_ns"] = _probe_ns(cr.keccak_latency_probe, words)
+
+    L = hr.L  # the epilogue alone: 0, 1, l - 1, l, l + 1, 2^252, 2^256 - 1, 2^512 - 1, multiples of l
+    edges = [0, 1, L - 1, L, L + 1, 2**252, 2**256 - 1, 2**512 - 1, L * ((2**512 - 1) // L)]
+    edges += [L * (2**259 + k) for k in (-3, -1, 0, 1, 5)] + [rs.randrange(2**512) for _ in range(4082)]
+    wide = torch.as_tensor(np.frombuffer(b"".join(v.to_bytes(64, "little") for v in edges), dtype=np.uint8)
+                           .reshape(-1, 64).copy(), device="cuda")
+    limbs, zero = cr.reduce_wide_probe(wide)
+    got = [int_from_limbs(r) for r in limbs.cpu().numpy()]
+    if got != [v % L for v in edges] or zero.cpu().tolist() != [v % L == 0 for v in edges]:
+        raise AssertionError("R1's epilogue disagrees with Python integers at the reduction's edges")
+    out["reduce_wide_probe"] = {"inputs": len(edges), "zeroes": int(zero.sum())}
+
+    def check(fn, state, buf, what):
+        got = cr.replay_cuda(fn.program, state, buf)
+        want = cr.replay_fn_plain(fn.program, state, buf)
+        err = max(float((got[0] - want[0]).abs().max()), float((got[1].long() - want[1].long()).abs().max()))
+        if err != 0 or not all(torch.equal(g, w) for g, w in zip(got[2:], want[2:])):
+            raise AssertionError(f"replay ({what}) disagrees with the plain replay_fn: max_abs_err {err}, identity "
+                                 f"flags on {got[2].nonzero().flatten().tolist()}, zero flags on "
+                                 f"{got[3].nonzero().flatten().tolist()}")
+        return got, err
+
+    for cell in cells:  # every golden shape, 8 lanes
+        fn, state, buf, _ = _replay_inputs(torch, bp, hr, cell, 8, rs)
+        check(fn, state, buf, f"8 lanes, seed {cell['seed']}")
 
     by_shape = {}
     for seed, batch in REPLAY_SHAPES:
         cell = next(c for c in cells if c["seed"] == seed)
         fn, state, buf, zero_lane = _replay_inputs(torch, bp, hr, cell, batch, rs)
         program = fn.program
-        got, bad = cr.replay_cuda(program, state, buf)
-        want, want_bad = cr.replay_plain(program, state, buf)
-        err = float((got.long() - want.long()).abs().max())
-        flags = bad.nonzero().flatten().tolist()
-        if err != 0 or not torch.equal(bad, want_bad) or flags != [zero_lane]:
-            raise AssertionError(f"replay ({batch} lanes, seed {seed}) disagrees with its plain version: "
-                                 f"max_abs_err {err}, identity flags on lanes {flags} (want [{zero_lane}])")
-        y, z, es, e, seeds, bad_id, bad_zero = fn(state, buf)
-        rounds = es.shape[1]
-        plain_scalars = F.reduce_wide_l(_u8_to_limbs(want[:, : 64 * (rounds + 3)].reshape(batch, rounds + 3, 64)))
-        kernel_scalars = torch.cat([y[:, None], z[:, None], es, e[:, None]], dim=1)
-        limb_err = float((kernel_scalars - plain_scalars).abs().max())
+        (scalars, seeds, bad_id, bad_zero), err = check(fn, state, buf, f"{batch} lanes, seed {seed}")
+        flags = bad_id.nonzero().flatten().tolist()
         statement = _golden_statement(bp, hr, cell)
         proof = bp.RangeProof.from_bytes(bytes.fromhex(cell["proof"]))
         _, host_seeds = bp.RangeProof._replay_challenges([bp.Transcript(b"golden")], [statement], [proof])
+        y, z, es, e, fn_seeds, _, _ = fn(state, buf)
         lane0 = (format(int_from_limbs(y[0].cpu().numpy()), "064x"), format(int_from_limbs(z[0].cpu().numpy()), "064x"),
                  [format(int_from_limbs(v), "064x") for v in es[0].cpu().numpy()],
                  format(int_from_limbs(e[0].cpu().numpy()), "064x"))
-        if (limb_err != 0 or lane0 != (cell["y"], cell["z"], cell["round_es"], cell["e"])
-                or seeds[0].cpu().numpy().tobytes() != host_seeds[0] or not torch.equal(seeds, want[:, -32:])
-                or bool(bad_zero.any()) or not torch.equal(bad_id, bad)):
+        if (flags != [zero_lane] or bool(bad_zero.any()) or lane0 != (cell["y"], cell["z"], cell["round_es"], cell["e"])
+                or seeds[0].cpu().numpy().tobytes() != host_seeds[0] or not torch.equal(fn_seeds, seeds)):
             raise AssertionError(f"replay_fn ({batch} lanes, seed {seed}): challenges, seeds or flags are wrong "
-                                 f"(limb max_abs_err {limb_err})")
+                                 f"(identity flags on {flags}, want [{zero_lane}])")
         stride = buf.shape[1]
-        b_ms, b_by = bound_ms(batch * (200 + stride + program.n_out + 1) + 4 * len(program.ops),
-                              batch * (program.n_permutations * KECCAK_INT_OPS + program.n_byte_ops))
+        grid = cr.launch_shape(program, batch, stride, "cuda")
+        n_ch = program.n_challenges
+        b_ms, b_by = bound_ms(batch * (200 + stride + 128 * n_ch + program.n_seed + 2) + 8 * len(program.blob),
+                              batch * (program.n_permutations * KECCAK_INT_OPS + program.span_bytes
+                                       + n_ch * REDUCE_MULADDS))
         by_shape[batch] = {
-            "seed": seed, "lanes": batch, "stride": stride, "out_bytes": program.n_out, "max_abs_err": err,
-            "limb_max_abs_err": limb_err, "permutations": program.n_permutations, "byte_ops": program.n_byte_ops,
+            "seed": seed, "lanes": batch, "stride": stride, "challenges": n_ch, "max_abs_err": err,
+            "permutations": program.n_permutations, "spans": program.n_spans, "span_bytes": program.span_bytes,
+            "pool_bytes": len(program.pool), **grid, "waves": grid["blocks"] / grid["resident_blocks"],
             "ms": kernel_ms(lambda: cr.replay_cuda(program, state, buf)),
             "graph_ms": graph_ms(lambda: cr.replay_cuda(program, state, buf)),
-            "replay_fn_ms": kernel_ms(lambda: fn(state, buf), reps=10),  # R1, then the reduction's torch ops
-            "plain_ms": median_ms(lambda: cr.replay_plain(program, state, buf), 3),
-            "bound_ms": b_ms, "bound_by": b_by, "chain_ms": program.n_permutations * keccak_ns * 1e-6,
+            "replay_fn_ms": kernel_ms(lambda: fn(state, buf)),  # one launch and views
+            "replay_fn_graph_ms": graph_ms(lambda: fn(state, buf)),
+            "plain_ms": median_ms(lambda: cr.replay_fn_plain(program, state, buf), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "chain_ms": program.n_permutations * perm_ns * 1e-6,
         }
     out["replay_by_shape"] = by_shape
-    rows["replay"] = {**by_shape[REPLAY_SHAPES[0][1]], "blocks": -(-REPLAY_SHAPES[0][1] // 32), "threads": 32,
+    first = by_shape[REPLAY_SHAPES[0][1]]
+    rows["replay"] = {**first, "threads": 32 * first["warps"], "perm_ns": perm_ns,
+                      "by_shape": {b: {k: v[k] for k in ("graph_ms", "bound_ms", "chain_ms", "spans", "permutations",
+                                                          "warps", "blocks", "waves", "replay_fn_ms", "plain_ms")}
+                                   for b, v in by_shape.items()},
                       **ptxas.get("replay_kernel", {})}
 
 
@@ -1221,7 +1264,7 @@ def main() -> int:
          **{extra: rows[k][extra] for extra in ("chain_ms", "serial_chain_ms", "graph_ms", "entry", "pow_p58_ms",
                                                 "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
                                                 "spill_stores", "spill_loads", "lanes", "permutations",
-                                                "replay_fn_ms")
+                                                "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

@@ -9,9 +9,11 @@ one JSON line per measurement:
   * "stages_ms": wall time of each stage of the device engine's
     single-shape path (`RangeProof._dispatch_device_replay`), run one after
     another with a device synchronise between them: packing and upload,
-    the replay kernel R1, the reduction of its wide challenges, the fetch of
-    seeds and flags, the weight draws, then `verify_group_bytes` cut into
-    its scalar pass, decompression, assembly, MSM and identity check;
+    the replay (`replay_fn` whole, which on the card is one R1 launch that
+    also reduces the challenges; the median of nine calls beside it), the
+    fetch of seeds and flags, the weight draws, then `verify_group_bytes`
+    cut into its scalar pass, decompression, assembly, MSM and identity
+    check;
   * "mixed_stages_ms": the same for the mixed-shape path on a batch of
     golden proofs 3 (m=1) and 4 (m=2) interleaved, `--batch` proofs in all:
     host replay, weights, one pack and `group_contrib` a shape group, and
@@ -60,7 +62,6 @@ def main() -> int:
         scalar_pass,
         verify_group_bytes,
     )
-    from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
     from bulletproofs_plus_tpu_torch.ops import edwards as ed
     from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
     from bulletproofs_plus_tpu_torch.ops import ristretto as rist
@@ -137,9 +138,7 @@ def main() -> int:
     buf, state = stage("pack_upload", lambda: (
         torch.as_tensor(pack_replay_inputs(statements, proofs).copy(), device=dev),
         torch.as_tensor(stacked.strobe.state, device=dev).clone()))
-    out_bytes, bad_id = stage("replay_kernel", lambda: cr.replay_cuda(rep.program, state, buf))
-    y, z, es, e, seeds, bad_id, bad_zero = stage("replay_fn", lambda: rep(state, buf))  # R1 again, then the reduction
-    stages["reduce_wide"] = stages["replay_fn"] - stages["replay_kernel"]
+    y, z, es, e, seeds, bad_id, bad_zero = stage("replay_fn", lambda: rep(state, buf))
     seeds_np = stage("seed_fetch", lambda: [t.cpu().numpy() for t in (seeds, bad_id, bad_zero)])[0]
     weights = stage("draw_weights", lambda: RangeProof._draw_weights([row.tobytes() for row in seeds_np], B))
     w = stage("weights_upload", lambda: torch.as_tensor(pack_ints(weights).astype("int64"), device=dev))
@@ -169,10 +168,11 @@ def main() -> int:
     if not ok or not bool(ok_all[0]) or bool(bad_id.any()) or bool(bad_zero.any()):
         raise AssertionError("stage-by-stage verification failed")
     by_parts = ("scalar_pass", "decompress", "assemble", "msm", "identity_check")
-    stages["total"] = sum(v for k, v in stages.items() if k not in by_parts + ("replay_fn",))
+    stages["total"] = sum(v for k, v in stages.items() if k not in by_parts)
     print(json.dumps({"stages_ms": stages, "batch": args.batch, "seed": args.seed,
-                      "note": "total counts replay_kernel + reduce_wide for replay_fn, and verify_group_bytes "
-                              "whole; its parts are timed again after it"}), flush=True)
+                      "replay_fn_median_ms": median_of(lambda: rep(state, buf), 9),
+                      "note": "total counts verify_group_bytes whole; its parts are timed again after it"}),
+          flush=True)
 
     # the mixed path: golden proofs 3 (m=1) and 4 (m=2), interleaved, on one generator set
     cells = {c["seed"]: c for c in all_cells}

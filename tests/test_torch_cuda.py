@@ -393,30 +393,113 @@ def _golden_replay(cell, batch, device):
     return fn, state, buf, (statement, proof)
 
 
+def _random_lanes(state, buf, seed):
+    """Every lane but lane 0 random state and row bytes (the replay is a function of any bytes)."""
+    rs = np.random.RandomState(seed)
+    state[1:] = torch.as_tensor(rs.randint(0, 256, size=tuple(state[1:].shape), dtype=np.uint8))
+    buf[1:] = torch.as_tensor(rs.randint(0, 256, size=tuple(buf[1:].shape), dtype=np.uint8))
+
+
+def _assert_replay_equal(got, want):
+    names = ("scalars", "seeds", "bad_identity", "bad_zero")
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and torch.equal(g, w.to(g.dtype)), name
+
+
 @pytest.mark.parametrize("seed", [1, 2, 3, 4, 5, 6])
 def test_replay_kernel_matches_plain(card, seed):
-    """R1 on every golden shape, 40 lanes (two blocks, the second ragged):
-    its output row and flags equal the plain sequence's on the card byte for
-    byte; lane 33's zeroed A raises bad_identity there only; the reduced
-    challenges are the golden ones."""
+    """R1 on every golden shape, 40 lanes (random bytes on lanes 1-39): its
+    whole output -- canonical limbs, seeds, both flags -- equals the plain
+    replay_fn (the sequence, then reduce_wide_l and is_zero_l) on the card;
+    lane 33's zeroed A raises bad_identity there only; lane 0's challenges
+    are the golden ones."""
     from bulletproofs_plus_tpu_torch.models.replay_device import row_layout
     from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
 
     cell = next(c for c in _golden_cells() if c["seed"] == seed)
     fn, state, buf, (_, proof) = _golden_replay(cell, 40, card)
+    _random_lanes(state, buf, seed)
     lo = row_layout(len(cell["values"]), len(proof.li), len(proof.d1))[0]["a"][0]
     buf[33, lo : lo + 32] = 0
     cuda.reset_launches()
-    out, bad = cr.replay(fn.program, state, buf)
-    assert cuda.launches["replay"] == 1
-    want_out, want_bad = cr.replay_plain(fn.program, state, buf)
-    assert torch.equal(out, want_out) and torch.equal(bad, want_bad)
-    assert bad.nonzero().flatten().tolist() == [33]
+    got = cr.replay(fn.program, state, buf)
+    assert dict(cuda.launches) == {"replay": 1}
+    _assert_replay_equal(got, cr.replay_fn_plain(fn.program, state, buf))
+    assert got[2].nonzero().flatten().tolist() == [33]
     y, z, es, e, seeds, bad_identity, bad_zero = fn(state, buf)
     assert format(int_from_limbs(y[0].cpu().numpy()), "064x") == cell["y"]
-    assert [format(int_from_limbs(v), "064x") for v in es[5].cpu().numpy()] == cell["round_es"]
-    assert format(int_from_limbs(e[39].cpu().numpy()), "064x") == cell["e"]
+    assert format(int_from_limbs(z[0].cpu().numpy()), "064x") == cell["z"]
+    assert [format(int_from_limbs(v), "064x") for v in es[0].cpu().numpy()] == cell["round_es"]
+    assert format(int_from_limbs(e[0].cpu().numpy()), "064x") == cell["e"]
     assert not bool(bad_zero.any()) and bool(bad_identity[33]) and seeds.shape == (40, 32)
+
+
+@pytest.mark.parametrize("warps", [3, 8])
+def test_replay_ragged_last_block(card, warps):
+    """Blocks of several warps over 37 proofs: the last block's spare warps
+    neither write nor hold the others back; every lane equals the plain
+    version."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
+
+    cell = next(c for c in _golden_cells() if c["seed"] == 6)
+    fn, state, buf, _ = _golden_replay(cell, 37, card)
+    _random_lanes(state, buf, warps)
+    cuda.reset_launches()
+    got = cr.replay_cuda(fn.program, state, buf, warps=warps)
+    assert cuda.launches["replay"] == 1
+    _assert_replay_equal(got, cr.replay_fn_plain(fn.program, state, buf))
+
+
+def _wide_edges(seed):
+    """64-byte values at the reduction's edges, then random ones -> (ints, (n, 64) uint8)."""
+    L = hr.L
+    rs = np.random.RandomState(seed)
+    vals = [0, 1, L - 1, L, L + 1, 2**252, 2**256 - 1, 2**512 - 1, L * ((2**512 - 1) // L)]
+    vals += [L * (2**259 + k) for k in (-3, -1, 0, 1, 5)]
+    vals += [int.from_bytes(rs.bytes(64), "little") for _ in range(50)]
+    return vals, np.frombuffer(b"".join(v.to_bytes(64, "little") for v in vals), dtype=np.uint8).reshape(-1, 64)
+
+
+def test_reduce_wide_probe_edges(card):
+    """R1's epilogue alone on edge values near 0, l, 2^256, multiples of l and
+    2^512: exact against Python integers; zero exactly on the multiples of l."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
+
+    vals, arr = _wide_edges(11)
+    limbs, zero = cr.reduce_wide_probe(torch.as_tensor(arr.copy(), device=card))
+    assert [int_from_limbs(r) for r in limbs.cpu().numpy()] == [v % hr.L for v in vals]
+    assert zero.cpu().tolist() == [v % hr.L == 0 for v in vals]
+
+
+def test_replay_fn_is_one_launch(card):
+    """replay_fn on CUDA tensors is one R1 launch and no other device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cell = next(c for c in _golden_cells() if c["seed"] == 3)
+    fn, state, buf, _ = _golden_replay(cell, 256, card)
+    fn(state, buf)  # the program's upload
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(state, buf)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if "CUDA" in str(getattr(e, "device_type", ""))]
+    assert dict(cuda.launches) == {"replay": 1}
+    assert len(kernels) == 1 and "replay_kernel" in kernels[0], kernels
+
+
+def test_perm_probe_matches_plain(card):
+    """The warp's permutation chain against utils/jkeccak.py."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
+    from bulletproofs_plus_tpu_torch.utils import jkeccak
+
+    rs = np.random.RandomState(9)
+    st = torch.as_tensor(rs.randint(0, 256, size=(1, 200), dtype=np.uint8), device=card)
+    want = st
+    for _ in range(3):
+        want = jkeccak.state_to_bytes(jkeccak.keccak_f1600(jkeccak.bytes_to_state(want)))
+    got = cr.perm_latency_probe(st.view(torch.int64).reshape(25), 3)
+    assert torch.equal(got.view(torch.uint8).reshape(1, 200), want)
 
 
 def test_keccak_probe_matches_plain(card):

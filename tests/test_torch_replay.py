@@ -1,13 +1,15 @@
 """The port's device Fiat-Shamir replay on the CPU: the torch sponge
-(`utils/jkeccak.py`, `utils/jstrobe.py`), the replay kernel's compiled byte
-program (`ops/cuda_replay.py`, run by its numpy model of csrc/replay.cu)
-and `models/replay_device.replay_fn` (its plain version on CPU tensors).
+(`utils/jkeccak.py`, `utils/jstrobe.py`), the replay kernel's compiled span
+program (`ops/cuda_replay.py`, run by its numpy model of csrc/replay.cu:
+the spans on 64-bit words, the warp's permutation lane by lane, the
+epilogue's reduction mod l through ops/scalar_model.py) and
+`models/replay_device.replay_fn` (its plain version on CPU tensors).
 
 Held byte for byte against the port's host sponge and transcript, the host
-replay `RangeProof._replay_challenges`, the golden vectors, and once (the
-smallest shape, one XLA compile) the JAX package's `replay_fn`.  Inputs come
-from seeds through numpy.  The kernel itself runs only on a card
-(tests/test_torch_cuda.py).
+replay `RangeProof._replay_challenges`, the golden vectors, Python integers
+and the JAX package's `reduce_wide_l`, and once (the smallest shape, one XLA
+compile) the JAX package's `replay_fn`.  Inputs come from seeds through
+numpy.  The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
 
 import json
@@ -19,12 +21,16 @@ import torch
 
 import bulletproofs_plus_tpu as jbp
 import bulletproofs_plus_tpu_torch as tbp
+from bulletproofs_plus_tpu.ops import field as JF
 from bulletproofs_plus_tpu_torch.models.replay_device import pack_replay_inputs, replay_fn, row_layout
 from bulletproofs_plus_tpu_torch.ops import cuda_replay as cr
+from bulletproofs_plus_tpu_torch.ops import field as F
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
-from bulletproofs_plus_tpu_torch.ops.limbs import unpack_ints
+from bulletproofs_plus_tpu_torch.ops import scalar_model as SM
+from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs, unpack_ints
 from bulletproofs_plus_tpu_torch.utils import jkeccak
 from bulletproofs_plus_tpu_torch.utils.jstrobe import JTranscript
+from bulletproofs_plus_tpu_torch.utils.strobe import STROBE_R
 from bulletproofs_plus_tpu_torch.utils.keccak import bytes_as_states, keccak_f1600, states_as_bytes
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "golden_vectors.json")
@@ -122,9 +128,11 @@ def test_replay_fn_matches_host_replay_and_golden(cell):
         cell["y"], cell["e"])
     assert es.shape == (2, rounds, 16) and not bad_identity.any() and not bad_zero.any()
 
-    out_plain, bad_plain = cr.replay_plain(fn.program, state, buf)
-    out_model, bad_model = cr.replay_model(fn.program, state.numpy(), buf.numpy())
-    assert np.array_equal(out_model, out_plain.numpy()) and np.array_equal(bad_model, bad_plain.numpy())
+    out_plain, _ = cr.replay_plain(fn.program, state, buf)
+    model = cr.replay_model(fn.program, state.numpy(), buf.numpy())
+    for got, want in zip(model, cr.replay_fn_plain(fn.program, state, buf)):
+        assert np.array_equal(got, want.numpy())
+    assert np.array_equal(model[1], seeds.numpy())
     assert out_plain.shape == (2, 64 * (rounds + 3) + 32)
     assert fn.program.n_permutations >= 10
 
@@ -140,7 +148,7 @@ def test_replay_flags_an_identity_point_on_its_lane_only(member):
     buf[1, lo : lo + 32] = 0
     *_, bad_identity, _ = fn(state, buf)
     assert bad_identity.tolist() == [False, True, False]
-    _, bad_model = cr.replay_model(fn.program, state.numpy(), buf.numpy())
+    _, _, bad_model, _ = cr.replay_model(fn.program, state.numpy(), buf.numpy())
     assert bad_model.tolist() == [False, True, False]
 
 
@@ -185,3 +193,114 @@ def test_replay_fn_matches_jax_replay_fn():
     assert np.array_equal(buf.numpy(), np.asarray(jax_pack(jst, proofs)))
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w).astype(g.numpy().dtype))
+
+
+CELL_IDS = [f"b{c['bits']}m{len(c['values'])}d{c['extension_degree']}" for c in CELLS]
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=CELL_IDS)
+def test_span_model_matches_plain_replay_fn(cell):
+    """At every golden shape, the kernel's model of the span program and its
+    epilogue equals the plain replay_fn (the sequence, then reduce_wide_l and
+    is_zero_l) on limbs, seeds and both flags: the golden proof on lane 0,
+    random state and row bytes on lanes 1-3, an identity A on lane 1 and an
+    identity first L on lane 3."""
+    params, statements, proofs = _golden_batch(cell, batch=4)
+    fn, state, buf = _replay(params, statements, proofs)
+    rs = np.random.default_rng(cell["seed"])
+    state[1:] = torch.as_tensor(rs.integers(0, 256, size=tuple(state[1:].shape), dtype=np.uint8))
+    buf[1:] = torch.as_tensor(rs.integers(0, 256, size=tuple(buf[1:].shape), dtype=np.uint8))
+    offsets, _ = row_layout(len(statements[0].commitments), len(proofs[0].li), len(proofs[0].d1))
+    for lane, member in ((1, "a"), (3, "li")):
+        buf[lane, offsets[member][0] : offsets[member][0] + 32] = 0
+    want = cr.replay_fn_plain(fn.program, state, buf)
+    got = cr.replay_model(fn.program, state.numpy(), buf.numpy())
+    for name, g, w in zip(("scalars", "seeds", "bad_identity", "bad_zero"), got, want):
+        assert g.dtype == w.numpy().dtype and np.array_equal(g, w.numpy()), name
+    assert want[2].tolist() == [False, True, False, True] and not want[3].any()
+    assert got[0].shape == (4, len(proofs[0].li) + 3, 16)
+
+
+def _wide_batch():
+    """One numpy-seeded batch of 512-bit values at the reduction's edges, then random ones."""
+    L = SM.L
+    rs = np.random.default_rng(29)
+    vals = [0, 1, L - 1, L, L + 1, 2**252, 2**256 - 1, 2**512 - 1, L * ((2**512 - 1) // L)]
+    vals += [L * (2**259 + k) for k in (-2, -1, 0, 1, 3)]
+    vals += [int.from_bytes(rs.bytes(64), "little") for _ in range(24)]
+    vals += [int.from_bytes(rs.bytes(64), "little") >> int(rs.integers(1, 500)) for _ in range(8)]
+    return vals
+
+
+def test_reduce_wide_model_matches_integers_and_reduce_wide_l():
+    """R1's epilogue, word for word (ops/scalar_model.py, every carry and
+    bound checked), against int % l, the port's F.reduce_wide_l and the JAX
+    package's: equal on every value; zero exactly on the multiples of l."""
+    vals = _wide_batch()
+    model = [SM.from_words(SM.reduce_wide(SM.to_words(v, 16))) for v in vals]
+    assert model == [v % SM.L for v in vals]
+    arr = np.frombuffer(b"".join(v.to_bytes(64, "little") for v in vals), dtype=np.uint8).reshape(-1, 64)
+    limbs = (arr[:, 0::2].astype(np.int64) | (arr[:, 1::2].astype(np.int64) << 8))
+    port = F.reduce_wide_l(torch.as_tensor(limbs))
+    jax_out = np.asarray(JF.reduce_wide_l(limbs.astype(np.uint32)))
+    assert [int_from_limbs(r) for r in port.numpy()] == model
+    assert [int_from_limbs(r) for r in jax_out] == model
+    # the conditional subtraction is taken on some inputs and not on others
+    assert 0 < sum((v - (v >> 224) * SM.MU // 2**288 * SM.L) >= SM.L for v in vals) < len(vals)
+    zero = [not any(SM.reduce_wide(SM.to_words(v, 16))) for v in vals]
+    assert zero == [v % SM.L == 0 for v in vals] == F.is_zero_l(port).tolist()
+    assert sum(zero) == 8  # 0, l, the largest multiple below 2^512 and k l for five k near 2^259
+
+
+def test_scalar_header_constants_match_model():
+    """csrc/scalar_l.cuh's mu and l words are the model's floor(2^512 / l) and l."""
+    import re
+
+    path = os.path.join(os.path.dirname(cr.__file__), "..", "csrc", "scalar_l.cuh")
+    with open(path) as f:
+        text = f.read()
+
+    def words(name):
+        body = re.search(r"const u32 " + name + r"\[SC_N\] = \{([^}]*)\}", text).group(1)
+        return [int(w.strip().rstrip("u"), 0) for w in body.split(",")]
+
+    assert words("mu") == SM.MU_WORDS and words("l") == SM.L_WORDS
+
+
+def test_keccak_warp_lane_schedule_matches_host():
+    """The warp's permutation as the model runs it (shuffles as lane tables,
+    rho as swap and funnel shifts, lanes 25-31 along) against the host
+    permutation, over two chained permutations."""
+    a = np.random.default_rng(31).integers(0, 2**63, size=(5, 32), dtype=np.uint64) * np.uint64(2)
+    want = a[:, :25].copy()
+    for _ in range(2):
+        a = cr.keccak_warp(a)
+        want = keccak_f1600(want)
+    assert np.array_equal(a[:, :25], want)
+
+
+def test_span_program_spans_and_pool():
+    """No span crosses a permutation: each lies below the rate (the constant
+    block-end byte at STROBE_R + 1 aside) and the first after a permutation
+    starts at 0.  The pool holds every constant byte, zeroes included: the
+    finalize_null key is one 32-byte SET_CONST span of zeroes."""
+    params, statements, proofs = _golden_batch(CELLS[2])
+    fn, _, _ = _replay(params, statements, proofs)
+    p = fn.program
+    after_permute = False
+    for kind, pos, length, arg in p.ops.tolist():
+        if kind == cr.PERMUTE:
+            after_permute = True
+            continue
+        if kind == cr.CHECK_ZERO:
+            continue
+        assert length > 0 and pos + length <= (STROBE_R + 2 if kind == cr.XOR_CONST else STROBE_R)
+        if after_permute:
+            assert pos == 0
+            after_permute = False
+    const = p.ops[np.isin(p.ops[:, 0], (cr.XOR_CONST, cr.SET_CONST))]
+    assert int(const[:, 2].sum()) == len(p.pool)
+    sets = p.ops[p.ops[:, 0] == cr.SET_CONST].tolist()
+    assert len(sets) == 1 and sets[0][2] == 32 and p.pool[sets[0][3] : sets[0][3] + 32] == bytes(32)
+    assert p.pool.count(0) > 32
+    assert p.n_spans + p.n_permutations == len(p.ops) and p.n_challenges == len(proofs[0].li) + 3
