@@ -16,6 +16,9 @@ covers the device engine's two main paths:
     every MSM a fixed-base table MSM through the CUDA kernels K5 and K6,
     and `prove_with_rng`, the sequential host prover it is held against
   * canonical proof serialization
+  * several cards: `mesh=` (a 1-D torch.distributed DeviceMesh, one process
+    a card) shards batch verification and batched proving over the mesh's
+    ranks; `parallel/` holds the sharded MSM and the multi-host seams
 
 Entry points run on `device="cuda"` unless the caller passes
 `device="cpu"`, which runs the kernels' plain torch versions.

@@ -29,6 +29,13 @@ folds and the A commitment's masked sums are plain torch.
 Bit-exactness contract: proofs and the callers' final transcript states are
 byte-identical to sequential `RangeProof.prove_with_rng` calls fed the same
 per-lane RNG streams (tests/test_torch_prover.py).
+
+**Sharding.**  With a 1-D mesh every rank checks every lane's arguments,
+proves its contiguous run of lanes (`host_shard`) on its own device, and
+one gather hands every rank all B proofs and final transcript states.  The
+lanes are independent, so that is the whole collective work; the one tie is
+the external RNG, which the unsharded batch draws for all B lanes at once
+(`_RunRng`).
 """
 
 from __future__ import annotations
@@ -69,12 +76,25 @@ def _point_bytes(comp: torch.Tensor) -> np.ndarray:
     return bytes_from_limbs(comp.cpu().numpy())
 
 
+class _RunRng:
+    """The external RNG as the unsharded batch draws it: every call draws
+    the rows of all `batch` lanes, in order, and hands back those of this
+    rank's run of lanes, so each lane's stream is the unsharded one's."""
+
+    def __init__(self, rng, batch: int, run: slice):
+        self.rng, self.batch, self.run = rng, batch, run
+
+    def fill_bytes(self, batch: int, n: int) -> np.ndarray:
+        return self.rng.fill_bytes(self.batch, n)[self.run]
+
+
 def prove_batch_with_rng(
     transcripts: List[Transcript],
     statements: Sequence[RangeStatement],
     witnesses: Sequence[RangeWitness],
     rng,
     device="cuda",
+    mesh=None,
 ) -> list:
     """Prove B same-shape statements in lockstep on `device`.
 
@@ -83,7 +103,10 @@ def prove_batch_with_rng(
     must be at identical sponge positions (fresh transcripts with the same
     label qualify).  Proof bytes AND final transcript states are identical
     to sequential `RangeProof.prove_with_rng` calls with the same per-lane
-    RNG streams.  device="cpu" runs the kernels' plain torch versions.
+    RNG streams.  device="cpu" runs the kernels' plain torch versions.  A
+    1-D `mesh` shards the lanes over its ranks, each on its own device of
+    the mesh; B must divide by the mesh's size, and every rank returns all
+    B proofs and advances all B transcripts.
     """
     from .range_proof import RangeProof
 
@@ -94,8 +117,6 @@ def prove_batch_with_rng(
     bit_length = gens.bit_length()
     m = len(statements[0].commitments)
     deg = int(gens.extension_degree())
-    mn = m * bit_length
-    rounds = mn.bit_length() - 1
     seeded = statements[0].seed_nonce is not None
     for statement, witness in zip(statements, witnesses):
         if statement.generators is not gens and (
@@ -121,6 +142,65 @@ def prove_batch_with_rng(
         for minimum_value, opening in zip(statement.minimum_value_promises, witness.openings):
             if minimum_value is not None and minimum_value > opening.v:
                 raise InvalidArgument("Minimum value is larger than value")
+
+    if mesh is None:
+        lanes, positions = _prove_lanes(transcripts, statements, witnesses, rng, device)
+    else:
+        from ..parallel.collectives import gather_rows, mesh_device
+        from ..parallel.multihost import host_shard
+
+        device = mesh_device(mesh, device)
+        if B % mesh.size() != 0:
+            raise InvalidArgument("Batch prove mesh needs B divisible by mesh size")
+        run = host_shard(B, mesh)
+        own, positions = _prove_lanes(transcripts[run], statements[run], witnesses[run], _RunRng(rng, B, run), device)
+        # one gather of every rank's lanes, each lane's outputs as one int64 row
+        widths = [a[0].size for a in own.values()]
+        rows = np.concatenate([a.reshape(len(a), -1).astype(np.int64) for a in own.values()], axis=1)
+        every = gather_rows(_on(rows, device), mesh.get_group()).reshape(B, -1).cpu().numpy()
+        lanes = {
+            k: part.reshape((B,) + a.shape[1:]).astype(a.dtype)
+            for (k, a), part in zip(own.items(), np.split(every, np.cumsum(widths)[:-1], axis=1))
+        }
+
+    proofs = [
+        RangeProof(
+            a=lanes["a"][lane].tobytes(),
+            a1=lanes["a1_b"][lane, 0].tobytes(),
+            b=lanes["a1_b"][lane, 1].tobytes(),
+            r1=int_from_limbs(lanes["r1"][lane]),
+            s1=int_from_limbs(lanes["s1"][lane]),
+            d1=[int_from_limbs(lanes["d1"][lane, k]) for k in range(deg)],
+            li=[lb.tobytes() for lb in lanes["li"][lane]],
+            ri=[rb.tobytes() for rb in lanes["ri"][lane]],
+            extension_degree=ExtensionDegree.from_int(deg),
+        )
+        for lane in range(B)
+    ]
+
+    # Write the finished transcript state back into the callers' transcripts:
+    # the sequential prover mutates its transcript in place.
+    for lane, transcript in enumerate(transcripts):
+        st = transcript.strobe
+        st.state = lanes["state"][lane : lane + 1].copy()
+        st.pos, st.pos_begin, st.cur_flags = positions
+    return proofs
+
+
+def _prove_lanes(transcripts, statements, witnesses, rng, device):
+    """The batched prover proper, on lanes whose arguments are checked.
+    Returns ({name: (B, ...) numpy array}, the final sponge positions):
+    the compressed points "a" (B, 32), "li" and "ri" (B, rounds, 32) and
+    "a1_b" (B, 2, 32); the scalars' limbs "r1", "s1" (B, 16) and "d1"
+    (B, deg, 16); "state", the final transcript states (B, 200)."""
+    B = len(statements)
+    gens = statements[0].generators
+    bit_length = gens.bit_length()
+    m = len(statements[0].commitments)
+    deg = int(gens.extension_degree())
+    mn = m * bit_length
+    rounds = mn.bit_length() - 1
+    seeded = statements[0].seed_nonce is not None
 
     # The batched transcript, keyed with each lane's witness bytes
     # (v LE64 then each blinding, per opening: transcripts.rs:91-109).
@@ -338,28 +418,15 @@ def prove_batch_with_rng(
     r1 = F.add_l(r_s, F.mul_l(a0, e_f))
     s1 = F.add_l(s_s, F.mul_l(b0, e_f))
     d1 = F.add_l(eta, F.add_l(F.mul_l(d_mask, e_f[:, None]), F.mul_l(alpha, e_f_sq[:, None])))
-    r1_np, s1_np, d1_np = (t.cpu().numpy() for t in (r1, s1, d1))
-
-    proofs = [
-        RangeProof(
-            a=a_bytes[lane].tobytes(),
-            a1=final_bytes[lane, 0].tobytes(),
-            b=final_bytes[lane, 1].tobytes(),
-            r1=int_from_limbs(r1_np[lane]),
-            s1=int_from_limbs(s1_np[lane]),
-            d1=[int_from_limbs(d1_np[lane, k]) for k in range(deg)],
-            li=[lb[lane].tobytes() for lb in li_bytes],
-            ri=[rb[lane].tobytes() for rb in ri_bytes],
-            extension_degree=ExtensionDegree.from_int(deg),
-        )
-        for lane in range(B)
-    ]
-
-    # Write the finished transcript state back into the callers' transcripts:
-    # the sequential prover mutates its transcript in place.
     final = stacked.strobe
-    for lane, transcript in enumerate(transcripts):
-        st = transcript.strobe
-        st.state = final.state[lane : lane + 1].copy()
-        st.pos, st.pos_begin, st.cur_flags = final.pos, final.pos_begin, final.cur_flags
-    return proofs
+    lanes = {
+        "a": a_bytes,
+        "li": np.array(li_bytes, dtype=np.uint8).reshape(rounds, B, 32).transpose(1, 0, 2),
+        "ri": np.array(ri_bytes, dtype=np.uint8).reshape(rounds, B, 32).transpose(1, 0, 2),
+        "a1_b": final_bytes,
+        "r1": r1.cpu().numpy(),
+        "s1": s1.cpu().numpy(),
+        "d1": d1.cpu().numpy(),
+        "state": np.asarray(final.state).reshape(B, -1),
+    }
+    return lanes, (final.pos, final.pos_begin, final.cur_flags)

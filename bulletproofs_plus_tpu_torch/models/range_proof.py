@@ -7,8 +7,10 @@ src/range_proof.rs:221-608), the batch verifier's two engines
 engine with its staged dispatch (Fiat-Shamir replay on the device for a
 single-shape batch, host replay and one scalar pass a shape group for the
 rest), the pipelined stream over it, and the proof codec with its pickle
-hooks (range_proof.rs:1112-1309).  Mesh sharding is a later slice of the
-port.
+hooks (range_proof.rs:1112-1309).  With a `mesh=` (a 1-D
+torch.distributed DeviceMesh, parallel/) the device engine and the batched
+prover shard the batch over the mesh's ranks under the JAX package's
+routing.
 
 The `verify_batch` 256-proof cap — including the reference quirk that proofs
 beyond the first chunk are silently ignored (range_proof.rs:740-749) — is
@@ -125,6 +127,16 @@ def _check_batch_lengths(transcripts, statements, proofs) -> None:
         raise InvalidArgument("Range statements and transcripts length mismatch")
 
 
+def _rank_device(mesh, device):
+    """The device a call runs on: `device`, or with a mesh this rank's
+    device of it (a `device` naming another raises)."""
+    if mesh is None:
+        return device
+    from ..parallel.collectives import mesh_device
+
+    return mesh_device(mesh, device)
+
+
 def _static_points(max_statement, max_mn: int, device):
     """The interleaved G_i/H_i generators of the batch's widest statement,
     the MSM's 2 * max_mn static lanes, on `device`."""
@@ -210,15 +222,18 @@ class RangeProof:
         witnesses: Sequence[RangeWitness],
         rng,
         device="cuda",
+        mesh=None,
     ) -> List["RangeProof"]:
         """Prove B same-shape statements in lockstep on `device`: the batched
         prover (models/prover_device.py), whose MSMs are the fixed-base
         kernels on a CUDA device.  Bit-identical to sequential
         `prove_with_rng` calls fed the same per-lane RNG streams.  Pass
-        device="cpu" to run the kernels' plain torch versions instead."""
+        device="cpu" to run the kernels' plain torch versions instead.  A
+        1-D mesh shards the proof-lane axis over its ranks (each proves its
+        run of lanes on its own device; every rank returns all B proofs)."""
         from .prover_device import prove_batch_with_rng as _impl
 
-        return _impl(transcripts, statements, witnesses, rng, device=device)
+        return _impl(transcripts, statements, witnesses, rng, device=device, mesh=mesh)
 
     @staticmethod
     def prove_with_rng(
@@ -517,6 +532,7 @@ class RangeProof:
         msm_backend: Optional[str] = None,
         engine: str = "device",
         device="cuda",
+        mesh=None,
     ) -> List[Optional[ExtendedMask]]:
         """Verify a batch of proofs with one folded MSM.
 
@@ -534,6 +550,14 @@ class RangeProof:
         two engines word a non-canonical L or R point differently, as the
         JAX package's do.
 
+        A 1-D `torch.distributed` DeviceMesh (parallel/) with
+        engine="device" runs the batch on every rank of the mesh, each on
+        its own device: the replay stays on the host, and a single-shape
+        batch whose size divides by the mesh's is sharded over the ranks
+        (parallel/verify.py); any other runs whole on every rank.  Every
+        rank returns the same result or raises the same error.
+        engine="host" ignores the mesh, as the JAX package's does.
+
         Parity quirk (range_proof.rs:740-749): only the FIRST chunk of
         MAX_RANGE_PROOF_BATCH_SIZE=256 proofs is processed; any proofs beyond
         256 are silently ignored and contribute no masks.
@@ -546,7 +570,7 @@ class RangeProof:
             action,
         )
         if engine == "device":
-            return RangeProof._verify_device(*batch, device)
+            return RangeProof._verify_device(*batch, _rank_device(mesh, device), mesh)
         if engine == "host":
             return RangeProof._verify(*batch, msm_backend, device)
         raise ValueError(f"unknown engine {engine!r}: expected 'host' or 'device'")
@@ -556,6 +580,7 @@ class RangeProof:
         batches: Sequence[Tuple[List[Transcript], Sequence["RangeStatement"], Sequence["RangeProof"]]],
         action: VerifyAction,
         device="cuda",
+        mesh=None,
     ) -> List[List[Optional[ExtendedMask]]]:
         """Verify a stream of proof batches on the device engine, with host
         and device work overlapped: while the card runs batch k's kernels
@@ -575,9 +600,15 @@ class RangeProof:
         later batch's failure surfaces first, and nothing new is dispatched
         once any failure is known; batches already in flight are abandoned.
         An extension of the reference, whose API is synchronous per batch.
+
+        With a `mesh`, each batch routes as in `verify_batch`.  Its
+        collectives run inside its dispatch, and every rank dispatches the
+        same batches and reaches the same verdicts, so every rank stops at
+        the same batch.
         """
         from ..errors import ProofError
 
+        device = _rank_device(mesh, device)
         lookahead = _pipeline_lookahead()
         b_q: List = []  # (idx, _FetchStage) pending seed fetch
         c_q: List = []  # (idx, _FetchStage) pending verdict fetch
@@ -619,6 +650,7 @@ class RangeProof:
                     proofs[:MAX_RANGE_PROOF_BATCH_SIZE],
                     action,
                     device,
+                    mesh,
                 )
             except ProofError as exc:
                 errors[n] = exc
@@ -644,9 +676,10 @@ class RangeProof:
         proofs: Sequence["RangeProof"],
         action: VerifyAction,
         device="cuda",
+        mesh=None,
     ) -> List[Optional[ExtendedMask]]:
         """The device engine: dispatch, then run its stages until done."""
-        step = RangeProof._verify_device_dispatch(transcripts, statements, proofs, action, device)
+        step = RangeProof._verify_device_dispatch(transcripts, statements, proofs, action, device, mesh)
         while isinstance(step, _FetchStage):
             step = step.run()
         return step
@@ -658,11 +691,15 @@ class RangeProof:
         proofs: Sequence["RangeProof"],
         action: VerifyAction,
         device="cuda",
+        mesh=None,
     ):
         """Run the host half (replay, weights, packing) and launch the device
         work without waiting for it; returns the masks where nothing is left
         for the device, else a `_FetchStage` -- the seam that
-        `verify_batches_pipelined` interleaves."""
+        `verify_batches_pipelined` interleaves.  `device` is this rank's
+        device of `mesh` where there is one.  Every rank replays, weighs and
+        checks the whole batch on the host, so an error found there is found
+        by every rank before the first collective."""
         from .verifier_kernels import DeviceVerifier, combine_groups_msm, group_contrib, verify_group_full
 
         max_mn, max_index = RangeProof._verify_consistency(statements, proofs)
@@ -675,15 +712,16 @@ class RangeProof:
         for idx, (statement, proof) in enumerate(zip(statements, proofs)):
             groups.setdefault((len(statement.commitments), len(proof.li)), []).append(idx)
 
-        # Fastest path, under the JAX package's condition: one shape group and
-        # well-formed round counts -- the replay runs on the device and only
-        # the weight draws stay on the host.  Malformed round counts take the
-        # host replay, which keeps the reference's error precedence.
+        # Fastest path, under the JAX package's condition: one shape group,
+        # well-formed round counts and no mesh -- the replay runs on the
+        # device and only the weight draws stay on the host.  Malformed round
+        # counts take the host replay, which keeps the reference's error
+        # precedence.
         well_formed = all(
             len(p.li) == len(p.ri) and len(p.li) < 64 and (1 << len(p.li)) == len(s.commitments) * bit_length
             for s, p in zip(statements, proofs)
         )
-        if len(groups) == 1 and well_formed:
+        if len(groups) == 1 and mesh is None and well_formed:
             try:
                 stacked = Transcript.stack(transcripts)
             except ValueError:
@@ -715,10 +753,22 @@ class RangeProof:
 
         if len(groups) == 1:
             ((m, rounds),) = groups.keys()
-            packed = DeviceVerifier.pack(statements, proofs, batch_challenges, weights, device)
-            ok, valid = verify_group_full(
-                *packed, static_points, g_base_pts, h_base_pt, m=m, bit_length=bit_length, max_mn=max_mn,
-            )
+            if mesh is not None and len(proofs) % mesh.size() == 0:
+                # each rank packs only its shard (a non-empty batch that
+                # divides by the mesh's size has at least one proof a rank)
+                from ..parallel.verify import shard_packed, sharded_verifier
+
+                packed = DeviceVerifier.pack(
+                    *shard_packed((statements, proofs, batch_challenges, weights), mesh), device
+                )
+                ok, valid = sharded_verifier(mesh, m=m, bit_length=bit_length, max_mn=max_mn)(
+                    *packed, static_points, g_base_pts, h_base_pt
+                )
+            else:
+                packed = DeviceVerifier.pack(statements, proofs, batch_challenges, weights, device)
+                ok, valid = verify_group_full(
+                    *packed, static_points, g_base_pts, h_base_pt, m=m, bit_length=bit_length, max_mn=max_mn,
+                )
 
             def finish_group(vals, m=m, rounds=rounds, masks=masks):
                 ok_np, valid_np = vals

@@ -287,15 +287,17 @@ def group_contrib(
     return gi, hi, gb, hb, dyn, points, valid
 
 
-def combine_groups_msm(
+def combine_groups_point(
     gis, his, gbs, hbs, dyn_scalar_parts, dyn_point_parts,
     static_points, g_base_pts, h_base_pt,
 ):
-    """The closing step of a verification: sum the groups' static scalar
-    accumulators, concatenate their dynamic halves, and run the one folded
-    mixed MSM against the identity (range_proof.rs:1050-1062)."""
+    """Sum the groups' static scalar accumulators, concatenate their dynamic
+    halves, and run the one folded mixed MSM (range_proof.rs:1050-1062):
+    its point, which a valid batch makes the identity.  A rank of the
+    sharded verify (parallel/verify.py) folds the static lanes in this way."""
     from functools import reduce
 
+    from ..ops.fixed_base import mixed_msm
     from ..ops.msm import pad_msm_inputs
 
     gi = reduce(F.add_l, gis)
@@ -306,7 +308,18 @@ def combine_groups_msm(
     dyn_scalars = torch.cat(list(dyn_scalar_parts) + [gb, hb[None]])
     dyn_points = cat(list(dyn_point_parts) + [g_base_pts, h_base_pt])
     dyn_scalars, dyn_points = pad_msm_inputs(dyn_scalars, dyn_points)
-    return mixed_msm_is_identity(static_scalars, static_points, dyn_scalars, dyn_points)
+    return mixed_msm(static_scalars, static_points, dyn_scalars, dyn_points)
+
+
+def combine_groups_msm(
+    gis, his, gbs, hbs, dyn_scalar_parts, dyn_point_parts,
+    static_points, g_base_pts, h_base_pt,
+):
+    """The closing step of a verification: `combine_groups_point` against
+    the identity."""
+    return rist.is_identity(combine_groups_point(
+        gis, his, gbs, hbs, dyn_scalar_parts, dyn_point_parts, static_points, g_base_pts, h_base_pt,
+    ))
 
 
 def final_msm_is_identity(scalars: torch.Tensor, points) -> torch.Tensor:

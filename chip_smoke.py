@@ -16,7 +16,14 @@ against `engine="host"`) and a stream of nine batches through
 `verify_batches_pipelined` (`pipelined`, against per-batch calls), proves
 128 x 64-bit statements with `RangeProof.prove_batch_with_rng` and verifies
 what it proved, with launch counters proving the kernels ran, and checks
-that tampered and non-canonical batches fail with the reference's errors.  Each phase prints
+that tampered and non-canonical batches fail with the reference's errors.
+Last, `sharded` runs parallel/ on the card: two gloo ranks sharing card 0
+(NCCL refuses two ranks on one card), then NCCL (one rank on a one-card
+machine, two ranks on two cards where there are two); each rank verifies
+b64_m1_x256 and proves b64_m1_x128 with `mesh=` against the same calls
+unsharded (verdicts, errors, proof bytes, its own launch counts), runs
+`verify_stream_pod` and `sharded_msm_fn`, and times 5 sharded verifies
+beside 5 unsharded ones and the collectives inside them.  Each phase prints
 one JSON line; then come the card's name and power limit (nvidia-smi), the
 per-kernel table ({"kernels": [...]}: time, bound, plain version's time)
 and, last, {"ok": true, "device": {...}}.  Any failed phase exits non-zero.
@@ -1118,12 +1125,9 @@ def phase_pipelined(torch, bp, hr, cells) -> dict:
             "card": nvidia_smi()}
 
 
-def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
-    """128 x 64-bit proofs through `prove_batch_with_rng` on the card, lane 0
-    being golden cell 3, then verified on the card by the port itself."""
-    from bulletproofs_plus_tpu_torch.native import cuda
-
-    cell = next(c for c in cells if c["seed"] == 3)
+def _prove_inputs(bp, hr, params, cell):
+    """PROVE_BATCH 64-bit statements and witnesses whose lane 0 is golden cell
+    3: (statements(seeded), witnesses, blindings)."""
     pc, seed = params.pc_gens, cell["seed"]
     values = [(cell["values"][0] + 7919 * lane) % 2**64 for lane in range(PROVE_BATCH)]
     blindings = [[seed * 1000 + 17 * lane] for lane in range(PROVE_BATCH)]
@@ -1135,6 +1139,18 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     def statements(seeded: bool):
         return [bp.RangeStatement.init(params, [c], [None], (cell["seed_nonce"] + lane) if seeded else None)
                 for lane, c in enumerate(commitments)]
+
+    return statements, witnesses, blindings
+
+
+def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
+    """128 x 64-bit proofs through `prove_batch_with_rng` on the card, lane 0
+    being golden cell 3, then verified on the card by the port itself."""
+    from bulletproofs_plus_tpu_torch.native import cuda
+
+    cell = next(c for c in cells if c["seed"] == 3)
+    pc, seed = params.pc_gens, cell["seed"]
+    statements, witnesses, blindings = _prove_inputs(bp, hr, params, cell)
 
     def transcripts():
         return [bp.Transcript(b"golden") for _ in range(PROVE_BATCH)]
@@ -1179,6 +1195,181 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
         samples.append(time.perf_counter() - t0)
     wall = statistics.median(samples)
     out.update(median_s=wall, samples_s=samples, proofs_per_s=PROVE_BATCH / wall, ms_per_proof=wall * 1e3 / PROVE_BATCH)
+    return out
+
+
+# K7, K2, K3 and K4 on each rank's share of a sharded verify (R1 does not run: a mesh replays on the host);
+# K5, K6 and K4 on its share of a sharded prove
+SHARDED_VERIFY_KERNELS = ("dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
+SHARDED_MSM_LANES = 64
+COLLECTIVE_TIMEOUT_S = 300
+
+
+def _sharded_rank(rank: int, world: int, backend: str, store: str, out_dir: str) -> None:
+    """One rank of the `sharded` phase: joins the process group (gloo ranks
+    share card 0, NCCL rank r takes card r), builds the "dp" mesh and runs
+    `_sharded_checks`, with every collective timed to its end on the card;
+    writes what it saw to out_dir/rank<r>.json.  Any failed check raises."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from bulletproofs_plus_tpu_torch.parallel import global_dp_mesh
+
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+    collectives = {"calls": 0, "seconds": 0.0}
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kwargs):  # the port's one collective
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        work = all_reduce(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        collectives["calls"] += 1
+        collectives["seconds"] += time.perf_counter() - t0
+        return work
+
+    dist.all_reduce = timed_all_reduce
+    try:
+        out = _sharded_checks(torch, global_dp_mesh("cuda"), collectives)
+    finally:
+        dist.destroy_process_group()
+    out.update(rank=rank, world=world, backend=backend, device=torch.cuda.current_device())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _sharded_checks(torch, mesh, collectives: dict) -> dict:
+    """b64_m1_x256 verified with `mesh=` against the same batch unsharded
+    (verdicts, a tampered batch, a non-canonical A in the last rank's shard),
+    b64_m1_x128 proved with `mesh=` against the same lanes unsharded
+    (proof bytes, final transcript states, golden proof 3 at lane 0),
+    `verify_stream_pod` over two batches, `sharded_msm_fn` on 64 lanes
+    against `host_msm`, and 5 sharded verifies timed beside 5 unsharded
+    ones, with the time in collectives."""
+    import bulletproofs_plus_tpu_torch as bp
+    from bulletproofs_plus_tpu_torch.native import cuda
+    from bulletproofs_plus_tpu_torch.ops import edwards as ed
+    from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
+    from bulletproofs_plus_tpu_torch.ops.limbs import pack_ints
+    from bulletproofs_plus_tpu_torch.ops.msm import host_msm
+    from bulletproofs_plus_tpu_torch.parallel import make_mesh, make_pod_stream, sharded_msm_fn, verify_stream_pod
+
+    with open(GOLDEN) as f:
+        cell = next(c for c in json.load(f) if c["seed"] == 3)
+    statements, proofs = _tiled(bp, hr, cell, 256)
+    out = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        calls = collectives["calls"]
+        result = fn()
+        torch.cuda.synchronize()
+        return result, dict(cuda.launches), collectives["calls"] - calls
+
+    def verify(batch, **kw):
+        return _outcome(bp, lambda: [None if m is None else m.blindings() for m in bp.RangeProof.verify_batch(
+            [bp.Transcript(b"golden") for _ in batch], statements, batch, bp.VerifyAction.VERIFY_ONLY,
+            device="cuda", **kw)])
+
+    want = verify(proofs)
+    got, launches, calls = counted(lambda: verify(proofs, mesh=mesh))
+    if got != want or want != [None] * 256:
+        raise AssertionError(f"sharded verify: {str(got)[:200]} (unsharded: {str(want)[:200]})")
+    if not all(launches.get(k) for k in SHARDED_VERIFY_KERNELS) or launches.get("replay") or not calls:
+        raise AssertionError(f"sharded verify: wrong launches {launches}, {calls} collectives")
+    out["verify"] = {"proofs": 256, "equal_to_unsharded": True, "launches": launches, "collectives": calls}
+
+    tampered = list(proofs)
+    tampered[17] = bp.RangeProof.from_bytes(proofs[17].to_bytes())
+    tampered[17].r1 = (tampered[17].r1 + 1) % hr.L
+    bad = list(proofs)
+    bad[200] = bp.RangeProof.from_bytes(proofs[200].to_bytes())
+    bad[200].a = (hr.P + 1).to_bytes(32, "little")
+    for label, batch, error in (("tampered_r1_17", tampered, "VerificationFailed"),
+                                ("noncanonical_a_200", bad, "InvalidArgument")):
+        got, want = verify(batch, mesh=mesh), verify(batch)
+        if got != want or got[0] != error:
+            raise AssertionError(f"sharded verify, {label}: {got} (unsharded: {want})")
+        out[label] = f"{got[0]}: {got[1]}"
+
+    params = statements[0].generators
+    prove_statements, witnesses, _ = _prove_inputs(bp, hr, params, cell)
+    seeded = prove_statements(True)
+
+    def prove(**kw):
+        transcripts = [bp.Transcript(b"golden") for _ in seeded]
+        lanes = bp.RangeProof.prove_batch_with_rng(transcripts, seeded, witnesses, bp.SeededRng(cell["seed"]),
+                                                   device="cuda", **kw)
+        return [p.to_bytes().hex() for p in lanes], [bytes(t.strobe.state).hex() for t in transcripts]
+
+    want = prove()
+    got, launches, calls = counted(lambda: prove(mesh=mesh))
+    if got != want or got[0][0] != cell["proof"]:
+        raise AssertionError("sharded prove: proofs or transcript states differ from the unsharded prove's")
+    if not all(launches.get(k) for k in ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")) or not calls:
+        raise AssertionError(f"sharded prove: wrong launches {launches}, {calls} collectives")
+    out["prove"] = {"lanes": PROVE_BATCH, "equal_to_unsharded": True, "golden_lane0": "equal", "launches": launches,
+                    "collectives": calls}
+
+    stream = make_pod_stream(statements * 2, proofs * 2, b"golden", batch_size=256)
+    results = verify_stream_pod(stream, bp.VerifyAction.VERIFY_ONLY, mesh)
+    if results != [[None] * 256] * 2:
+        raise AssertionError("verify_stream_pod: a batch did not verify")
+    out["stream_pod"] = {"batches": 2, "proofs": 512}
+
+    rs = random.Random(9)
+    scalars = [rs.randrange(hr.L) for _ in range(SHARDED_MSM_LANES)]
+    points = [hr.point_mul(rs.randrange(1, hr.L), hr.BASEPOINT) for _ in range(SHARDED_MSM_LANES)]
+    t0 = time.perf_counter()
+    point = sharded_msm_fn(make_mesh("cuda"))(torch.as_tensor(pack_ints(scalars).astype("int64"), device="cuda"),
+                                              ed.from_host(points, device="cuda"))
+    torch.cuda.synchronize()
+    msm_s = time.perf_counter() - t0
+    if hr.compress(ed.to_host(point)) != hr.compress(host_msm(scalars, points)):
+        raise AssertionError("sharded_msm_fn differs from host_msm")
+    out["sharded_msm"] = {"lanes": SHARDED_MSM_LANES, "equal_to_host_msm": True, "seconds": msm_s}
+
+    sharded_s, unsharded_s, collective_s = [], [], []
+    for _ in range(5):
+        before = collectives["seconds"]
+        sharded_s.append(median_ms(lambda: verify(proofs, mesh=mesh), 1) / 1e3)
+        collective_s.append(collectives["seconds"] - before)
+        unsharded_s.append(median_ms(lambda: verify(proofs), 1) / 1e3)
+    out["timing"] = {"sharded_median_s": statistics.median(sharded_s), "unsharded_median_s": statistics.median(unsharded_s),
+                     "collectives_median_s": statistics.median(collective_s), "sharded_samples_s": sharded_s,
+                     "unsharded_samples_s": unsharded_s, "collectives_samples_s": collective_s}
+    return out
+
+
+def phase_sharded(torch) -> dict:
+    """parallel/ on the card: two gloo ranks sharing card 0, then NCCL (a
+    world of one on a one-card machine, two ranks on two cards where there
+    are two), each rank running `_sharded_checks`.  A rank that fails raises
+    out of the spawn and fails the phase."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    count = torch.cuda.device_count()
+    runs = [("gloo", 2, "two ranks sharing cuda:0")]
+    runs.append(("nccl", 2, "two ranks on two cards") if count >= 2 else
+                ("nccl", 1, "one rank: NCCL takes a card a rank, and this machine has one"))
+    out = {"card": nvidia_smi(), "device_count": count}
+    for backend, world, what in runs:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            mp.spawn(_sharded_rank, args=(world, backend, os.path.join(tmp, "store"), tmp), nprocs=world, join=True)
+            seconds = time.perf_counter() - t0
+            ranks = []
+            for rank in range(world):
+                with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                    ranks.append(json.load(f))
+        out[f"{backend}_world{world}"] = {"ran": what, "seconds": seconds, "ranks": ranks}
     return out
 
 
@@ -1238,6 +1429,7 @@ def main() -> int:
         ("pipelined", lambda: phase_pipelined(torch, bp, hr, cells)),
         ("prove", lambda: phase_prove(torch, bp, hr, params, cells, launches)),
         ("reject", lambda: phase_reject(bp, hr, cells)),
+        ("sharded", lambda: phase_sharded(torch)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()

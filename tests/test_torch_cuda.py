@@ -529,3 +529,51 @@ def test_device_replay_verify_on_card(card):
                                         [proof] * 4, tbp.VerifyAction.RECOVER_AND_VERIFY, device=card)
     assert cuda.launches["replay"] == 1 and cuda.launches["sqrt_ratio_m1"] == 2
     assert all([format(b, "064x") for b in m.blindings()] == cell["mask"] for m in masks)
+
+
+@pytest.mark.parametrize("backend, world", [("gloo", 2), ("nccl", 1)], ids=["gloo_two_ranks_one_card", "nccl"])
+def test_sharded_prove_and_verify_on_card(card, backend, world):
+    """Ranks of one process group on the card (gloo: two ranks share card 0;
+    NCCL, which takes one card a rank: one rank): each rank's sharded prove
+    equals its unsharded prove byte for byte, its sharded verify the
+    unsharded masks, a tampered batch fails on every rank, and each rank
+    launched the prover's (K5, K6, K4) and the verifier's (K7, K2, K3, K4)
+    kernels itself, with no device replay under a mesh."""
+    import torch_ranks
+
+    cuda.build()  # in the parent, so that the ranks do not compile at once
+    ranks = torch_ranks.Ranks(torch_ranks.card_checks, world, backend, "cuda")
+    try:
+        results = ranks.results()
+    finally:
+        ranks.close()
+    for rank in results:
+        assert rank["prove_equal"] and rank["verify_equal"]
+        assert all(m is not None for m in rank["masks"])
+        assert rank["tampered"] == ["VerificationFailed", "Range proof batch not valid"]
+        prove, verify = rank["prove_launches"], rank["verify_launches"]
+        assert all(prove.get(k) for k in ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")), prove
+        assert all(verify.get(k) for k in ("dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")), verify
+        assert not verify.get("replay"), verify
+
+
+def test_world_of_one_mesh_on_card(card):
+    """Without a process group, `global_dp_mesh()` makes this process a world
+    of one over NCCL: a verify and a prove with `mesh=` equal the unsharded
+    ones on the card."""
+    import torch_ranks
+
+    from bulletproofs_plus_tpu_torch.parallel import global_dp_mesh
+
+    statements, witnesses = torch_ranks.shape(torch_ranks.tbp, "b4_m1")
+    proofs, states = torch_ranks.prove(statements, witnesses, "b4_m1", None, card)
+    mesh = global_dp_mesh()
+    try:
+        assert mesh.size() == 1 and torch.distributed.get_backend() == "nccl"
+        sharded, sharded_states = torch_ranks.prove(statements, witnesses, "b4_m1", mesh, card)
+        assert [p.to_bytes() for p in sharded] == [p.to_bytes() for p in proofs] and sharded_states == states
+        want = torch_ranks.verify(statements, proofs, "RECOVER_AND_VERIFY", device=card)
+        assert torch_ranks.verify(statements, proofs, "RECOVER_AND_VERIFY", device=card, mesh=mesh) == want
+        assert all(m is not None for m in want)
+    finally:
+        torch.distributed.destroy_process_group()

@@ -179,11 +179,17 @@ def _params(fn):
 def test_signatures_follow_jax():
     """verify_batch and prove_with_rng take JAX's parameters in JAX's order;
     the port's verify_batch defaults to engine="device" and takes device=
-    where JAX takes mesh=, and prove_with_rng takes device= after them."""
+    before JAX's last parameter, mesh=, as verify_batches_pipelined and
+    prove_batch_with_rng do, and prove_with_rng takes device= after them."""
     port, jax = _params(tbp.RangeProof.verify_batch), _params(jbp.RangeProof.verify_batch)
-    assert [k for k, _ in port] == [k for k, _ in jax][:-1] + ["device"]
-    assert jax[-1][0] == "mesh" and port[-2][1].default == "device" and jax[-2][1].default == "host"
-    assert [v.default for _, v in port[:-2]] == [v.default for _, v in jax[:-2]]
+    assert [k for k, _ in port] == [k for k, _ in jax][:-1] + ["device", "mesh"]
+    assert jax[-1][0] == "mesh" and port[-1][1].default is None and jax[-1][1].default is None
+    assert port[-3][1].default == "device" and jax[-2][1].default == "host"
+    assert [v.default for _, v in port[:-3]] == [v.default for _, v in jax[:-2]]
+    for name in ("verify_batches_pipelined", "prove_batch_with_rng"):
+        port, jax = _params(getattr(tbp.RangeProof, name)), _params(getattr(jbp.RangeProof, name))
+        assert [(k, v.default) for k, v in port] == [(k, v.default) for k, v in jax[:-1]] + [
+            ("device", "cuda"), ("mesh", None)]
     port, jax = _params(tbp.RangeProof.prove_with_rng), _params(jbp.RangeProof.prove_with_rng)
     assert [(k, v.default) for k, v in port[:-1]] == [(k, v.default) for k, v in jax]
     assert port[-1][0] == "device"
