@@ -8,10 +8,10 @@ covers the device engine's two main paths:
   * verification: the Fiat-Shamir replay on the card for a single-shape
     batch (the hand-written kernel R1) or on the host (numpy STROBE, native
     keccak) for any other, batch weights on the host, then the scalar pass
-    (one a shape group), ristretto decompression and the final MSM as torch
-    tensors, with the pow chain (K4) and the MSM (K7 or K1, K2, K3) as
-    hand-written CUDA kernels (csrc/); `verify_batches_pipelined` streams
-    batches over it
+    (one a shape group, the hand-written kernel S1), ristretto decompression
+    and the final MSM as torch tensors, with the pow chain (K4) and the MSM
+    (K7 or K1, K2, K3) as hand-written CUDA kernels (csrc/);
+    `verify_batches_pipelined` streams batches over it
   * proving: `RangeProof.prove_batch_with_rng`, B proofs in lockstep with
     every MSM a fixed-base table MSM through the CUDA kernels K5 and K6,
     and `prove_with_rng`, the sequential host prover it is held against

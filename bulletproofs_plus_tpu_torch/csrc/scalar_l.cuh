@@ -1,6 +1,8 @@
-// The reduction of a 512-bit value mod l, the order of ristretto255's group,
-// on 32-bit words: what Scalar::from_bytes_mod_order_wide computes, and what
-// R1 (replay.cu) does to each 64-byte Fiat-Shamir challenge.
+// GF(l), l the order of ristretto255's group, on 32-bit words: the
+// reduction of a 512-bit value mod l (what Scalar::from_bytes_mod_order_wide
+// computes, and what R1, replay.cu, does to each 64-byte Fiat-Shamir
+// challenge), and on it the field arithmetic of S1 (scalar_pass.cu): a
+// product, a square, a sum, a difference and an inverse of 8-word values.
 //
 // Counterpart of the JAX package's `_wide_to_scalar` (models/replay_device.py,
 // F.reduce_wide_l: Barrett on radix-2^16 limbs).  Here it is Barrett's
@@ -18,9 +20,18 @@
 // eleven a proof side by side on a warp's lanes, so its latency of some 250
 // dependent instructions sits once at R1's end.
 //
+// The field operations keep ops/field.py's contract: `sc_mul_l` and
+// `sc_sqr_l` take any values below 2^256 (their product is below 2^512, the
+// reduction's whole range; below 2^506 for canonical inputs) and return the
+// canonical residue; `sc_add_l` is a + b less l where that does not borrow,
+// `sc_sub_l` is a - b plus l mod 2^256 where a - b borrows, as field.py's
+// `add_l` and `sub_l`, so canonical inputs give the canonical result;
+// `sc_inv_l` is Fermat's x^(l - 2), with inv(0) = 0 as `F.inv_l` has it.
+//
 // ops/scalar_model.py repeats this file word for word in Python, with every
-// bound it relies on asserted; tests/test_torch_replay.py holds the model
-// against Python integers and the torch and JAX `reduce_wide_l`.
+// bound it relies on asserted; tests/test_torch_replay.py holds the reduction
+// against Python integers and the torch and JAX `reduce_wide_l`, and
+// tests/test_torch_scalar.py the field operations against Python integers.
 
 #pragma once
 
@@ -92,8 +103,8 @@ __device__ __forceinline__ void sc_mul_lo(const u32 *a, const u32 *b, u32 *r) {
     }
 }
 
-// r - l where that does not borrow, else r.
-__device__ __forceinline__ void sc_sub_l(u32 *r, const u32 *l) {
+// r - l where that does not borrow, else r (nine words).
+__device__ __forceinline__ void sc_csub_l(u32 *r, const u32 *l) {
     u32 t[SC_N];
     t[0] = sub_cc(r[0], l[0]);
 #pragma unroll
@@ -115,7 +126,65 @@ __device__ __forceinline__ void sc_reduce_wide(const u32 x[16], u32 r[8]) {
 #pragma unroll
     for (int k = 1; k < SC_N - 1; ++k) w[k] = subc_cc(x[k], r2[k]);
     w[SC_N - 1] = subc(x[SC_N - 1], r2[SC_N - 1]);
-    sc_sub_l(w, l);
+    sc_csub_l(w, l);
 #pragma unroll
     for (int k = 0; k < 8; ++k) r[k] = w[k];
+}
+
+// ---------------------------------------------------------------------------
+// GF(l) on 8 little-endian words (S1)
+// ---------------------------------------------------------------------------
+
+// l - 2, the Fermat exponent; its top bit is bit 252.
+__constant__ u32 SC_L_MINUS_2[8] = {0x5cf5d3ebu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u};
+
+// r = a * b mod l; r may be a or b.
+__device__ __forceinline__ void sc_mul_l(const u32 *a, const u32 *b, u32 *r) {
+    u32 t[16];
+    sc_mul_wide<8, 8>(a, b, t);
+    sc_reduce_wide(t, r);
+}
+
+__device__ __forceinline__ void sc_sqr_l(const u32 *a, u32 *r) { sc_mul_l(a, a, r); }
+
+// r = a + b, less l where that does not borrow (nine words, then the low eight); r may be a or b.
+__device__ __forceinline__ void sc_add_l(const u32 *a, const u32 *b, u32 *r) {
+    const u32 l[SC_N] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u, 0u};
+    u32 s[SC_N];
+    s[0] = add_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) s[k] = addc_cc(a[k], b[k]);
+    s[8] = addc(0u, 0u);
+    sc_csub_l(s, l);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = s[k];
+}
+
+// r = a - b, plus l mod 2^256 where a - b borrows; r may be a or b.
+__device__ __forceinline__ void sc_sub_l(const u32 *a, const u32 *b, u32 *r) {
+    const u32 l[8] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u};
+    u32 t[8];
+    t[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) t[k] = subc_cc(a[k], b[k]);
+    const u32 mask = subc(0u, 0u);
+    r[0] = add_cc(t[0], l[0] & mask);
+#pragma unroll
+    for (int k = 1; k < 7; ++k) r[k] = addc_cc(t[k], l[k] & mask);
+    r[7] = addc(t[7], l[7] & mask);  // the carry out of 2^256 is dropped
+}
+
+// r = x^(l - 2) mod l (inv(0) = 0): square-and-multiply from bit 251, the accumulator starting at x for the
+// top bit; r may be x.  One loop body, the exponent's bit read from constant memory.
+__device__ __forceinline__ void sc_inv_l(const u32 *x, u32 *r) {
+    u32 acc[8], base[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = base[k] = x[k];
+#pragma unroll 1
+    for (int bit = 251; bit >= 0; --bit) {
+        sc_sqr_l(acc, acc);
+        if ((SC_L_MINUS_2[bit >> 5] >> (bit & 31)) & 1u) sc_mul_l(acc, base, acc);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = acc[k];
 }

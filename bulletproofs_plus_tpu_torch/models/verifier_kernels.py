@@ -7,7 +7,9 @@ src/range_proof.rs:856-1062) on torch tensors:
   * `scalar_pass`: every per-proof scalar — challenge inversions (one
     Montgomery batch inversion per proof), the s-vector by its bit-product
     closed form, inverse-power ladders by binary decomposition, the gi/hi
-    generator accumulators, and the dynamic MSM scalars;
+    generator accumulators, and the dynamic MSM scalars: on a CUDA tensor
+    the hand-written kernel S1 (ops/cuda_scalar.py), on a CPU tensor its
+    plain twin `scalar_pass_plain`, on any other device an error;
   * one batched ristretto decompression of every proof point (K4 inside);
   * one MSM against the identity (K7 or K1, then K2 and K3 inside).
 
@@ -26,6 +28,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..ops import cuda_scalar
 from ..ops import field as F
 from ..ops import host_ristretto as hr
 from ..ops import ristretto as rist
@@ -105,7 +108,22 @@ def _batch_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def scalar_pass(y, z, round_es, e, weight, r1, s1, d1, min_values, *, m: int, bit_length: int, max_mn: int):
-    """Pass-2 scalar accumulation for one shape group of B proofs.
+    """Pass-2 scalar accumulation for one shape group of B proofs: S1
+    (csrc/scalar_pass.cu, two launches) on CUDA tensors, `scalar_pass_plain`
+    on CPU tensors; any other device raises.  Both return the same canonical
+    limbs."""
+    if y.device.type == "cpu":
+        return scalar_pass_plain(
+            y, z, round_es, e, weight, r1, s1, d1, min_values, m=m, bit_length=bit_length, max_mn=max_mn,
+        )
+    return cuda_scalar.scalar_pass(
+        y, z, round_es, e, weight, r1, s1, d1, min_values, m=m, bit_length=bit_length, max_mn=max_mn,
+    )
+
+
+def scalar_pass_plain(y, z, round_es, e, weight, r1, s1, d1, min_values, *, m: int, bit_length: int, max_mn: int):
+    """Pass-2 scalar accumulation for one shape group of B proofs, in plain
+    torch: S1's twin.
 
     Inputs (B, 16) scalars, round_es (B, rounds, 16), d1 (B, deg, 16),
     min_values (B, m, 16).  Returns (gi_scalars (max_mn,16), hi_scalars

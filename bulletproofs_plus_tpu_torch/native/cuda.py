@@ -63,6 +63,13 @@ LIBRARIES = {
             "bppt_reduce_wide": [_VP, _VP, _VP, _LONG, _VP],
         },
     ),
+    "scalar": (
+        "scalar_pass.cu",
+        {
+            "bppt_scalar_pass": [_VP] * 9 + [_LONG] * 6 + [_VP] * 11 + [_LONG, _VP],
+            "bppt_scalar_latency": [_VP, _VP, _LONG, _VP],
+        },
+    ),
 }
 
 launches: collections.Counter = collections.Counter()

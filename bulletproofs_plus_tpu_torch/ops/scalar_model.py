@@ -1,14 +1,17 @@
 """Word-exact model of csrc/scalar_l.cuh in plain Python: the reduction of a
-64-byte challenge mod l on 32-bit words.
+64-byte challenge mod l on 32-bit words, and the GF(l) arithmetic on it that
+S1 (csrc/scalar_pass.cu) computes with.
 
 Like ops/field_model.py for csrc/field25519.cuh: the CUDA code cannot run
 without a card, and its carry logic is where it can go wrong.  Every PTX
 carry-flag instruction is a method of `field_model.Carry`, every loop runs in
 the order of the CUDA loop, and every bound the CUDA code relies on (a carry
 that cannot occur, a remainder below 2l) is asserted.  ops/cuda_replay.py's
-`replay_model` runs R1's epilogue through `reduce_wide`;
-tests/test_torch_replay.py holds it against Python integers and the torch and
-JAX `reduce_wide_l`.
+`replay_model` runs R1's epilogue through `reduce_wide`, and
+ops/cuda_scalar.py's `scalar_pass_model` runs S1's programs on `mul_l`,
+`sqr_l`, `add_l`, `sub_l` and `inv_l`; tests/test_torch_replay.py holds the
+reduction against Python integers and the torch and JAX `reduce_wide_l`,
+tests/test_torch_scalar.py the field operations against Python integers.
 
 The reduction is Barrett's (HAC 14.42) with b = 2^32 and k = 8, since
 2^224 <= l < 2^256: for x < 2^512, q1 = x >> 224 and mu = floor(2^512 / l)
@@ -40,6 +43,7 @@ def from_words(words) -> int:
 
 MU_WORDS = to_words(MU, N)
 L_WORDS = to_words(L, N)
+LM2_WORDS = to_words(L - 2, 8)  # the Fermat exponent, SC_L_MINUS_2; its top bit is bit 252
 
 
 def mul_wide(cc: Carry, a: list, b: list) -> list:
@@ -88,7 +92,7 @@ def mul_lo(cc: Carry, a: list, b: list) -> list:
     return r
 
 
-def _sub_l(cc: Carry, r: list) -> list:
+def _csub_l(cc: Carry, r: list) -> list:
     """r - l if that does not borrow, else r (a select on the borrow mask)."""
     t = [0] * N
     t[0] = cc.sub_cc(r[0], L_WORDS[0])
@@ -111,6 +115,65 @@ def reduce_wide(x: list) -> list:
         r[k] = cc.subc_cc(x[k], r2[k])
     r[N - 1] = cc.subc(x[N - 1], r2[N - 1])
     assert from_words(r) < 2 * L, "Barrett's remainder reached 2l"
-    r = _sub_l(cc, r)
+    r = _csub_l(cc, r)
     assert from_words(r) < L and r[8] == 0
     return r[:8]
+
+
+# ---------------------------------------------------------------------------
+# GF(l) on 8 words (S1)
+# ---------------------------------------------------------------------------
+
+
+def mul_l(a: list, b: list) -> list:
+    """sc_mul_l: a * b mod l for 8-word a and b below 2^256."""
+    assert len(a) == 8 and len(b) == 8
+    return reduce_wide(mul_wide(Carry(), a, b))
+
+
+def sqr_l(a: list) -> list:
+    """sc_sqr_l."""
+    return mul_l(a, a)
+
+
+def add_l(a: list, b: list) -> list:
+    """sc_add_l: a + b on nine words, less l where that does not borrow, the
+    low eight words kept (ops/field.py's add_l)."""
+    cc = Carry()
+    s = [0] * N
+    s[0] = cc.add_cc(a[0], b[0])
+    for k in range(1, 8):
+        s[k] = cc.addc_cc(a[k], b[k])
+    s[8] = cc.addc(0, 0)
+    return _csub_l(cc, s)[:8]
+
+
+def sub_l(a: list, b: list) -> list:
+    """sc_sub_l: a - b, plus l mod 2^256 where that borrows (ops/field.py's
+    sub_l)."""
+    cc = Carry()
+    t = [0] * 8
+    t[0] = cc.sub_cc(a[0], b[0])
+    for k in range(1, 8):
+        t[k] = cc.subc_cc(a[k], b[k])
+    mask = cc.subc(0, 0)
+    r = [0] * 8
+    r[0] = cc.add_cc(t[0], L_WORDS[0] & mask)
+    for k in range(1, 7):
+        r[k] = cc.addc_cc(t[k], L_WORDS[k] & mask)
+    r[7] = (t[7] + (L_WORDS[7] & mask) + cc.cf) & M32  # addc: the carry out of 2^256 is dropped
+    if mask == 0:
+        assert r == t
+    return r
+
+
+def inv_l(x: list) -> list:
+    """sc_inv_l: x^(l - 2) mod l by square-and-multiply from bit 251, the
+    accumulator starting at x for the top bit; inv(0) = 0."""
+    assert (LM2_WORDS[7] >> 28) == 1 and len(x) == 8
+    acc = list(x)
+    for bit in range(251, -1, -1):
+        acc = sqr_l(acc)
+        if (LM2_WORDS[bit >> 5] >> (bit & 31)) & 1:
+            acc = mul_l(acc, x)
+    return acc

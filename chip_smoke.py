@@ -6,7 +6,8 @@
 Builds every CUDA kernel of the port from csrc/, holds each kernel against
 its plain torch version on the card (K1, K7 and K2 at the MSM widths of both
 verify batches below, 4736 and 2048 lanes; R1, the Fiat-Shamir replay, at
-both batches' shapes), replays and verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
+both batches' shapes; S1, the scalar pass, at both batches' groups and the
+mixed batch's two), replays and verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
 and the host engine with their MSMs on the card (`msm_backend="device"`),
 verifies the 256 x 64-bit and 64 x m4 batches through
 `RangeProof.verify_batch(engine="device")` (their replay through R1, their
@@ -90,6 +91,24 @@ a block, `blocks`, `waves` over the blocks the card holds at once) and
 `replay_fn_ms`, the whole `replay_fn` (one launch and views) called back
 to back; its epilogue alone (`reduce_wide_probe`) is held against Python
 integers at the reduction's edges.
+
+S1 reads each input once and writes each output once as int64 limbs; its
+bound counts the products mod l that the scalar pass needs at the fewest
+(`_scalar_products`: a proof's Fermat inversion by a 4-bit window, its
+other per-proof products, and 3 a lane and proof, each term of a lane a
+ladder over the lanes), each 2 x 64 multiply-adds for the 8 x 8-word
+product and `REDUCE_MULADDS` for its reduction (`SC_MULADDS_PER_MUL`); sums
+are not counted.  S1's own products (S1b rebuilds y^-i and P(i) from the
+bits of i on every lane) stand beside it as `products`.  Its `chain_ms` is
+S1a's thread's products, then the products that one S1b thread does for
+one lane over its share of the proofs, each at the one-warp latency of a
+product mod l that the probe measured in this run (`sc_mul_ns`).  The main
+phase also reads, for one b64_m1_x256 verify, the scalar pass as a stage
+(its captured call alone, synchronised) and, under torch.profiler, the
+verify's device operations, busy time, idle share and S1a's and S1b's
+device time, in the verify and in the captured call run back to back and
+after the card has idled (`s1_device_ms_*`), to tell the profiler's
+reading from the context's.
 """
 
 from __future__ import annotations
@@ -132,6 +151,13 @@ KECCAK_INT_OPS = 24 * 180
 # product (low and high halves), and q3 l below 2^288, the products with l's five non-zero words only
 REDUCE_MULADDS = 2 * 81 + 59
 REPLAY_SHAPES = ((3, 256), (6, 64))  # golden cell and lanes: the b64_m1_x256 and b64_m4_x64 verifies' replays
+# S1: 32-bit multiply-adds of one product mod l (csrc/scalar_l.cuh): the 8 x 8-word product at two a word pair,
+# then the wide reduction
+SC_MULADDS_PER_MUL = 2 * 64 + REDUCE_MULADDS
+# S1's shapes (label, golden cell, lanes, max_mn): the b64_m1_x256 and b64_m4_x64 verifies' groups and the mixed
+# batch's two groups (m=2 with minimum values; m=1 padded to the batch's widest, 128 lanes)
+SCALAR_SHAPES = (("b64_m1_x256", 3, 256, 64), ("b64_m4_x64", 6, 64, 256), ("mixed_m2", 4, 128, 128),
+                 ("mixed_m1", 3, 128, 128))
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "golden_vectors.json")
 
 
@@ -265,6 +291,7 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
     sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel"))
     sass.update(sass_histogram(cuda, "replay", ("perm_latency_kernel", "keccak_latency_kernel", "replay_kernel",
                                                 "reduce_wide_kernel")))
+    sass.update(sass_histogram(cuda, "scalar", ("scalar_latency_kernel", "scalar_proof_kernel", "scalar_lane_kernel")))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
             "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
@@ -546,6 +573,118 @@ def _replay_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict,
                       **ptxas.get("replay_kernel", {})}
 
 
+def _scalar_inputs(torch, bp, hr, cell, batch: int, rs: random.Random):
+    """S1's inputs as a verify hands them over: R1's replay of golden `cell`'s
+    shape for `batch` lanes (lane 0 the golden proof, the others random bytes)
+    gives y, z, the round challenges and e as views of its limb tensor; r1,
+    s1, d1 and the minimum values are unpacked from the same rows as
+    `verify_group_bytes` unpacks them (random bytes: values below 2^256,
+    minimum values below 2^64); the weights are random scalars.  Lane 5's
+    last round challenge is set to zero, poisoning its inversions."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.models.replay_device import unpack_row_buffer
+    from bulletproofs_plus_tpu_torch.models.verifier_kernels import _u8_to_limbs
+    from bulletproofs_plus_tpu_torch.ops.limbs import pack_ints
+
+    fn, state, buf, _ = _replay_inputs(torch, bp, hr, cell, batch, rs)
+    y, z, es, e, _, _, _ = fn(state, buf)
+    es[5, -1] = 0  # in place: the view stays a view of the replay's tensor
+    m, rounds, deg = len(cell["values"]), es.shape[1], cell["extension_degree"]
+    f = unpack_row_buffer(buf, m, rounds, deg)
+    mv = _u8_to_limbs(f["min_vals"])
+    weight = torch.as_tensor(pack_ints([rs.randrange(hr.L) for _ in range(batch)]).astype(np.int64), device="cuda")
+    return {"y": y, "z": z, "round_es": es, "e": e, "weight": weight, "r1": _u8_to_limbs(f["r1"]),
+            "s1": _u8_to_limbs(f["s1"]), "d1": _u8_to_limbs(f["d1"]),
+            "min_values": torch.cat([mv, mv.new_zeros((batch, m, 16 - mv.shape[-1]))], dim=-1)}, m, cell["bits"]
+
+
+def _scalar_products(batch: int, rounds: int, m: int, deg: int, mn: int):
+    """S1's products mod l and the fewest the scalar pass needs: (S1a's a
+    proof, the most S1b's threads do for one proof of one lane, all of S1's,
+    the function's).  S1a: 252 squarings and 72 products (Fermat's l - 2),
+    then 27 + 9 rounds + 4 m + deg (one more at rounds 0); S1b for lane i
+    with p bits set: rounds + p + 2 (rounds + 1 at i = 0).  The function
+    needs a proof's inversion by a 4-bit window (14 products for x^2..x^15,
+    252 squarings, one product a further non-zero digit), S1a's other
+    products, and 3 a proof and lane, each of g's A y^-i P(i), h's D P(mn-1-i)
+    and G_j 2^(i mod n) y^-i a ladder over the lanes, t_i = t_(i') f, that
+    starts without a product."""
+    from bulletproofs_plus_tpu_torch.ops.scalar_model import L
+
+    fermat = 252 + bin((L - 2) & ((1 << 252) - 1)).count("1")
+    digits = sum(1 for k in range(0, 253, 4) if (L - 2) >> k & 15)
+    other = 27 + 9 * rounds + 4 * m + deg + (rounds == 0)
+    lanes = [rounds + bin(i).count("1") + 2 if i else rounds + 1 for i in range(mn)]
+    needed = batch * (14 + 252 + digits - 1 + other + 3 * mn - 3)
+    return fermat + other, max(lanes), batch * (fermat + other + sum(lanes)), needed
+
+
+def _scalar_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict, ptxas: dict) -> None:
+    """S1 against the plain scalar pass on the card at SCALAR_SHAPES: every
+    output exact, limb for limb (lane 5 a zero challenge); timed beside its
+    plain version, with the one-warp latency of a product mod l
+    (`sc_mul_ns`, the probe's chain end checked against Python integers)."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.models.verifier_kernels import scalar_pass_plain
+    from bulletproofs_plus_tpu_torch.native import cuda
+    from bulletproofs_plus_tpu_torch.ops import cuda_scalar as cs
+    from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs, pack_ints
+
+    vals = [rs.randrange(hr.L) for _ in range(32)]
+    x = torch.as_tensor(pack_ints(vals).astype(np.int64), device="cuda")
+    if [int_from_limbs(r) for r in cs.mul_latency_probe(x, 40).cpu().numpy()] != [pow(v, 41, hr.L) for v in vals]:
+        raise AssertionError("S1's latency probe: a chain of 40 products mod l is wrong")
+    short = kernel_ms(lambda: cs.mul_latency_probe(x, 256))
+    long = kernel_ms(lambda: cs.mul_latency_probe(x, 1280))
+    sc_mul_ns = (long - short) * 1e6 / 1024
+    out["sc_mul_ns"] = sc_mul_ns
+
+    by_shape = {}
+    for label, seed, batch, max_mn in SCALAR_SHAPES:
+        cell = next(c for c in cells if c["seed"] == seed)
+        args, m, n = _scalar_inputs(torch, bp, hr, cell, batch, rs)
+        kw = {"m": m, "bit_length": n, "max_mn": max_mn}
+        rounds, deg = args["round_es"].shape[1], args["d1"].shape[1]
+        cuda.reset_launches()
+        got = cs.scalar_pass(**args, **kw)
+        launches = dict(cuda.launches)
+        want = scalar_pass_plain(**args, **kw)
+        err = max(float((g - w).abs().max()) if g.numel() else 0.0 for g, w in zip(got, want))
+        if err != 0 or launches != {"scalar_pass": 1} or any(g.shape != w.shape for g, w in zip(got, want)):
+            raise AssertionError(f"S1 ({label}) disagrees with the plain scalar pass: max_abs_err {err}, "
+                                 f"launches {launches}")
+        if got[9][5].any() or not got[9][4].any():
+            raise AssertionError(f"S1 ({label}): the zero challenge did not poison lane 5's inverses alone")
+        per_proof, per_lane, products, needed = _scalar_products(batch, rounds, m, deg, m * n)
+        threads = cs.lane_threads(batch)
+        n_in = 6 + rounds + deg + m
+        n_out = batch * (m + 3 + 2 * rounds) + 2 * max_mn + deg + 1
+        b_ms, b_by = bound_ms((batch * n_in + n_out) * LIMB_BYTES, needed * SC_MULADDS_PER_MUL)
+        by_shape[label] = {
+            "lanes": batch, "m": m, "bits": n, "rounds": rounds, "deg": deg, "max_mn": max_mn, "max_abs_err": err,
+            "launches": launches["scalar_pass"], "products": products, "products_needed": needed,
+            "ms": kernel_ms(lambda: cs.scalar_pass(**args, **kw)),
+            "graph_ms": graph_ms(lambda: cs.scalar_pass(**args, **kw)),
+            "plain_ms": median_ms(lambda: scalar_pass_plain(**args, **kw), 1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            # S1a's thread, then S1b's threads' proofs one after another (the trees' sums not counted)
+            "chain_ms": (per_proof + -(-batch // threads) * per_lane) * sc_mul_ns * 1e-6,
+            "s1a_blocks": -(-batch // cs.PROOF_THREADS), "s1b_blocks": max_mn + deg + 1, "s1b_threads": threads,
+        }
+    out["scalar_by_shape"] = by_shape
+    first = by_shape[SCALAR_SHAPES[0][0]]
+    rows["scalar_pass"] = {
+        **first, "sc_mul_ns": sc_mul_ns, "threads": cs.PROOF_THREADS,
+        "ptxas": {k: ptxas.get(k, {}) for k in ("scalar_proof_kernel", "scalar_lane_kernel")},
+        **ptxas.get("scalar_proof_kernel", {}),
+        "by_shape": {k: {kk: v[kk] for kk in ("graph_ms", "ms", "plain_ms", "bound_ms", "chain_ms", "launches",
+                                               "max_abs_err", "products", "products_needed", "s1b_blocks")}
+                     for k, v in by_shape.items()},
+    }
+
+
 def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
     from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
@@ -633,6 +772,9 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
 
     _replay_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
     section_done("r1")
+
+    _scalar_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
+    section_done("s1")
 
     # K1-K3 on the main path's MSM shape: 4098 dynamic lanes padded to 4608
     # (zero scalar, identity) plus 128 static lanes.
@@ -836,7 +978,8 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
         raise AssertionError("16-lane MSM disagrees with the host Pippenger")
     out["kernels"] = {k: {kk: v[kk] for kk in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "chain_ms",
                                                "serial_chain_ms", "graph_ms_by_threads", "tile", "blocks", "threads",
-                                               "waves", "blocks_per_sm", "registers", "spill_stores", "spill_loads")
+                                               "waves", "blocks_per_sm", "registers", "spill_stores", "spill_loads",
+                                               "ptxas", "sc_mul_ns")
                           if kk in v}
                       for k, v in rows.items()}
     out["k4"] = rows["pow_p58"]
@@ -937,8 +1080,8 @@ def _verify(bp, statements, proofs):
 
 # K4 is reached through its fused entry, `sqrt_ratio_m1`: once a verify, eight times a prove; the MSM's first
 # stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0); a single-shape verify replays its
-# transcripts once through R1
-VERIFY_KERNELS = ("replay", "dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
+# transcripts once through R1; S1 runs the scalar pass once a shape group
+VERIFY_KERNELS = ("replay", "scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
 PROVE_KERNELS = ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")
 PROVE_LAUNCHES = {"fixed_acc": 15, "fixed_fold": 15, "sqrt_ratio_m1": 8}
 
@@ -966,6 +1109,67 @@ def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
     return {"proofs": len(proofs), "seconds": seconds, "launches": counts}
 
 
+def _scalar_stage(torch, bp, statements, proofs) -> dict:
+    """The scalar pass as a stage of one verify: its arguments captured from a
+    verify, then the call alone with a synchronise on both sides (median of
+    5, host clock); and torch.profiler over one whole verify: its device
+    operations, device busy time, idle share and S1's device time, S1a's
+    and S1b's apart, beside theirs in the captured call run 5 times back to
+    back and 5 times each after 20 ms of an idle card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bulletproofs_plus_tpu_torch.models import verifier_kernels as vk
+
+    captured, inner = [], vk.scalar_pass
+
+    def recording(*args, **kwargs):
+        captured.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    vk.scalar_pass = recording
+    try:
+        _verify(bp, statements, proofs)
+    finally:
+        vk.scalar_pass = inner
+    (args, kwargs), = captured
+    out = {"scalar_pass_stage_ms": median_ms(lambda: inner(*args, **kwargs), 5), "card": nvidia_smi()}
+
+    def device_events(fn):
+        for _ in range(2):  # a trace that saw no device work is taken again once
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = [e for e in prof.events()
+                      if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+            if events:
+                return events, wall_ms
+        return [], wall_ms
+
+    def s1_ms(events, calls):  # S1a's and S1b's device time a call
+        return [sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e3 / calls
+                for name in ("scalar_proof_kernel", "scalar_lane_kernel")]
+
+    def after_idle():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            inner(*args, **kwargs)
+
+    events, wall_ms = device_events(lambda: _verify(bp, statements, proofs))
+    if not events:
+        out["device_ops"] = "not measured: the profiler saw no device work"
+        return out
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    out.update(device_ops=len(events), verify_wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+               s1_device_ms=sum(s1_ms(events, 1)), s1_device_ms_in_verify=s1_ms(events, 1),
+               s1_device_ms_back_to_back=s1_ms(device_events(lambda: [inner(*args, **kwargs) for _ in range(5)])[0], 5),
+               s1_device_ms_after_idle=s1_ms(device_events(after_idle)[0], 5))
+    return out
+
+
 def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
     from bulletproofs_plus_tpu_torch.native import cuda
 
@@ -980,12 +1184,13 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         first_s = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
         if (not all(counts.values()) or counts["sqrt_ratio_m1"] != 1 or counts["replay"] != 1
-                or cuda.launches["pow_p58"] or cuda.launches["dyn_acc"]):
+                or counts["scalar_pass"] != 1 or cuda.launches["pow_p58"] or cuda.launches["dyn_acc"]):
             raise AssertionError(f"{label}: wrong kernel launches: {dict(cuda.launches)}")
         if seed == 3:
             launches.update(counts)
             launches["pow_p58"] = counts["sqrt_ratio_m1"]  # K4's row: its chain ran inside the fused entry
             out["b64_m1_x256_unsigned"] = _unsigned_arm(torch, bp, cuda, statements, proofs, launches)
+            out["b64_m1_x256_stages"] = _scalar_stage(torch, bp, statements, proofs)
         samples = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1043,9 +1248,10 @@ def phase_mixed(torch, bp, hr, cells) -> dict:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
-        if counts["replay"] or counts["sqrt_ratio_m1"] != decompressions or counts["dyn_acc_signed"] != 1:
+        if (counts["replay"] or counts["sqrt_ratio_m1"] != decompressions or counts["dyn_acc_signed"] != 1
+                or counts["scalar_pass"] != 2):
             raise AssertionError(f"mixed {action}: wrong kernel launches {counts} (want no replay, "
-                                 f"{decompressions} decompressions, one MSM)")
+                                 f"{decompressions} decompressions, two scalar passes, one MSM)")
         want = run(action, engine="host", msm_backend="device")
         masks = [None if m is None else m.blindings() for m in got]
         if masks != [None if m is None else m.blindings() for m in want]:
@@ -1200,7 +1406,7 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
 
 # K7, K2, K3 and K4 on each rank's share of a sharded verify (R1 does not run: a mesh replays on the host);
 # K5, K6 and K4 on its share of a sharded prove
-SHARDED_VERIFY_KERNELS = ("dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
+SHARDED_VERIFY_KERNELS = ("scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
 SHARDED_MSM_LANES = 64
 COLLECTIVE_TIMEOUT_S = 300
 
@@ -1447,6 +1653,7 @@ def main() -> int:
         "fixed_fold": ("fixed.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:567"),
         "dyn_acc_signed": ("msm.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:340"),
         "replay": ("replay.cu", "bulletproofs_plus_tpu/models/replay_device.py:101"),
+        "scalar_pass": ("scalar_pass.cu", "bulletproofs_plus_tpu/models/verifier_kernels.py:130"),
     }
     table = [
         {"name": k, "route": "cuda", "source": f"bulletproofs_plus_tpu_torch/csrc/{source}",
@@ -1456,7 +1663,8 @@ def main() -> int:
          **{extra: rows[k][extra] for extra in ("chain_ms", "serial_chain_ms", "graph_ms", "entry", "pow_p58_ms",
                                                 "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
                                                 "spill_stores", "spill_loads", "lanes", "permutations",
-                                                "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape")
+                                                "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape",
+                                                "sc_mul_ns", "ptxas")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

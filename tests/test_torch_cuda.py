@@ -577,3 +577,73 @@ def test_world_of_one_mesh_on_card(card):
         assert all(m is not None for m in want)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _scalar_inputs(batch, m, n, deg, seed, card, mins=False, zero_lane=None, one_y=None):
+    """tests/torch_scalar_inputs.py's inputs on the card, y, z, the round
+    challenges and e as views of one (batch, rounds + 3, 16) tensor, as the
+    replay hands them over."""
+    from torch_scalar_inputs import scalar_inputs
+
+    rounds = (m * n).bit_length() - 1
+    out = {k: torch.as_tensor(v, device=card)
+           for k, v in scalar_inputs(batch, m, n, deg, seed, mins, zero_lane, one_y).items()}
+    ch = torch.cat([out["y"][:, None], out["z"][:, None], out["round_es"], out["e"][:, None]], dim=1)
+    out.update(y=ch[:, 0], z=ch[:, 1], round_es=ch[:, 2 : 2 + rounds], e=ch[:, 2 + rounds])
+    return out
+
+
+# (batch, m, bit length, extension degree, max_mn, minimum values, zero-challenge lane, lane with y = 1): one
+# proof; a 256 x 64-bit verify's group; a 64 x m4 one of degree 5; the mixed batch's m=2 group (minimum values)
+# and its m=1 group padded to the batch's widest; a zero challenge and a y of 1 poisoning their lanes
+@pytest.mark.parametrize("batch, m, n, deg, max_mn, mins, zero_lane, one_y", [
+    (1, 1, 64, 1, 64, False, None, None), (256, 1, 64, 1, 64, False, None, None),
+    (64, 4, 64, 5, 256, False, None, None), (128, 2, 64, 1, 128, True, None, None),
+    (128, 1, 64, 1, 128, False, None, None), (40, 1, 64, 1, 64, True, 3, 7),
+], ids=["b1", "b256_m1", "b64_m4_deg5", "mixed_m2", "mixed_m1_padded", "zero_challenge"])
+def test_scalar_pass_kernel_matches_plain(card, batch, m, n, deg, max_mn, mins, zero_lane, one_y):
+    """S1 on the card equals the plain scalar pass limb for limb, every output."""
+    from bulletproofs_plus_tpu_torch.models.verifier_kernels import scalar_pass, scalar_pass_plain
+
+    args = _scalar_inputs(batch, m, n, deg, batch + m, card, mins, zero_lane, one_y)
+    cuda.reset_launches()
+    got = scalar_pass(**args, m=m, bit_length=n, max_mn=max_mn)
+    assert dict(cuda.launches) == {"scalar_pass": 1}
+    want = scalar_pass_plain(**args, m=m, bit_length=n, max_mn=max_mn)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and torch.equal(g, w), k
+    if zero_lane is not None:  # the poisoned lanes' inverses are 0: their R scalars vanish
+        assert not got[9][zero_lane].any() and not got[9][one_y].any() and got[9][0].any()
+
+
+def test_scalar_latency_probe_matches_python(card):
+    """The probe's chains: x^(iters + 1) mod l on each lane."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_scalar as cs
+
+    rs = np.random.RandomState(12)
+    vals = [int.from_bytes(rs.bytes(32), "little") % hr.L for _ in range(30)] + [0, hr.L - 1]
+    got = cs.mul_latency_probe(torch.as_tensor(pack_ints(vals).astype(np.int64), device=card), 5)
+    assert [int_from_limbs(r) for r in got.cpu().numpy()] == [pow(v, 6, hr.L) for v in vals]
+
+
+def test_scalar_pass_once_a_shape_group(card):
+    """verify_batch(engine="device") launches S1 once for a single-shape
+    batch and once a shape group for a mixed one (golden proofs 3 and 4)."""
+    import bulletproofs_plus_tpu_torch as tbp
+
+    cells = {c["seed"]: c for c in _golden_cells()}
+    pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(1))
+    params = tbp.RangeParameters.init(64, 2, pc)
+
+    def pair(cell):
+        mv = cell["min_values"] if cell["min_values"] is not None else [None] * len(cell["commitments"])
+        statement = tbp.RangeStatement.init(params, [hr.decompress(bytes.fromhex(h)) for h in cell["commitments"]],
+                                            mv, seed_nonce=cell["seed_nonce"])
+        return statement, tbp.RangeProof.from_bytes(bytes.fromhex(cell["proof"]))
+
+    for pairs, groups in (([pair(cells[3])] * 4, 1), ([pair(cells[3]), pair(cells[4])] * 2, 2)):
+        statements, proofs = [p[0] for p in pairs], [p[1] for p in pairs]
+        cuda.reset_launches()
+        got = tbp.RangeProof.verify_batch([tbp.Transcript(b"golden") for _ in proofs], statements, proofs,
+                                          tbp.VerifyAction.VERIFY_ONLY, device=card)
+        assert len(got) == len(proofs) and cuda.launches["scalar_pass"] == groups, dict(cuda.launches)
