@@ -9,12 +9,13 @@ covers the device engine's two main paths:
     batch (the hand-written kernel R1) or on the host (numpy STROBE, native
     keccak) for any other, batch weights on the host, then the scalar pass
     (one a shape group, the hand-written kernel S1), ristretto decompression
-    and the final MSM as torch tensors, with the pow chain (K4) and the MSM
-    (K7 or K1, K2, K3) as hand-written CUDA kernels (csrc/);
+    (D1, with K4's pow chain inside), the final MSM (K7 or K1, K2, K3) and
+    its identity check (I1), each a hand-written CUDA kernel (csrc/);
     `verify_batches_pipelined` streams batches over it
   * proving: `RangeProof.prove_batch_with_rng`, B proofs in lockstep with
-    every MSM a fixed-base table MSM through the CUDA kernels K5 and K6,
-    and `prove_with_rng`, the sequential host prover it is held against
+    every MSM a fixed-base table MSM through the CUDA kernels K5 and K6 and
+    every point encoding one launch of C1, and `prove_with_rng`, the
+    sequential host prover it is held against
   * canonical proof serialization
   * several cards: `mesh=` (a 1-D torch.distributed DeviceMesh, one process
     a card) shards batch verification and batched proving over the mesh's

@@ -20,6 +20,17 @@ def _is_power_of_two(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
 
 
+def compute_generator_padding(bit_length: int, aggregation_factor: int, max_aggregation_factor: int) -> int:
+    """Zero-scalar padding that lets a smaller statement reuse generator
+    tables built for max_aggregation_factor
+    (reference src/utils/generic.rs:63-82)."""
+    padded = 2 * bit_length * max_aggregation_factor
+    actual = 2 * bit_length * aggregation_factor
+    if actual > padded:
+        raise InvalidArgument("Aggregation factor exceeds the maximum")
+    return padded - actual
+
+
 class RangeParameters:
     """Generators and base points for a batch of range proofs."""
 

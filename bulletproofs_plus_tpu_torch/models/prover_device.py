@@ -10,8 +10,8 @@ generators, so no point is ever folded: per-lane scalar coefficients
 (g_coeff/h_coeff) are tracked instead, and every round's L/R and the final
 A1/B are fixed-base MSMs over the original gi/hi/H/G_k, whose 4-bit digit
 tables are precomputed (ops/fixed_base.py) and read by the kernels K5 and K6
-(ops/cuda_fixed.py).  Each point is encoded with `compress`, whose exponent
-is K4.
+(ops/cuda_fixed.py).  Each batch of points is encoded with `compress`, one
+launch of C1 (csrc/ristretto.cu, K4's chain inside) on the card.
 
 **Fiat-Shamir on the host.**  The JAX package runs the Merlin sponge inside
 its one jitted program because a jit cannot call back to the host.  PyTorch

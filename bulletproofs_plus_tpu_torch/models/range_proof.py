@@ -761,13 +761,16 @@ class RangeProof:
                 packed = DeviceVerifier.pack(
                     *shard_packed((statements, proofs, batch_challenges, weights), mesh), device
                 )
-                ok, valid = sharded_verifier(mesh, m=m, bit_length=bit_length, max_mn=max_mn)(
+                ok, valid = sharded_verifier(
+                    mesh, m=m, bit_length=bit_length, extension_degree=extension_degree, max_mn=max_mn
+                )(
                     *packed, static_points, g_base_pts, h_base_pt
                 )
             else:
                 packed = DeviceVerifier.pack(statements, proofs, batch_challenges, weights, device)
                 ok, valid = verify_group_full(
-                    *packed, static_points, g_base_pts, h_base_pt, m=m, bit_length=bit_length, max_mn=max_mn,
+                    *packed, static_points, g_base_pts, h_base_pt,
+                    m=m, bit_length=bit_length, extension_degree=extension_degree, max_mn=max_mn,
                 )
 
             def finish_group(vals, m=m, rounds=rounds, masks=masks):
@@ -793,7 +796,9 @@ class RangeProof:
                 [weights[i] for i in indices],
                 device,
             )
-            parts.append(group_contrib(*packed, m=m, bit_length=bit_length, max_mn=max_mn))
+            parts.append(group_contrib(
+                *packed, m=m, bit_length=bit_length, extension_degree=extension_degree, max_mn=max_mn
+            ))
             group_meta.append((indices, m, rounds))
         gis, his, gbs, hbs, dyn_scalars, dyn_points, valids = zip(*parts)
         ok = combine_groups_msm(gis, his, gbs, hbs, dyn_scalars, dyn_points, static_points, g_base_pts, h_base_pt)

@@ -10,8 +10,10 @@ src/range_proof.rs:856-1062) on torch tensors:
     generator accumulators, and the dynamic MSM scalars: on a CUDA tensor
     the hand-written kernel S1 (ops/cuda_scalar.py), on a CPU tensor its
     plain twin `scalar_pass_plain`, on any other device an error;
-  * one batched ristretto decompression of every proof point (K4 inside);
-  * one MSM against the identity (K7 or K1, then K2 and K3 inside).
+  * one batched ristretto decompression of every proof point (D1 on a
+    card);
+  * one MSM against the identity (K7 or K1, then K2 and K3 inside; the
+    identity check I1 on a card).
 
 `group_contrib` does the first two for one shape group and
 `combine_groups_msm` sums the groups and runs the MSM: a mixed-shape batch
@@ -107,11 +109,20 @@ def _batch_sum(x: torch.Tensor) -> torch.Tensor:
     return F.barrett_reduce(F.carry_prop(raw, 32, bits=16 + x.shape[0].bit_length()))
 
 
-def scalar_pass(y, z, round_es, e, weight, r1, s1, d1, min_values, *, m: int, bit_length: int, max_mn: int):
+def _check_degree(d1: torch.Tensor, extension_degree) -> None:
+    """The JAX package's `extension_degree=` keyword: the port reads the
+    degree from d1 (B, deg, 16) and only holds a given keyword against it."""
+    if extension_degree is not None and int(extension_degree) != d1.shape[1]:
+        raise ValueError(f"extension_degree={int(extension_degree)}, but d1 holds {d1.shape[1]} blindings a proof")
+
+
+def scalar_pass(y, z, round_es, e, weight, r1, s1, d1, min_values, *, m: int, bit_length: int, max_mn: int,
+                extension_degree: int | None = None):
     """Pass-2 scalar accumulation for one shape group of B proofs: S1
     (csrc/scalar_pass.cu, two launches) on CUDA tensors, `scalar_pass_plain`
     on CPU tensors; any other device raises.  Both return the same canonical
-    limbs."""
+    limbs.  `extension_degree`, where given, must be d1's."""
+    _check_degree(d1, extension_degree)
     if y.device.type == "cpu":
         return scalar_pass_plain(
             y, z, round_es, e, weight, r1, s1, d1, min_values, m=m, bit_length=bit_length, max_mn=max_mn,
@@ -121,15 +132,17 @@ def scalar_pass(y, z, round_es, e, weight, r1, s1, d1, min_values, *, m: int, bi
     )
 
 
-def scalar_pass_plain(y, z, round_es, e, weight, r1, s1, d1, min_values, *, m: int, bit_length: int, max_mn: int):
+def scalar_pass_plain(y, z, round_es, e, weight, r1, s1, d1, min_values, *, m: int, bit_length: int, max_mn: int,
+                      extension_degree: int | None = None):
     """Pass-2 scalar accumulation for one shape group of B proofs, in plain
-    torch: S1's twin.
+    torch: S1's twin.  `extension_degree`, where given, must be d1's.
 
     Inputs (B, 16) scalars, round_es (B, rounds, 16), d1 (B, deg, 16),
     min_values (B, m, 16).  Returns (gi_scalars (max_mn,16), hi_scalars
     (max_mn,16), g_base_scalars (deg,16), h_base_scalar (16,),
     commit_scalars (B,m,16), a1_s (B,16), b_s (B,16), a_s (B,16),
     li_s (B,rounds,16), ri_s (B,rounds,16))."""
+    _check_degree(d1, extension_degree)
     B = y.shape[0]
     mn = m * bit_length
     rounds = round_es.shape[1]
@@ -226,13 +239,14 @@ def decompress_batch(compressed_limbs: torch.Tensor):
 
 def _verify_group_core(
     y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
-    static_points, g_base_pts, h_base_pt, *, m, bit_length, max_mn,
+    static_points, g_base_pts, h_base_pt, *, m, bit_length, max_mn, extension_degree=None,
 ):
     """Shared body of the single-group paths: scalar pass, batched
     decompression, dynamic scalar assembly, and the mixed static+dynamic
     MSM identity check.  Returns (ok: bool tensor, valid: (B*K,) mask)."""
     gi, hi, gb, hb, dyn_s, points, valid = group_contrib(
         y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs, m=m, bit_length=bit_length, max_mn=max_mn,
+        extension_degree=extension_degree,
     )
     ok = combine_groups_msm((gi,), (hi,), (gb,), (hb,), (dyn_s,), (points,), static_points, g_base_pts, h_base_pt)
     return ok, valid
@@ -244,13 +258,15 @@ def verify_group_full(
     static_points,  # interleaved G_i/H_i generators, 2*max_mn lanes
     g_base_pts,  # (deg,) points
     h_base_pt,  # (1,) point
-    *, m, bit_length, max_mn,
+    *, m, bit_length, max_mn, extension_degree=None,
 ):
     """Single-group device verification from limb tensors (the host-replay
-    path).  Returns (ok: bool tensor, valid: (B*K,) decompression mask)."""
+    path).  Returns (ok: bool tensor, valid: (B*K,) decompression mask).
+    `extension_degree`, where given, must be d1's."""
     return _verify_group_core(
         y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
         static_points, g_base_pts, h_base_pt, m=m, bit_length=bit_length, max_mn=max_mn,
+        extension_degree=extension_degree,
     )
 
 
@@ -282,22 +298,24 @@ def verify_group_bytes(
     return _verify_group_core(
         y, z, round_es, e, weight, _u8_to_limbs(f["r1"]), _u8_to_limbs(f["s1"]), _u8_to_limbs(f["d1"]),
         min_values, comp_limbs, static_points, g_base_pts, h_base_pt,
-        m=m, bit_length=bit_length, max_mn=max_mn,
+        m=m, bit_length=bit_length, max_mn=max_mn, extension_degree=extension_degree,
     )
 
 
 def group_contrib(
     y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
-    *, m, bit_length, max_mn,
+    *, m, bit_length, max_mn, extension_degree=None,
 ):
     """One shape group's whole contribution: scalar pass (its static
     accumulators padded to the batch's `max_mn`, so every group's line up),
     batched decompression, and the flattened dynamic scalars.  The
     mixed-shape path runs one of these a group and feeds
     `combine_groups_msm`.  Returns (gi, hi, gb, hb, dyn_scalars (B*K, 16),
-    points (B*K,), valid (B*K,))."""
+    points (B*K,), valid (B*K,)).  `extension_degree`, where given, must be
+    d1's."""
     (gi, hi, gb, hb, commit_s, a1_s, b_s, a_s, li_s, ri_s) = scalar_pass(
         y, z, round_es, e, weight, r1, s1, d1, min_values, m=m, bit_length=bit_length, max_mn=max_mn,
+        extension_degree=extension_degree,
     )
     points, valid = rist.decompress(comp_limbs)
     # in the packed point order [commitments, a1, b, a, li, ri]

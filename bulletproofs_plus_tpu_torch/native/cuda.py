@@ -46,6 +46,14 @@ LIBRARIES = {
             "bppt_point_latency": [_VP, _VP, _LONG, _LONG, _LONG, _VP],
         },
     ),
+    "ristretto": (
+        "ristretto.cu",
+        {
+            "bppt_decompress": [_VP, _VP, _VP, _LONG, _LONG, _VP],
+            "bppt_compress": [_VP, _VP, _VP, _VP, _VP, _LONG, _LONG, _VP],
+            "bppt_is_identity": [_VP, _VP, _VP, _LONG, _VP],
+        },
+    ),
     "fixed": (
         "fixed.cu",
         {

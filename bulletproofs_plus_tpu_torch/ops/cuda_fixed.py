@@ -29,7 +29,7 @@ import torch
 from ..native import cuda
 from . import pfield as pf
 from .limbs import NLIMBS
-from .msm import digits4
+from .msm import digits4_nd
 
 N_WINDOWS = 64
 N_DIGITS = 16
@@ -93,7 +93,7 @@ def fixed_acc_plain(table: torch.Tensor, lane_idx: torch.Tensor, scalars_t: torc
     T[w, digit_w(scalar[f, s]), lane_idx[s]]."""
     f, s = scalars_t.shape[1:]
     wpt = N_WINDOWS // wsplit
-    dig = digits4(scalars_t.movedim(0, -1))  # (64, F, S)
+    dig = digits4_nd(scalars_t.movedim(0, -1))  # (64, F, S)
     windows = torch.arange(N_WINDOWS, device=table.device)[:, None, None]
     sel = words_to_limbs(table[windows, dig, lane_idx[None, None, :]])  # (64, F, S, 3, 16): a gather
     sel = sel.movedim(-1, 0).movedim(-1, 0).reshape(3, NLIMBS, wsplit, wpt, f, s)

@@ -118,7 +118,7 @@ def double_scalar_mul(a: torch.Tensor, p: PointArray, b: torch.Tensor, q: PointA
     two ladders.  `bits` is accepted for the JAX package's signature and
     unused: all 64 windows run."""
     del bits
-    from .msm import digits4
+    from .msm import digits4_nd
 
     def table(base: PointArray) -> PointArray:
         """(16, ...) points, entry d = d * base."""
@@ -132,7 +132,7 @@ def double_scalar_mul(a: torch.Tensor, p: PointArray, b: torch.Tensor, q: PointA
         return PointArray(*(torch.gather(c, 0, idx)[0] for c in tab))
 
     table_p, table_q = table(p), table(q)
-    dig_a, dig_b = digits4(a).flip(0), digits4(b).flip(0)  # (64, ...) most significant window first
+    dig_a, dig_b = digits4_nd(a).flip(0), digits4_nd(b).flip(0)  # (64, ...) most significant window first
     acc = identity(p.x.shape[:-1], device=p.x.device)
     for da, db in zip(dig_a, dig_b):
         for _ in range(4):

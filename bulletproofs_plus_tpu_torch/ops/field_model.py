@@ -5,8 +5,11 @@ it can go wrong.  This module repeats that file step by step on eight
 32-bit words, every PTX carry-flag instruction a method of `Carry` with the
 flag as its state, every loop in the order of the CUDA loop.  Where the CUDA
 code relies on a bound (a carry that cannot occur, a word that cannot
-overflow), the model asserts it.  tests/test_torch_field.py holds the model
-against Python integers; nothing else uses it.
+overflow), the model asserts it.  The kernels' own functions follow in the
+same way: K4's chain and SQRT_RATIO_M1 (csrc/sqrt_ratio.cuh), and D1, C1 and
+I1 (csrc/ristretto.cu).  tests/test_torch_field.py holds the model against
+Python integers, tests/test_torch_ristretto.py its D1, C1 and I1 against the
+JAX package; nothing else uses it.
 """
 
 from __future__ import annotations
@@ -250,7 +253,7 @@ def fe_sqr_n(x: list, n: int) -> list:
 
 
 def fe_pow_p58(v: list) -> list:
-    """csrc/pow.cu fe_pow_p58: v^(2^252 - 3)."""
+    """csrc/sqrt_ratio.cuh fe_pow_p58: v^(2^252 - 3)."""
     z2 = fe_sqr(v)
     z9 = fe_mul(v, fe_sqr_n(z2, 2))
     z11 = fe_mul(z2, z9)
@@ -269,7 +272,7 @@ SQRT_M1 = pow(2, (P - 1) // 4, P)
 
 
 def sqrt_ratio_m1(u: list, v: list):
-    """csrc/pow.cu sqrt_ratio_m1_kernel for one element: (was_square, r)."""
+    """csrc/sqrt_ratio.cuh fe_sqrt_ratio_m1 for one element: (was_square, r)."""
     sqrt_m1 = to_words(SQRT_M1)
     v3 = fe_mul(fe_sqr(v), v)
     v7 = fe_mul(fe_sqr(v3), v)
@@ -281,3 +284,76 @@ def sqrt_ratio_m1(u: list, v: list):
     flipped_i = fe_eq(check, fe_mul(neg_u, sqrt_m1))
     r = fe_select(flipped or flipped_i, fe_mul(r, sqrt_m1), r)
     return correct or flipped, fe_abs(r)
+
+
+# ---------------------------------------------------------------------------
+# csrc/ristretto.cu: D1, C1 and I1 for one element, in the kernels' order
+# ---------------------------------------------------------------------------
+
+D = (-121665 * pow(121666, P - 2, P)) % P
+INVSQRT_A_MINUS_D = 0x786C8905CFAFFCA216C27B91FE01D8409D2F16175A4172BE99C8FDAA805D40EA
+
+
+def fe_is_zero(a: list) -> bool:
+    any_word = 0
+    for w in fe_canon(a):
+        any_word |= w
+    return any_word == 0
+
+
+def fe_below_p(s: list) -> bool:
+    """ristretto.cu fe_below_p: s + 19 on the raw words, no carry out of
+    word 7 and bit 255 clear."""
+    cc = Carry()
+    top = cc.add_cc(s[0], 19)
+    for k in range(1, 8):
+        top = cc.addc_cc(s[k], 0)
+    carry = cc.addc(0, 0)
+    return carry == 0 and (top >> 31) == 0
+
+
+def decompress_words(s: list):
+    """ristretto.cu ristretto_decode: (ok, [x, y, z, t]), the coordinates
+    canonical with z = 1, the identity where ok is false."""
+    one = to_words(1)
+    canonical = fe_below_p(s)
+    nonneg = (s[0] & 1) == 0
+    ss = fe_sqr(s)
+    u1 = fe_sub(one, ss)
+    u2 = fe_add(one, ss)
+    u2_sqr = fe_sqr(u2)
+    v = fe_sub(fe_neg(fe_mul(fe_mul(to_words(D), u1), u1)), u2_sqr)
+    was_square, invsqrt = sqrt_ratio_m1(one, fe_mul(v, u2_sqr))
+    den_x = fe_mul(invsqrt, u2)
+    den_y = fe_mul(fe_mul(invsqrt, den_x), v)
+    x = fe_abs(fe_mul(fe_add(s, s), den_x))
+    y = fe_mul(u1, den_y)
+    t = fe_mul(x, y)
+    ok = canonical and nonneg and was_square and not fe_is_negative(t) and not fe_is_zero(y)
+    zero = [0] * 8
+    return ok, [fe_select(ok, x, zero), fe_select(ok, fe_canon(y), one), one, fe_select(ok, fe_canon(t), zero)]
+
+
+def compress_words(x: list, y: list, z: list, t: list) -> list:
+    """ristretto.cu ristretto_encode: the canonical s."""
+    sqrt_m1 = to_words(SQRT_M1)
+    u1 = fe_mul(fe_add(z, y), fe_sub(z, y))
+    u2 = fe_mul(x, y)
+    _, invsqrt = sqrt_ratio_m1(to_words(1), fe_mul(u1, fe_sqr(u2)))
+    den1 = fe_mul(invsqrt, u1)
+    den2 = fe_mul(invsqrt, u2)
+    z_inv = fe_mul(fe_mul(den1, den2), t)
+    ix0 = fe_mul(x, sqrt_m1)
+    iy0 = fe_mul(y, sqrt_m1)
+    enchanted = fe_mul(den1, to_words(INVSQRT_A_MINUS_D))
+    rotate = fe_is_negative(fe_mul(t, z_inv))
+    x2 = fe_select(rotate, iy0, x)
+    y2 = fe_select(rotate, ix0, y)
+    den_inv = fe_select(rotate, enchanted, den2)
+    y2 = fe_select(fe_is_negative(fe_mul(x2, z_inv)), fe_neg(y2), y2)
+    return fe_abs(fe_mul(den_inv, fe_sub(z, y2)))
+
+
+def is_identity_words(x: list, y: list) -> bool:
+    """ristretto.cu is_identity_kernel: X or Y is 0 mod p."""
+    return fe_is_zero(x) or fe_is_zero(y)

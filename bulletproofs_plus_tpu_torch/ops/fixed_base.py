@@ -116,6 +116,15 @@ def _fixed_msm(flat: torch.Tensor, tables: torch.Tensor, groups: int, lanes) -> 
     return fixed_fold(parts, groups, wsplit)
 
 
+def fixed_msm(scalars: torch.Tensor, tables: torch.Tensor) -> PointArray:
+    """sum_i scalars[i] * P_i over fixed points, one row: the JAX package's
+    `fixed_msm`.  scalars: (S, 16) canonical limbs; tables: `pack_tables`
+    words with at least S lanes (the JAX package takes `build_tables`' points;
+    the port's kernels read the packed form).  K5 then K6, as
+    `fixed_msm_batched` runs them, on a batch of one."""
+    return PointArray(*(c[0] for c in fixed_msm_batched(scalars[None], tables)))
+
+
 def fixed_msm_batched(scalars: torch.Tensor, tables: torch.Tensor, lanes=None) -> PointArray:
     """sum_s scalars[..., s, :] * P_s over fixed points, batched over any
     leading axes: the workhorse of the batched prover.

@@ -137,6 +137,11 @@ def point_double(p1: Point) -> Point:
     return (e * f % P, g * h % P, f * g % P, e * h % P)
 
 
+def point_neg(p1: Point) -> Point:
+    x, y, z, t = p1
+    return ((P - x) % P, y, z, (P - t) % P)
+
+
 def point_mul(k: int, p1: Point) -> Point:
     """Variable-time double-and-add scalar multiplication (host oracle only)."""
     k %= L

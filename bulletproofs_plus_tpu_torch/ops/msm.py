@@ -96,21 +96,27 @@ def _reduce_width(n: int) -> int:
     return -(-n // 512) * 512
 
 
-def pad_msm_inputs(scalars: torch.Tensor, points: PointArray):
-    """Pad lanes to `_reduce_width` with zero scalars and identity points."""
+def pad_msm_inputs(scalars: torch.Tensor, points: PointArray, target: int | None = None):
+    """Pad lanes to `target` (default: `_reduce_width`) with zero scalars and
+    identity points."""
     n = scalars.shape[0]
-    m = _reduce_width(n)
+    m = _reduce_width(n) if target is None else target
     if m == n:
         return scalars, points
     scalars = torch.cat([scalars, scalars.new_zeros((m - n, NLIMBS))])
     return scalars, ed.cat([points, ed.identity((m - n,), device=scalars.device)])
 
 
-def digits4(scalars: torch.Tensor) -> torch.Tensor:
+def digits4_nd(scalars: torch.Tensor) -> torch.Tensor:
     """(..., 16) limbs -> (64, ...) int64 4-bit digits, window-major, LSB first."""
     shifts = torch.arange(0, 16, 4, device=scalars.device)
     nib = (scalars[..., :, None] >> shifts) & 0xF  # (..., 16 limbs, 4 nibbles)
     return nib.reshape(scalars.shape[:-1] + (64,)).movedim(-1, 0)
+
+
+def digits4(scalars: torch.Tensor) -> torch.Tensor:
+    """(N, 16) limbs -> (64, N) 4-bit digits, window-major (LSB first)."""
+    return digits4_nd(scalars)
 
 
 def signed_digits4(scalars: torch.Tensor) -> torch.Tensor:

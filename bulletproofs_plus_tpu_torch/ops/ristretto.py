@@ -1,11 +1,14 @@
-"""Batched ristretto255 encoding, decoding and equality (RFC 9496), plain torch.
+"""Batched ristretto255 encoding, decoding and equality (RFC 9496).
 
-Counterpart of bulletproofs_plus_tpu/ops/ristretto.py.  Compression and
-decompression handle a whole batch in one pass; their SQRT_RATIO_M1 is one
-launch of K4's fused entry on CUDA tensors (csrc/pow.cu
-`sqrt_ratio_m1_kernel`) and plain torch on CPU tensors.  Canonicality
-failures (non-canonical field element, negative sign, non-square) come back
-as a boolean mask, like `CompressedRistretto::decompress` returning `Option`.
+Counterpart of bulletproofs_plus_tpu/ops/ristretto.py.  `compress`,
+`decompress` and `is_identity` handle a whole batch: on CUDA tensors each is
+one launch of its hand-written kernel (C1, D1, I1 in csrc/ristretto.cu, by way
+of ops/cuda_ristretto.py), on CPU tensors its plain torch twin (`*_plain`),
+and any other device raises.  `sqrt_ratio_m1` dispatches the same way to K4's
+fused entry (csrc/pow.cu `sqrt_ratio_m1_kernel`); the plain twins use its
+plain version.  Canonicality failures (non-canonical field element, negative
+sign, non-square) come back as a boolean mask, like
+`CompressedRistretto::decompress` returning `Option`.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from . import field as F
 from . import host_ristretto as hr
 from .cuda_pow import pow_p58_plain, sqrt_ratio_m1_cuda
+from .cuda_ristretto import compress_cuda, decompress_cuda, is_identity_cuda
 from .edwards import PointArray, identity, select
 
 
@@ -43,12 +47,21 @@ def sqrt_ratio_m1(u: torch.Tensor, v: torch.Tensor):
 
 
 def compress(p: PointArray) -> torch.Tensor:
-    """Batched ristretto encode -> (..., 16) canonical limbs of s."""
+    """Batched ristretto encode -> (..., 16) canonical limbs of s: C1 on
+    CUDA tensors, the plain version on CPU tensors."""
+    if p.x.device.type == "cpu":
+        return compress_plain(p)
+    return compress_cuda(p)
+
+
+def compress_plain(p: PointArray) -> torch.Tensor:
+    """Batched ristretto encode -> (..., 16) canonical limbs of s, plain
+    torch (any device): C1's twin."""
     one = F.limbs_const(1, p.x).expand(p.x.shape)
     sqrt_m1 = F.limbs_const(hr.SQRT_M1, p.x).expand(p.x.shape)
     u1 = F.mul25519(F.add25519(p.z, p.y), F.sub25519(p.z, p.y))
     u2 = F.mul25519(p.x, p.y)
-    _, invsqrt = sqrt_ratio_m1(one, F.mul25519(u1, F.sqr25519(u2)))
+    _, invsqrt = sqrt_ratio_m1_plain(one, F.mul25519(u1, F.sqr25519(u2)))
     den1 = F.mul25519(invsqrt, u1)
     den2 = F.mul25519(invsqrt, u2)
     z_inv = F.mul25519(F.mul25519(den1, den2), p.t)
@@ -65,7 +78,18 @@ def compress(p: PointArray) -> torch.Tensor:
 
 
 def decompress(s: torch.Tensor):
-    """Batched ristretto decode of (..., 16) limbs of s.
+    """Batched ristretto decode of (..., 16) limbs of s -> (PointArray, valid
+    mask): D1 on CUDA tensors, the plain version on CPU tensors.  The two
+    give the same mask and the same points mod p (D1's coordinates are
+    canonical)."""
+    if s.device.type == "cpu":
+        return decompress_plain(s)
+    return decompress_cuda(s)
+
+
+def decompress_plain(s: torch.Tensor):
+    """Batched ristretto decode of (..., 16) limbs of s, plain torch (any
+    device): D1's twin.
 
     Returns (PointArray, valid mask); invalid lanes hold the identity.
     Canonicality: s must be < p and even."""
@@ -80,7 +104,7 @@ def decompress(s: torch.Tensor):
     u2_sqr = F.sqr25519(u2)
     d = F.limbs_const(hr.D, s).expand(s.shape)
     v = F.sub25519(F.neg25519(F.mul25519(F.mul25519(d, u1), u1)), u2_sqr)
-    was_square, invsqrt = sqrt_ratio_m1(one, F.mul25519(v, u2_sqr))
+    was_square, invsqrt = sqrt_ratio_m1_plain(one, F.mul25519(v, u2_sqr))
     den_x = F.mul25519(invsqrt, u2)
     den_y = F.mul25519(F.mul25519(invsqrt, den_x), v)
     x = F.abs25519(F.mul25519(F.mul_small25519(s, 2), den_x))
@@ -100,4 +124,13 @@ def point_equal(p: PointArray, q: PointArray) -> torch.Tensor:
 
 
 def is_identity(p: PointArray) -> torch.Tensor:
+    """Whether each point is the ristretto identity: I1 on CUDA tensors, the
+    plain version on CPU tensors."""
+    if p.x.device.type == "cpu":
+        return is_identity_plain(p)
+    return is_identity_cuda(p)
+
+
+def is_identity_plain(p: PointArray) -> torch.Tensor:
+    """`point_equal` with the identity, plain torch (any device): I1's twin."""
     return point_equal(p, identity(p.x.shape[:-1], device=p.x.device))

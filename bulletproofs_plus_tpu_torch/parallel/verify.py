@@ -40,8 +40,9 @@ def make_dp_mesh(device_type=None):
     return world_mesh(device_type, "dp")
 
 
-def build_sharded_verifier(mesh, *, m: int, bit_length: int, max_mn: int):
-    """A dp-sharded `verify_group_full` over `mesh`.
+def build_sharded_verifier(mesh, *, m: int, bit_length: int, max_mn: int, extension_degree: int | None = None):
+    """A dp-sharded `verify_group_full` over `mesh`.  `extension_degree`,
+    where given, must be d1's: the returned function checks it.
 
     Returns fn(y, z, round_es, e, weight, r1, s1, d1, min_values,
     comp_limbs, static_points, g_base_pts, h_base_pt) -> (ok, valid): the
@@ -52,11 +53,11 @@ def build_sharded_verifier(mesh, *, m: int, bit_length: int, max_mn: int):
 
     def verify(y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
                static_points, g_base_pts, h_base_pt):
-        rank, world = rank_and_size(mesh)
         gi, hi, gb, hb, dyn_s, points, valid = group_contrib(
             y, z, round_es, e, weight, r1, s1, d1, min_values, comp_limbs,
-            m=m, bit_length=bit_length, max_mn=max_mn,
+            m=m, bit_length=bit_length, max_mn=max_mn, extension_degree=extension_degree,
         )
+        rank, world = rank_and_size(mesh)
         sums = torch.cat([gi, hi, gb, hb[None]])
         torch.distributed.all_reduce(sums, group=group)
         sums = F.barrett_reduce(F.carry_prop(sums, 32, bits=16 + world.bit_length()))

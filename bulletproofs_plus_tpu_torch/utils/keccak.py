@@ -126,3 +126,22 @@ def states_as_bytes(state_u64: np.ndarray) -> np.ndarray:
 def bytes_as_states(state_u8: np.ndarray) -> np.ndarray:
     assert state_u8.dtype == np.uint8 and state_u8.shape[-1] == 200
     return state_u8.view(np.uint64).reshape(*state_u8.shape[:-1], 25)
+
+
+def sha3_256(data: bytes) -> bytes:
+    """Single-shot SHA3-256 built on keccak_f1600, used only to cross-check
+    the permutation against hashlib in tests."""
+    rate = 136
+    pad_len = rate - (len(data) % rate)
+    if pad_len == 1:
+        padded = data + b"\x86"
+    else:
+        padded = data + b"\x06" + b"\x00" * (pad_len - 2) + b"\x80"
+    state = np.zeros((1, 25), dtype=np.uint64)
+    sb = states_as_bytes(state)
+    for off in range(0, len(padded), rate):
+        block = np.frombuffer(bytes(padded[off : off + rate]), dtype=np.uint8)
+        sb[0, :rate] ^= block
+        state = keccak_f1600(state)
+        sb = states_as_bytes(state)
+    return bytes(sb[0, :32].tobytes())

@@ -7,7 +7,9 @@ Builds every CUDA kernel of the port from csrc/, holds each kernel against
 its plain torch version on the card (K1, K7 and K2 at the MSM widths of both
 verify batches below, 4736 and 2048 lanes; R1, the Fiat-Shamir replay, at
 both batches' shapes; S1, the scalar pass, at both batches' groups and the
-mixed batch's two), replays and verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
+mixed batch's two; D1, C1 and I1, ristretto decoding, encoding and the
+identity check, at the verify's and the prover's shapes), replays and
+verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
 and the host engine with their MSMs on the card (`msm_backend="device"`),
 verifies the 256 x 64-bit and 64 x m4 batches through
 `RangeProof.verify_batch(engine="device")` (their replay through R1, their
@@ -34,8 +36,10 @@ with no result.
 Tolerance: exact.  The kernels do integer arithmetic, so both entries of K4
 must equal their plain versions mod p, and K1-K3 and K5-K7 must give the
 same points (compared as canonical affine coordinates, since tilings differ
-in projective Z); `max_abs_err` is the largest limb difference found, and
-must be 0.  The prover must reproduce golden proof 3 byte for byte.
+in projective Z); D1 must give the plain twin's mask and its coordinates
+canonicalised, C1 its canonical limbs, I1 its bools; `max_abs_err` is the
+largest limb difference (or the count of differing flags) found, and must
+be 0.  The prover must reproduce golden proof 3 byte for byte.
 
 Bounds (`bound_ms`) are the larger of bytes moved over 3.35 TB/s and the
 32-bit integer multiply-adds the work needs over the card's rate: 132 SMs x
@@ -92,6 +96,16 @@ a block, `blocks`, `waves` over the blocks the card holds at once) and
 to back; its epilogue alone (`reduce_wide_probe`) is held against Python
 integers at the reduction's edges.
 
+D1 reads an encoding and writes a point and a flag, C1 reads a point and
+writes an encoding, I1 reads X and Y and writes a flag, as int64 limbs; D1
+and C1 count K4's chain and SQRT_RATIO_M1 as K4's row does (POW_*, RATIO_*)
+and the squarings and products of the formula around them (DECODE_*,
+ENCODE_*, counted from ops/ristretto.py), I1 none.  Their `chain_ms` is the
+same chain and the formula's products on its longest path
+(DECODE_CHAIN_*, ENCODE_CHAIN_*) at `fe_sqr_ns` and `fe_mul_ns`.  The main
+phase times, beside the scalar pass, the decompression and the identity
+check as stages of a verify, and reads D1's and I1's device time there.
+
 S1 reads each input once and writes each output once as int64 limbs; its
 bound counts the products mod l that the scalar pass needs at the fewest
 (`_scalar_products`: a proof's Fermat inversion by a 4-bit window, its
@@ -132,6 +146,44 @@ FMUL_DEEP_ADD4 = 3  # an addition spread over four lanes (ge_add4): three multip
 DBL_FMUL, DBL_FSQR = 4, 4
 POW_SQR, POW_MUL = 251, 11  # the x^((p-5)/8) addition chain
 RATIO_SQR, RATIO_MUL = 3, 8  # SQRT_RATIO_M1 around the chain: v^3, v^7, u v^3, u v^7, r, v r^2, two by sqrt(-1)
+# D1 and C1 beside K4's chain and SQRT_RATIO_M1 (ops/ristretto.py:67-93 and :45-64): every squaring and product
+# of the formula (the rate bound), then those on its longest path (the chain)
+DECODE_SQR, DECODE_MUL = 2, 9  # s^2, u2^2; d u1 u1 (2), v u2^2, den_x, invsqrt den_x, den_y, 2s den_x, y, t
+ENCODE_SQR, ENCODE_MUL = 1, 13  # u2^2; u1, u2, u1 u2^2, den1, den2, z_inv (2), i x, i y, enchanted, t z_inv, x z_inv, s
+DECODE_CHAIN_SQR, DECODE_CHAIN_MUL = 1, 8  # s^2, d u1 u1, v u2^2; den_x, invsqrt den_x, den_y, y, t
+ENCODE_CHAIN_SQR, ENCODE_CHAIN_MUL = 1, 8  # u1 or u2, u2^2, u1 u2^2; den1, den1 den2, z_inv, t z_inv, x z_inv, s
+# RFC 9496 Appendix A.2: encodings a decoder must reject (as tests/test_host_ristretto.py lists them)
+RFC9496_BAD = (
+    "00ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff",
+    "ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "f3ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "edffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "0100000000000000000000000000000000000000000000000000000000000000",
+    "01ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+    "ed57ffd8c914fb201471d1c3d245ce3c746fcbe63a3679d51b6a516ebebe0e20",
+    "c34c4e1826e5d403b78e246e88aa051c36ccf0aafebffe137d148a2bf9104562",
+    "c940e5a4404157cfb1628b108db051a8d439e1a421394ec4ebccb9ec92a8ac78",
+    "47cfc5497c53dc8e61c91d17fd626ffb1c49e2bca94eed052281b510b1117a24",
+    "f1c6165d33367351b0da8f6e4511010c68174a03b6581212c71c0e1d026c3c72",
+    "87260f7a2f12495118360f02c26a470f450dadf34a413d21042b43b9d93e1309",
+    "26948d35ca62e643e26a83177332e6b6afeb9d08e4268b650f1f5bbd8d81d371",
+    "4eac077a713c57b4f4397629a4145982c661f48044dd3f96427d40b147d9742f",
+    "de6a7b00deadc788eb6b6c8d20c0ae96c2f2019078fa604fee5b87d6e989ad7b",
+    "bcab477be20861e01e4a0e295284146a510150d9817763caf1a6f4b422d67042",
+    "2a292df7e32cababbd9de088d1d1abec9fc0440f637ed2fba145094dc14bea08",
+    "f4a9e534fc0d216c44b218fa0c42d99635a0127ee2e53c712f70609649fdff22",
+    "8268436f8c4126196cf64b3c7ddbda90746a378625f9813dd9b8457077256731",
+    "2810e5cbc2cc4d4eece54f61c6f69758e289aa7ab440b3cbeaa21995c2f4232b",
+    "3eb858e78f5a7254d8c9731174a94f76755fd3941c0ac93735c07ba14579630e",
+    "a45fdc55c76448c049a1ab33f17023edfb2be3581e9c7aade8a6125215e04220",
+    "d483fe813c6ba647ebbfd3ec41adca1c6130c2beeee9d9bf065c8d151c5f396e",
+    "8c2e1d70d98ceca6f7caf3c037a4130ade1fca94eb9a357b4bcc222c20d05992",
+    "32888462f8b486c68ad7dd9610be5192bbeaf3b443951ac1a8118419d9fa097b",
+    "227142501b9d4355ccba290404bde41575b037693cef1f438c47f8fbf35d1165",
+    "5c37cc491da847cfeb9281d407efc41e15144c876e0170b499a96a22ed31e01e",
+    "445425117cb8c90edcbc7c1cc0e74f747f2c1efa5630a967c64f287792a48a4b",
+    "ecffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff7f",
+)
 LIMB_BYTES = 8 * 16  # one field element as 16 int64 limbs
 POINT_BYTES = 4 * LIMB_BYTES
 ENTRY_BYTES = 96  # one table entry: 24 packed 32-bit words
@@ -142,6 +194,7 @@ K4_MANY = 32768  # beyond the launchers' switch to one lane an element (4224): w
 # points padded to 1536 dynamic lanes, then 512 static (G_i, H_i for 256 bits)
 M4_LANES = 1536 + 512
 PROVE_BATCH = 128
+COMPRESS_SHAPES = ((PROVE_BATCH,), (PROVE_BATCH, 2))  # a prove's C1 launches: A, then L/R and A1/B a lane
 # R1: 32-bit integer instructions a Keccak-f[1600] permutation needs at the least, 180 a round for 25 64-bit
 # lanes as 32-bit halves: theta's column parities 20 (a three-input XOR is one LOP3), its rotations 10 and their
 # application 50 (c[x-1] ^ rot(c[x+1]) ^ a in one LOP3 a half), rho 48 (two funnel shifts a rotation, lane 0
@@ -685,6 +738,160 @@ def _scalar_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict,
     }
 
 
+def _decode_inputs(bp, hr, cells):
+    """D1's inputs: the b64_m1_x256 batch's own points in the order a verify
+    decompresses them ([commitments, a1, b, a, li, ri] a proof), after the
+    decode edges: RFC 9496 Appendix A.2's bad encodings, s >= p (p, p + 1,
+    2p = 2^256 - 38, 2p - s for a valid s), odd s (1, p - s), p - 1 (y = 0),
+    the largest raw inputs (2^256 - 1, 2^255 - 2) and 0 (the identity).
+    -> (edges as ints, batch limbs (4096, 16) numpy)."""
+    from bulletproofs_plus_tpu_torch.models.verifier_kernels import _points_bytes_to_limbs
+
+    statements, proofs = _tiled(bp, hr, next(c for c in cells if c["seed"] == 3), 256)
+    blobs = []
+    for statement, proof in zip(statements, proofs):
+        blobs += list(statement.commitments_compressed) + [proof.a1, proof.b, proof.a] + list(proof.li) + list(proof.ri)
+    valid = int.from_bytes(proofs[0].a, "little")
+    p = hr.P
+    edges = [int.from_bytes(bytes.fromhex(h), "little") for h in RFC9496_BAD]
+    edges += [p, p + 1, 2 * p, 2 * p - valid, 1, p - valid, p - 1, 2**256 - 1, 2**255 - 2, 0]
+    return edges, _points_bytes_to_limbs(blobs)
+
+
+def _forms_ms(call) -> dict:
+    """Both forms of a D1 or C1 launch by graph time, in turns: one lane an
+    element, four, four, one."""
+    turns = [graph_ms(lambda: call(form)) for form in (1, 4, 4, 1)]
+    return {"one_lane_graph_ms": statistics.mean((turns[0], turns[3])), "four_lanes_graph_ms": statistics.mean(turns[1:3])}
+
+
+def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict, ptxas: dict, probe: dict) -> None:
+    """D1, C1 and I1 against their plain twins on the card, exact (D1's mask
+    and canonical coordinates, C1's canonical limbs, I1's bool), each form
+    of D1 and C1 against the launcher's pick; then timed beside the plain
+    twins, with K4's chain and each kernel's own products as `chain_ms`.
+    D1 at the b64_m1_x256 batch's 4096 points after the decode edges; C1 at
+    the prover's (128,) and (128, 2) on random points, the identity and its
+    coset among them; I1 on the identity, its coset forms, random points and
+    K3's own (4, 16) output, read in place, from a verify of the golden batch
+    and of a tampered one."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.models import verifier_kernels as vk
+    from bulletproofs_plus_tpu_torch.ops import cuda_ristretto as rc
+    from bulletproofs_plus_tpu_torch.ops import edwards as ed
+    from bulletproofs_plus_tpu_torch.ops import field as F
+    from bulletproofs_plus_tpu_torch.ops import ristretto as rist
+    from bulletproofs_plus_tpu_torch.ops.limbs import pack_ints
+
+    mul_ns, sqr_ns = probe["fe_mul_ns"], probe["fe_sqr_ns"]
+    k4_sqr, k4_mul = POW_SQR + RATIO_SQR, POW_MUL + RATIO_MUL  # K4's chain and SQRT_RATIO_M1, counted as its row
+
+    # D1
+    edges, batch = _decode_inputs(bp, hr, cells)
+    s = torch.as_tensor(np.concatenate([pack_ints(edges), batch]).astype(np.int64), device="cuda")
+    pts, ok = rc.decompress_cuda(s)
+    want_pts, want_ok = rist.decompress_plain(s)
+    err_d = max([float((c - F.canon25519(w)).abs().max()) for c, w in zip(pts, want_pts)]
+                + [float((ok != want_ok).sum())])
+    if err_d != 0 or ok[: len(edges) - 1].any() or not ok[len(edges) - 1 :].all():
+        raise AssertionError(f"decompress disagrees with its plain version (max_abs_err {err_d}), or a bad "
+                             f"encoding decoded, or a batch point did not ({int(ok.sum())} of {len(ok)} valid)")
+    for lanes in (1, 4):
+        pts_l, ok_l = rc.decompress_cuda(s, lanes=lanes)
+        if not (torch.equal(ok_l, ok) and all(torch.equal(a, b) for a, b in zip(pts_l, pts))):
+            raise AssertionError(f"decompress with {lanes} lanes an element disagrees with the launcher's pick")
+    sb = s[len(edges) :].contiguous()  # the main path's launch: the batch's own points
+    n = sb.shape[0]
+    b_ms, b_by = bound_ms(n * (LIMB_BYTES + 4 * LIMB_BYTES + 1),
+                          n * ((k4_sqr + DECODE_SQR) * MULADDS_PER_FSQR + (k4_mul + DECODE_MUL) * MULADDS_PER_FMUL))
+    forms = _forms_ms(lambda form: rc.decompress_cuda(sb, lanes=form))
+    rows["decompress"] = {
+        "max_abs_err": err_d, "lanes": n, "checked": s.shape[0], "edges": len(edges),
+        "ms": kernel_ms(lambda: rc.decompress_cuda(sb)), "graph_ms": graph_ms(lambda: rc.decompress_cuda(sb)),
+        **forms, "plain_ms": median_ms(lambda: rist.decompress_plain(sb), 3), "bound_ms": b_ms, "bound_by": b_by,
+        "chain_ms": ((k4_sqr + DECODE_CHAIN_SQR) * sqr_ns + (k4_mul + DECODE_CHAIN_MUL) * mul_ns) * 1e-6,
+        "ptxas": {k: ptxas.get(k, {}) for k in ("decompress_kernel", "decompress_coop_kernel")},
+        **ptxas.get("decompress_coop_kernel", {}),
+    }
+
+    # C1
+    flat = _rand_points(torch, ed, hr, 2 * PROVE_BATCH, rs, "cuda")  # sums of two points: Z is not 1
+    coset = ed.from_host([hr.IDENTITY, (0, hr.P - 1, 1, 0), (hr.SQRT_M1, 0, 1, 0), (hr.P - hr.SQRT_M1, 0, 1, 0)],
+                         device="cuda")
+    flat = ed.cat([coset, ed.PointArray(*(c[len(coset.x) :] for c in flat))])
+    by_shape, err_c = {}, 0.0
+    for shape in COMPRESS_SHAPES:
+        k = int(np.prod(shape))
+        p = ed.PointArray(*(c[:k].reshape(shape + (16,)) for c in flat))
+        got, want = rc.compress_cuda(p), rist.compress_plain(p)
+        err_c = max(err_c, float((got - want).abs().max()))
+        if err_c != 0 or any(got.reshape(-1, 16)[:4].any(dim=-1).tolist()):
+            raise AssertionError(f"compress {shape} disagrees with its plain version (max_abs_err {err_c}), or the "
+                                 f"identity's coset did not encode as zero")
+        for lanes in (1, 4):
+            if not torch.equal(rc.compress_cuda(p, lanes=lanes), got):
+                raise AssertionError(f"compress with {lanes} lanes an element disagrees with the launcher's pick")
+        bc = bound_ms(k * 5 * LIMB_BYTES,
+                      k * ((k4_sqr + ENCODE_SQR) * MULADDS_PER_FSQR + (k4_mul + ENCODE_MUL) * MULADDS_PER_FMUL))
+        by_shape[str(shape)] = {"elements": k, "ms": kernel_ms(lambda: rc.compress_cuda(p)),
+                                "graph_ms": graph_ms(lambda: rc.compress_cuda(p)),
+                                **_forms_ms(lambda form: rc.compress_cuda(p, lanes=form)),
+                                "plain_ms": median_ms(lambda: rist.compress_plain(p), 3),
+                                "bound_ms": bc[0], "bound_by": bc[1]}
+    main_shape = by_shape[str(COMPRESS_SHAPES[1])]  # the shape of seven of a prove's eight launches
+    rows["compress"] = {
+        "max_abs_err": err_c, "lanes": main_shape["elements"], **main_shape,
+        "chain_ms": ((k4_sqr + ENCODE_CHAIN_SQR) * sqr_ns + (k4_mul + ENCODE_CHAIN_MUL) * mul_ns) * 1e-6,
+        "by_shape": by_shape, "ptxas": {k: ptxas.get(k, {}) for k in ("compress_kernel", "compress_coop_kernel")},
+        **ptxas.get("compress_coop_kernel", {}),
+    }
+
+    # I1: K3's output from a verify of the golden batch and of the same with one r1 tampered
+    statements, proofs = _tiled(bp, hr, next(c for c in cells if c["seed"] == 3), 256)
+    tampered = list(proofs)
+    tampered[17] = bp.RangeProof.from_bytes(proofs[17].to_bytes())
+    tampered[17].r1 = (tampered[17].r1 + 1) % hr.L
+    results, inner = [], vk.combine_groups_point
+
+    def recording(*args, **kwargs):
+        results.append(inner(*args, **kwargs))
+        return results[-1]
+
+    vk.combine_groups_point = recording
+    try:
+        _verify(bp, statements, proofs)
+        try:
+            _verify(bp, statements, tampered)
+        except bp.VerificationFailed:
+            pass
+    finally:
+        vk.combine_groups_point = inner
+    i = hr.SQRT_M1
+    forms = [(0, 1, 1, 0), (0, hr.P - 1, 1, 0), (i, 0, 1, 0), (hr.P - i, 0, 1, 0), (0, 5, 5, 0), (hr.P, 7, 7, 0),
+             (2 * hr.P, 3, 3, 0)]
+    many = ed.cat([ed.PointArray(*(torch.as_tensor(pack_ints([f[c] for f in forms]).astype(np.int64), device="cuda")
+                                   for c in range(4))),
+                   ed.PointArray(*(c[:64] for c in _rand_points(torch, ed, hr, 64, rs, "cuda")))])
+    got = rc.is_identity_cuda(many)
+    err_i = float((got != rist.is_identity_plain(many)).sum())
+    k3 = [bool(rc.is_identity_cuda(r)) for r in results]
+    if err_i != 0 or got.tolist() != [True] * len(forms) + [False] * 64 or k3 != [True, False]:
+        raise AssertionError(f"is_identity disagrees with its plain version ({err_i} lanes) or on K3's output {k3}")
+    if [bool(rist.is_identity_plain(r)) for r in results] != k3 or results[0].y.data_ptr() - results[0].x.data_ptr() != 128:
+        raise AssertionError("is_identity: K3's output is not the (4, 16) tensor read in place, or the plain twin differs")
+    res = results[0]
+    bi = bound_ms(2 * LIMB_BYTES + 1, 0)
+    rows["is_identity"] = {
+        "max_abs_err": err_i, "lanes": 1, "checked": many.x.shape[0] + 2,
+        "ms": kernel_ms(lambda: rc.is_identity_cuda(res)), "graph_ms": graph_ms(lambda: rc.is_identity_cuda(res)),
+        "plain_ms": median_ms(lambda: rist.is_identity_plain(res), 3), "bound_ms": bi[0], "bound_by": bi[1],
+        "chain_ms": 0.0,  # no product: two canonical forms
+        **ptxas.get("is_identity_kernel", {}),
+    }
+    out["ristretto"] = {k: rows[k] for k in ("decompress", "compress", "is_identity")}
+
+
 def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
     from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
@@ -723,7 +930,7 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     tail = [int_from_limbs(r) % F.P for r in got[-len(edges):].cpu().numpy()]
     if err != 0 or tail != [pow(v, (F.P - 5) // 8, F.P) for v in edges]:
         raise AssertionError(f"K4 pow_p58 disagrees with its plain version (max_abs_err {err})")
-    # the fused entry: u = 1 broadcast as compress and decompress call it, then u a tensor of its own
+    # the fused entry: u = 1 broadcast, as the ristretto formulas call it, then u a tensor of its own
     one = F.limbs_const(1, x).expand(x.shape)
     u_own = torch.as_tensor(pack_ints(vals[::-1]).astype("int64"), device=dev)
     err_ratio = 0.0
@@ -759,7 +966,8 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
             raise AssertionError(f"K4 with {lanes_form} lanes an element disagrees with the launcher's pick")
     pow_chain_ms = (POW_SQR * probe["fe_sqr_ns"] + POW_MUL * probe["fe_mul_ns"]) * 1e-6
     rows["pow_p58"] = {
-        "max_abs_err": max(err, err_ratio), "entry": "sqrt_ratio_m1", "ms": by_lanes[n]["sqrt_ratio_m1_ms"],
+        # on every path K4's chain runs inline in D1 and C1; its own entries are held and timed here
+        "max_abs_err": max(err, err_ratio), "entry": "inline in D1/C1", "ms": by_lanes[n]["sqrt_ratio_m1_ms"],
         "graph_ms": by_lanes[n]["sqrt_ratio_m1_four_lanes_graph_ms"],
         "plain_ms": median_ms(lambda: rist.sqrt_ratio_m1_plain(one, x), 3), "bound_ms": b_ms, "bound_by": b_by,
         "chain_ms": pow_chain_ms + (RATIO_SQR * probe["fe_sqr_ns"] + RATIO_MUL * probe["fe_mul_ns"]) * 1e-6,
@@ -769,6 +977,9 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     }
 
     section_done("k4")
+
+    _ristretto_rows(torch, bp, hr, cells, rs, rows, out, ptxas, probe)
+    section_done("d1_c1_i1")
 
     _replay_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
     section_done("r1")
@@ -1078,12 +1289,14 @@ def _verify(bp, statements, proofs):
     )
 
 
-# K4 is reached through its fused entry, `sqrt_ratio_m1`: once a verify, eight times a prove; the MSM's first
-# stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0); a single-shape verify replays its
-# transcripts once through R1; S1 runs the scalar pass once a shape group
-VERIFY_KERNELS = ("replay", "scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
-PROVE_KERNELS = ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")
-PROVE_LAUNCHES = {"fixed_acc": 15, "fixed_fold": 15, "sqrt_ratio_m1": 8}
+# D1 decodes a verify's points once a shape group and I1 checks its MSM's point once; C1 encodes a prove's
+# points eight times; K4's chain runs inside D1 and C1, and K4's own entries (`pow_p58`, `sqrt_ratio_m1`) on
+# no path.  The MSM's first stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0); a
+# single-shape verify replays its transcripts once through R1; S1 runs the scalar pass once a shape group
+VERIFY_KERNELS = ("replay", "scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "decompress", "is_identity")
+PROVE_KERNELS = ("fixed_acc", "fixed_fold", "compress")
+PROVE_LAUNCHES = {"fixed_acc": 15, "fixed_fold": 15, "compress": 8}
+K4_ENTRIES = ("pow_p58", "sqrt_ratio_m1")
 
 
 def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
@@ -1101,38 +1314,53 @@ def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
             del os.environ["BPPT_MSM_SIGNED"]
         else:
             os.environ["BPPT_MSM_SIGNED"] = before
-    counts = {k: cuda.launches[k] for k in ("dyn_acc",) + VERIFY_KERNELS}
-    if (not counts["dyn_acc"] or counts["dyn_acc_signed"]
-            or not all(counts[k] for k in ("lane_fold", "horner", "sqrt_ratio_m1")) or counts["replay"] != 1):
+    counts = {k: cuda.launches[k] for k in ("dyn_acc",) + VERIFY_KERNELS + K4_ENTRIES}
+    if (not counts["dyn_acc"] or counts["dyn_acc_signed"] or any(counts[k] for k in K4_ENTRIES)
+            or [counts[k] for k in ("lane_fold", "horner", "replay", "decompress", "is_identity")] != [1] * 5):
         raise AssertionError(f"unsigned verify: wrong kernels launched: {counts}")
     launches["dyn_acc"] = counts["dyn_acc"]
     return {"proofs": len(proofs), "seconds": seconds, "launches": counts}
 
 
-def _scalar_stage(torch, bp, statements, proofs) -> dict:
-    """The scalar pass as a stage of one verify: its arguments captured from a
+def _verify_stages(torch, bp, statements, proofs) -> dict:
+    """Three stages of one verify, each its call's arguments captured from a
     verify, then the call alone with a synchronise on both sides (median of
-    5, host clock); and torch.profiler over one whole verify: its device
-    operations, device busy time, idle share and S1's device time, S1a's
-    and S1b's apart, beside theirs in the captured call run 5 times back to
-    back and 5 times each after 20 ms of an idle card."""
+    5, host clock): the scalar pass (S1), the decompression (D1) and the
+    identity check (I1 on the MSM's point, then the verdict's and the
+    flags' readbacks, as scripts/profile_torch_verify.py stages it); and
+    torch.profiler over one whole verify: its device operations, device busy
+    time, idle share, D1's, I1's and S1's device time, S1a's and S1b's apart,
+    beside theirs in the captured call run 5 times back to back and 5 times
+    each after 20 ms of an idle card."""
     from torch.profiler import ProfilerActivity, profile
 
     from bulletproofs_plus_tpu_torch.models import verifier_kernels as vk
+    from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 
-    captured, inner = [], vk.scalar_pass
+    stages = {"scalar_pass": vk, "decompress": rist, "is_identity": rist}
+    inners = {name: getattr(module, name) for name, module in stages.items()}
+    captured = {name: [] for name in stages}
 
-    def recording(*args, **kwargs):
-        captured.append((args, kwargs))
-        return inner(*args, **kwargs)
+    def recording(name):
+        def call(*args, **kwargs):
+            captured[name].append((args, kwargs))
+            return inners[name](*args, **kwargs)
+        return call
 
-    vk.scalar_pass = recording
+    for name, module in stages.items():
+        setattr(module, name, recording(name))
     try:
         _verify(bp, statements, proofs)
     finally:
-        vk.scalar_pass = inner
-    (args, kwargs), = captured
-    out = {"scalar_pass_stage_ms": median_ms(lambda: inner(*args, **kwargs), 5), "card": nvidia_smi()}
+        for name, module in stages.items():
+            setattr(module, name, inners[name])
+    ((args, kwargs),), ((dec_args, _),), ((id_args, _),) = (captured[name] for name in stages)
+    inner, decompress, is_identity = (inners[name] for name in stages)
+    _, valid = decompress(*dec_args)
+    out = {"scalar_pass_stage_ms": median_ms(lambda: inner(*args, **kwargs), 5),
+           "decompress_stage_ms": median_ms(lambda: decompress(*dec_args), 5),
+           "identity_check_stage_ms": median_ms(lambda: bool(is_identity(*id_args)) and bool(valid.all()), 5),
+           "decompress_points": dec_args[0].shape[0], "card": nvidia_smi()}
 
     def device_events(fn):
         for _ in range(2):  # a trace that saw no device work is taken again once
@@ -1164,6 +1392,8 @@ def _scalar_stage(torch, bp, statements, proofs) -> dict:
         return out
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
     out.update(device_ops=len(events), verify_wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+               **{f"{label}_device_ms": sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e3
+                  for label, name in (("d1", "decompress"), ("i1", "is_identity_kernel"))},
                s1_device_ms=sum(s1_ms(events, 1)), s1_device_ms_in_verify=s1_ms(events, 1),
                s1_device_ms_back_to_back=s1_ms(device_events(lambda: [inner(*args, **kwargs) for _ in range(5)])[0], 5),
                s1_device_ms_after_idle=s1_ms(device_events(after_idle)[0], 5))
@@ -1183,14 +1413,13 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
-        if (not all(counts.values()) or counts["sqrt_ratio_m1"] != 1 or counts["replay"] != 1
-                or counts["scalar_pass"] != 1 or cuda.launches["pow_p58"] or cuda.launches["dyn_acc"]):
+        if (not all(counts.values()) or [counts[k] for k in ("replay", "scalar_pass", "decompress", "is_identity")]
+                != [1, 1, 1, 1] or any(cuda.launches[k] for k in K4_ENTRIES + ("compress", "dyn_acc"))):
             raise AssertionError(f"{label}: wrong kernel launches: {dict(cuda.launches)}")
         if seed == 3:
             launches.update(counts)
-            launches["pow_p58"] = counts["sqrt_ratio_m1"]  # K4's row: its chain ran inside the fused entry
             out["b64_m1_x256_unsigned"] = _unsigned_arm(torch, bp, cuda, statements, proofs, launches)
-            out["b64_m1_x256_stages"] = _scalar_stage(torch, bp, statements, proofs)
+            out["b64_m1_x256_stages"] = _verify_stages(torch, bp, statements, proofs)
         samples = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1247,11 +1476,11 @@ def phase_mixed(torch, bp, hr, cells) -> dict:
         got = run(action)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
-        if (counts["replay"] or counts["sqrt_ratio_m1"] != decompressions or counts["dyn_acc_signed"] != 1
-                or counts["scalar_pass"] != 2):
+        counts = {k: cuda.launches[k] for k in VERIFY_KERNELS + K4_ENTRIES}
+        if (counts["replay"] or counts["decompress"] != decompressions or counts["dyn_acc_signed"] != 1
+                or counts["scalar_pass"] != 2 or counts["is_identity"] != 1 or any(counts[k] for k in K4_ENTRIES)):
             raise AssertionError(f"mixed {action}: wrong kernel launches {counts} (want no replay, "
-                                 f"{decompressions} decompressions, two scalar passes, one MSM)")
+                                 f"{decompressions} decompressions, two scalar passes, one MSM, one identity check)")
         want = run(action, engine="host", msm_backend="device")
         masks = [None if m is None else m.blindings() for m in got]
         if masks != [None if m is None else m.blindings() for m in want]:
@@ -1373,10 +1602,9 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     torch.cuda.synchronize()
     out["first_s"] = time.perf_counter() - t0
     counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
-    if counts != PROVE_LAUNCHES or cuda.launches["pow_p58"]:
+    if counts != PROVE_LAUNCHES or any(cuda.launches[k] for k in K4_ENTRIES):
         raise AssertionError(f"prove: expected launches {PROVE_LAUNCHES}, got {dict(cuda.launches)}")
-    launches.update({k: counts[k] for k in ("fixed_acc", "fixed_fold")})
-    launches["pow_p58_prove"] = counts["sqrt_ratio_m1"]
+    launches.update(counts)
     out["launches"] = dict(cuda.launches)
     if proofs[0].to_bytes().hex() != cell["proof"]:
         raise AssertionError("prove: lane 0 is not golden proof 3")
@@ -1404,9 +1632,9 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     return out
 
 
-# K7, K2, K3 and K4 on each rank's share of a sharded verify (R1 does not run: a mesh replays on the host);
-# K5, K6 and K4 on its share of a sharded prove
-SHARDED_VERIFY_KERNELS = ("scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")
+# S1, D1, K7, K2, K3 and I1 on each rank's share of a sharded verify (R1 does not run: a mesh replays on the
+# host); K5, K6 and C1 on its share of a sharded prove
+SHARDED_VERIFY_KERNELS = ("scalar_pass", "decompress", "dyn_acc_signed", "lane_fold", "horner", "is_identity")
 SHARDED_MSM_LANES = 64
 COLLECTIVE_TIMEOUT_S = 300
 
@@ -1486,7 +1714,8 @@ def _sharded_checks(torch, mesh, collectives: dict) -> dict:
     got, launches, calls = counted(lambda: verify(proofs, mesh=mesh))
     if got != want or want != [None] * 256:
         raise AssertionError(f"sharded verify: {str(got)[:200]} (unsharded: {str(want)[:200]})")
-    if not all(launches.get(k) for k in SHARDED_VERIFY_KERNELS) or launches.get("replay") or not calls:
+    if (not all(launches.get(k) for k in SHARDED_VERIFY_KERNELS) or launches.get("replay")
+            or any(launches.get(k) for k in K4_ENTRIES) or not calls):
         raise AssertionError(f"sharded verify: wrong launches {launches}, {calls} collectives")
     out["verify"] = {"proofs": 256, "equal_to_unsharded": True, "launches": launches, "collectives": calls}
 
@@ -1517,7 +1746,8 @@ def _sharded_checks(torch, mesh, collectives: dict) -> dict:
     got, launches, calls = counted(lambda: prove(mesh=mesh))
     if got != want or got[0][0] != cell["proof"]:
         raise AssertionError("sharded prove: proofs or transcript states differ from the unsharded prove's")
-    if not all(launches.get(k) for k in ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")) or not calls:
+    if (not all(launches.get(k) for k in PROVE_KERNELS) or any(launches.get(k) for k in K4_ENTRIES)
+            or not calls):
         raise AssertionError(f"sharded prove: wrong launches {launches}, {calls} collectives")
     out["prove"] = {"lanes": PROVE_BATCH, "equal_to_unsharded": True, "golden_lane0": "equal", "launches": launches,
                     "collectives": calls}
@@ -1654,7 +1884,11 @@ def main() -> int:
         "dyn_acc_signed": ("msm.cu", "bulletproofs_plus_tpu/ops/pallas_msm.py:340"),
         "replay": ("replay.cu", "bulletproofs_plus_tpu/models/replay_device.py:101"),
         "scalar_pass": ("scalar_pass.cu", "bulletproofs_plus_tpu/models/verifier_kernels.py:130"),
+        "decompress": ("ristretto.cu", "bulletproofs_plus_tpu/models/verifier_kernels.py:263"),
+        "compress": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:47"),
+        "is_identity": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:103"),
     }
+    launches["pow_p58"] = launches["decompress"] + launches["compress"]  # K4's chain, inline in D1 and C1
     table = [
         {"name": k, "route": "cuda", "source": f"bulletproofs_plus_tpu_torch/csrc/{source}",
          "replaces": replaces, "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
@@ -1664,7 +1898,7 @@ def main() -> int:
                                                 "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
                                                 "spill_stores", "spill_loads", "lanes", "permutations",
                                                 "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape",
-                                                "sc_mul_ns", "ptxas")
+                                                "sc_mul_ns", "ptxas", "one_lane_graph_ms", "four_lanes_graph_ms")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

@@ -16,6 +16,7 @@ from bulletproofs_plus_tpu_torch.native import cuda
 from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
 from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
 from bulletproofs_plus_tpu_torch.ops import cuda_pow as cp
+from bulletproofs_plus_tpu_torch.ops import cuda_ristretto as rcu
 from bulletproofs_plus_tpu_torch.ops import edwards as ed
 from bulletproofs_plus_tpu_torch.ops import field as F
 from bulletproofs_plus_tpu_torch.ops import fixed_base as fb
@@ -361,8 +362,92 @@ def test_compress_on_card_matches_host(card):
 
     cuda.reset_launches()
     got = bytes_from_limbs(rist.compress(points).cpu().numpy())
-    assert (cuda.launches["sqrt_ratio_m1"], cuda.launches["pow_p58"]) == (1, 0)
+    assert dict(cuda.launches) == {"compress": 1}  # C1 alone: K4's chain runs inside it
     assert [r.tobytes() for r in got] == [hr.compress(p) for p in ed.to_host(points)]
+
+
+def _ristretto_inputs(card, n, seed):
+    """n decode inputs on the card: every 16th a valid encoding, the rest
+    random values below 2^256 (almost all rejected), the first lanes the
+    decode edges (s >= p, 2p, odd, p - 1, RFC 9496's bad encodings)."""
+    rs = np.random.RandomState(seed)
+    valid = [int.from_bytes(hr.compress(hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT)), "little")
+             for _ in range(8)]
+    edges = [0, P, P + 1, 2 * P, 2**256 - 1, 2**255 - 2, 1, P - 1, P - valid[0], 2 * P - valid[0]]
+    vals = [valid[i % 8] if i % 16 == 0 else int.from_bytes(rs.bytes(32), "little") for i in range(n)]
+    vals[: len(edges)] = edges[:n]
+    return torch.as_tensor(pack_ints(vals).astype(np.int64), device=card)
+
+
+# empty, one lane, the four-lane form with a ragged last warp, just past its cut (one lane an element)
+@pytest.mark.parametrize("n", [0, 1, 4099, 4225])
+def test_decompress_kernel_matches_plain(card, n):
+    """D1 against its plain twin in both forms and the launcher's pick: the
+    mask exactly, the coordinates canonical and equal mod p, the identity on
+    every rejected lane; one launch a call."""
+    s = _ristretto_inputs(card, n, 40 + n)
+    cuda.reset_launches()
+    pts, ok = rist.decompress(s)
+    assert dict(cuda.launches) == ({"decompress": 1} if n else {})
+    want_pts, want_ok = rist.decompress_plain(s)
+    assert ok.dtype == torch.bool and torch.equal(ok, want_ok)
+    for c, w in zip(pts, want_pts):
+        assert torch.equal(c, F.canon25519(w))
+    if n >= 16:
+        assert 0 < int(ok.sum()) < n
+    for lanes in (1, 4):
+        pts_l, ok_l = rcu.decompress_cuda(s, lanes=lanes)
+        assert torch.equal(ok_l, ok) and all(torch.equal(a, b) for a, b in zip(pts_l, pts))
+
+
+@pytest.mark.parametrize("shape", [(0,), (1,), (128,), (128, 2), (4225,)])  # the prover's shapes, and ragged
+def test_compress_kernel_matches_plain(card, shape):
+    """C1 against its plain twin (limb for limb: both canonical) in both
+    forms; points with Z not 1, the identity, and the identity's coset."""
+    n = int(np.prod(shape))
+    rs = np.random.RandomState(41 + n)
+    base = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(16)]
+                        + [hr.IDENTITY, (0, P - 1, 1, 0), (hr.SQRT_M1, 0, 1, 0)], device=card)
+    base = ed.cat([base, ed.double(base)])
+    idx = torch.as_tensor(rs.randint(0, base.x.shape[0], size=n), device=card)
+    pts = ed.PointArray(*(c[idx].reshape(shape + (16,)) for c in base))
+    cuda.reset_launches()
+    got = rist.compress(pts)
+    assert dict(cuda.launches) == ({"compress": 1} if n else {})
+    want = rist.compress_plain(pts)
+    assert got.shape == shape + (16,) and torch.equal(got, want)
+    for lanes in (1, 4):
+        assert torch.equal(rcu.compress_cuda(pts, lanes=lanes), want)
+    strided = ed.PointArray(*(c[..., :1, :] for c in pts)) if len(shape) == 2 else pts
+    assert torch.equal(rist.compress(strided), rist.compress_plain(strided))  # rows that are views
+
+
+def test_is_identity_kernel_matches_plain(card):
+    """I1 against its plain twin: the identity, its coset with X = 0 or
+    Y = 0, coordinates not canonical (p, 2p), random points; and K3's (4, 16)
+    output read in place after a valid and a tampered MSM."""
+    i = hr.SQRT_M1
+    forms = [(0, 1, 1, 0), (0, P - 1, 1, 0), (i, 0, 1, 0), (P - i, 0, 1, 0), (0, 5, 5, 0), (P, 7, 7, 0),
+             (2 * P, 3, 3, 0), (5, 2 * P, 9, 0)]
+    rs = np.random.RandomState(42)
+    forms += [hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(130)]
+    pts = ed.PointArray(*(torch.as_tensor(pack_ints([f[c] for f in forms]).astype(np.int64), device=card)
+                          for c in range(4)))
+    cuda.reset_launches()
+    got = rist.is_identity(pts)
+    assert dict(cuda.launches) == {"is_identity": 1}
+    assert torch.equal(got, rist.is_identity_plain(pts)) and got.tolist() == [True] * 8 + [False] * 130
+    scalars, points = _msm_inputs(16, 43)
+    sc = torch.as_tensor(pack_ints(scalars).astype(np.int64), device=card)
+    p_dev = ed.from_host(points, device=card)
+    neg = torch.as_tensor(pack_ints([(hr.L - v) % hr.L for v in scalars]).astype(np.int64), device=card)
+    for scal, want in ((torch.cat([sc, neg]), True), (torch.cat([sc, sc]), False)):
+        res = msm_kernel(scal, ed.cat([p_dev, p_dev]))  # views of K3's one (4, 16) output
+        ptrs = [c.data_ptr() for c in res]
+        assert ptrs[1] - ptrs[0] == 16 * 8
+        cuda.reset_launches()
+        assert bool(rist.is_identity(res)) is want
+        assert cuda.launches["is_identity"] == 1
 
 
 def _golden_cells():
@@ -519,7 +604,8 @@ def test_keccak_probe_matches_plain(card):
 def test_device_replay_verify_on_card(card):
     """A single-shape batch verifies through R1 once, the golden mask comes back.
     Mask recovery decompresses every proof's points for the structural checks
-    before the verification's own decompression: K4's fused entry twice."""
+    before the verification's own decompression: D1 twice, I1 once, and no
+    launch of K4's own entries."""
     import bulletproofs_plus_tpu_torch as tbp
 
     cell = next(c for c in _golden_cells() if c["seed"] == 3)
@@ -527,7 +613,8 @@ def test_device_replay_verify_on_card(card):
     cuda.reset_launches()
     masks = tbp.RangeProof.verify_batch([tbp.Transcript(b"golden") for _ in range(4)], [statement] * 4,
                                         [proof] * 4, tbp.VerifyAction.RECOVER_AND_VERIFY, device=card)
-    assert cuda.launches["replay"] == 1 and cuda.launches["sqrt_ratio_m1"] == 2
+    assert [cuda.launches[k] for k in ("replay", "decompress", "is_identity")] == [1, 2, 1]
+    assert cuda.launches["sqrt_ratio_m1"] == 0 and cuda.launches["pow_p58"] == 0
     assert all([format(b, "064x") for b in m.blindings()] == cell["mask"] for m in masks)
 
 
@@ -537,8 +624,9 @@ def test_sharded_prove_and_verify_on_card(card, backend, world):
     NCCL, which takes one card a rank: one rank): each rank's sharded prove
     equals its unsharded prove byte for byte, its sharded verify the
     unsharded masks, a tampered batch fails on every rank, and each rank
-    launched the prover's (K5, K6, K4) and the verifier's (K7, K2, K3, K4)
-    kernels itself, with no device replay under a mesh."""
+    launched the prover's (K5, K6, C1) and the verifier's (K7, K2, K3, D1,
+    I1) kernels itself, with no device replay under a mesh and no launch of
+    K4's own entries."""
     import torch_ranks
 
     cuda.build()  # in the parent, so that the ranks do not compile at once
@@ -552,9 +640,9 @@ def test_sharded_prove_and_verify_on_card(card, backend, world):
         assert all(m is not None for m in rank["masks"])
         assert rank["tampered"] == ["VerificationFailed", "Range proof batch not valid"]
         prove, verify = rank["prove_launches"], rank["verify_launches"]
-        assert all(prove.get(k) for k in ("fixed_acc", "fixed_fold", "sqrt_ratio_m1")), prove
-        assert all(verify.get(k) for k in ("dyn_acc_signed", "lane_fold", "horner", "sqrt_ratio_m1")), verify
-        assert not verify.get("replay"), verify
+        assert all(prove.get(k) for k in ("fixed_acc", "fixed_fold", "compress")), prove
+        assert all(verify.get(k) for k in ("dyn_acc_signed", "lane_fold", "horner", "decompress", "is_identity")), verify
+        assert not verify.get("replay") and not verify.get("sqrt_ratio_m1") and not prove.get("sqrt_ratio_m1"), verify
 
 
 def test_world_of_one_mesh_on_card(card):
