@@ -1,0 +1,519 @@
+// P1-P4: the batched prover's scalar protocol and the A commitment's masked
+// sum, for B proofs of one shape in lockstep.
+//
+// Replaces no Pallas kernel: the counterpart is the XLA program the JAX
+// package jits around the fixed-base kernels K5 and K6, `_prover_fn_core`
+// (bulletproofs_plus_tpu/models/prover_device.py:90): its vector prep
+// (:199-221), its round body (:226-340), its final masks and responses
+// (:342-405) and its A commitment's masked halving sums (:163-181).  In the
+// port these were plain torch, some 40,000 launches of int64 limb arithmetic
+// a 128-proof prove; the plain versions stay as the port's
+// models/prover_kernels.py `*_plain`, which these kernels equal.
+//
+//   P1 `prove_prep_kernel`     once a prove: the vectors a and b, y^1..y^(mn+1),
+//                              y^-n of each round and alpha's z-term;
+//   P2 `prove_round_kernel`    once a round: the fold by the previous round's
+//                              challenge (none in round 0), then c_L, c_R and
+//                              the round's L/R MSM scalars;
+//   P3 `prove_final_kernel`    after the last round: its fold, then a0, b0 and
+//                              the A1 and B MSM scalars;
+//      `prove_responses_kernel` after the final challenge: r1, s1 and d1;
+//   P4 `bit_sum_kernel`        A = alpha's Pedersen point + sum_i (bit_i ? g_i : -h_i).
+//
+// Vectors are compact.  The JAX program keeps a and b spread over all mn
+// lanes (after round r lane i holds the folded value of position i mod n)
+// and folds them by rolls; here a and b hold their 2n distinct values, and
+// only the generator coefficients g_coeff and h_coeff, which differ on every
+// original lane, stay mn wide.  With n the round's half and lane i's bit
+// log2(n) its "hi" bit (i mod 2n >= n), round r writes for lane i, p = i mod n:
+//   hi: g-scalar g_i a_p y^-n  (L)   h-scalar h_i b_p      (R)
+//   lo: g-scalar g_i a_(p+n) y^n (R) h-scalar h_i b_(p+n)  (L)
+// straight into the order of the JAX program's lane permutation `perm`
+// (L's g lanes, L's h lanes, R's g lanes, R's h lanes, each rising): lane i is
+// the k-th of its kind with k = (i >> (log2 n + 1)) n + p.  Each group ends
+// with the Pedersen lanes [d_1..d_deg, c], so one grouped fixed-base MSM over
+// the generator tables joined with [G_1..G_deg, H] gives L and R whole.
+//
+// Arithmetic: GF(l) of scalar_l.cuh (`sc_mul_l`, `sc_add_l`, `sc_sub_l`),
+// every value canonical, so each output equals the plain version limb for
+// limb whatever order its products and sums take (c_L and c_R are a block's
+// tree of `sc_add_l`, as `_batch_sum_l` is one exact sum and one reduction).
+// P4 is point code on field25519.cuh: the generators are read from the fixed
+// tables' window 0, digit 1 entry, the affine (y + x, y - x, 2d x y) of the
+// point, and -h swaps its first two words; a point enters the sum as
+// (2(y+x - (y-x)), 2(y+x + y-x), 4, (y+x - (y-x))(y+x + y-x)) = 4 (x, y, 1, x y),
+// and the block sums them on fold4.cuh's four-lane adders (ge_add4), starting
+// from alpha's point, so that A goes straight to the encoder C1.
+//
+// What bounds them on this card: latency and the launch.  A 128-proof,
+// mn = 64 prove needs some 0.45 M products mod l in all, under 0.01 ms at the
+// multiply rate, spread over 1 + rounds + 2 launches of a block a proof; each
+// block's thread runs a few to a few dozen dependent products (P1's y^k by
+// squaring and multiplying, P2's fold then its lanes then the tree of c_L),
+// and P4 a chain of four-lane additions.  A simple, exact design first.
+
+#include "fold4.cuh"
+#include "scalar_l.cuh"
+
+#define PR_MAX_THREADS 256  // P1-P3: a block a proof, up to 256 threads striding over its lanes
+#define PR_RESP_THREADS 128 // P3's second entry: a thread a proof
+#define PR_ENTRY_WORDS 24   // a fixed table entry: y + x, y - x, 2d x y, 8 words each
+#define PR_MAX_M 1024       // P1's z^(2(j+1)) in 32 KB of shared memory
+
+// l - 1, the a_R entry of a zero bit
+__device__ __forceinline__ void set_l_minus_1(u32 *r) {
+    r[0] = 0x5cf5d3ecu; r[1] = 0x5812631au; r[2] = 0xa2f79cd6u; r[3] = 0x14def9deu;
+    r[4] = 0u; r[5] = 0u; r[6] = 0u; r[7] = 0x10000000u;
+}
+
+// r = x^k for k >= 1, square and multiply from k's top bit.
+__device__ __forceinline__ void sc_pow_small(const u32 *x, unsigned k, u32 *r) {
+    copy8(r, x);
+    for (int bit = 30 - __clz(k); bit >= 0; --bit) {
+        sc_sqr_l(r, r);
+        if ((k >> bit) & 1u) sc_mul_l(r, x, r);
+    }
+}
+
+// Element j of proof b in a (B, X, 16) limb tensor.
+__device__ __forceinline__ const int64_t *at(const int64_t *p, long b, long x, long j) { return p + 16 * (b * x + j); }
+__device__ __forceinline__ int64_t *at(int64_t *p, long b, long x, long j) { return p + 16 * (b * x + j); }
+
+// The block's modular sum of each thread's two values (blockDim.x a power of two), left in thread 0's.
+__device__ __forceinline__ void block_sum2(u32 *x, u32 *y, u32 (*sx)[8], u32 (*sy)[8]) {
+    const int t = threadIdx.x;
+    copy8(sx[t], x);
+    copy8(sy[t], y);
+    __syncthreads();
+    for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
+        if (t < s) {
+            u32 u[8];
+            copy8(u, sx[t + s]);
+            sc_add_l(x, u, x);
+            copy8(sx[t], x);
+            copy8(u, sy[t + s]);
+            sc_add_l(y, u, y);
+            copy8(sy[t], y);
+        }
+        __syncthreads();
+    }
+}
+
+// P1.  y, z, y_inv: (B, 16); bits: (B, mn) in {0, 1}; r_blind: (B, m, deg, 16); alpha0: (B, deg, 16).
+// Out: a, b (B, mn, 16); y_pows (B, mn + 1, 16), y^1..y^(mn+1); y_inv_n (B, rounds, 16), y^-(mn >> (r + 1));
+// alpha (B, deg, 16).  Dynamic shared memory: z^(2(j+1)) for j < m, 8 words each.
+__global__ void __launch_bounds__(PR_MAX_THREADS) prove_prep_kernel(
+    const int64_t *__restrict__ y_in, const int64_t *__restrict__ z_in, const int64_t *__restrict__ yinv_in,
+    const int64_t *__restrict__ bits, const int64_t *__restrict__ r_blind, const int64_t *__restrict__ alpha0,
+    int m, int n, int deg, int rounds, int64_t *__restrict__ a_out, int64_t *__restrict__ b_out,
+    int64_t *y_pows, int64_t *__restrict__ yinv_out, int64_t *__restrict__ alpha_out) {
+    extern __shared__ u32 z2[];
+    const long b = blockIdx.x;
+    const int t = threadIdx.x, T = blockDim.x, mn = m * n;
+    u32 y[8], z[8], u[8], v[8], w[8];
+    load_limbs(y_in + 16 * b, y);
+    load_limbs(z_in + 16 * b, z);
+    if (t == 0) {
+        u32 zsq[8];
+        sc_sqr_l(z, zsq);
+        copy8(u, zsq);
+        for (int j = 0; j < m; ++j) {
+            copy8(z2 + 8 * j, u);
+            if (j + 1 < m) sc_mul_l(u, zsq, u);
+        }
+        load_limbs(yinv_in + 16 * b, u);  // y^-n for n = 1, 2, 4, ..: the last round first
+        for (int r = rounds - 1; r >= 0; --r) {
+            store_limbs(at(yinv_out, b, rounds, r), u);
+            if (r) sc_sqr_l(u, u);
+        }
+    }
+    for (int k = t + 1; k <= mn + 1; k += T) {
+        sc_pow_small(y, (unsigned)k, u);
+        store_limbs(at(y_pows, b, mn + 1, k - 1), u);
+    }
+    __syncthreads();  // z^(2(j+1)) in shared memory, y's powers in device memory
+    for (int i = t; i < mn; i += T) {
+        const int j = i / n, k = i % n;
+        const u32 bit = (u32)bits[b * mn + i];
+        set_small(u, bit);
+        sc_sub_l(u, z, u);  // a_i = bit - z
+        store_limbs(at(a_out, b, mn, i), u);
+        set_small(v, 0u);  // d_i = z^(2(j+1)) 2^k
+        v[k >> 5] = 1u << (k & 31);
+        sc_mul_l(z2 + 8 * j, v, v);
+        load_limbs(at(y_pows, b, mn + 1, mn - i - 1), w);  // y^(mn - i)
+        sc_mul_l(v, w, v);
+        sc_add_l(v, z, v);
+        if (!bit) {  // a_R = bit - 1
+            set_l_minus_1(w);
+            sc_add_l(w, v, v);
+        }
+        store_limbs(at(b_out, b, mn, i), v);
+    }
+    for (int k = t; k < deg; k += T) {  // alpha_k + sum_j z^(2(j+1)) y^(mn+1) r_jk
+        load_limbs(at(y_pows, b, mn + 1, mn), w);
+        load_limbs(at(alpha0, b, deg, k), u);
+        for (int j = 0; j < m; ++j) {
+            sc_mul_l(z2 + 8 * j, w, v);
+            u32 r[8];
+            load_limbs(r_blind + 16 * ((b * m + j) * deg + k), r);
+            sc_mul_l(v, r, v);
+            sc_add_l(u, v, u);
+        }
+        store_limbs(at(alpha_out, b, deg, k), u);
+    }
+}
+
+// The fold of round r - 1 (P2 at round r, P3 at r = rounds), for proof b, shared by P2 and P3: a and b from
+// 2 len to len = mn >> r values, a'_p = a_p e + a_(p+len) e^-1 y^len, b'_p = b_p e^-1 + b_(p+len) e; alpha
+// += dL e^2 + dR e^-2; without a fold (round 0) a copy.  The coefficients g and h fold lane by lane where
+// each kernel uses them (`coeff_fold`).
+struct Fold {
+    u32 e[8], ei[8], g_hi[8];  // e, e^-1, e y^-len (g's factor on a hi lane of round r - 1)
+    bool on;
+};
+
+__device__ __forceinline__ Fold fold_vectors(
+    long b, int mn, int r, int rounds, int deg, const int64_t *a_in, const int64_t *b_in,
+    const int64_t *alpha_in, const int64_t *e_in, const int64_t *ei_in, const int64_t *dl_prev,
+    const int64_t *dr_prev, const int64_t *y_pows, const int64_t *yinv_n, int64_t *a_out, int64_t *b_out,
+    int64_t *alpha_out) {
+    const int t = threadIdx.x, T = blockDim.x, len = mn >> r;
+    Fold f;
+    f.on = e_in != nullptr;
+    u32 u[8], v[8], a_hi[8];
+    if (f.on) {
+        load_limbs(e_in + 16 * b, f.e);
+        load_limbs(ei_in + 16 * b, f.ei);
+        load_limbs(at(y_pows, b, mn + 1, len - 1), u);  // y^len
+        sc_mul_l(f.ei, u, a_hi);
+        load_limbs(at(yinv_n, b, rounds, r - 1), u);  // y^-len
+        sc_mul_l(f.e, u, f.g_hi);
+    }
+    for (int p = t; p < len; p += T) {
+        load_limbs(at(a_in, b, f.on ? 2 * len : len, p), u);
+        if (f.on) {
+            sc_mul_l(u, f.e, u);
+            load_limbs(at(a_in, b, 2 * len, p + len), v);
+            sc_mul_l(v, a_hi, v);
+            sc_add_l(u, v, u);
+        }
+        store_limbs(at(a_out, b, len, p), u);
+        load_limbs(at(b_in, b, f.on ? 2 * len : len, p), u);
+        if (f.on) {
+            sc_mul_l(u, f.ei, u);
+            load_limbs(at(b_in, b, 2 * len, p + len), v);
+            sc_mul_l(v, f.e, v);
+            sc_add_l(u, v, u);
+        }
+        store_limbs(at(b_out, b, len, p), u);
+    }
+    for (int k = t; k < deg; k += T) {
+        load_limbs(at(alpha_in, b, deg, k), u);
+        if (f.on) {
+            u32 w[8];
+            sc_sqr_l(f.e, w);
+            load_limbs(at(dl_prev, b, deg, k), v);
+            sc_mul_l(v, w, v);
+            sc_add_l(u, v, u);
+            sc_sqr_l(f.ei, w);
+            load_limbs(at(dr_prev, b, deg, k), v);
+            sc_mul_l(v, w, v);
+            sc_add_l(u, v, u);
+        }
+        store_limbs(at(alpha_out, b, deg, k), u);
+    }
+    return f;
+}
+
+// Lane i's g and h coefficients after the fold: g_i (hi ? e y^-len : e^-1), h_i (hi ? e^-1 : e), hi being
+// bit `hi_bit` = log2(len) of i, round r - 1's hi bit; ones without a fold (round 0).
+__device__ __forceinline__ void coeff_fold(const Fold &f, long b, int mn, int hi_bit, int i, const int64_t *g_in,
+                                           const int64_t *h_in, u32 *g, u32 *h) {
+    if (!f.on) {
+        set_small(g, 1u);
+        set_small(h, 1u);
+        return;
+    }
+    const bool hi = (i >> hi_bit) & 1;
+    load_limbs(at(g_in, b, mn, i), g);
+    sc_mul_l(g, hi ? f.g_hi : f.ei, g);
+    load_limbs(at(h_in, b, mn, i), h);
+    sc_mul_l(h, hi ? f.ei : f.e, h);
+}
+
+// P2, round r of `rounds` (n = mn >> (r + 1)).  a_in, b_in: (B, 4n, 16) with a fold, else (B, 2n, 16);
+// g_in, h_in: (B, mn, 16) with a fold, else unused; e_in, ei_in: (B, 16) the previous round's challenge and
+// its inverse, null in round 0; dl_prev, dr_prev: that round's masks; dl, dr: this round's (B, deg, 16).
+// Out: a, b (B, 2n, 16); g, h (B, mn, 16); alpha (B, deg, 16); scalars (B, 2 (mn + deg + 1), 16), group L
+// then group R, each [g lanes, h lanes, d_1..d_deg, c].
+__global__ void __launch_bounds__(PR_MAX_THREADS) prove_round_kernel(
+    const int64_t *__restrict__ a_in, const int64_t *__restrict__ b_in, const int64_t *__restrict__ g_in,
+    const int64_t *__restrict__ h_in, const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in,
+    const int64_t *__restrict__ ei_in, const int64_t *__restrict__ dl_prev, const int64_t *__restrict__ dr_prev,
+    const int64_t *__restrict__ y_pows, const int64_t *__restrict__ yinv_n, const int64_t *__restrict__ dl,
+    const int64_t *__restrict__ dr, int mn, int rounds, int r, int deg, int64_t *a_out, int64_t *b_out,
+    int64_t *__restrict__ g_out, int64_t *__restrict__ h_out, int64_t *__restrict__ alpha_out,
+    int64_t *__restrict__ scalars) {
+    __shared__ u32 sx[PR_MAX_THREADS][8], sy[PR_MAX_THREADS][8];
+    const long b = blockIdx.x;
+    const int t = threadIdx.x, T = blockDim.x;
+    const int hb = rounds - 1 - r, n = 1 << hb, half = mn >> 1, group = mn + deg + 1, width = 2 * group;
+    const Fold f = fold_vectors(b, mn, r, rounds, deg, a_in, b_in, alpha_in, e_in, ei_in, dl_prev, dr_prev, y_pows,
+                                yinv_n, a_out, b_out, alpha_out);
+    for (int k = t; k < deg; k += T) {  // the Pedersen lanes' masks
+        u32 u[8];
+        load_limbs(at(dl, b, deg, k), u);
+        store_limbs(at(scalars, b, width, mn + k), u);
+        load_limbs(at(dr, b, deg, k), u);
+        store_limbs(at(scalars, b, width, group + mn + k), u);
+    }
+    __syncthreads();  // the folded a and b, written above, are read by every thread below
+    u32 yn[8], yin[8];
+    load_limbs(at(y_pows, b, mn + 1, n - 1), yn);
+    load_limbs(at(yinv_n, b, rounds, r), yin);
+    for (int i = t; i < mn; i += T) {
+        u32 g[8], h[8], u[8];
+        coeff_fold(f, b, mn, hb + 1, i, g_in, h_in, g, h);
+        store_limbs(at(g_out, b, mn, i), g);
+        store_limbs(at(h_out, b, mn, i), h);
+        const int p = i & (n - 1);
+        const bool hi = (i >> hb) & 1;
+        const int k = ((i >> (hb + 1)) << hb) | p;  // lane i's rank among the lanes of its kind
+        load_limbs(at(a_out, b, 2 * n, hi ? p : p + n), u);
+        sc_mul_l(g, u, g);
+        sc_mul_l(g, hi ? yin : yn, g);
+        store_limbs(at(scalars, b, width, hi ? k : group + k), g);
+        load_limbs(at(b_out, b, 2 * n, hi ? p : p + n), u);
+        sc_mul_l(h, u, h);
+        store_limbs(at(scalars, b, width, hi ? group + half + k : half + k), h);
+    }
+    // c_L = sum_j a_j y^(1+j) b_(j+n), c_R = sum_j a_(n+j) y^(n+1+j) b_j, j < n
+    u32 cl[8], cr[8];
+    set_small(cl, 0u);
+    set_small(cr, 0u);
+    for (int j = t; j < n; j += T) {
+        u32 u[8], v[8];
+        load_limbs(at(a_out, b, 2 * n, j), u);
+        load_limbs(at(y_pows, b, mn + 1, j), v);
+        sc_mul_l(u, v, u);
+        load_limbs(at(b_out, b, 2 * n, j + n), v);
+        sc_mul_l(u, v, u);
+        sc_add_l(cl, u, cl);
+        load_limbs(at(a_out, b, 2 * n, n + j), u);
+        load_limbs(at(y_pows, b, mn + 1, n + j), v);
+        sc_mul_l(u, v, u);
+        load_limbs(at(b_out, b, 2 * n, j), v);
+        sc_mul_l(u, v, u);
+        sc_add_l(cr, u, cr);
+    }
+    block_sum2(cl, cr, sx, sy);
+    if (t == 0) {
+        store_limbs(at(scalars, b, width, mn + deg), cl);
+        store_limbs(at(scalars, b, width, group + mn + deg), cr);
+    }
+}
+
+// P3, first entry.  The last round's fold (none where rounds = 0), then ry_ar = r y b0 + s y a0, rys = r y s,
+// and the final MSMs' scalars.  a_in, b_in: (B, 2, 16) with a fold, else (B, 1, 16); r_s, s_s: (B, 16); d_mask,
+// eta: (B, deg, 16).  Out: a1 (B, 2 mn + deg + 1, 16) = [g_i r, h_i s interleaved, d_mask, ry_ar]; brow
+// (B, deg + 1, 16) = [eta, rys]; a0, b0 (B, 1, 16); alpha (B, deg, 16).
+__global__ void __launch_bounds__(PR_MAX_THREADS) prove_final_kernel(
+    const int64_t *__restrict__ a_in, const int64_t *__restrict__ b_in, const int64_t *__restrict__ g_in,
+    const int64_t *__restrict__ h_in, const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in,
+    const int64_t *__restrict__ ei_in, const int64_t *__restrict__ dl_prev, const int64_t *__restrict__ dr_prev,
+    const int64_t *__restrict__ y_pows, const int64_t *__restrict__ yinv_n, const int64_t *__restrict__ r_in,
+    const int64_t *__restrict__ s_in, const int64_t *__restrict__ dmask_in, const int64_t *__restrict__ eta_in,
+    int mn, int rounds, int deg, int64_t *__restrict__ a1_out, int64_t *__restrict__ brow_out,
+    int64_t *a0_out, int64_t *b0_out, int64_t *__restrict__ alpha_out) {
+    const long b = blockIdx.x;
+    const int t = threadIdx.x, T = blockDim.x, width = 2 * mn + deg + 1;
+    // thread 0 folds position 0, the only one, and keeps a0 and b0 in its registers
+    const Fold f = fold_vectors(b, mn, rounds, rounds, deg, a_in, b_in, alpha_in, e_in, ei_in, dl_prev, dr_prev,
+                                y_pows, yinv_n, a0_out, b0_out, alpha_out);
+    u32 rs[8], ss[8], u[8], v[8];
+    load_limbs(r_in + 16 * b, rs);
+    load_limbs(s_in + 16 * b, ss);
+    for (int i = t; i < mn; i += T) {
+        u32 g[8], h[8];
+        coeff_fold(f, b, mn, 0, i, g_in, h_in, g, h);
+        sc_mul_l(g, rs, g);
+        store_limbs(at(a1_out, b, width, 2 * i), g);
+        sc_mul_l(h, ss, h);
+        store_limbs(at(a1_out, b, width, 2 * i + 1), h);
+    }
+    for (int k = t; k < deg; k += T) {
+        load_limbs(at(dmask_in, b, deg, k), u);
+        store_limbs(at(a1_out, b, width, 2 * mn + k), u);
+        load_limbs(at(eta_in, b, deg, k), u);
+        store_limbs(at(brow_out, b, deg + 1, k), u);
+    }
+    if (t == 0) {
+        u32 y1[8], ry[8], a0[8], b0[8];
+        load_limbs(a0_out + 16 * b, a0);  // its own store above
+        load_limbs(b0_out + 16 * b, b0);
+        load_limbs(at(y_pows, b, mn + 1, 0), y1);
+        sc_mul_l(rs, y1, ry);
+        sc_mul_l(ry, b0, u);
+        sc_mul_l(ss, y1, v);
+        sc_mul_l(v, a0, v);
+        sc_add_l(u, v, u);
+        store_limbs(at(a1_out, b, width, 2 * mn + deg), u);
+        sc_mul_l(ry, ss, u);
+        store_limbs(at(brow_out, b, deg + 1, deg), u);
+    }
+}
+
+// P3, second entry, a thread a proof: r1 = r + a0 e, s1 = s + b0 e, d1_k = eta_k + d_mask_k e + alpha_k e^2.
+__global__ void __launch_bounds__(PR_RESP_THREADS) prove_responses_kernel(
+    const int64_t *__restrict__ r_in, const int64_t *__restrict__ s_in, const int64_t *__restrict__ a0_in,
+    const int64_t *__restrict__ b0_in, const int64_t *__restrict__ eta_in, const int64_t *__restrict__ dmask_in,
+    const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in, long batch, int deg,
+    int64_t *__restrict__ r1_out, int64_t *__restrict__ s1_out, int64_t *__restrict__ d1_out) {
+    const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= batch) return;
+    u32 e[8], e2[8], u[8], v[8];
+    load_limbs(e_in + 16 * b, e);
+    sc_sqr_l(e, e2);
+    load_limbs(a0_in + 16 * b, u);
+    sc_mul_l(u, e, u);
+    load_limbs(r_in + 16 * b, v);
+    sc_add_l(v, u, v);
+    store_limbs(r1_out + 16 * b, v);
+    load_limbs(b0_in + 16 * b, u);
+    sc_mul_l(u, e, u);
+    load_limbs(s_in + 16 * b, v);
+    sc_add_l(v, u, v);
+    store_limbs(s1_out + 16 * b, v);
+    for (int k = 0; k < deg; ++k) {
+        load_limbs(at(dmask_in, b, deg, k), u);
+        sc_mul_l(u, e, u);
+        load_limbs(at(alpha_in, b, deg, k), v);
+        sc_mul_l(v, e2, v);
+        sc_add_l(u, v, u);
+        load_limbs(at(eta_in, b, deg, k), v);
+        sc_add_l(v, u, v);
+        store_limbs(at(d1_out, b, deg, k), v);
+    }
+}
+
+// P4, a block a proof on four-lane adders.  table: (64, 16, s_tab, 24) words, lanes 2i (g_i) and 2i + 1 (h_i)
+// for i < mn; bits: (B, mn); start: coordinate c, limb k of proof b at start_c[b * row_stride + k * limb_stride]
+// (K6's output, read in place); out: (4, B, 16), coordinate-major rows.
+__global__ void __launch_bounds__(FOLD_MAX_THREADS, 1) bit_sum_kernel(
+    const u32 *__restrict__ table, long s_tab, const int64_t *__restrict__ bits, const int64_t *__restrict__ sx,
+    const int64_t *__restrict__ sy, const int64_t *__restrict__ sz, const int64_t *__restrict__ st,
+    long row_stride, long limb_stride, long batch, int mn, int64_t *__restrict__ out) {
+    __shared__ __align__(16) u32 sh[FOLD_SMEM_WORDS];
+    const long b = blockIdx.x;
+    const int c = threadIdx.x & 3;
+    const int64_t *start = c == 0 ? sx : c == 1 ? sy : c == 2 ? sz : st;
+    const u32 *digit1 = table + s_tab * PR_ENTRY_WORDS;  // window 0, digit 1: the point itself
+    const fe acc = ge4_block_sum(
+        [&](int i) {
+            if (i == 0) return fe_load(start + b * row_stride, limb_stride);
+            const int lane = i - 1;
+            const bool bit = bits[b * mn + lane] != 0;
+            const long at_lane = (long)(2 * lane + (bit ? 0 : 1)) * PR_ENTRY_WORDS;  // g_i, or h_i
+            const uint4 *entry = reinterpret_cast<const uint4 *>(digit1 + at_lane);
+            const fe w0 = fe_load_words(entry), w1 = fe_load_words(entry + 2);
+            const fe yp = bit ? w0 : w1, ym = bit ? w1 : w0;  // -h: y - x and y + x swap
+            const fe e = fe_sub(yp, ym), h = fe_add(yp, ym);
+            if (c == 0) return fe_add(e, e);
+            if (c == 1) return fe_add(h, h);
+            if (c == 2) {
+                fe four = fe_zero();
+                four.w[0] = 4u;
+                return four;
+            }
+            return fe_mul(e, h);
+        },
+        mn + 1, sh);
+    if (threadIdx.x < 4) fe_store(out + (c * batch + b) * 16, 1, acc);
+}
+
+extern "C" const char *bppt_prover_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
+
+static bool pow2(long v) { return v > 0 && (v & (v - 1)) == 0; }
+
+static bool shape_ok(long batch, long mn, long rounds, long deg, long threads) {
+    return batch >= 1 && batch < (1L << 24) && rounds >= 0 && rounds <= 30 && mn == (1L << rounds) && deg >= 1 &&
+           deg <= 64 && pow2(threads) && threads >= 32 && threads <= PR_MAX_THREADS;
+}
+
+// Every tensor int64 limbs, contiguous, on the current device.
+extern "C" int bppt_prove_prep(const void *y, const void *z, const void *y_inv, const void *bits, const void *r_blind,
+                               const void *alpha0, long batch, long m, long n, long deg, long threads, void *a,
+                               void *b, void *y_pows, void *y_inv_n, void *alpha, void *stream) {
+    const long mn = m * n;
+    const long rounds = mn > 0 ? 63 - __builtin_clzl((unsigned long)mn) : -1;
+    if (!pow2(m) || !pow2(n) || m > PR_MAX_M || !shape_ok(batch, mn, rounds, deg, threads))
+        return (int)cudaErrorInvalidValue;
+    prove_prep_kernel<<<(unsigned)batch, (unsigned)threads, (size_t)(32 * m), (cudaStream_t)stream>>>(
+        (const int64_t *)y, (const int64_t *)z, (const int64_t *)y_inv, (const int64_t *)bits,
+        (const int64_t *)r_blind, (const int64_t *)alpha0, (int)m, (int)n, (int)deg, (int)rounds, (int64_t *)a,
+        (int64_t *)b, (int64_t *)y_pows, (int64_t *)y_inv_n, (int64_t *)alpha);
+    return (int)cudaGetLastError();
+}
+
+// e, e_inv, dl_prev, dr_prev, g, h: null in round 0 (no fold).
+extern "C" int bppt_prove_round(const void *a, const void *b, const void *g, const void *h, const void *alpha,
+                                const void *e, const void *e_inv, const void *dl_prev, const void *dr_prev,
+                                const void *y_pows, const void *y_inv_n, const void *dl, const void *dr, long batch,
+                                long mn, long rounds, long r, long deg, long threads, void *a_out, void *b_out,
+                                void *g_out, void *h_out, void *alpha_out, void *scalars, void *stream) {
+    if (!shape_ok(batch, mn, rounds, deg, threads) || r < 0 || r >= rounds || (r > 0) != (e != nullptr))
+        return (int)cudaErrorInvalidValue;
+    prove_round_kernel<<<(unsigned)batch, (unsigned)threads, 0, (cudaStream_t)stream>>>(
+        (const int64_t *)a, (const int64_t *)b, (const int64_t *)g, (const int64_t *)h, (const int64_t *)alpha,
+        (const int64_t *)e, (const int64_t *)e_inv, (const int64_t *)dl_prev, (const int64_t *)dr_prev,
+        (const int64_t *)y_pows, (const int64_t *)y_inv_n, (const int64_t *)dl, (const int64_t *)dr, (int)mn,
+        (int)rounds, (int)r, (int)deg, (int64_t *)a_out, (int64_t *)b_out, (int64_t *)g_out, (int64_t *)h_out,
+        (int64_t *)alpha_out, (int64_t *)scalars);
+    return (int)cudaGetLastError();
+}
+
+// e, e_inv, dl_prev, dr_prev, g, h: null where rounds = 0 (no fold).
+extern "C" int bppt_prove_final(const void *a, const void *b, const void *g, const void *h, const void *alpha,
+                                const void *e, const void *e_inv, const void *dl_prev, const void *dr_prev,
+                                const void *y_pows, const void *y_inv_n, const void *r_s, const void *s_s,
+                                const void *d_mask, const void *eta, long batch, long mn, long rounds, long deg,
+                                long threads, void *a1, void *brow, void *a0, void *b0, void *alpha_out,
+                                void *stream) {
+    if (!shape_ok(batch, mn, rounds, deg, threads) || (rounds > 0) != (e != nullptr))
+        return (int)cudaErrorInvalidValue;
+    prove_final_kernel<<<(unsigned)batch, (unsigned)threads, 0, (cudaStream_t)stream>>>(
+        (const int64_t *)a, (const int64_t *)b, (const int64_t *)g, (const int64_t *)h, (const int64_t *)alpha,
+        (const int64_t *)e, (const int64_t *)e_inv, (const int64_t *)dl_prev, (const int64_t *)dr_prev,
+        (const int64_t *)y_pows, (const int64_t *)y_inv_n, (const int64_t *)r_s, (const int64_t *)s_s,
+        (const int64_t *)d_mask, (const int64_t *)eta, (int)mn, (int)rounds, (int)deg, (int64_t *)a1,
+        (int64_t *)brow, (int64_t *)a0, (int64_t *)b0, (int64_t *)alpha_out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int bppt_prove_responses(const void *r_s, const void *s_s, const void *a0, const void *b0, const void *eta,
+                                    const void *d_mask, const void *alpha, const void *e, long batch, long deg,
+                                    void *r1, void *s1, void *d1, void *stream) {
+    if (batch < 1 || batch >= (1L << 24) || deg < 1 || deg > 64) return (int)cudaErrorInvalidValue;
+    prove_responses_kernel<<<(unsigned)((batch + PR_RESP_THREADS - 1) / PR_RESP_THREADS), PR_RESP_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const int64_t *)r_s, (const int64_t *)s_s, (const int64_t *)a0, (const int64_t *)b0, (const int64_t *)eta,
+        (const int64_t *)d_mask, (const int64_t *)alpha, (const int64_t *)e, batch, (int)deg, (int64_t *)r1,
+        (int64_t *)s1, (int64_t *)d1);
+    return (int)cudaGetLastError();
+}
+
+// table: int32 words (64, 16, s_tab, 24) with s_tab >= 2 mn; bits: int64 (B, mn); x, y, z, t: the start
+// points' coordinates, int64 limbs with the strides given; out: int64 (4, B, 16).  threads: a power of two
+// from 32 to 512 (fold4.cuh's tree).
+extern "C" int bppt_bit_sum(const void *table, long s_tab, const void *bits, const void *x, const void *y,
+                            const void *z, const void *t, long row_stride, long limb_stride, long batch, long mn,
+                            long threads, void *out, void *stream) {
+    if (batch < 1 || batch >= (1L << 24) || !pow2(mn) || s_tab < 2 * mn || threads < 32 ||
+        threads > FOLD_MAX_THREADS || !pow2(threads))
+        return (int)cudaErrorInvalidValue;
+    bit_sum_kernel<<<(unsigned)batch, (unsigned)threads, 0, (cudaStream_t)stream>>>(
+        (const u32 *)table, s_tab, (const int64_t *)bits, (const int64_t *)x, (const int64_t *)y,
+        (const int64_t *)z, (const int64_t *)t, row_stride, limb_stride, batch, (int)mn, (int64_t *)out);
+    return (int)cudaGetLastError();
+}

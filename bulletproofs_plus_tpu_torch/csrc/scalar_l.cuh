@@ -1,8 +1,9 @@
 // GF(l), l the order of ristretto255's group, on 32-bit words: the
 // reduction of a 512-bit value mod l (what Scalar::from_bytes_mod_order_wide
 // computes, and what R1, replay.cu, does to each 64-byte Fiat-Shamir
-// challenge), and on it the field arithmetic of S1 (scalar_pass.cu): a
-// product, a square, a sum, a difference and an inverse of 8-word values.
+// challenge), and on it the field arithmetic of S1 (scalar_pass.cu) and of
+// the prover's P1-P3 (prover.cu): a product, a square, a sum, a difference
+// and an inverse of 8-word values, and their load and store as int64 limbs.
 //
 // Counterpart of the JAX package's `_wide_to_scalar` (models/replay_device.py,
 // F.reduce_wide_l: Barrett on radix-2^16 limbs).  Here it is Barrett's
@@ -134,6 +135,32 @@ __device__ __forceinline__ void sc_reduce_wide(const u32 x[16], u32 r[8]) {
 // ---------------------------------------------------------------------------
 // GF(l) on 8 little-endian words (S1)
 // ---------------------------------------------------------------------------
+
+// int64 radix-2^16 limbs (ops/field.py's layout, each limb below 2^16) <-> 8 words, at the kernels' boundary.
+__device__ __forceinline__ void load_limbs(const int64_t *p, u32 *w) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = (u32)p[2 * k] | ((u32)p[2 * k + 1] << 16);
+}
+
+__device__ __forceinline__ void store_limbs(int64_t *p, const u32 *w) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        p[2 * k] = (int64_t)(w[k] & 0xffffu);
+        p[2 * k + 1] = (int64_t)(w[k] >> 16);
+    }
+}
+
+__device__ __forceinline__ void copy8(u32 *r, const u32 *a) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = a[k];
+}
+
+__device__ __forceinline__ void set_small(u32 *r, u32 v) {
+    r[0] = v;
+#pragma unroll
+    for (int k = 1; k < 8; ++k) r[k] = 0u;
+}
+
 
 // l - 2, the Fermat exponent; its top bit is bit 252.
 __constant__ u32 SC_L_MINUS_2[8] = {0x5cf5d3ebu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u};

@@ -68,30 +68,6 @@
 #define COL_H 3
 #define COL_CHSQ 4  // e_j^2, j < rounds; then y^-(2^b), b < rounds; G_j, j < m; w d1_k, k < deg
 
-__device__ __forceinline__ void load_limbs(const int64_t *p, u32 *w) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) w[k] = (u32)p[2 * k] | ((u32)p[2 * k + 1] << 16);
-}
-
-__device__ __forceinline__ void store_limbs(int64_t *p, const u32 *w) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        p[2 * k] = (int64_t)(w[k] & 0xffffu);
-        p[2 * k + 1] = (int64_t)(w[k] >> 16);
-    }
-}
-
-__device__ __forceinline__ void copy8(u32 *r, const u32 *a) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) r[k] = a[k];
-}
-
-__device__ __forceinline__ void set_small(u32 *r, u32 v) {
-    r[0] = v;
-#pragma unroll
-    for (int k = 1; k < 8; ++k) r[k] = 0u;
-}
-
 __device__ __forceinline__ u32 *col_at(u32 *scratch, int col, long b, long batch) {
     return scratch + ((long)col * batch + b) * 8;
 }

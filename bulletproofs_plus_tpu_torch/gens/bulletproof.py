@@ -11,7 +11,8 @@ Device design: the generators are materialised once per device as a
 consumes, and cached; the host tuples remain available for setup-time host
 math.  The prover's fixed-base digit tables (ops/fixed_base.py) are built
 on first use, over as many generators as the proof shape needs, and cached
-per device; on the verifier's kernel path the static generators join the
+per device (`fixed_tables_joined` appends the Pedersen bases' for the
+batched prover); on the verifier's kernel path the static generators join the
 dynamic MSM as plain points (ops/fixed_base.mixed_msm).
 """
 
@@ -35,6 +36,7 @@ class BulletproofGens:
         "h_vec",
         "_interleaved_device",
         "_fixed_tables",
+        "_joined_tables",
     )
 
     def __init__(self, gens_capacity: int, party_capacity: int):
@@ -52,6 +54,7 @@ class BulletproofGens:
         ]
         self._interleaved_device = {}
         self._fixed_tables = {}
+        self._joined_tables = {}
 
     def g_iter(self, n: int, m: int) -> List[hr.Point]:
         """First n of each of the first m parties' G generators, flattened."""
@@ -91,12 +94,34 @@ class BulletproofGens:
         """Tables over the first n_static interleaved generators, affine and
         precomputed for the mixed addition: int32 (64, 16, n_static, 24)
         words (96 KB per generator), built once per size and device."""
-        from ..ops.edwards import PointArray, resolve_device
+        from ..ops.edwards import resolve_device
 
         key = (n_static, resolve_device(device))
         if key not in self._fixed_tables:
-            from ..ops.fixed_base import build_tables, pack_tables
-
-            points = PointArray(*(c[:n_static] for c in self.interleaved_device(key[1])))
-            self._fixed_tables[key] = pack_tables(build_tables(points))
+            self._fixed_tables[key] = self._build_tables(n_static, key[1])
         return self._fixed_tables[key]
+
+    def _build_tables(self, n_static: int, device):
+        from ..ops.edwards import PointArray
+        from ..ops.fixed_base import build_tables, pack_tables
+
+        return pack_tables(build_tables(PointArray(*(c[:n_static] for c in self.interleaved_device(device)))))
+
+    def fixed_tables_joined(self, n_static: int, pc_gens, device="cuda"):
+        """The tables of `fixed_tables_sliced(n_static)` with the Pedersen
+        bases' tables [G_1..G_deg, H] (`pc_gens.device_base_tables`)
+        appended on the lane axis: int32 (64, 16, n_static + deg + 1, 24),
+        built once per size, Pedersen bases and device, and kept only in
+        this form (the sliced cache is not filled).  The batched prover's
+        MSMs read the generator lanes and the Pedersen lanes of one such
+        table, so each round's L and R are one grouped MSM."""
+        import torch
+
+        from ..ops.edwards import resolve_device
+
+        dev = resolve_device(device)
+        key = (n_static, dev, tuple(pc_gens.g_base_compressed_vec), pc_gens.h_base_compressed)
+        if key not in self._joined_tables:
+            self._joined_tables[key] = torch.cat([self._build_tables(n_static, dev), pc_gens.device_base_tables(dev)],
+                                                 dim=2)
+        return self._joined_tables[key]

@@ -8,10 +8,19 @@ every round and computes L/R as variable-point MSMs over the folded points
 (range_proof.rs:409-537).  Folded generators are linear in the ORIGINAL
 generators, so no point is ever folded: per-lane scalar coefficients
 (g_coeff/h_coeff) are tracked instead, and every round's L/R and the final
-A1/B are fixed-base MSMs over the original gi/hi/H/G_k, whose 4-bit digit
-tables are precomputed (ops/fixed_base.py) and read by the kernels K5 and K6
-(ops/cuda_fixed.py).  Each batch of points is encoded with `compress`, one
-launch of C1 (csrc/ristretto.cu, K4's chain inside) on the card.
+A1/B are fixed-base MSMs over the original gi/hi and the Pedersen bases
+[G_1..G_deg, H], whose 4-bit digit tables are precomputed
+(ops/fixed_base.py), joined on the lane axis
+(`BulletproofGens.fixed_tables_joined`) and read by the kernels K5 and K6
+(ops/cuda_fixed.py): a round's L and R are one grouped MSM.  Each batch of
+points is encoded with `compress`, one launch of C1 (csrc/ristretto.cu, K4's
+chain inside) on the card.
+
+**The scalar protocol on the card.**  The vector prep, each round's fold
+and MSM scalars, the final fold and responses, and the A commitment's
+masked sum are the kernels P1-P4 of csrc/prover.cu on a card, their plain
+twins on the CPU (models/prover_kernels.py): one launch of P1, one of P2 a
+round, two of P3 and one of P4 a prove.
 
 **Fiat-Shamir on the host.**  The JAX package runs the Merlin sponge inside
 its one jitted program because a jit cannot call back to the host.  PyTorch
@@ -23,8 +32,7 @@ read back, the challenges are squeezed and the round's masks drawn with
 scalars are uploaded.  The external RNG is so consumed by the transcript
 itself, in the reference's call order.  Challenge inverses (y^-1, each e^-1)
 are taken on the host too: B modular inversions instead of one Fermat
-ladder of ~380 batched multiplications on the device each.  The scalar
-folds and the A commitment's masked sums are plain torch.
+ladder of ~380 batched multiplications on the device each.
 
 Bit-exactness contract: proofs and the callers' final transcript states are
 byte-identical to sequential `RangeProof.prove_with_rng` calls fed the same
@@ -47,28 +55,19 @@ import torch
 
 from ..errors import InvalidArgument, InvalidLength
 from ..gens.pedersen import ExtensionDegree
-from ..ops import edwards as ed
-from ..ops import field as F
 from ..ops import host_ristretto as hr
 from ..ops import ristretto as rist
 from ..ops.edwards import PointArray
 from ..ops.fixed_base import fixed_msm_batched, fixed_msm_grouped
 from ..ops.limbs import NLIMBS, bytes_from_limbs, int_from_limbs, pack_ints
-from ..ops.msm import tree_reduce
 from ..utils.hashing import nonce
 from ..utils.merlin import Transcript
+from .prover_kernels import bit_sum, prove_final, prove_prep, prove_responses, prove_round, round_lanes
 from .statement import RangeStatement, RangeWitness
 from .transcripts import RangeProofTranscript
-from .verifier_kernels import _on, _power_ladder
+from .verifier_kernels import _on
 
 L = hr.L
-
-
-def _batch_sum_l(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Modular sum of canonical scalars along `dim`: one exact limb-wise
-    int64 sum, one carry chain, one Barrett reduction."""
-    raw = x.sum(dim=dim)
-    return F.barrett_reduce(F.carry_prop(raw, 32, bits=16 + x.shape[dim].bit_length()))
 
 
 def _point_bytes(comp: torch.Tensor) -> np.ndarray:
@@ -256,7 +255,6 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
         ]
         bits_np[lane] = [(v >> i) & 1 for v in offsets for i in range(bit_length)]
     bits = _on(bits_np, device)
-    ones = bits == 1
     r_blind = upload(
         [
             witness.openings[j].r[k] if k < len(witness.openings[j].r) else 0
@@ -267,157 +265,59 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
         B, m, deg,
     )
 
-    gihi_tables = gens.bp_gens.fixed_tables_sliced(2 * mn, device)
-    pedersen_tables = gens.pc_gens.device_base_tables(device)  # [G_1..G_deg, H]
-    interleaved = gens.bp_gens.interleaved_device(device)
-    gi_pts = PointArray(*(c[0 : 2 * mn : 2] for c in interleaved))
-    neg_hi_pts = ed.neg(PointArray(*(c[1 : 2 * mn : 2] for c in interleaved)))
+    # The generators' tables joined with the Pedersen bases' [G_1..G_deg, H], at lanes 2mn..2mn+deg
+    tables = gens.bp_gens.fixed_tables_joined(2 * mn, gens.pc_gens, device)
+    pedersen = 2 * mn + np.arange(deg + 1)
 
     # --- A commitment (range_proof.rs:299-345): the static scalars ARE the
     # bit decomposition (a_li in {0,1}, a_ri in {0,-1}), so the MSM collapses
-    # to two masked halving sums plus the alpha fixed-base MSM.
-    idp = ed.identity((B, mn), device=device)
-    sel = ed.cat(
-        [
-            ed.select(ones, PointArray(*(c.expand(B, mn, NLIMBS) for c in gi_pts)), idp),
-            ed.select(ones, idp, PointArray(*(c.expand(B, mn, NLIMBS) for c in neg_hi_pts))),
-        ],
-        dim=1,
-    )
-    a_pt = ed.add(tree_reduce(sel), fixed_msm_batched(alpha, pedersen_tables))
+    # to a masked sum (P4) on top of the alpha fixed-base MSM.
+    a_pt = bit_sum(fixed_msm_batched(alpha, tables, lanes=pedersen[:deg]), bits, tables)
     a_bytes = _point_bytes(rist.compress(a_pt))
 
-    # --- challenges y, z (transcripts.rs:124-138)
+    # --- challenges y, z (transcripts.rs:124-138); vector prep (range_proof.rs:350-373)
     y_list, z_list = rpt.challenges_y_z(a_bytes)
-    y = upload(y_list, B)
-    z = upload(z_list, B)
     y_inv = upload([pow(v, -1, L) for v in y_list], B)
+    av, bv, y_pows, y_inv_n, alpha = prove_prep(
+        upload(y_list, B), upload(z_list, B), y_inv, bits, r_blind, alpha, bit_length=bit_length
+    )
 
-    one = F.limbs_const(1, y).expand(y.shape)
-    y_powers = _power_ladder(y, one, mn + 2)  # (B, mn+2, 16): y^0..y^{mn+1}
-    y_inv_powers = _power_ladder(y_inv, one, mn + 2)
-    z_square = F.sqr_l(z)
-
-    # d vector and vector prep (range_proof.rs:350-365)
-    two_pows = upload([pow(2, i, L) for i in range(bit_length)], bit_length)
-    z2_pows = _power_ladder(z_square, z_square, m)  # (B, m): z^{2(j+1)}
-    d = F.mul_l(z2_pows[:, :, None, :], two_pows[None, None]).reshape(B, mn, NLIMBS)
-    bits_limb = torch.zeros((B, mn, NLIMBS), dtype=torch.int64, device=device)
-    bits_limb[:, :, 0] = bits
-    minus_one = F.limbs_const(L - 1, y).expand(B, mn, NLIMBS)
-    a_ri0 = F.select(ones, torch.zeros_like(bits_limb), minus_one)
-    y_rev = y_powers[:, 1 : mn + 1].flip(1)  # y^{mn-i}
-    z_b = z[:, None].expand(B, mn, NLIMBS)
-    av = F.sub_l(bits_limb, z_b)  # spread a vector
-    bv = F.add_l(a_ri0, F.add_l(F.mul_l(d, y_rev), z_b))  # spread b
-
-    # alpha += z^{2(j+1)} * r_jk * y^{mn+1} (range_proof.rs:367-373)
-    alpha_terms = F.mul_l(F.mul_l(z2_pows, y_powers[:, mn + 1][:, None])[:, :, None], r_blind)  # (B, m, deg, 16)
-    alpha = F.add_l(alpha, _batch_sum_l(alpha_terms, 1))
-
-    # Per-lane folded-generator coefficients: gi'_r[p] = sum over original
-    # lanes i with (i mod 2n) == p of g_coeff[i] * gi[i].
-    g_coeff = one[:, None].expand(B, mn, NLIMBS)
-    h_coeff = g_coeff
-
+    # Rounds (range_proof.rs:409-537): each folds by the previous round's
+    # challenge, then L and R are one grouped fixed-base MSM over the ORIGINAL
+    # generators (folded generators are linear in them: per-lane coefficients
+    # g and h) and the Pedersen lanes [d, c].
     li_bytes, ri_bytes = [], []
-    lanes = np.arange(mn)
+    g_coeff = h_coeff = fold = None
     for r in range(rounds):
-        n = mn >> (r + 1)
-        hi_np = lanes % (2 * n) >= n
-        hi_mask = torch.as_tensor(hi_np, device=device)[None]  # (1, mn)
-        y_n = y_powers[:, n]
-        y_n_inv = y_inv_powers[:, n]
-
         d_l = masks("dL", r)
         d_r = masks("dR", r)
-
-        # c_l = sum_{j<n} a[j] y^{1+j} b[j+n]; c_r with y^{n+1+j}, halves
-        # swapped (range_proof.rs:430-443).  The first 2n spread lanes are
-        # the canonical folded vectors, so static slices suffice.
-        c_l = _batch_sum_l(F.mul_l(F.mul_l(av[:, :n], y_powers[:, 1 : n + 1]), bv[:, n : 2 * n]), 1)
-        c_r = _batch_sum_l(F.mul_l(F.mul_l(av[:, n : 2 * n], y_powers[:, n + 1 : 2 * n + 1]), bv[:, :n]), 1)
-
-        # L/R as fixed-base MSMs over the ORIGINAL generators: substitute
-        # gi'[p] = sum g_coeff[i] gi[i] into range_proof.rs:445-458.  Each
-        # interleaved lane contributes to EXACTLY ONE of L and R (g_i -> L iff
-        # pos >= n, h_i -> L iff pos < n), so one grouped MSM of width 2mn,
-        # its lanes permuted so L's come first, computes both.
-        av_up, av_down = torch.roll(av, n, 1), torch.roll(av, -n, 1)
-        bv_up, bv_down = torch.roll(bv, n, 1), torch.roll(bv, -n, 1)
-        g_lane = F.select(
-            hi_mask,
-            F.mul_l(F.mul_l(g_coeff, av_up), y_n_inv[:, None]),
-            F.mul_l(F.mul_l(g_coeff, av_down), y_n[:, None]),
-        )  # hi lanes: L's g coefficient; lo lanes: R's
-        h_lane = F.select(hi_mask, F.mul_l(h_coeff, bv_up), F.mul_l(h_coeff, bv_down))  # hi: R's h; lo: L's
-        combined = torch.stack([g_lane, h_lane], dim=2).reshape(B, 2 * mn, NLIMBS)
-        perm = np.concatenate(
-            [
-                2 * lanes[hi_np],  # g lanes feeding L
-                2 * lanes[~hi_np] + 1,  # h lanes feeding L
-                2 * lanes[~hi_np],  # g lanes feeding R
-                2 * lanes[hi_np] + 1,  # h lanes feeding R
-            ]
+        av, bv, g_coeff, h_coeff, alpha, scalars = prove_round(
+            av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, d_l, d_r, r=r
         )
-        lr_static_pts = fixed_msm_grouped(combined[:, _on(perm, device)], gihi_tables, 2, lanes=perm)
-        lr_fixed = torch.stack(
-            [torch.cat([d_l, c_l[:, None]], dim=1), torch.cat([d_r, c_r[:, None]], dim=1)], dim=1
-        )  # (B, 2, deg+1, 16)
-        lr_pts = ed.add(lr_static_pts, fixed_msm_batched(lr_fixed, pedersen_tables))
+        lr_pts = fixed_msm_grouped(scalars, tables, 2, lanes=round_lanes(mn, deg, r))
         lr_bytes = _point_bytes(rist.compress(lr_pts))  # (B, 2, 32)
         li_bytes.append(lr_bytes[:, 0])
         ri_bytes.append(lr_bytes[:, 1])
 
         e_list = rpt.challenge_round_e(lr_bytes[:, 0], lr_bytes[:, 1])
-        e = upload(e_list, B)
-        e_inv = upload([pow(v, -1, L) for v in e_list], B)
-        e_sq = F.sqr_l(e)
-        e_inv_sq = F.sqr_l(e_inv)
+        fold = (upload(e_list, B), upload([pow(v, -1, L) for v in e_list], B), d_l, d_r)
 
-        # Folds (range_proof.rs:510-537), in spread form: lanes with position
-        # p' = i mod n read their lo value at position p' and their hi value
-        # at p' + n via static rolls.
-        av_lo, av_hi = F.select(hi_mask, av_up, av), F.select(hi_mask, av, av_down)
-        bv_lo, bv_hi = F.select(hi_mask, bv_up, bv), F.select(hi_mask, bv, bv_down)
-        e_b, e_inv_b = e[:, None].expand(B, mn, NLIMBS), e_inv[:, None].expand(B, mn, NLIMBS)
-        av = F.add_l(F.mul_l(av_lo, e_b), F.mul_l(av_hi, F.mul_l(e_inv, y_n)[:, None]))
-        bv = F.add_l(F.mul_l(bv_lo, e_inv_b), F.mul_l(bv_hi, e_b))
-        g_coeff = F.mul_l(g_coeff, F.select(hi_mask, F.mul_l(e, y_n_inv)[:, None].expand(B, mn, NLIMBS), e_inv_b))
-        h_coeff = F.mul_l(h_coeff, F.select(hi_mask, e_inv_b, e_b))
-        alpha = F.add_l(alpha, F.add_l(F.mul_l(d_l, e_sq[:, None]), F.mul_l(d_r, e_inv_sq[:, None])))
-
-    # --- final masks and A1/B (range_proof.rs:540-584)
+    # --- final masks and A1/B (range_proof.rs:540-584): A1 spans ALL original
+    # generator lanes after the last fold, and the Pedersen lanes; B only the latter
     r_s = upload(rpt.rng().random_not_zero(), B)
     s_s = upload(rpt.rng().random_not_zero(), B)
     d_mask = masks("d", None)
     eta = masks("eta", None)
-
-    a0, b0, y1 = av[:, 0], bv[:, 0], y_powers[:, 1]
-    ry = F.mul_l(r_s, y1)
-    ry_ar = F.add_l(F.mul_l(ry, b0), F.mul_l(F.mul_l(s_s, y1), a0))
-    rys = F.mul_l(ry, s_s)
-
-    # A1 = r*gi'[0] + s*hi'[0] + ry_ar*H + sum d_mask*G; gi'[0] spans ALL
-    # original lanes after the last fold.  B has no static component, so it
-    # costs only the (deg+1)-lane Pedersen MSM.
-    a1_static = torch.stack([F.mul_l(g_coeff, r_s[:, None]), F.mul_l(h_coeff, s_s[:, None])], dim=2).reshape(
-        B, 2 * mn, NLIMBS
+    a1_scalars, b_scalars, a0, b0, alpha = prove_final(
+        av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, r_s, s_s, d_mask, eta
     )
-    final_fixed = torch.stack(
-        [torch.cat([d_mask, ry_ar[:, None]], dim=1), torch.cat([eta, rys[:, None]], dim=1)], dim=1
-    )
-    ped_pts = fixed_msm_batched(final_fixed, pedersen_tables)  # (B, 2)
-    a1_pt = ed.add(fixed_msm_batched(a1_static, gihi_tables), PointArray(*(c[:, 0] for c in ped_pts)))
-    final_pts = PointArray(*(torch.stack([a, c[:, 1]], dim=1) for a, c in zip(a1_pt, ped_pts)))
+    a1_pt = fixed_msm_batched(a1_scalars, tables)
+    b_pt = fixed_msm_batched(b_scalars, tables, lanes=pedersen)
+    final_pts = PointArray(*(torch.stack([a, b], dim=1) for a, b in zip(a1_pt, b_pt)))
     final_bytes = _point_bytes(rist.compress(final_pts))  # (B, 2, 32)
 
     e_list = rpt.challenge_final_e(final_bytes[:, 0], final_bytes[:, 1])
-    e_f = upload(e_list, B)
-    e_f_sq = F.sqr_l(e_f)
-    r1 = F.add_l(r_s, F.mul_l(a0, e_f))
-    s1 = F.add_l(s_s, F.mul_l(b0, e_f))
-    d1 = F.add_l(eta, F.add_l(F.mul_l(d_mask, e_f[:, None]), F.mul_l(alpha, e_f_sq[:, None])))
+    r1, s1, d1 = prove_responses(r_s, s_s, a0, b0, eta, d_mask, alpha, upload(e_list, B))
     final = stacked.strobe
     lanes = {
         "a": a_bytes,

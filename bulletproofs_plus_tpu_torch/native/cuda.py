@@ -71,6 +71,16 @@ LIBRARIES = {
             "bppt_reduce_wide": [_VP, _VP, _VP, _LONG, _VP],
         },
     ),
+    "prover": (
+        "prover.cu",
+        {
+            "bppt_prove_prep": [_VP] * 6 + [_LONG] * 5 + [_VP] * 6,
+            "bppt_prove_round": [_VP] * 13 + [_LONG] * 6 + [_VP] * 7,
+            "bppt_prove_final": [_VP] * 15 + [_LONG] * 5 + [_VP] * 6,
+            "bppt_prove_responses": [_VP] * 8 + [_LONG] * 2 + [_VP] * 4,
+            "bppt_bit_sum": [_VP, _LONG] + [_VP] * 5 + [_LONG] * 5 + [_VP] * 2,
+        },
+    ),
     "scalar": (
         "scalar_pass.cu",
         {

@@ -8,7 +8,9 @@ its plain torch version on the card (K1, K7 and K2 at the MSM widths of both
 verify batches below, 4736 and 2048 lanes; R1, the Fiat-Shamir replay, at
 both batches' shapes; S1, the scalar pass, at both batches' groups and the
 mixed batch's two; D1, C1 and I1, ristretto decoding, encoding and the
-identity check, at the verify's and the prover's shapes), replays and
+identity check, at the verify's and the prover's shapes; P1-P4, the prover's
+scalar protocol and the A commitment's masked sum, at the 128-proof
+prove's shape, P2 at each of its six rounds), replays and
 verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
 and the host engine with their MSMs on the card (`msm_backend="device"`),
 verifies the 256 x 64-bit and 64 x m4 batches through
@@ -18,7 +20,10 @@ BPPT_MSM_SIGNED=0), verifies a 256-proof batch of two shapes (`mixed`,
 against `engine="host"`) and a stream of nine batches through
 `verify_batches_pipelined` (`pipelined`, against per-batch calls), proves
 128 x 64-bit statements with `RangeProof.prove_batch_with_rng` and verifies
-what it proved, with launch counters proving the kernels ran, and checks
+what it proved, with launch counters proving the kernels ran and a counter
+of plain field and point calls on CUDA tensors (`PLAIN_FUNCTIONS`) proving
+that nothing else computed, then 64 x (64-bit, m=4, degree 5) statements
+against the sequential prover at lanes 0 and 63, and checks
 that tampered and non-canonical batches fail with the reference's errors.
 Last, `sharded` runs parallel/ on the card: two gloo ranks sharing card 0
 (NCCL refuses two ranks on one card), then NCCL (one rank on a one-card
@@ -105,6 +110,15 @@ same chain and the formula's products on its longest path
 (DECODE_CHAIN_*, ENCODE_CHAIN_*) at `fe_sqr_ns` and `fe_mul_ns`.  The main
 phase times, beside the scalar pass, the decompression and the identity
 check as stages of a verify, and reads D1's and I1's device time there.
+
+P1-P3 read each input once and write each output once as int64 limbs, and
+count the products mod l that one proof needs at the fewest
+(`_prover_products`), each `SC_MULADDS_PER_MUL`; their `chain_ms` is the
+products one thread runs one after another (`_prover_chains`) at
+`sc_mul_ns`.  P4 reads the bits, the start points and the generators' first
+two table words once and writes a point a proof, and counts a mixed addition
+(7 products) a lane; its chain is an adder's four-lane additions and the
+tree's levels at `fe_mul_ns`.
 
 S1 reads each input once and writes each output once as int64 limbs; its
 bound counts the products mod l that the scalar pass needs at the fewest
@@ -892,6 +906,192 @@ def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: di
     out["ristretto"] = {k: rows[k] for k in ("decompress", "compress", "is_identity")}
 
 
+PROVER_KERNELS = ("prove_prep", "prove_round", "prove_final", "prove_responses", "bit_sum")
+PROVER_SHAPE = (PROVE_BATCH, 1, 64, 1)  # the main path's prove: proofs, m, bit length, extension degree
+PROVER_ROW_ROUND = 1  # P2's row: round 1, the first that folds (the others are in `by_round`)
+
+
+def _prover_products(mn: int, m: int, deg: int, rounds: int, r: int | None = None) -> dict:
+    """The products mod l that one proof needs at the fewest in each of
+    P1-P3's launches (sums and doublings not counted): P1 y^2..y^(mn+1) as a
+    ladder, y^-n by rounds - 1 squarings, z^2 and its ladder over m, one a
+    lane (z^(2(j+1)) y^(mn-i), then 2^k as doublings) and the alpha terms;
+    P2 at round r, n = mn >> (r + 1), with a fold two factors, two products
+    a folded value of a and of b (4n each), e^2, e^-2 and two a mask, one
+    for each of g and h a lane; then a_p y^(+-n) once a position (2n), one
+    for each of g and h a lane after a fold (none in round 0, where both are
+    one) and two a term of c_L and of c_R; P3's first entry the same fold to
+    one value, four factors (g's two and h's two, each by r or s), one for
+    each of g and h a lane and five for ry_ar and rys (only those five
+    without rounds); its second 3 + 2 deg."""
+    n = mn >> ((r or 0) + 1)
+    fold = 2 + 8 * n + 2 + 2 * deg + 2 * mn
+    last = 2 + 4 + 2 + 2 * deg + 4 + 2 * mn if rounds else 0
+    return {"prove_prep": mn + max(rounds - 1, 0) + m + mn + m + m * deg,
+            "prove_round": (fold + 2 * mn if r else 0) + 2 * n + 4 * n,
+            "prove_final": last + 5,
+            "prove_responses": 3 + 2 * deg}
+
+
+def _prover_bytes(mn: int, m: int, deg: int, rounds: int, r: int | None = None) -> dict:
+    """The bytes one proof's share of each of P1-P3's launches must move:
+    each value the function reads read once, each output written once, as
+    int64 limbs (LIMB_BYTES a scalar, 8 a bit).  P1 reads all of its inputs;
+    P2 at round r reads a and b (4n each after a fold, else 2n), alpha and
+    the round's masks, y^1..y^2n and y^-n, and after a fold also e, e^-1,
+    the previous masks, g, h and y^-2n; P3's first entry reads the last
+    fold's (a and b two each, g, h, e, e^-1, masks, y^-1), alpha, y^1, r, s,
+    d_mask and eta; its second all of its inputs."""
+    n = mn >> ((r or 0) + 1)
+    fold_in = 2 + 2 * deg + 2 * mn + 1
+    scalars = {
+        "prove_prep": (3 + m * deg + deg) + (2 * mn + mn + 1 + rounds + deg),
+        "prove_round": ((2 * (4 * n if r else 2 * n) + deg + 2 * deg + 2 * n + 1 + (fold_in if r else 0))
+                        + (4 * n + 2 * mn + deg + 2 * (mn + deg + 1))),
+        "prove_final": (((4 + fold_in) if rounds else 2) + deg + 1 + 2 + 2 * deg
+                        + (2 * mn + deg + 1) + (deg + 1) + 2 + deg),
+        "prove_responses": (4 + 3 * deg + 1) + (2 + deg),
+    }
+    out = {k: v * LIMB_BYTES for k, v in scalars.items()}
+    out["prove_prep"] += 8 * mn
+    return out
+
+
+def _prover_chains(mn: int, m: int, deg: int, rounds: int, r: int) -> dict:
+    """Products one thread of P1-P3 runs one after another at its longest (the
+    block's threads, `cuda_prover.block_threads`, striding over the lanes):
+    P1 the larger of thread 0's z ladder and y^-n squarings and a thread's
+    y^k (squarings and products of k's bits), then two a lane and two an
+    alpha term; P2 the fold's factors and four a folded pair, e^2 and e^-2
+    and two a mask, then five a lane (three in round 0) and four a c term;
+    P3 as P2 with one folded pair and two a lane, then five."""
+    from bulletproofs_plus_tpu_torch.ops.cuda_prover import block_threads
+
+    t = block_threads(mn)
+    per = -(-mn // t)
+    pows = max(sum(k.bit_length() + bin(k).count("1") - 2 for k in range(j + 1, mn + 2, t)) for j in range(t))
+    n = mn >> (r + 1)
+    fold = 2 + 4 * -(-2 * n // t) + 4
+    return {"prove_prep": max(m + max(rounds - 1, 0), pows) + 2 * per + 2 * m,
+            "prove_round": (fold if r else 0) + (5 if r else 3) * per + 4 * -(-n // t),
+            "prove_final": 2 + 4 + 4 + 4 * per + 5,
+            "prove_responses": 3 + 2 * deg}
+
+
+def _prover_inputs():
+    """tests/torch_prover_inputs.py (numpy and the port only): the kernels'
+    seeded inputs and `LaneRng`, one lane of a batched SeededRng."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_prover_inputs
+
+    return torch_prover_inputs
+
+
+def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict) -> None:
+    """P1-P4 against their plain twins on the card at the 128-proof prove's
+    shape, every output exact (P2 at every round; P4 as canonical affine
+    points, its start read as K6 leaves it), each timed beside its twin, with
+    its bound (the products mod l of `_prover_products` at
+    `SC_MULADDS_PER_MUL`, or for P4 a mixed addition a lane; the bytes of
+    `_prover_bytes`, or for P4 its bits, start and result as int64 limbs and
+    its generators as their first two table words) and its chain (`_prover_chains` at `sc_mul_ns`;
+    P4 an adder's four-lane additions and the tree's levels at `fe_mul_ns`)."""
+    import numpy as np
+
+    pin = _prover_inputs()
+
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.native import cuda
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from bulletproofs_plus_tpu_torch.ops import edwards as ed
+    from bulletproofs_plus_tpu_torch.ops import field as F
+    from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
+
+    batch, m, n, deg = PROVER_SHAPE
+    mn = m * n
+    rounds = mn.bit_length() - 1
+    sc_ns = out["sc_mul_ns"]
+
+    def err(got, want):
+        return max(float((g - w).abs().max()) if g.numel() else 0.0 for g, w in zip(got, want))
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def row(name, call, plain, args, outs, r=None, extra=None):
+        e = err(outs, plain(*args[0], **args[1]))
+        if e != 0:
+            raise AssertionError(f"{name} disagrees with its plain twin (max_abs_err {e})")
+        products = _prover_products(mn, m, deg, rounds, r)[name]
+        moved = batch * _prover_bytes(mn, m, deg, rounds, r)[name]
+        ins = [t for t in args[0] if isinstance(t, torch.Tensor)]
+        ins += [t for f in args[0] if isinstance(f, tuple) for t in f]
+        if moved > nbytes(*ins, *outs):
+            raise AssertionError(f"{name}: {moved} bytes counted, more than its tensors hold")
+        b_ms, b_by = bound_ms(moved, batch * products * SC_MULADDS_PER_MUL)
+        chain = _prover_chains(mn, m, deg, rounds, rounds if r is None else r)[name]
+        return {"max_abs_err": e, "ms": kernel_ms(lambda: call(*args[0], **args[1])),
+                "graph_ms": graph_ms(lambda: call(*args[0], **args[1])),
+                "plain_ms": median_ms(lambda: plain(*args[0], **args[1]), 3), "bound_ms": b_ms, "bound_by": b_by,
+                "chain_ms": chain * sc_ns * 1e-6, "products": products, "bytes": moved,
+                "threads": cpr.block_threads(mn), "blocks": batch, **ptxas.get(f"{name}_kernel", {}), **(extra or {})}
+
+    cuda.reset_launches()
+    prep = pin.to_device(pin.prep_inputs(batch, m, n, deg, seed=1), torch, "cuda")
+    keys = ("y", "z", "y_inv", "bits", "r_blind", "alpha0")
+    args = ([prep[k] for k in keys], {"bit_length": n})
+    rows["prove_prep"] = row("prove_prep", cpr.prove_prep, PK.prove_prep_plain, args,
+                             cpr.prove_prep(*args[0], **args[1]), r=0)
+
+    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
+    by_round = {}
+    for r in range(rounds):
+        inp = pin.to_device(pin.round_inputs(batch, m, n, deg, r, seed=10 + r), torch, "cuda")
+        args = ([inp[k] for k in keys], {"r": r})
+        by_round[r] = row("prove_round", cpr.prove_round, PK.prove_round_plain, args,
+                          cpr.prove_round(*args[0], **args[1]), r=r)
+    rows["prove_round"] = {**by_round[PROVER_ROW_ROUND], "round": PROVER_ROW_ROUND,
+                           "by_round": {r: {k: v[k] for k in ("graph_ms", "ms", "bound_ms", "chain_ms", "products",
+                                                              "bytes")}
+                                        for r, v in by_round.items()}}
+
+    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "r_s", "s_s", "d_mask", "eta")
+    inp = pin.to_device(pin.final_inputs(batch, m, n, deg, seed=2), torch, "cuda")
+    args = ([inp[k] for k in keys], {})
+    rows["prove_final"] = row("prove_final", cpr.prove_final, PK.prove_final_plain, args, cpr.prove_final(*args[0]))
+    keys = ("r_s", "s_s", "a0", "b0", "eta", "d_mask", "alpha", "e")
+    inp = pin.to_device(pin.responses_inputs(batch, deg, seed=3), torch, "cuda")
+    args = ([inp[k] for k in keys], {})
+    rows["prove_responses"] = row("prove_responses", cpr.prove_responses, PK.prove_responses_plain, args,
+                                  cpr.prove_responses(*args[0]), extra={"threads": 128, "blocks": -(-batch // 128)})
+
+    # P4 on the joined tables of the prove's generators, from alpha's point as K6 leaves it
+    table = params.bp_gens.fixed_tables_joined(2 * mn, params.pc_gens, "cuda")
+    rs = np.random.RandomState(4)
+    bits = torch.as_tensor(rs.randint(0, 2, size=(batch, mn)).astype(np.int64), device="cuda")
+    bits[0], bits[1] = 1, 0
+    start = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(batch)], device="cuda")
+    start = ed.PointArray(*(c.t().contiguous().t() for c in start))
+    got, want = cpr.bit_sum(start, bits, table), PK.bit_sum_plain(start, bits, table)
+    e4 = _point_err(F, torch, torch.stack(list(got)).movedim(-1, 1), torch.stack(list(want)).movedim(-1, 1))
+    if e4 != 0:
+        raise AssertionError(f"bit_sum disagrees with its plain twin (max_abs_err {e4})")
+    threads = cpr.bit_sum_threads(mn)
+    adders = threads // 4
+    b4 = bound_ms(nbytes(bits, *start) + 2 * mn * 64 + batch * POINT_BYTES,
+                  batch * mn * FMUL_PER_MIXED_ADD * MULADDS_PER_FMUL)
+    chain4 = (1 + (-(-(mn + 1) // adders) - 1 + (adders - 1).bit_length()) * FMUL_DEEP_ADD4) * probe["fe_mul_ns"]
+    rows["bit_sum"] = {"max_abs_err": e4, "ms": kernel_ms(lambda: cpr.bit_sum(start, bits, table)),
+                       "graph_ms": graph_ms(lambda: cpr.bit_sum(start, bits, table)),
+                       "plain_ms": median_ms(lambda: PK.bit_sum_plain(start, bits, table), 3),
+                       "bound_ms": b4[0], "bound_by": b4[1], "chain_ms": chain4 * 1e-6, "threads": threads,
+                       "blocks": batch, **ptxas.get("bit_sum_kernel", {})}
+    out["prover"] = {k: rows[k] for k in PROVER_KERNELS}
+    out["prover_shape"] = {"proofs": batch, "m": m, "bits": n, "deg": deg, "rounds": rounds}
+
+
 def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     from bulletproofs_plus_tpu_torch.ops import cuda_fixed as cf
     from bulletproofs_plus_tpu_torch.ops import cuda_msm as cm
@@ -986,6 +1186,9 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
 
     _scalar_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
     section_done("s1")
+
+    _prover_rows(torch, params, rows, out, ptxas, probe)
+    section_done("p1_p4")
 
     # K1-K3 on the main path's MSM shape: 4098 dynamic lanes padded to 4608
     # (zero scalar, identity) plus 128 static lanes.
@@ -1149,15 +1352,17 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
                               **ptxas.get("dyn_acc_signed_kernel", {})}
     section_done("k1_k2_k3_k7")
 
-    # K5 and K6 at the prover's shapes: the round MSM (128 proofs x 128
-    # generator lanes, permuted, L and R as two groups), the A1 MSM (one
-    # group, lanes in place) and the Pedersen MSMs (256 rows x 2 lanes).
+    # K5 and K6 at the prover's shapes, over the generators' tables joined with the Pedersen bases' (128 + 2
+    # lanes): the round MSM (128 proofs x 132 lanes in round 1's order, L and R as two groups, each ending with
+    # its Pedersen lanes [d, c]), the A1 MSM (130 lanes in place, one group) and the Pedersen MSMs of alpha and
+    # B (128 rows x 1 and 2 lanes; B's timed).
+    from bulletproofs_plus_tpu_torch.models.prover_kernels import round_lanes
+
     t0 = time.perf_counter()
-    gihi = params.bp_gens.fixed_tables_sliced(2 * 64, dev)
-    pedersen = params.pc_gens.device_base_tables(dev)
+    joined = params.bp_gens.fixed_tables_joined(2 * 64, params.pc_gens, dev)
     torch.cuda.synchronize()
     out["table_build_s"] = time.perf_counter() - t0
-    out["table_bytes"] = {"generators": gihi.numel() * 4, "pedersen": pedersen.numel() * 4}
+    out["table_bytes"] = {"generators": joined[:, :, : 2 * 64].numel() * 4, "joined": joined.numel() * 4}
     section_done("tables")
 
     def rand_scalars(f, s):
@@ -1166,12 +1371,11 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
         vals[1] = [0] * (s - 1) + [11 << (4 * 50)]  # one non-zero digit
         return torch.as_tensor(pack_ints([v for row in vals for v in row]).astype("int64"), device=dev).reshape(f, s, 16)
 
-    perm = list(range(128))
-    rs.shuffle(perm)
+    on_dev = lambda lanes: torch.as_tensor(lanes, device=dev)  # noqa: E731
     shapes = (
-        ("round", gihi, torch.as_tensor(perm, device=dev), rand_scalars(PROVE_BATCH, 128), 2),
-        ("a1", gihi, torch.arange(128, device=dev), rand_scalars(PROVE_BATCH, 128), 1),
-        ("pedersen", pedersen, torch.arange(2, device=dev), rand_scalars(2 * PROVE_BATCH, 2), 1),
+        ("round", joined, on_dev(round_lanes(64, 1, PROVER_ROW_ROUND)), rand_scalars(PROVE_BATCH, 132), 2),
+        ("a1", joined, torch.arange(130, device=dev), rand_scalars(PROVE_BATCH, 130), 1),
+        ("pedersen", joined, on_dev([128, 129]), rand_scalars(PROVE_BATCH, 2), 1),
     )
     out["fixed_shapes"] = {}
     for label, tab, lane_idx, scal, groups in shapes:
@@ -1294,8 +1498,14 @@ def _verify(bp, statements, proofs):
 # no path.  The MSM's first stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0); a
 # single-shape verify replays its transcripts once through R1; S1 runs the scalar pass once a shape group
 VERIFY_KERNELS = ("replay", "scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "decompress", "is_identity")
-PROVE_KERNELS = ("fixed_acc", "fixed_fold", "compress")
-PROVE_LAUNCHES = {"fixed_acc": 15, "fixed_fold": 15, "compress": 8}
+PROVE_KERNELS = ("fixed_acc", "fixed_fold", "compress") + PROVER_KERNELS
+# a 64-bit prove, 6 rounds: K5 and K6 once a round (L and R with their Pedersen lanes) and for alpha, A1 and B;
+# C1 for A, each round's L/R and A1/B; P1 once, P2 once a round, P3's entries and P4 once
+PROVE_LAUNCHES = {"fixed_acc": 9, "fixed_fold": 9, "compress": 8, "prove_prep": 1, "prove_round": 6,
+                  "prove_final": 1, "prove_responses": 1, "bit_sum": 1}
+# the plain field and point functions that no prove on the card may call on a CUDA tensor
+PLAIN_FUNCTIONS = {"ops.field": ("mul_l", "add_l", "sub_l", "sqr_l", "select"), "ops.edwards": ("add",),
+                   "ops.msm": ("tree_reduce",)}
 K4_ENTRIES = ("pow_p58", "sqrt_ratio_m1")
 
 
@@ -1578,9 +1788,109 @@ def _prove_inputs(bp, hr, params, cell):
     return statements, witnesses, blindings
 
 
+class _PlainCalls:
+    """Counts the calls of PLAIN_FUNCTIONS with a CUDA tensor among their
+    arguments while active: every name in the port's modules bound to one of
+    them is wrapped, and put back on exit."""
+
+    def __init__(self):
+        import importlib
+
+        self.counts = {}
+        self.originals = {}
+        for module, names in PLAIN_FUNCTIONS.items():
+            mod = importlib.import_module(f"bulletproofs_plus_tpu_torch.{module}")
+            for name in names:
+                self.originals[id(getattr(mod, name))] = (f"{module}.{name}", getattr(mod, name))
+        self.patched = []
+
+    def _wrap(self, label, fn):
+        import torch
+
+        def on_cuda(v):
+            return (isinstance(v, torch.Tensor) and v.is_cuda) or (isinstance(v, tuple) and any(map(on_cuda, v)))
+
+        def call(*args, **kwargs):
+            if any(on_cuda(v) for v in list(args) + list(kwargs.values())):
+                self.counts[label] = self.counts.get(label, 0) + 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    def __enter__(self):
+        wrappers = {key: self._wrap(label, fn) for key, (label, fn) in self.originals.items()}
+        for mod in [m for name, m in list(sys.modules.items()) if name.startswith("bulletproofs_plus_tpu_torch") and m]:
+            for attr, value in list(vars(mod).items()):
+                if id(value) in self.originals and value is self.originals[id(value)][1]:
+                    self.patched.append((mod, attr, value))
+                    setattr(mod, attr, wrappers[id(value)])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, value in self.patched:
+            setattr(mod, attr, value)
+        return False
+
+
+M4_BATCH = 64  # the aggregated prove: 64 statements of four 64-bit commitments, extension degree 5
+
+
+def _prove_m4(torch, bp, hr) -> dict:
+    """64 x (64-bit, m = 4, degree 5) statements proved on the card (8
+    rounds, mn = 256): lanes 0 and 63 byte for byte and their final
+    transcript states against the port's sequential `prove_with_rng` fed the
+    same lane's RNG stream, the batch verified on the card, and the launches.
+    An aggregated statement takes no seed nonce (the reference refuses mask
+    recovery there), so this prove is unseeded; the seeded arm is the
+    128-proof prove's."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.native import cuda
+
+    pc = bp.create_pedersen_gens_with_extension_degree(bp.ExtensionDegree(5))
+    params = bp.RangeParameters.init(64, 4, pc)
+    rs = random.Random(464)
+    openings = [[bp.CommitmentOpening(rs.randrange(2**64), [rs.randrange(1, hr.L) for _ in range(5)]) for _ in range(4)]
+                for _ in range(M4_BATCH)]
+    statements = [bp.RangeStatement.init(params, [pc.commit(o.v, o.r) for o in ops], [None] * 4) for ops in openings]
+    witnesses = [bp.RangeWitness.init(ops) for ops in openings]
+    try:
+        bp.RangeStatement.init(params, statements[0].commitments, [None] * 4, seed_nonce=1)
+        raise AssertionError("an aggregated statement took a seed nonce")
+    except bp.InvalidArgument as exc:
+        seeded = f"refused: {exc}"
+    params.bp_gens.fixed_tables_joined(2 * 256, pc, "cuda")  # built before the clock starts
+    torch.cuda.synchronize()
+    ts = [bp.Transcript(b"m4") for _ in range(M4_BATCH)]
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    proofs = bp.RangeProof.prove_batch_with_rng(ts, statements, witnesses, bp.SeededRng(11), device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
+    want = {**PROVE_LAUNCHES, "prove_round": 8, "fixed_acc": 11, "fixed_fold": 11, "compress": 10}
+    if counts != want:
+        raise AssertionError(f"m4 prove: expected launches {want}, got {counts}")
+    for lane in (0, M4_BATCH - 1):
+        seq_t = bp.Transcript(b"m4")
+        seq = bp.RangeProof.prove_with_rng(seq_t, statements[lane], witnesses[lane], _prover_inputs().LaneRng(11, lane),
+                                           msm_backend="device", device="cuda")
+        state = [np.asarray(t.strobe.state).tobytes() for t in (seq_t, ts[lane])]
+        if seq.to_bytes() != proofs[lane].to_bytes() or state[0] != state[1]:
+            raise AssertionError(f"m4 prove: lane {lane} differs from the sequential prover's proof or state")
+    verdicts = bp.RangeProof.verify_batch([bp.Transcript(b"m4") for _ in range(M4_BATCH)], statements, proofs,
+                                          bp.VerifyAction.VERIFY_ONLY, device="cuda")
+    if verdicts != [None] * M4_BATCH:
+        raise AssertionError("m4 prove: the batch did not verify")
+    return {"proofs": M4_BATCH, "m": 4, "bits": 64, "deg": 5, "rounds": 8, "seconds": seconds, "launches": counts,
+            "lanes_equal_to_sequential": [0, M4_BATCH - 1], "verified": M4_BATCH, "seeded": seeded}
+
+
 def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     """128 x 64-bit proofs through `prove_batch_with_rng` on the card, lane 0
-    being golden cell 3, then verified on the card by the port itself."""
+    being golden cell 3, then verified on the card by the port itself; no
+    plain field or point function runs on a CUDA tensor during the prove;
+    then the aggregated prove (`_prove_m4`)."""
     from bulletproofs_plus_tpu_torch.native import cuda
 
     cell = next(c for c in cells if c["seed"] == 3)
@@ -1591,19 +1901,31 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
         return [bp.Transcript(b"golden") for _ in range(PROVE_BATCH)]
 
     # the digit tables, built and timed in the kernels phase, are cached in `params`: no prove below builds them
-    params.bp_gens.fixed_tables_sliced(2 * cell["bits"], "cuda")
-    pc.device_base_tables("cuda")
+    params.bp_gens.fixed_tables_joined(2 * cell["bits"], pc, "cuda")
     out = {"proofs": PROVE_BATCH}
 
     seeded = statements(True)
     cuda.reset_launches()
     t0 = time.perf_counter()
-    proofs = bp.RangeProof.prove_batch_with_rng(transcripts(), seeded, witnesses, bp.SeededRng(seed), device="cuda")
-    torch.cuda.synchronize()
+    with _PlainCalls() as plain:
+        proofs = bp.RangeProof.prove_batch_with_rng(transcripts(), seeded, witnesses, bp.SeededRng(seed),
+                                                    device="cuda")
+        torch.cuda.synchronize()
     out["first_s"] = time.perf_counter() - t0
     counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
     if counts != PROVE_LAUNCHES or any(cuda.launches[k] for k in K4_ENTRIES):
         raise AssertionError(f"prove: expected launches {PROVE_LAUNCHES}, got {dict(cuda.launches)}")
+    if plain.counts or not plain.patched:
+        raise AssertionError(f"prove: plain field or point functions ran on CUDA tensors: {plain.counts} "
+                             f"({len(plain.patched)} names wrapped)")
+    from bulletproofs_plus_tpu_torch.ops import field
+
+    zero = torch.zeros((1, 16), dtype=torch.int64, device="cuda")
+    with _PlainCalls() as control:  # the counter's own check: one plain call on the card, counted
+        field.add_l(zero, zero)
+    if control.counts != {"ops.field.add_l": 1}:
+        raise AssertionError(f"prove: the plain-call counter missed a call on the card: {control.counts}")
+    out["plain_calls_on_cuda"] = {"counts": plain.counts, "names_wrapped": len(plain.patched)}
     launches.update(counts)
     out["launches"] = dict(cuda.launches)
     if proofs[0].to_bytes().hex() != cell["proof"]:
@@ -1629,6 +1951,8 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
         samples.append(time.perf_counter() - t0)
     wall = statistics.median(samples)
     out.update(median_s=wall, samples_s=samples, proofs_per_s=PROVE_BATCH / wall, ms_per_proof=wall * 1e3 / PROVE_BATCH)
+    out["m4_deg5"] = _prove_m4(torch, bp, hr)
+    out["card"] = nvidia_smi()
     return out
 
 
@@ -1887,6 +2211,7 @@ def main() -> int:
         "decompress": ("ristretto.cu", "bulletproofs_plus_tpu/models/verifier_kernels.py:263"),
         "compress": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:47"),
         "is_identity": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:103"),
+        **{k: ("prover.cu", "bulletproofs_plus_tpu/models/prover_device.py:90") for k in PROVER_KERNELS},
     }
     launches["pow_p58"] = launches["decompress"] + launches["compress"]  # K4's chain, inline in D1 and C1
     table = [
@@ -1898,7 +2223,8 @@ def main() -> int:
                                                 "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
                                                 "spill_stores", "spill_loads", "lanes", "permutations",
                                                 "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape",
-                                                "sc_mul_ns", "ptxas", "one_lane_graph_ms", "four_lanes_graph_ms")
+                                                "sc_mul_ns", "ptxas", "one_lane_graph_ms", "four_lanes_graph_ms",
+                                                "products", "round", "by_round")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

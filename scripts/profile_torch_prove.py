@@ -11,14 +11,18 @@ with `RangeProof.prove_batch_with_rng` of the port
   * "prove_ms": median of 5 whole proves with the tables built;
   * "stages_ms": one prove with a device synchronise around each stage, so
     device time is charged where it was enqueued: the fixed-base MSMs (K5 +
-    K6 and their glue), `compress` (K4's fused entry inside), the A commitment's masked
-    halving sums, the readbacks of compressed points, the host transcript
-    (challenges, RNG rebuilds and draws), the argument checks (each
-    witness's commitment recomputed in host integers), and the rest: the
-    plain-torch scalar folds, nonces and uploads;
+    K6 and their glue), `compress` (C1), the A commitment's masked sums
+    (`tree_reduce`, or P4 `bit_sum` where the tree has it), the readbacks of
+    compressed points, the host transcript (challenges, RNG rebuilds and
+    draws), the argument checks (each witness's commitment recomputed in
+    host integers), and the rest: the scalar folds (P1-P3 where the tree has
+    them, else plain torch), nonces and uploads;
   * "profile": torch.profiler over one whole prove: device busy time, wall
     time, the idle share, the number of device operations and the five
-    kernels with the most device time.
+    kernels with the most device time;
+  * "host_profile": one prove under cProfile: its wall time (inflated by
+    the profiler) and the twelve functions with the most time in their own
+    code, with their calls.
 Ends with the card's name and power limit.  Needs a CUDA device.
 """
 
@@ -70,8 +74,11 @@ def main() -> int:
         return out
 
     t0 = time.perf_counter()
-    params.bp_gens.fixed_tables_sliced(2 * cell["bits"], "cuda")  # builds the kernels too
     pc.device_base_tables("cuda")
+    if hasattr(params.bp_gens, "fixed_tables_joined"):  # a tree whose prover reads the joined tables
+        params.bp_gens.fixed_tables_joined(2 * cell["bits"], pc, "cuda")  # builds the kernels too
+    else:
+        params.bp_gens.fixed_tables_sliced(2 * cell["bits"], "cuda")
     torch.cuda.synchronize()
     print(json.dumps({"tables_s": time.perf_counter() - t0, "lanes": 2 * cell["bits"] + 2}), flush=True)
 
@@ -109,6 +116,8 @@ def main() -> int:
         (BatchTranscriptRng, "random_not_zero", "host_transcript"),
         (type(pc), "commit", "argument_checks"),
     ]
+    patched.append((pd, "bit_sum", "a_commitment_sums"))
+    patched = [p for p in patched if hasattr(p[0], p[1])]  # a tree's A sum is P4 `bit_sum` or `tree_reduce`
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patched]
     try:
         for owner, attr, stage in patched:
@@ -137,13 +146,30 @@ def main() -> int:
         name = e.name.split("<")[0].split("(")[0]  # template arguments dropped: one entry per kernel family
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    ours = {k: v / 1e3 for k, v in by_name.items() if k.endswith("_kernel") and ("fixed_" in k or "pow_p58" in k or "sqrt_ratio" in k)}
+    ours = {k: v / 1e3 for k, v in by_name.items()
+            if k.endswith("_kernel") and any(part in k for part in ("fixed_", "pow_p58", "sqrt_ratio", "compress",
+                                                                    "prove_", "bit_sum"))}
     print(json.dumps({
         "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                     "idle_share": 1 - busy_us / 1e3 / wall_ms if wall_ms else None,
                     "device_ops": len(kernels), "top_ms": {k: v / 1e3 for k, v in top},
                     "hand_written_kernels_ms": ours},
     }), flush=True)
+    # The host's own time by function: one prove under cProfile (whose overhead inflates every figure), the
+    # functions with the most time spent in their own code
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    prove()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    own = sorted(((tt, nc, f"{os.path.basename(key[0])}:{key[2]}") for key, (_, nc, tt, _, _) in
+                  pstats.Stats(prof).stats.items()), reverse=True)[:12]
+    print(json.dumps({"host_profile": {"wall_ms": wall_ms, "top_own_ms": {name: {"ms": tt * 1e3, "calls": nc}
+                                                                          for tt, nc, name in own}}}), flush=True)
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(res.stdout.strip())

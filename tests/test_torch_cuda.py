@@ -640,7 +640,8 @@ def test_sharded_prove_and_verify_on_card(card, backend, world):
         assert all(m is not None for m in rank["masks"])
         assert rank["tampered"] == ["VerificationFailed", "Range proof batch not valid"]
         prove, verify = rank["prove_launches"], rank["verify_launches"]
-        assert all(prove.get(k) for k in ("fixed_acc", "fixed_fold", "compress")), prove
+        assert all(prove.get(k) for k in ("fixed_acc", "fixed_fold", "compress", "prove_prep", "prove_round",
+                                          "prove_final", "prove_responses", "bit_sum")), prove
         assert all(verify.get(k) for k in ("dyn_acc_signed", "lane_fold", "horner", "decompress", "is_identity")), verify
         assert not verify.get("replay") and not verify.get("sqrt_ratio_m1") and not prove.get("sqrt_ratio_m1"), verify
 
@@ -735,3 +736,111 @@ def test_scalar_pass_once_a_shape_group(card):
         got = tbp.RangeProof.verify_batch([tbp.Transcript(b"golden") for _ in proofs], statements, proofs,
                                           tbp.VerifyAction.VERIFY_ONLY, device=card)
         assert len(got) == len(proofs) and cuda.launches["scalar_pass"] == groups, dict(cuda.launches)
+
+
+# (batch, m, bit length, extension degree): the 128 x 64-bit prove's shape and a 64 x (64-bit, m=4) one of degree 5
+PROVER_SHAPES = [(128, 1, 64, 1), (64, 4, 64, 5)]
+PROVER_IDS = ["b128_mn64_deg1", "b64_mn256_deg5"]
+
+
+def _equal(got, want):
+    """Kernel outputs on the card against the plain twin's on the CPU, limb for limb."""
+    return all(g.shape == w.shape and torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("batch, m, n, deg", PROVER_SHAPES, ids=PROVER_IDS)
+def test_prove_scalar_kernels_match_plain(card, batch, m, n, deg):
+    """P1, P2 (round 0, round 1, the last round), P3's two entries on the card
+    against their plain twins on the CPU, every output limb for limb, one
+    launch each."""
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from torch_prover_inputs import final_inputs, prep_inputs, responses_inputs, round_inputs, to_device
+
+    mn = m * n
+    rounds = mn.bit_length() - 1
+    inp = prep_inputs(batch, m, n, deg, seed=batch + deg)
+    cuda.reset_launches()
+    got = cpr.prove_prep(**to_device(inp, torch, card), bit_length=n)
+    assert _equal(got, PK.prove_prep_plain(**to_device(inp, torch, "cpu"), bit_length=n))
+    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
+    for r in sorted({0, 1, rounds - 1}):
+        inp = round_inputs(batch, m, n, deg, r, seed=r + deg)
+        got = cpr.prove_round(*(to_device(inp, torch, card)[k] for k in keys), r=r)
+        assert _equal(got, PK.prove_round_plain(*(to_device(inp, torch, "cpu")[k] for k in keys), r=r)), r
+    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "r_s", "s_s", "d_mask", "eta")
+    inp = final_inputs(batch, m, n, deg, seed=deg)
+    got = cpr.prove_final(*(to_device(inp, torch, card)[k] for k in keys))
+    assert _equal(got, PK.prove_final_plain(*(to_device(inp, torch, "cpu")[k] for k in keys)))
+    keys = ("r_s", "s_s", "a0", "b0", "eta", "d_mask", "alpha", "e")
+    inp = responses_inputs(batch, deg, seed=deg)
+    got = cpr.prove_responses(*(to_device(inp, torch, card)[k] for k in keys))
+    assert _equal(got, PK.prove_responses_plain(*(to_device(inp, torch, "cpu")[k] for k in keys)))
+    assert dict(cuda.launches) == {"prove_prep": 1, "prove_round": len({0, 1, rounds - 1}), "prove_final": 1,
+                                   "prove_responses": 1}
+
+
+@pytest.mark.parametrize("batch, m, n, deg", PROVER_SHAPES, ids=PROVER_IDS)
+def test_bit_sum_kernel_matches_plain(card, batch, m, n, deg):
+    """P4 on the card against its plain twin on the card, as points
+    (canonical affine coordinates): the start points as K6 leaves them (a
+    (B, 16) view of limb-major storage) and contiguous, on the joined tables
+    of the prove's generators; lane 0 all bits set, lane 1 none."""
+    import bulletproofs_plus_tpu_torch as tbp
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+
+    mn = m * n
+    pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(deg))
+    params = tbp.RangeParameters.init(n, m, pc)
+    table = params.bp_gens.fixed_tables_joined(2 * mn, pc, card)
+    rs = np.random.RandomState(mn)
+    bits = rs.randint(0, 2, size=(batch, mn)).astype(np.int64)
+    bits[0], bits[1] = 1, 0
+    bits_t = torch.as_tensor(bits, device=card)
+    start = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(batch)], device=card)
+    view = ed.PointArray(*(c.t().contiguous().t() for c in start))
+    want = PK.bit_sum_plain(start, bits_t, table)
+    for pts in (start, view):
+        cuda.reset_launches()
+        got = cpr.bit_sum(pts, bits_t, table)
+        assert dict(cuda.launches) == {"bit_sum": 1}
+        for c in range(2):
+            zinv_g, zinv_w = F.inv25519(got.z), F.inv25519(want.z)
+            assert torch.equal(F.canon25519(F.mul25519(got[c], zinv_g)), F.canon25519(F.mul25519(want[c], zinv_w)))
+
+
+@pytest.mark.parametrize("seeded, n, m, deg", [(True, 8, 1, 1), (False, 8, 2, 2), (False, 4, 4, 6), (True, 1, 1, 2)],
+                         ids=["seeded", "aggregated", "m4_degree6", "one_bit_no_rounds"])
+def test_prove_batch_on_card_matches_cpu(card, seeded, n, m, deg):
+    """prove_batch_with_rng on the card equals the same call on the CPU (the
+    plain twins) byte for byte, proofs and final transcript states, and
+    launches P1 once, P2 once a round, each entry of P3 and P4 once, K5 and
+    K6 once a round and three times besides (alpha, A1, B), C1 once a round
+    and twice besides."""
+    import bulletproofs_plus_tpu_torch as tbp
+
+    pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(deg))
+    params = tbp.RangeParameters.init(n, m, pc)
+    rs = np.random.RandomState(n * m + deg)
+    batch, rounds = 4, (m * n).bit_length() - 1
+    statements, witnesses = [], []
+    for lane in range(batch):
+        openings = [tbp.CommitmentOpening(int(rs.randint(0, 1 << n)), [int(rs.randint(1, 2**62)) for _ in range(deg)])
+                    for _ in range(m)]
+        statements.append(tbp.RangeStatement.init(params, [pc.commit(o.v, o.r) for o in openings], [None] * m,
+                                                  (lane + 17) if seeded else None))
+        witnesses.append(tbp.RangeWitness.init(openings))
+
+    def prove(device):
+        ts = [tbp.Transcript(b"card") for _ in range(batch)]
+        proofs = tbp.RangeProof.prove_batch_with_rng(ts, statements, witnesses, tbp.SeededRng(5), device=device)
+        return [p.to_bytes() for p in proofs], [bytes(np.asarray(t.strobe.state).tobytes()) for t in ts]
+
+    want = prove("cpu")
+    cuda.reset_launches()
+    assert prove(card) == want
+    assert {k: cuda.launches[k] for k in ("prove_prep", "prove_round", "prove_final", "prove_responses", "bit_sum",
+                                          "fixed_acc", "fixed_fold", "compress")} == {
+        "prove_prep": 1, "prove_round": rounds, "prove_final": 1, "prove_responses": 1, "bit_sum": 1,
+        "fixed_acc": rounds + 3, "fixed_fold": rounds + 3, "compress": rounds + 2}

@@ -35,7 +35,7 @@ from bulletproofs_plus_tpu_torch.parallel import (
     make_pod_stream,
     pad_for_mesh,
 )
-from test_torch_prover import _LaneRng
+from torch_prover_inputs import LaneRng
 
 torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers off each other's cores
 
@@ -47,7 +47,7 @@ def _jax_sequential(key, B=None):
     proofs, states = [], []
     for lane, (statement, witness) in enumerate(zip(statements, witnesses)):
         transcript = jbp.Transcript(R.LABEL)
-        proof = jbp.RangeProof.prove_with_rng(transcript, statement, witness, _LaneRng(R.RNG_SEED[key], lane))
+        proof = jbp.RangeProof.prove_with_rng(transcript, statement, witness, LaneRng(R.RNG_SEED[key], lane))
         proofs.append(proof.to_bytes().hex())
         st = transcript.strobe
         states.append([bytes(np.asarray(st.state)).hex(), st.pos, st.pos_begin, st.cur_flags])

@@ -20,6 +20,7 @@ import torch
 import bulletproofs_plus_tpu as jbp
 import bulletproofs_plus_tpu_torch as tbp
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
+from torch_prover_inputs import LaneRng
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "golden_vectors.json")
 with open(GOLDEN) as f:
@@ -30,29 +31,6 @@ torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers 
 
 def _det(tag: str) -> int:
     return int.from_bytes(hashlib.shake_256(tag.encode()).digest(64), "little") % hr.L
-
-
-class _LaneRng:
-    """Single-lane view of SeededRng's per-lane stream (same bytes as lane
-    `lane` of a batched SeededRng with the same seed and call sequence)."""
-
-    def __init__(self, seed: int, lane: int):
-        self.seed = seed
-        self.lane = lane
-        self._count = 0
-
-    def fill_bytes(self, batch: int, n: int) -> np.ndarray:
-        assert batch == 1
-        h = hashlib.shake_256(
-            b"bppt-test-rng"
-            + self.seed.to_bytes(8, "little")
-            + b"%"
-            + self._count.to_bytes(8, "little")
-            + b"%"
-            + self.lane.to_bytes(4, "little")
-        )
-        self._count += 1
-        return np.frombuffer(h.digest(n), dtype=np.uint8).reshape(1, n).copy()
 
 
 def _setup(pkg, seeded: bool, bit_length: int = 4, m: int = 1, deg: int = 1, B: int = 2):
@@ -88,8 +66,10 @@ def _state(transcript):
 
 @pytest.mark.parametrize(
     "seeded, bit_length, m, deg",
-    [(True, 4, 1, 1), (False, 4, 1, 1), (False, 8, 2, 2)],
-    ids=["seeded", "unseeded", "aggregated"],
+    [(True, 4, 1, 1), (False, 4, 1, 1), (False, 8, 2, 2), (True, 4, 1, 6), (False, 4, 1, 6), (False, 4, 4, 2),
+     (False, 4, 4, 6)],
+    # an aggregated statement takes no seed nonce (the reference refuses mask recovery there): m = 4 is unseeded
+    ids=["seeded", "unseeded", "aggregated", "degree6_seeded", "degree6_unseeded", "m4", "m4_degree6"],
 )
 def test_prove_batch_matches_jax_sequential(seeded, bit_length, m, deg):
     B, seed = 2, 4242
@@ -102,7 +82,7 @@ def test_prove_batch_matches_jax_sequential(seeded, bit_length, m, deg):
     )
     for lane in range(B):
         seq_t = jbp.Transcript(b"pb")
-        seq = jbp.RangeProof.prove_with_rng(seq_t, j_statements[lane], j_witnesses[lane], _LaneRng(seed, lane))
+        seq = jbp.RangeProof.prove_with_rng(seq_t, j_statements[lane], j_witnesses[lane], LaneRng(seed, lane))
         assert proofs[lane].to_bytes() == seq.to_bytes()
         # the caller's transcript advances exactly like the sequential one's
         assert _state(batch_transcripts[lane]) == _state(seq_t)
