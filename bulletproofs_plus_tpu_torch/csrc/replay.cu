@@ -39,7 +39,7 @@
 // offset, pi and chi as three shuffles of the rotated words (a lane's own
 // and its row neighbours' sources), iota on lane 0.  Lanes 25-31 follow the same control flow, hold
 // junk and write nothing.  After the last op, lane c reduces challenge c mod
-// l (scalar_l.cuh), all of a proof's challenges side by side.  The row, the
+// l (scalar_l.cuh `sc_reduce_fold`), all of a proof's challenges side by side.  The row, the
 // program and the pool are copied into shared memory once, coalesced; the
 // block is as many warps as the wrapper asks (one, for a batch that the
 // card holds in one wave of one-warp blocks).
@@ -300,7 +300,7 @@ __global__ void replay_kernel(const uint64_t *__restrict__ state, const uint8_t 
         u32 wide[16], r[8];
 #pragma unroll
         for (int j = 0; j < 16; ++j) wide[j] = x[j];
-        sc_reduce_wide(wide, r);
+        sc_reduce_fold(wide, r);
         int64_t *dst = scalars + (proof * n_ch + c) * 16;
         u32 any = 0;
 #pragma unroll
@@ -347,7 +347,7 @@ __global__ void reduce_wide_kernel(const u32 *in, int64_t *out, uint8_t *zero, l
     u32 wide[16], r[8], any = 0;
 #pragma unroll
     for (int j = 0; j < 16; ++j) wide[j] = in[i * 16 + j];
-    sc_reduce_wide(wide, r);
+    sc_reduce_fold(wide, r);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
         out[i * 16 + 2 * j] = r[j] & 0xFFFFu;

@@ -1,33 +1,28 @@
-// GF(l), l the order of ristretto255's group, on 32-bit words: the
-// reduction of a 512-bit value mod l (what Scalar::from_bytes_mod_order_wide
-// computes, and what R1, replay.cu, does to each 64-byte Fiat-Shamir
-// challenge), and on it the field arithmetic of S1 (scalar_pass.cu) and of
-// the prover's P1-P3 (prover.cu): a product, a square, a sum, a difference
-// and an inverse of 8-word values, and their load and store as int64 limbs.
+// GF(l), l = 2^252 + delta the order of ristretto255's group, on 32-bit
+// words: the reduction of a 512-bit value mod l (what
+// Scalar::from_bytes_mod_order_wide computes, what R1, replay.cu, does to
+// each 64-byte Fiat-Shamir challenge, and what ends each product), and the
+// field arithmetic of S1 (scalar_pass.cu) and of the prover's P1-P3
+// (prover.cu): a product, a square, a sum, a difference and an inverse of
+// 8-word values, and their load and store as int64 limbs.
 //
-// Counterpart of the JAX package's `_wide_to_scalar` (models/replay_device.py,
-// F.reduce_wide_l: Barrett on radix-2^16 limbs).  Here it is Barrett's
-// reduction (HAC 14.42) with b = 2^32 and k = 8, since 2^224 <= l < 2^256:
-//   q1 = x >> 224 and mu = floor(2^512 / l), nine words each;
-//   q3 = (q1 mu) >> 288;
-//   r  = (x - q3 l) mod 2^288;
-//   one conditional subtraction of l.
-// HAC allows q3 to fall 2 below floor(x / l); for this l it falls at most 1:
-// x / l - q3 < 1 + frac(2^512 / l) + 2^224 / l < 1.23, so r < 2l.
+// The reduction (`sc_reduce_fold`, the counterpart of the JAX package's
+// `_wide_to_scalar`, F.reduce_wide_l) uses the shape of l: delta is below
+// 2^125, so 2^252 = -delta (mod l) folds a 512-bit value to 385 bits, then
+// 258, then 253, in 120 multiply-adds, and one conditional subtraction of l
+// ends it.
 // Products are row scanning on the hardware carry flag, as in
 // field25519.cuh: each row adds its low halves in one carry chain and its
-// high halves in another, one word up (9 x 9 words for q1 mu; q3 l only below
-// 2^288, its chains cut at word 8).  It runs once a challenge, nine to
-// eleven a proof side by side on a warp's lanes, so its latency of some 250
-// dependent instructions sits once at R1's end.
+// high halves in another, one word up.
 //
 // The field operations keep ops/field.py's contract: `sc_mul_l` and
 // `sc_sqr_l` take any values below 2^256 (their product is below 2^512, the
-// reduction's whole range; below 2^506 for canonical inputs) and return the
-// canonical residue; `sc_add_l` is a + b less l where that does not borrow,
-// `sc_sub_l` is a - b plus l mod 2^256 where a - b borrows, as field.py's
-// `add_l` and `sub_l`, so canonical inputs give the canonical result;
-// `sc_inv_l` is Fermat's x^(l - 2), with inv(0) = 0 as `F.inv_l` has it.
+// fold's whole range) and return the canonical residue; `sc_add_l` is a + b
+// less l where that does not borrow, `sc_sub_l` is a - b plus l mod 2^256
+// where a - b borrows, as field.py's `add_l` and `sub_l`, so canonical inputs
+// give the canonical result; `sc_inv_l_warp` is the inverse of a canonical
+// value by Bernstein and Yang's divsteps (below), which is x^(l - 2) as
+// `F.inv_l` computes it, with inv(0) = 0.
 //
 // ops/scalar_model.py repeats this file word for word in Python, with every
 // bound it relies on asserted; tests/test_torch_replay.py holds the reduction
@@ -43,18 +38,17 @@ __device__ __forceinline__ u32 mad_hi_cc(u32 a, u32 b, u32 c) {
     asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
     return r;
 }
-__device__ __forceinline__ u32 madc_lo(u32 a, u32 b, u32 c) {  // the carry out is dropped
-    u32 r;
-    asm volatile("madc.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
-    return r;
-}
 __device__ __forceinline__ u32 madc_hi(u32 a, u32 b, u32 c) {  // the carry out is dropped
     u32 r;
     asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
     return r;
 }
 
-#define SC_N 9  // words of q1, mu, q3 and the residues mod 2^288
+#define SC_N 9  // words of the fold's sums
+
+// l = 2^252 + delta on SC_N words, and delta, below 2^125.
+#define SC_L_WORDS {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u, 0u}
+#define SC_DELTA {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu}
 
 // r = a * b, NA + NB words (NB >= 2).  Before row i the sum is below
 // 2^(32 (i + NB)), so word i + NB takes only the low chain's carry and the
@@ -76,34 +70,6 @@ __device__ __forceinline__ void sc_mul_wide(const u32 *a, const u32 *b, u32 *r) 
     }
 }
 
-// r = a * b mod 2^(32 N): row i's chains stop at word N - 1, whose carry out is dropped.
-template <int N>
-__device__ __forceinline__ void sc_mul_lo(const u32 *a, const u32 *b, u32 *r) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) r[k] = 0u;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-        const int m = N - i;  // low halves: words i .. N - 1
-        if (m == 1) {
-            r[N - 1] += a[i] * b[0];
-        } else {
-            r[i] = mad_lo_cc(a[i], b[0], r[i]);
-#pragma unroll
-            for (int j = 1; j < m - 1; ++j) r[i + j] = madc_lo_cc(a[i], b[j], r[i + j]);
-            r[N - 1] = madc_lo(a[i], b[m - 1], r[N - 1]);
-        }
-        const int h = m - 1;  // high halves: words i + 1 .. N - 1
-        if (h == 1) {
-            r[N - 1] += __umulhi(a[i], b[0]);
-        } else if (h >= 2) {
-            r[i + 1] = mad_hi_cc(a[i], b[0], r[i + 1]);
-#pragma unroll
-            for (int j = 1; j < h - 1; ++j) r[i + j + 1] = madc_hi_cc(a[i], b[j], r[i + j + 1]);
-            r[N - 1] = madc_hi(a[i], b[h - 1], r[N - 1]);
-        }
-    }
-}
-
 // r - l where that does not borrow, else r (nine words).
 __device__ __forceinline__ void sc_csub_l(u32 *r, const u32 *l) {
     u32 t[SC_N];
@@ -113,23 +79,6 @@ __device__ __forceinline__ void sc_csub_l(u32 *r, const u32 *l) {
     const u32 borrow = subc(0u, 0u);
 #pragma unroll
     for (int k = 0; k < SC_N; ++k) r[k] = borrow ? r[k] : t[k];
-}
-
-// x: 16 little-endian words, any value below 2^512 -> r: x mod l, 8 words.
-__device__ __forceinline__ void sc_reduce_wide(const u32 x[16], u32 r[8]) {
-    const u32 mu[SC_N] = {0x0a2c131bu, 0xed9ce5a3u, 0x086329a7u, 0x2106215du, 0xffffffebu,
-                          0xffffffffu, 0xffffffffu, 0xffffffffu, 0x0000000fu};
-    const u32 l[SC_N] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u, 0u};
-    u32 q2[2 * SC_N], r2[SC_N], w[SC_N];
-    sc_mul_wide<SC_N, SC_N>(x + 7, mu, q2);
-    sc_mul_lo<SC_N>(q2 + SC_N, l, r2);
-    w[0] = sub_cc(x[0], r2[0]);
-#pragma unroll
-    for (int k = 1; k < SC_N - 1; ++k) w[k] = subc_cc(x[k], r2[k]);
-    w[SC_N - 1] = subc(x[SC_N - 1], r2[SC_N - 1]);
-    sc_csub_l(w, l);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) r[k] = w[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -162,21 +111,81 @@ __device__ __forceinline__ void set_small(u32 *r, u32 v) {
 }
 
 
-// l - 2, the Fermat exponent; its top bit is bit 252.
-__constant__ u32 SC_L_MINUS_2[8] = {0x5cf5d3ebu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u};
+// Words 0 .. N - 1 of x >> 252 (x of NX words): a funnel shift by 28 of words 7 + i and 8 + i.
+template <int NX, int N>
+__device__ __forceinline__ void sc_shr252(const u32 *x, u32 *out) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __funnelshift_r(x[7 + i], 8 + i < NX ? x[8 + i] : 0u, 28);
+}
+
+// r = x mod 2^252, eight words of NR (the words above are zero).
+template <int NR>
+__device__ __forceinline__ void sc_low252(const u32 *x, u32 *r) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) r[k] = x[k];
+    r[7] = x[7] & 0x0fffffffu;
+#pragma unroll
+    for (int k = 8; k < NR; ++k) r[k] = 0u;
+}
+
+// r = a + b on NA words, b of NB <= NA words; the values never carry out of the top word.
+template <int NA, int NB>
+__device__ __forceinline__ void sc_add_words(const u32 *a, const u32 *b, u32 *r) {
+    r[0] = add_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < NA - 1; ++k) r[k] = addc_cc(a[k], k < NB ? b[k] : 0u);
+    r[NA - 1] = addc(a[NA - 1], NA - 1 < NB ? b[NA - 1] : 0u);
+}
+
+// r = a - b on NA words, b of NB <= NA words; the values never borrow out of the top word.
+template <int NA, int NB>
+__device__ __forceinline__ void sc_sub_words(const u32 *a, const u32 *b, u32 *r) {
+    r[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+    for (int k = 1; k < NA - 1; ++k) r[k] = subc_cc(a[k], k < NB ? b[k] : 0u);
+    r[NA - 1] = subc(a[NA - 1], NA - 1 < NB ? b[NA - 1] : 0u);
+}
+
+// t: 16 words, any value below 2^512 -> r: t mod l, 8 words, folding 2^252 = -delta (mod l) three times:
+//   t  = H1 2^252 + L1, X1 = H1 delta < 2^385;  X1 = H2 2^252 + L2, X2 = H2 delta < 2^258;
+//   t = L1 - L2 + X2 (mod l), and v = X2 + l + L1 - L2 lies in [0, 2^260);
+//   v  = H3 2^252 + L3, H3 < 2^8;  r = L3 + l - H3 delta lies in (l - 2^133, l + 2^252): one conditional
+//   subtraction of l.  120 multiply-adds.
+__device__ __forceinline__ void sc_reduce_fold(const u32 t[16], u32 r[8]) {
+    const u32 delta[4] = SC_DELTA;
+    const u32 l[SC_N] = SC_L_WORDS;
+    u32 h1[9], x1[13], h2[5], x2[9], lo[8], v[SC_N], x3[5], w[SC_N];
+    sc_shr252<16, 9>(t, h1);
+    sc_mul_wide<9, 4>(h1, delta, x1);
+    sc_shr252<13, 5>(x1, h2);
+    sc_mul_wide<5, 4>(h2, delta, x2);
+    sc_add_words<SC_N, SC_N>(x2, l, v);
+    sc_low252<8>(t, lo);
+    sc_add_words<SC_N, 8>(v, lo, v);
+    sc_low252<8>(x1, lo);
+    sc_sub_words<SC_N, 8>(v, lo, v);
+    const u32 h3 = __funnelshift_r(v[7], v[8], 28);
+    sc_mul_wide<1, 4>(&h3, delta, x3);
+    sc_low252<SC_N>(v, w);
+    sc_add_words<SC_N, SC_N>(w, l, w);
+    sc_sub_words<SC_N, 5>(w, x3, w);
+    sc_csub_l(w, l);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = w[k];
+}
 
 // r = a * b mod l; r may be a or b.
 __device__ __forceinline__ void sc_mul_l(const u32 *a, const u32 *b, u32 *r) {
     u32 t[16];
     sc_mul_wide<8, 8>(a, b, t);
-    sc_reduce_wide(t, r);
+    sc_reduce_fold(t, r);
 }
 
 __device__ __forceinline__ void sc_sqr_l(const u32 *a, u32 *r) { sc_mul_l(a, a, r); }
 
 // r = a + b, less l where that does not borrow (nine words, then the low eight); r may be a or b.
 __device__ __forceinline__ void sc_add_l(const u32 *a, const u32 *b, u32 *r) {
-    const u32 l[SC_N] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u, 0u};
+    const u32 l[SC_N] = SC_L_WORDS;
     u32 s[SC_N];
     s[0] = add_cc(a[0], b[0]);
 #pragma unroll
@@ -189,7 +198,7 @@ __device__ __forceinline__ void sc_add_l(const u32 *a, const u32 *b, u32 *r) {
 
 // r = a - b, plus l mod 2^256 where a - b borrows; r may be a or b.
 __device__ __forceinline__ void sc_sub_l(const u32 *a, const u32 *b, u32 *r) {
-    const u32 l[8] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu, 0u, 0u, 0u, 0x10000000u};
+    const u32 l[SC_N] = SC_L_WORDS;
     u32 t[8];
     t[0] = sub_cc(a[0], b[0]);
 #pragma unroll
@@ -201,17 +210,155 @@ __device__ __forceinline__ void sc_sub_l(const u32 *a, const u32 *b, u32 *r) {
     r[7] = addc(t[7], l[7] & mask);  // the carry out of 2^256 is dropped
 }
 
-// r = x^(l - 2) mod l (inv(0) = 0): square-and-multiply from bit 251, the accumulator starting at x for the
-// top bit; r may be x.  One loop body, the exponent's bit read from constant memory.
-__device__ __forceinline__ void sc_inv_l(const u32 *x, u32 *r) {
-    u32 acc[8], base[8];
+// ---------------------------------------------------------------------------
+// The inverse mod l: Bernstein and Yang's divsteps ("Fast constant-time gcd
+// computation and modular inversion", 2019) on nine signed 30-bit limbs, in
+// batches of 30 divsteps applied as one 2 x 2 matrix, as libsecp256k1's
+// modinv32 arranges them.  From f = l, g = x, d = 0, e = 1 each batch keeps
+// f = d x and g = e x (mod l); once g = 0, f = +-1 and x^-1 = +-d.  600
+// divsteps (20 batches) suffice for any input below 2^256; random inputs
+// reach g = 0 after 17 or 18.  The divsteps are branch-free (selects on
+// zeta < 0 and g odd); the calling lanes leave their loop when all have g = 0,
+// and the batches a lane runs past its own g = 0 leave d the same mod l.
+// inv(0) = 0: g starts at 0 and d stays 0.
+// ---------------------------------------------------------------------------
+
+#define SC_M30 0x3fffffff
+#define SC_INV_BATCHES 20
+#define SC_L_S30 {0x1cf5d3ed, 0x20498c69, 0x2f79cd65, 0x37be77a8, 0x14, 0, 0, 0, 0x1000}  // l in 30-bit limbs
+#define SC_L_INV30 0x2dab81e5u  // l^-1 mod 2^30
+
+// 30 divsteps on the low words of f (odd) and g; zeta = -(delta + 1/2).  t: the transition matrix (u, v, q, r)
+// scaled by 2^30, each entry in [-2^30, 2^30].  Each step is selects on two conditions, zeta < 0 and g odd: g (and
+// q, r) gains f (u, v) negated where zeta < 0, where g is odd; where both hold, f (u, v) takes the old g (q, r),
+// which is f plus the new g, and zeta becomes -zeta - 2, else zeta - 1; then g halves and u, v double.  g's own
+// path is a parity, an addition and a shift a step.
+__device__ __forceinline__ int32_t sc_divsteps_30(int32_t zeta, u32 f, u32 g, int32_t t[4]) {
+    u32 u = 1u, v = 0u, q = 0u, r = 1u;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = base[k] = x[k];
-#pragma unroll 1
-    for (int bit = 251; bit >= 0; --bit) {
-        sc_sqr_l(acc, acc);
-        if ((SC_L_MINUS_2[bit >> 5] >> (bit & 31)) & 1u) sc_mul_l(acc, base, acc);
+    for (int i = 0; i < 30; ++i) {
+        const bool neg = zeta < 0, odd = g & 1u, swap = neg && odd;
+        const u32 x = neg ? 0u - f : f, y = neg ? 0u - u : u, z = neg ? 0u - v : v;
+        const u32 g2 = odd ? g + x : g, q2 = odd ? q + y : q, r2 = odd ? r + z : r;
+        f = swap ? g : f;
+        u = swap ? q : u;
+        v = swap ? r : v;
+        zeta = swap ? -zeta - 2 : zeta - 1;
+        g = g2 >> 1;
+        q = q2;
+        r = r2;
+        u <<= 1;
+        v <<= 1;
     }
+    t[0] = (int32_t)u;
+    t[1] = (int32_t)v;
+    t[2] = (int32_t)q;
+    t[3] = (int32_t)r;
+    return zeta;
+}
+
+// (d, e) <- t (d, e) / 2^30 mod l: md and me multiples of l clear the low 30 bits; d and e stay in (-2l, l).
+__device__ __forceinline__ void sc_update_de_30(int32_t *d, int32_t *e, const int32_t t[4]) {
+    const int32_t lm[9] = SC_L_S30;
+    const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+    const int32_t sd = d[8] >> 31, se = e[8] >> 31;
+    int32_t md = (u & sd) + (v & se), me = (q & sd) + (r & se);
+    int64_t cd = (int64_t)u * d[0] + (int64_t)v * e[0];
+    int64_t ce = (int64_t)q * d[0] + (int64_t)r * e[0];
+    md -= (int32_t)((SC_L_INV30 * (u32)cd + (u32)md) & SC_M30);
+    me -= (int32_t)((SC_L_INV30 * (u32)ce + (u32)me) & SC_M30);
+    cd += (int64_t)lm[0] * md;
+    ce += (int64_t)lm[0] * me;
+    cd >>= 30;
+    ce >>= 30;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) r[k] = acc[k];
+    for (int i = 1; i < 9; ++i) {
+        cd += (int64_t)u * d[i] + (int64_t)v * e[i];
+        ce += (int64_t)q * d[i] + (int64_t)r * e[i];
+        if (lm[i]) {
+            cd += (int64_t)lm[i] * md;
+            ce += (int64_t)lm[i] * me;
+        }
+        d[i - 1] = (int32_t)cd & SC_M30;
+        e[i - 1] = (int32_t)ce & SC_M30;
+        cd >>= 30;
+        ce >>= 30;
+    }
+    d[8] = (int32_t)cd;
+    e[8] = (int32_t)ce;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact.
+__device__ __forceinline__ void sc_update_fg_30(int32_t *f, int32_t *g, const int32_t t[4]) {
+    const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+    int64_t cf = (int64_t)u * f[0] + (int64_t)v * g[0];
+    int64_t cg = (int64_t)q * f[0] + (int64_t)r * g[0];
+    cf >>= 30;
+    cg >>= 30;
+#pragma unroll
+    for (int i = 1; i < 9; ++i) {
+        cf += (int64_t)u * f[i] + (int64_t)v * g[i];
+        cg += (int64_t)q * f[i] + (int64_t)r * g[i];
+        f[i - 1] = (int32_t)cf & SC_M30;
+        g[i - 1] = (int32_t)cg & SC_M30;
+        cf >>= 30;
+        cg >>= 30;
+    }
+    f[8] = (int32_t)cf;
+    g[8] = (int32_t)cg;
+}
+
+// d in (-2l, l) -> d, negated where sign < 0, in [0, l): add l where negative, negate, carry; add l where
+// still negative, carry.
+__device__ __forceinline__ void sc_normalize_30(int32_t *d, int32_t sign) {
+    const int32_t lm[9] = SC_L_S30;
+#pragma unroll
+    for (int round = 0; round < 2; ++round) {
+        const int32_t add = d[8] >> 31;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) d[i] += lm[i] & add;
+        if (round == 0) {
+            const int32_t neg = sign >> 31;
+#pragma unroll
+            for (int i = 0; i < 9; ++i) d[i] = (d[i] ^ neg) - neg;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            d[i + 1] += d[i] >> 30;
+            d[i] &= SC_M30;
+        }
+    }
+}
+
+// r = x^-1 mod l (inv(0) = 0); r may be x.  x must be canonical, below l: a non-zero multiple of l has no
+// inverse here where Fermat's chain gave 0.  Every lane of `mask` calls it together, with the same mask, from
+// converged code: the batches end by a vote of those lanes (`__all_sync`), so a lane outside the mask or one that
+// does not arrive is undefined behaviour.
+__device__ __forceinline__ void sc_inv_l_warp(const u32 *x, u32 *r, u32 mask) {
+    int32_t f[9] = SC_L_S30, g[9], d[9], e[9];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) {
+        const int w = (30 * i) >> 5;
+        g[i] = (int32_t)(__funnelshift_r(x[w], w + 1 < 8 ? x[w + 1] : 0u, (30 * i) & 31) & SC_M30);
+        d[i] = 0;
+        e[i] = i == 0;
+    }
+    int32_t zeta = -1;
+#pragma unroll 1
+    for (int batch = 0; batch < SC_INV_BATCHES; ++batch) {
+        u32 live = 0u;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) live |= (u32)g[i];
+        if (__all_sync(mask, live == 0u)) break;
+        int32_t t[4];
+        zeta = sc_divsteps_30(zeta, (u32)f[0], (u32)g[0], t);
+        sc_update_de_30(d, e, t);
+        sc_update_fg_30(f, g, t);
+    }
+    sc_normalize_30(d, f[8]);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const int i = (32 * k) / 30, off = (32 * k) % 30;
+        r[k] = ((u32)d[i] >> off) | ((u32)d[i + 1] << (30 - off));
+    }
 }

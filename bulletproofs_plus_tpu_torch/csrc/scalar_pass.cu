@@ -23,15 +23,25 @@
 //                                            D = w s1 e e_inv_prod,
 //                                            G_j = w e^2 y^mn z^(2(j+1)).
 //
-// S1a (`scalar_proof_kernel`), a thread a proof: the Montgomery batch
-// inversion over [e_1..e_k, y, y - 1] with one Fermat inversion (a zero
-// among them poisons the whole proof, every inverse 0, as in
-// `_batch_invert` and dalek), y^mn and y^-(2^b) by squarings, the
-// z^(2(j+1)) ladder, y_sum, d_sum, the proof's h_base term with its
-// minimum values, and the dynamic scalars, written out; then A, D, C, the
-// h_base term, e_j^2, y^-(2^b), G_j and w d1 as one column each of a
-// scratch table (column, proof, 8 words), so that S1b's threads read
-// neighbouring words.  Its prefix products sit in local memory.
+// S1a (`scalar_proof_kernel`): a warp a block, `lanes` lanes a proof (8 up to
+// 6 rounds, 16 up to 14, 32 up to 30), running the proof's program
+// (ops/cuda_scalar.py `proof_program`, built on the host for the shape and
+// copied into shared memory first): its values sit in slots of shared
+// memory, and each step every lane loads two slots, computes one product,
+// sum or difference mod l and stores one slot.  A shape whose program and
+// slots a block's 227 KB cannot hold (m above 1,024 at 64 bits) reads its
+// program in place and keeps each proof's slots in global memory
+// (`scalar_proof_global_kernel`, the same steps on another pointer).  In one step each of
+// [e_1..e_k, y, y - 1] is inverted on a lane of its own (`sc_inv_l_warp`:
+// divsteps, not Fermat); a zero among them poisons the proof, every inverse
+// 0, as in `_batch_invert` and dalek, by a vote of the proof's lanes.  The
+// other steps spread the proof's products over its lanes: y^mn and
+// y^-(2^b) by squarings, the z^(2(j+1)) ladder, the h_base term, A, D, C,
+// G_j and w d1_k, the dynamic scalars.  The lanes load the inputs a row
+// each, at each input's own row stride (the replay's views are read in
+// place), and at the end store the dynamic scalars and a scratch table
+// (column, proof, 8 words) of A, D, C, the h_base term, e_j^2, y^-(2^b), G_j
+// and w d1_k, so that S1b's threads read neighbouring words.
 //
 // S1b (`scalar_lane_kernel`), a block a lane i < max_mn, then a block for
 // each base point: its threads stride over the proofs, each summing its
@@ -41,16 +51,20 @@
 // Canonical terms make every sum order-free.  A lane at or past mn writes
 // zeros; a base block sums its column.
 //
-// What bounds it on this card: latency.  S1a's thread runs its products
-// one after another: 252 squarings and 72 products for the inversion, then
-// 27 + 9k + 4m + deg (410 in all for a 64-bit proof with m = 1), in a few
-// warps; S1b's threads k + popcount(i) + 2 products a proof and lane.  The card's multiply rate would do the work a few hundred times
-// sooner (PERF.md).  A simple, exact kernel first: cutting S1a's chain
-// (several threads a proof, a shorter addition chain for l - 2) is later
-// work.
+// What bounds it on this card: latency.  S1a's first form ran a thread a proof
+// through 410 dependent products mod l, 324 of them a Fermat inversion, on 8
+// of 132 SMs.  Now a proof's chain is one inversion (17 or 18 batches of 30
+// divsteps, each batch some 1,200 instructions that one warp issues one
+// after another) and the program's product steps (9 at 64 bits and m = 1:
+// y^mn's six squarings and the two products after them), each product on
+// the three-fold reduction; 256 proofs take 64 warps on 64 SMs.  S1b's
+// threads run k + popcount(i) + 2 products a proof and lane, a block of 256
+// threads a lane on 66 of the SMs.  The card's multiply rate would do the
+// work tens of times sooner (PERF.md).
 //
-// `scalar_latency_kernel` is the probe behind S1's `chain_ms`: one warp, a
-// chain of dependent `sc_mul_l` (`sc_mul_ns`).
+// `scalar_latency_kernel` and `scalar_inv_latency_kernel` are the probes
+// behind S1's `chain_ms`: one warp, a chain of dependent `sc_mul_l`
+// (`sc_mul_ns`) or `sc_inv_l_warp` (`sc_inv_ns`).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,8 +72,22 @@
 #include "scalar_l.cuh"
 
 #define S1_MAX_ROUNDS 30       // mn = 2^rounds
-#define S1_PROOF_THREADS 32    // S1a: a warp a block, one proof a thread
+#define S1_WARP 32             // S1a: a warp a block, 32 / lanes proofs
+#define S1_MAX_SLOTS 1073741824  // an operation's slot indices have 30 bits
+#define S1_MAX_SMEM 232448     // shared memory a block may use: 227 KB
 #define S1_MAX_LANE_THREADS 256
+
+// An operation: three words, slots a, b, then dst | op << 30.
+#define OP_WORDS 3
+#define OP_SHIFT 30
+#define SLOT_MASK 0x3fffffffu
+#define OP_NOP 0u
+#define OP_MUL 1u  // in the inversion step: invert slot a
+#define OP_ADD 2u
+#define OP_SUB 3u
+
+// Slots 0-2 hold 0, 1 and 2^n - 1, then y, z, e, w, r1, s1, e_1..e_k, d1, the minimum values.
+#define SLOT_FIXED 9
 
 // Scratch columns (column, proof, 8 words); those after COL_CHSQ start at offsets that follow from the shape.
 #define COL_A 0
@@ -76,163 +104,127 @@ __device__ __forceinline__ const u32 *col_at(const u32 *scratch, int col, long b
     return scratch + ((long)col * batch + b) * 8;
 }
 
-__global__ void __launch_bounds__(S1_PROOF_THREADS) scalar_proof_kernel(
-    const int64_t *__restrict__ y_in, const int64_t *__restrict__ z_in, const int64_t *__restrict__ es_in,
-    const int64_t *__restrict__ e_in, const int64_t *__restrict__ w_in, const int64_t *__restrict__ r1_in,
-    const int64_t *__restrict__ s1_in, const int64_t *__restrict__ d1_in, const int64_t *__restrict__ min_in,
-    long batch, int rounds, int m, int n, int deg, int64_t *__restrict__ commit_out, int64_t *__restrict__ a1_out,
-    int64_t *__restrict__ b_out, int64_t *__restrict__ a_out, int64_t *__restrict__ li_out,
-    int64_t *__restrict__ ri_out, u32 *__restrict__ scratch) {
-    const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= batch) return;
-    const int col_yinv = COL_CHSQ + rounds, col_g = col_yinv + rounds, col_w = col_g + m;
-    u32 zero[8], one[8], y[8], w[8], e_sq[8], a_s[8], t[8], u[8], acc[8];
-    set_small(zero, 0u);
-    set_small(one, 1u);
-    load_limbs(y_in + 16 * b, y);
-    load_limbs(w_in + 16 * b, w);
+// The program's words in shared memory, rounded up to 16 bytes so that the slots after them stay aligned.
+__host__ __device__ __forceinline__ int s1_prog_words_aligned(int words) { return (words + 3) & ~3; }
 
-    // the proof's own scalars: a_s = -(w e^2), a1_s = -(w e), b_s = -w
-    load_limbs(e_in + 16 * b, t);
-    sc_sqr_l(t, e_sq);
-    sc_mul_l(w, t, u);
-    sc_sub_l(zero, u, u);
-    store_limbs(a1_out + 16 * b, u);
-    sc_sub_l(zero, w, u);
-    store_limbs(b_out + 16 * b, u);
-    sc_mul_l(w, e_sq, u);
-    sc_sub_l(zero, u, a_s);
-    store_limbs(a_out + 16 * b, a_s);
+// S1a's inputs in slot order, y, z, e, w, r1, s1, e_1..e_k, d1, the minimum values: each a (batch, [items,] 16)
+// int64 tensor whose rows lie `stride` limbs apart, its items contiguous within a row (the replay hands y, z, the
+// round challenges and e over as views of one tensor).
+#define S1_INPUTS 9
+struct S1Inputs {
+    const int64_t *p[S1_INPUTS];
+    long stride[S1_INPUTS];
+};
 
-    // forward: prefix products of [e_1..e_k, y, y - 1]; each e_j^2 to the scratch and li_j = a_s e_j^2 out
-    u32 prefix[S1_MAX_ROUNDS + 1][8];
-    for (int j = 0; j < rounds; ++j) {
-        load_limbs(es_in + 16 * (b * rounds + j), t);
-        sc_sqr_l(t, u);
-        copy8(col_at(scratch, COL_CHSQ + j, b, batch), u);
-        sc_mul_l(a_s, u, u);
-        store_limbs(li_out + 16 * (b * rounds + j), u);
-        if (j == 0)
-            copy8(acc, t);
-        else
-            sc_mul_l(acc, t, acc);
-        copy8(prefix[j], acc);
-    }
-    if (rounds == 0)
-        copy8(acc, y);
-    else
-        sc_mul_l(acc, y, acc);
-    copy8(prefix[rounds], acc);
-    u32 ym1[8];
-    sc_sub_l(y, one, ym1);
-    sc_mul_l(acc, ym1, acc);
-    sc_inv_l(acc, acc);
+#define S1A_PARAMS                                                                                                 \
+    const S1Inputs in, long batch, int rounds, int m, int n, int deg, int64_t *__restrict__ commit_out,              \
+        int64_t *__restrict__ a1_out, int64_t *__restrict__ b_out, int64_t *__restrict__ a_out,                      \
+        int64_t *__restrict__ li_out, int64_t *__restrict__ ri_out, u32 *__restrict__ scratch, u32 *global_slots,    \
+        const u32 *__restrict__ prog, int steps, int inv_step, int slots, int lanes
+#define S1A_ARGS                                                                                                   \
+    in, batch, rounds, m, n, deg, commit_out, a1_out, b_out, a_out, li_out, ri_out, scratch, global_slots, prog,    \
+        steps, inv_step, slots, lanes
 
-    // back-substitution: (y - 1)^-1, y^-1, then e_inv_prod = (e_1 .. e_k)^-1 and each e_j^-1 (ri_j = a_s e_j^-2)
-    u32 y1_inv[8], y_inv[8], chinv[8];
-    sc_mul_l(acc, prefix[rounds], y1_inv);
-    sc_mul_l(acc, ym1, acc);
-    if (rounds == 0) {
-        copy8(y_inv, acc);
-        copy8(chinv, one);
+// prog: (steps, lanes) operations of three words, then the output slots in store order: commit_j, a1, b, a, li_j,
+// ri_j, then the scratch columns.  kGlobal false (`scalar_proof_kernel`): shared memory holds the program, copied
+// in first, then (32 / lanes) proofs x slots x 8 words.  kGlobal true (`scalar_proof_global_kernel`, a shape whose
+// slots a block's shared memory cannot hold): the program is read in place and each proof's slots lie in
+// global_slots, slots x 8 words a proof of the grid.  The same steps either way, on another pointer.
+template <bool kGlobal>
+__device__ __forceinline__ void scalar_proof(S1A_PARAMS) {
+    extern __shared__ u32 s1_smem[];
+    const int t = threadIdx.x % lanes, p = threadIdx.x / lanes;
+    const long b = (long)blockIdx.x * (S1_WARP / lanes) + p;
+    const bool live = b < batch;  // a proof past the batch runs on zeros and stores nothing
+    const int n_dyn = m + 3 + 2 * rounds, n_out = n_dyn + COL_CHSQ + 2 * rounds + m + deg;
+    const long op_words = (long)OP_WORDS * steps * lanes;
+    const u32 *words = prog;
+    u32 *S;
+    if constexpr (!kGlobal) {
+        for (long i = threadIdx.x; i < op_words + n_out; i += S1_WARP) s1_smem[i] = prog[i];
+        words = s1_smem;
+        S = s1_smem + s1_prog_words_aligned((int)op_words + n_out) + (size_t)p * slots * 8;
     } else {
-        sc_mul_l(acc, prefix[rounds - 1], y_inv);
-        sc_mul_l(acc, y, acc);
-        copy8(chinv, acc);
-        for (int j = rounds - 1; j >= 1; --j) {
-            sc_mul_l(acc, prefix[j - 1], t);
-            sc_sqr_l(t, t);
-            sc_mul_l(a_s, t, t);
-            store_limbs(ri_out + 16 * (b * rounds + j), t);
-            load_limbs(es_in + 16 * (b * rounds + j), t);
-            sc_mul_l(acc, t, acc);
+        S = global_slots + (size_t)b * slots * 8;
+    }
+    const int *outs = (const int *)(words + op_words);
+
+    // the inputs, a row a lane: slots 0-2 the constants, then y, z, e, w, r1, s1, e_1..e_k, d1, the minimum values
+    const int n_in = SLOT_FIXED + rounds + deg + m;
+    for (int i = t; i < n_in; i += lanes) {
+        u32 v[8];
+        set_small(v, 0u);
+        if (i == 1) {
+            v[0] = 1u;
+        } else if (i == 2) {
+            const uint64_t two_n_1 = n >= 64 ? ~0ull : (1ull << n) - 1;
+            v[0] = (u32)two_n_1;
+            v[1] = (u32)(two_n_1 >> 32);
+        } else if (live && i >= 3) {
+            int k = i - 3, item = 0;  // the input and its item
+            if (i >= SLOT_FIXED + rounds + deg) {
+                k = 8;
+                item = i - SLOT_FIXED - rounds - deg;
+            } else if (i >= SLOT_FIXED + rounds) {
+                k = 7;
+                item = i - SLOT_FIXED - rounds;
+            } else if (i >= SLOT_FIXED) {
+                k = 6;
+                item = i - SLOT_FIXED;
+            }
+            load_limbs(in.p[k] + in.stride[k] * b + 16 * item, v);
         }
-        sc_sqr_l(acc, t);
-        sc_mul_l(a_s, t, t);
-        store_limbs(ri_out + 16 * (b * rounds), t);
+        copy8(S + 8 * (size_t)i, v);
+    }
+    __syncwarp();
+
+    const u32 group = (lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u) << (p * lanes);
+    for (int s = 0; s < steps; ++s) {
+        const u32 *word = words + OP_WORDS * ((long)s * lanes + t);
+        const u32 op = word[2] >> OP_SHIFT, dst = word[2] & SLOT_MASK;
+        u32 x[8], y[8], r[8];
+        copy8(x, S + 8 * (size_t)word[0]);
+        copy8(y, S + 8 * (size_t)word[1]);
+        __syncwarp();
+        if (s == inv_step) {  // every lane of the warp: the batches of divsteps end by a vote
+            u32 any = 0u;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) any |= x[k];
+            const u32 zeros = __ballot_sync(0xffffffffu, op == OP_MUL && any == 0u);
+            sc_inv_l_warp(x, r, 0xffffffffu);
+            if (zeros & group) set_small(r, 0u);
+        } else if (op == OP_MUL) {
+            sc_mul_l(x, y, r);
+        } else if (op == OP_ADD) {
+            sc_add_l(x, y, r);
+        } else if (op == OP_SUB) {
+            sc_sub_l(x, y, r);
+        }
+        if (op != OP_NOP) copy8(S + 8 * (size_t)dst, r);
+        __syncwarp();
     }
 
-    // y^mn = y^(2^k) and y^-(2^b), b < k, to the scratch
-    u32 ynm[8];
-    copy8(ynm, y);
-    copy8(t, y_inv);
-    for (int j = 0; j < rounds; ++j) {
-        copy8(col_at(scratch, col_yinv + j, b, batch), t);
-        if (j + 1 < rounds) sc_sqr_l(t, t);
-        sc_sqr_l(ynm, ynm);
-    }
-    // y_sum = y (y^mn - 1) / (y - 1), through the batch-inverted (y - 1)^-1
-    u32 ysum[8];
-    sc_sub_l(ynm, one, t);
-    sc_mul_l(y, t, t);
-    sc_mul_l(t, y1_inv, ysum);
-
-    // the z^(2(j+1)) ladder: commitment scalars -(e^2 y^(mn+1) w) z^(2(j+1)), G_j, their sum, and the sum of
-    // the commitment scalars times the minimum values
-    u32 z[8], zsq[8], q[8], gq[8], zp[8], zsum[8], mins[8];
-    load_limbs(z_in + 16 * b, z);
-    sc_sqr_l(z, zsq);
-    sc_mul_l(ynm, y, q);
-    sc_mul_l(e_sq, q, q);
-    sc_mul_l(q, w, q);
-    sc_mul_l(w, e_sq, gq);
-    sc_mul_l(gq, ynm, gq);
-    copy8(zp, zsq);
-    copy8(zsum, zero);
-    copy8(mins, zero);
-    for (int j = 0; j < m; ++j) {
-        sc_add_l(zsum, zp, zsum);
-        sc_mul_l(q, zp, t);
-        sc_sub_l(zero, t, t);
-        store_limbs(commit_out + 16 * (b * m + j), t);
-        load_limbs(min_in + 16 * (b * m + j), u);
-        sc_mul_l(t, u, u);
-        sc_add_l(mins, u, mins);
-        sc_mul_l(gq, zp, u);
-        copy8(col_at(scratch, col_g + j, b, batch), u);
-        if (j + 1 < m) sc_mul_l(zp, zsq, zp);
-    }
-
-    // h_base's term: w (r1 y s1 + e^2 (y^(mn+1) z d_sum + (z^2 - z) y_sum)) - sum_j commit_j min_j, with
-    // d_sum = (sum_j z^(2(j+1))) (2^n - 1)
-    const uint64_t two_n_1 = n >= 64 ? ~0ull : (1ull << n) - 1;
-    set_small(u, (u32)two_n_1);
-    u[1] = (u32)(two_n_1 >> 32);
-    sc_mul_l(zsum, u, zsum);
-    sc_mul_l(ynm, y, t);
-    sc_mul_l(t, z, t);
-    sc_mul_l(t, zsum, t);
-    sc_sub_l(zsq, z, u);
-    sc_mul_l(u, ysum, u);
-    sc_add_l(t, u, t);
-    sc_mul_l(e_sq, t, t);
-    u32 r1[8], s1[8];
-    load_limbs(r1_in + 16 * b, r1);
-    load_limbs(s1_in + 16 * b, s1);
-    sc_mul_l(r1, y, u);
-    sc_mul_l(u, s1, u);
-    sc_add_l(u, t, t);
-    sc_mul_l(w, t, t);
-    sc_sub_l(t, mins, t);
-    copy8(col_at(scratch, COL_H, b, batch), t);
-
-    // the lanes' factors: A = w r1 e e_inv_prod, D = w s1 e e_inv_prod, C = w e^2 z; then w d1_k
-    load_limbs(e_in + 16 * b, u);
-    sc_mul_l(w, u, u);
-    sc_mul_l(u, chinv, u);
-    sc_mul_l(u, r1, t);
-    copy8(col_at(scratch, COL_A, b, batch), t);
-    sc_mul_l(u, s1, t);
-    copy8(col_at(scratch, COL_D, b, batch), t);
-    sc_mul_l(w, e_sq, t);
-    sc_mul_l(t, z, t);
-    copy8(col_at(scratch, COL_C, b, batch), t);
-    for (int k = 0; k < deg; ++k) {
-        load_limbs(d1_in + 16 * (b * deg + k), t);
-        sc_mul_l(w, t, t);
-        copy8(col_at(scratch, col_w + k, b, batch), t);
+    // the outputs, a value a lane
+    if (!live) return;
+    for (int i = t; i < n_out; i += lanes) {
+        const u32 *v = S + 8 * (size_t)outs[i];
+        if (i < m) {
+            store_limbs(commit_out + 16 * (b * m + i), v);
+        } else if (i < m + 3) {
+            store_limbs((i == m ? a1_out : i == m + 1 ? b_out : a_out) + 16 * b, v);
+        } else if (i < m + 3 + rounds) {
+            store_limbs(li_out + 16 * (b * rounds + (i - m - 3)), v);
+        } else if (i < n_dyn) {
+            store_limbs(ri_out + 16 * (b * rounds + (i - m - 3 - rounds)), v);
+        } else {
+            copy8(col_at(scratch, i - n_dyn, b, batch), v);
+        }
     }
 }
+
+__global__ void __launch_bounds__(S1_WARP) scalar_proof_kernel(S1A_PARAMS) { scalar_proof<false>(S1A_ARGS); }
+
+__global__ void __launch_bounds__(S1_WARP) scalar_proof_global_kernel(S1A_PARAMS) { scalar_proof<true>(S1A_ARGS); }
 
 // acc = src where there is no factor yet, else acc * src
 __device__ __forceinline__ void mul_into(u32 *acc, bool &have, const u32 *src) {
@@ -341,33 +333,64 @@ __global__ void scalar_latency_kernel(const int64_t *in, int64_t *out, int iters
     store_limbs(out + 16 * threadIdx.x, acc);
 }
 
+// One warp, each lane a chain of `iters` dependent inversions of x: x^((-1)^iters).
+__global__ void scalar_inv_latency_kernel(const int64_t *in, int64_t *out, int iters) {
+    u32 acc[8];
+    load_limbs(in + 16 * threadIdx.x, acc);
+    for (int k = 0; k < iters; ++k) sc_inv_l_warp(acc, acc, 0xffffffffu);
+    store_limbs(out + 16 * threadIdx.x, acc);
+}
+
 extern "C" const char *bppt_scalar_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
 static bool pow2(long v) { return v > 0 && (v & (v - 1)) == 0; }
 
-static bool scalar_args_ok(long batch, long rounds, long m, long n, long deg, long max_mn, long lane_threads) {
+static bool scalar_args_ok(long batch, long rounds, long m, long n, long deg, long max_mn, long steps, long inv_step,
+                           long slots, long lanes, long lane_threads) {
     return batch >= 1 && batch < (1L << 24) && rounds >= 0 && rounds <= S1_MAX_ROUNDS && pow2(m) && pow2(n) &&
            n <= 64 && m * n == (1L << rounds) && deg >= 1 && deg <= 64 && max_mn >= m * n &&
-           max_mn < (1L << 30) && pow2(lane_threads) && lane_threads >= 32 &&
-           lane_threads <= S1_MAX_LANE_THREADS;
+           max_mn < (1L << 30) && steps >= 1 && inv_step >= 0 && inv_step < steps &&
+           slots >= SLOT_FIXED + rounds + deg + m && slots <= S1_MAX_SLOTS && pow2(lanes) && lanes >= rounds + 2 &&
+           lanes <= S1_WARP && pow2(lane_threads) && lane_threads >= 32 && lane_threads <= S1_MAX_LANE_THREADS;
 }
 
 // y, z, e, w, r1, s1: (batch, 16) int64 limbs; es: (batch, rounds, 16); d1: (batch, deg, 16); mins:
-// (batch, m, 16); each contiguous.  Outputs: commit (batch, m, 16), a1, b, a (batch, 16), li, ri (batch, rounds,
-// 16), gi, hi (max_mn, 16), gb (deg, 16), hb (16).  scratch: (4 + 2 rounds + m + deg) x batch x 8 words.  All on
-// the current device; S1a then S1b on `stream`.
+// (batch, m, 16); each with its rows `s*` limbs apart and its items contiguous.  Outputs, contiguous: commit
+// (batch, m, 16), a1, b, a (batch, 16), li, ri (batch, rounds, 16), gi, hi (max_mn, 16), gb (deg, 16), hb (16).
+// scratch: (4 + 2 rounds + m + deg) x batch x 8 words.  global_slots: null where a block's shared memory holds
+// its proofs' slots, else (blocks x 32 / lanes) x slots x 8 words.  prog: S1a's program for this shape (steps x
+// lanes x 3 words, then its output slots).  All on the current device; S1a then S1b on `stream`.
 extern "C" int bppt_scalar_pass(const void *y, const void *z, const void *es, const void *e, const void *w,
-                                const void *r1, const void *s1, const void *d1, const void *mins, long batch,
+                                const void *r1, const void *s1, const void *d1, const void *mins, long sy, long sz,
+                                long ses, long se, long sw, long sr1, long ss1, long sd1, long smins, long batch,
                                 long rounds, long m, long n, long deg, long max_mn, void *commit, void *a1, void *b,
                                 void *a, void *li, void *ri, void *gi, void *hi, void *gb, void *hb, void *scratch,
+                                void *global_slots, const void *prog, long steps, long inv_step, long slots, long lanes,
                                 long lane_threads, void *stream) {
-    if (!scalar_args_ok(batch, rounds, m, n, deg, max_mn, lane_threads)) return (int)cudaErrorInvalidValue;
+    if (!scalar_args_ok(batch, rounds, m, n, deg, max_mn, steps, inv_step, slots, lanes, lane_threads))
+        return (int)cudaErrorInvalidValue;
+    const S1Inputs in = {{(const int64_t *)y, (const int64_t *)z, (const int64_t *)e, (const int64_t *)w,
+                          (const int64_t *)r1, (const int64_t *)s1, (const int64_t *)es, (const int64_t *)d1,
+                          (const int64_t *)mins},
+                         {sy, sz, se, sw, sr1, ss1, ses, sd1, smins}};
+    for (int k = 0; k < S1_INPUTS; ++k)
+        if (in.stride[k] < 16) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    scalar_proof_kernel<<<(unsigned)((batch + S1_PROOF_THREADS - 1) / S1_PROOF_THREADS), S1_PROOF_THREADS, 0, st>>>(
-        (const int64_t *)y, (const int64_t *)z, (const int64_t *)es, (const int64_t *)e, (const int64_t *)w,
-        (const int64_t *)r1, (const int64_t *)s1, (const int64_t *)d1, (const int64_t *)mins, batch, (int)rounds,
-        (int)m, (int)n, (int)deg, (int64_t *)commit, (int64_t *)a1, (int64_t *)b, (int64_t *)a, (int64_t *)li,
-        (int64_t *)ri, (u32 *)scratch);
+    const long per_block = S1_WARP / lanes;
+    const int n_out = (int)(m + 3 + 2 * rounds + COL_CHSQ + 2 * rounds + m + deg);
+    const size_t smem = global_slots ? 0 : ((size_t)s1_prog_words_aligned((int)(OP_WORDS * steps * lanes) + n_out) +
+                                            per_block * slots * 8) * sizeof(u32);
+    if (smem > S1_MAX_SMEM) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(scalar_proof_kernel,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    auto *const proof_kernel = global_slots ? scalar_proof_global_kernel : scalar_proof_kernel;
+    proof_kernel<<<(unsigned)((batch + per_block - 1) / per_block), S1_WARP, smem, st>>>(
+        in, batch, (int)rounds, (int)m, (int)n, (int)deg, (int64_t *)commit, (int64_t *)a1, (int64_t *)b,
+        (int64_t *)a, (int64_t *)li, (int64_t *)ri, (u32 *)scratch, (u32 *)global_slots, (const u32 *)prog,
+        (int)steps, (int)inv_step, (int)slots, (int)lanes);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     scalar_lane_kernel<<<(unsigned)(max_mn + deg + 1), (unsigned)lane_threads, 0, st>>>(
@@ -379,5 +402,11 @@ extern "C" int bppt_scalar_pass(const void *y, const void *z, const void *es, co
 // in, out: (32, 16) int64 limbs.
 extern "C" int bppt_scalar_latency(const void *in, void *out, long iters, void *stream) {
     scalar_latency_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const int64_t *)in, (int64_t *)out, (int)iters);
+    return (int)cudaGetLastError();
+}
+
+// in, out: (32, 16) int64 limbs, canonical.
+extern "C" int bppt_scalar_inv_latency(const void *in, void *out, long iters, void *stream) {
+    scalar_inv_latency_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const int64_t *)in, (int64_t *)out, (int)iters);
     return (int)cudaGetLastError();
 }

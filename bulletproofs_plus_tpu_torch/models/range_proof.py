@@ -881,7 +881,7 @@ class RangeProof:
             if action != VerifyAction.VERIFY_ONLY:
                 y_np, z_np, es_np, e_np = vals[3:]
                 y_i, z_i, e_i = unpack_ints(y_np), unpack_ints(z_np), unpack_ints(e_np)
-                es_i = unpack_ints(es_np.reshape(B * rounds, -1))
+                es_i = unpack_ints(es_np.reshape(B * rounds, es_np.shape[-1]))  # no rows at rounds = 0
                 RangeProof._device_structural_checks(statements, proofs, bit_length, action, device)
                 masks = [
                     RangeProof._recover_mask(

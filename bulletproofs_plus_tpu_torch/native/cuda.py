@@ -84,8 +84,9 @@ LIBRARIES = {
     "scalar": (
         "scalar_pass.cu",
         {
-            "bppt_scalar_pass": [_VP] * 9 + [_LONG] * 6 + [_VP] * 11 + [_LONG, _VP],
+            "bppt_scalar_pass": [_VP] * 9 + [_LONG] * 15 + [_VP] * 13 + [_LONG] * 5 + [_VP],
             "bppt_scalar_latency": [_VP, _VP, _LONG, _VP],
+            "bppt_scalar_inv_latency": [_VP, _VP, _LONG, _VP],
         },
     ),
 }

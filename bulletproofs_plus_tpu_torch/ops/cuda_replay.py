@@ -359,7 +359,7 @@ def replay_model(program: Program, state: np.ndarray, buf: np.ndarray):
     zero = np.zeros(batch, dtype=bool)
     for lane in range(batch):
         for c in range(n_ch):
-            r = scalar_model.reduce_wide([int(v) for v in wide[lane, c]])
+            r = scalar_model.reduce_fold([int(v) for v in wide[lane, c]])
             scalars[lane, c, 0::2] = [v & 0xFFFF for v in r]
             scalars[lane, c, 1::2] = [v >> 16 for v in r]
             zero[lane] |= not any(r)

@@ -72,7 +72,7 @@ the program once and writes each lane's canonical limbs, seed and two
 flags, and does, for each lane, one integer operation for each byte of its
 program's spans, its permutations, each 4320 32-bit integer instructions
 at the least (`KECCAK_INT_OPS`), and for each challenge the wide
-reduction's products (`REDUCE_MULADDS`), over the same integer rate.
+reduction's products (`FOLD_MULADDS`), over the same integer rate.
 
 `chain_ms` is the other floor: the field multiplications and squarings that lie
 one after another on the kernel's longest path, each at the dependent
@@ -121,22 +121,34 @@ two table words once and writes a point a proof, and counts a mixed addition
 tree's levels at `fe_mul_ns`.
 
 S1 reads each input once and writes each output once as int64 limbs; its
-bound counts the products mod l that the scalar pass needs at the fewest
-(`_scalar_products`: a proof's Fermat inversion by a 4-bit window, its
-other per-proof products, and 3 a lane and proof, each term of a lane a
-ladder over the lanes), each 2 x 64 multiply-adds for the 8 x 8-word
-product and `REDUCE_MULADDS` for its reduction (`SC_MULADDS_PER_MUL`); sums
-are not counted.  S1's own products (S1b rebuilds y^-i and P(i) from the
-bits of i on every lane) stand beside it as `products`.  Its `chain_ms` is
-S1a's thread's products, then the products that one S1b thread does for
-one lane over its share of the proofs, each at the one-warp latency of a
-product mod l that the probe measured in this run (`sc_mul_ns`).  The main
-phase also reads, for one b64_m1_x256 verify, the scalar pass as a stage
-(its captured call alone, synchronised) and, under torch.profiler, the
-verify's device operations, busy time, idle share and S1a's and S1b's
-device time, in the verify and in the captured call run back to back and
-after the card has idled (`s1_device_ms_*`), to tell the profiler's
-reading from the context's.
+bound counts what the scalar pass needs at the fewest (`_scalar_products`):
+a proof's other products as a Montgomery batch inversion arranges them, and
+3 a lane and proof, each term of a lane a ladder over the lanes, each
+product `SC_MULADDS_PER_MUL` (2 x 64 multiply-adds for the 8 x 8-word
+product and `FOLD_MULADDS` for its reduction; sums not counted); and one
+inversion a shape group: Montgomery's trick over the proofs (3 products a
+proof after the first) inverts the product of every proof's product of
+values to invert, a proof whose product is 0 taking 1 in its place by a
+select and its inverses zeroed, at the cheaper of two counts: Fermat's
+x^(l - 2) by a 4-bit window (298 products) or the batches of 30 divsteps
+that this run's value needs, each `INV_BATCH_OPS` 32-bit integer
+instructions (the divsteps' masks, additions and shifts, and the matrix's
+32 x 32 -> 64-bit products at two multiply-adds), counted at the
+multiply-add rate.  S1's own work (S1a's program's products and k + 2
+inversions a proof; S1b rebuilds y^-i and P(i) from the bits of i on every
+lane) stands beside it as `products` and `inversions`.  Its `chain_ms` is
+S1a's chain, its program's steps with a product at the one-warp latency of
+a product mod l (`sc_mul_ns`) and its one inversion step at that of an
+inversion (`sc_inv_ns`, random inputs), then the products that one S1b
+thread does for one lane over its share of the proofs at `sc_mul_ns`; both
+probes' chain ends are checked against Python integers.  Each shape also
+gives S1a's and S1b's device time a call under torch.profiler
+(`s1a_device_ms`, `s1b_device_ms`, median of 5 calls).  The main phase also
+reads, for one b64_m1_x256 verify, the scalar pass as a stage (its captured call alone, synchronised) and, under
+torch.profiler, the verify's device operations, busy time, idle share and
+S1a's and S1b's device time, in the verify and in the captured call run back
+to back and after the card has idled (`s1_device_ms_*`), to tell the
+profiler's reading from the context's.
 """
 
 from __future__ import annotations
@@ -214,13 +226,17 @@ COMPRESS_SHAPES = ((PROVE_BATCH,), (PROVE_BATCH, 2))  # a prove's C1 launches: A
 # application 50 (c[x-1] ^ rot(c[x+1]) ^ a in one LOP3 a half), rho 48 (two funnel shifts a rotation, lane 0
 # unrotated), chi 50 (one LOP3 a half), iota 2
 KECCAK_INT_OPS = 24 * 180
-# R1: 32-bit multiply-adds of one challenge's wide reduction (csrc/scalar_l.cuh): q1 mu, 9 x 9 words at two a
-# product (low and high halves), and q3 l below 2^288, the products with l's five non-zero words only
-REDUCE_MULADDS = 2 * 81 + 59
 REPLAY_SHAPES = ((3, 256), (6, 64))  # golden cell and lanes: the b64_m1_x256 and b64_m4_x64 verifies' replays
-# S1: 32-bit multiply-adds of one product mod l (csrc/scalar_l.cuh): the 8 x 8-word product at two a word pair,
-# then the wide reduction
-SC_MULADDS_PER_MUL = 2 * 64 + REDUCE_MULADDS
+# R1, S1 and P1-P3: 32-bit multiply-adds of one reduction mod l of a 512-bit value (csrc/scalar_l.cuh): three
+# folds of 2^252 = -delta, 9 x 4, 5 x 4 and 1 x 4 words at two a word pair (low and high halves); a product mod l
+# adds the 8 x 8-word product at two a word pair
+FOLD_MULADDS = 2 * (36 + 20 + 4)
+SC_MULADDS_PER_MUL = 2 * 64 + FOLD_MULADDS
+# S1: one batch of 30 divsteps of the inversion (csrc/scalar_l.cuh sc_inv_l) in 32-bit integer instructions: 27 a
+# divstep (two masks, three conditional negations and additions, the swap's three, zeta, three shifts), then the
+# 2 x 2 matrix's 32 x 32 -> 64-bit products at two multiply-adds each: (d, e)'s 36 and l's 12 (six non-zero limbs
+# of l), one for each multiple of l, and (f, g)'s 36
+INV_BATCH_OPS = 30 * 27 + 2 * (36 + 12 + 1 + 36)
 # S1's shapes (label, golden cell, lanes, max_mn): the b64_m1_x256 and b64_m4_x64 verifies' groups and the mixed
 # batch's two groups (m=2 with minimum values; m=1 padded to the batch's widest, 128 lanes)
 SCALAR_SHAPES = (("b64_m1_x256", 3, 256, 64), ("b64_m4_x64", 6, 64, 256), ("mixed_m2", 4, 128, 128),
@@ -358,7 +374,8 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
     sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel"))
     sass.update(sass_histogram(cuda, "replay", ("perm_latency_kernel", "keccak_latency_kernel", "replay_kernel",
                                                 "reduce_wide_kernel")))
-    sass.update(sass_histogram(cuda, "scalar", ("scalar_latency_kernel", "scalar_proof_kernel", "scalar_lane_kernel")))
+    sass.update(sass_histogram(cuda, "scalar", ("scalar_latency_kernel", "scalar_inv_latency_kernel",
+                                                "scalar_proof_kernel", "scalar_lane_kernel")))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
             "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
@@ -619,7 +636,7 @@ def _replay_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict,
         n_ch = program.n_challenges
         b_ms, b_by = bound_ms(batch * (200 + stride + 128 * n_ch + program.n_seed + 2) + 8 * len(program.blob),
                               batch * (program.n_permutations * KECCAK_INT_OPS + program.span_bytes
-                                       + n_ch * REDUCE_MULADDS))
+                                       + n_ch * FOLD_MULADDS))
         by_shape[batch] = {
             "seed": seed, "lanes": batch, "stride": stride, "challenges": n_ch, "max_abs_err": err,
             "permutations": program.n_permutations, "spans": program.n_spans, "span_bytes": program.span_bytes,
@@ -656,7 +673,9 @@ def _scalar_inputs(torch, bp, hr, cell, batch: int, rs: random.Random):
 
     fn, state, buf, _ = _replay_inputs(torch, bp, hr, cell, batch, rs)
     y, z, es, e, _, _, _ = fn(state, buf)
-    es[5, -1] = 0  # in place: the view stays a view of the replay's tensor
+    es[5, -1] = 0  # in place: the views stay views of the replay's tensor
+    y[7] = 0
+    y[7, 0] = 1
     m, rounds, deg = len(cell["values"]), es.shape[1], cell["extension_degree"]
     f = unpack_row_buffer(buf, m, rounds, deg)
     mv = _u8_to_limbs(f["min_vals"])
@@ -666,32 +685,82 @@ def _scalar_inputs(torch, bp, hr, cell, batch: int, rs: random.Random):
             "min_values": torch.cat([mv, mv.new_zeros((batch, m, 16 - mv.shape[-1]))], dim=-1)}, m, cell["bits"]
 
 
-def _scalar_products(batch: int, rounds: int, m: int, deg: int, mn: int):
-    """S1's products mod l and the fewest the scalar pass needs: (S1a's a
-    proof, the most S1b's threads do for one proof of one lane, all of S1's,
-    the function's).  S1a: 252 squarings and 72 products (Fermat's l - 2),
-    then 27 + 9 rounds + 4 m + deg (one more at rounds 0); S1b for lane i
-    with p bits set: rounds + p + 2 (rounds + 1 at i = 0).  The function
-    needs a proof's inversion by a 4-bit window (14 products for x^2..x^15,
-    252 squarings, one product a further non-zero digit), S1a's other
-    products, and 3 a proof and lane, each of g's A y^-i P(i), h's D P(mn-1-i)
-    and G_j 2^(i mod n) y^-i a ladder over the lanes, t_i = t_(i') f, that
-    starts without a product."""
+def _divstep_batches(x: int) -> int:
+    """Batches of 30 divsteps (csrc/scalar_l.cuh's, zeta = -(delta + 1/2))
+    until g = 0 from f = l, g = x."""
     from bulletproofs_plus_tpu_torch.ops.scalar_model import L
 
-    fermat = 252 + bin((L - 2) & ((1 << 252) - 1)).count("1")
-    digits = sum(1 for k in range(0, 253, 4) if (L - 2) >> k & 15)
+    zeta, f, g, n = -1, L, x, 0
+    while g:
+        for _ in range(30):
+            if g & 1 and zeta < 0:
+                zeta, f, g = -zeta - 2, g, (g - f) >> 1
+            else:
+                zeta, g = zeta - 1, (g + f * (g & 1)) >> 1
+        n += 1
+    return n
+
+
+def _scalar_products(args: dict, rounds: int, m: int, n: int, deg: int):
+    """S1's work and the fewest 32-bit operations the scalar pass needs on
+    these inputs: (S1a's program, S1b's most products for one proof of one
+    lane, S1's products, its inversions, the function's operations).  S1a: the
+    program's products and rounds + 2 inversions a proof; S1b for lane i with
+    p bits set: rounds + p + 2 products (rounds + 1 at i = 0).  The function:
+    27 + 9 rounds + 4 m + deg products a proof (one more at rounds 0), as a
+    Montgomery batch inversion of the proof's values [e_1..e_k, y, y - 1]
+    arranges them, and 3 a proof and lane, each of g's A y^-i P(i), h's
+    D P(mn-1-i) and G_j 2^(i mod n) y^-i a ladder over the lanes,
+    t_i = t_(i') f, that starts without a product; then Montgomery's trick
+    over the proofs, 3 products a proof after the first, and one inversion
+    of the product of the proofs' products (a zero one taken as 1) at the
+    cheaper of Fermat's chain and the divsteps it needs."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_scalar as cs
+    from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs
+    from bulletproofs_plus_tpu_torch.ops.scalar_model import L
+
+    batch, mn = args["y"].shape[0], m * n
+    prog = cs.proof_program(rounds, m, deg)
     other = 27 + 9 * rounds + 4 * m + deg + (rounds == 0)
     lanes = [rounds + bin(i).count("1") + 2 if i else rounds + 1 for i in range(mn)]
-    needed = batch * (14 + 252 + digits - 1 + other + 3 * mn - 3)
-    return fermat + other, max(lanes), batch * (fermat + other + sum(lanes)), needed
+    ys, es = args["y"].cpu().numpy(), args["round_es"].cpu().numpy()
+    # Fermat's x^(l - 2) by a 4-bit window: x^2..x^15, 252 squarings, one product a further non-zero digit
+    fermat = (14 + 252 + sum(1 for k in range(0, 253, 4) if (L - 2) >> k & 15) - 1) * SC_MULADDS_PER_MUL
+    group = 1
+    for b in range(batch):
+        y = int_from_limbs(ys[b])
+        prod = y * (y - 1) % L
+        for v in es[b]:
+            prod = prod * int_from_limbs(v) % L
+        group = group * (prod or 1) % L
+    inversion_ops = min(fermat, _divstep_batches(group) * INV_BATCH_OPS)
+    needed = (batch * (other + 3 * mn - 3) + 3 * (batch - 1)) * SC_MULADDS_PER_MUL + inversion_ops
+    return prog, max(lanes), batch * (prog.products + sum(lanes)), batch * (rounds + 2), needed
+
+
+def _s1_device_ms(torch, call, runs: int = 5) -> dict:
+    """S1a's and S1b's device time a call under torch.profiler, the median of
+    `runs` calls each, or "not measured" where the profiler saw neither."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = {"s1a_device_ms": [], "s1b_device_ms": []}
+    for _ in range(runs):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+        for key, name in (("s1a_device_ms", "scalar_proof_kernel"), ("s1b_device_ms", "scalar_lane_kernel")):
+            parts[key].append(sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e3)
+    return {k: statistics.median(v) if any(v) else "not measured" for k, v in parts.items()}
 
 
 def _scalar_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict, ptxas: dict) -> None:
     """S1 against the plain scalar pass on the card at SCALAR_SHAPES: every
-    output exact, limb for limb (lane 5 a zero challenge); timed beside its
-    plain version, with the one-warp latency of a product mod l
-    (`sc_mul_ns`, the probe's chain end checked against Python integers)."""
+    output exact, limb for limb (lane 5 a zero challenge, lane 7 y = 1);
+    timed beside its plain version, with the one-warp latencies of a product
+    mod l (`sc_mul_ns`) and of an inversion (`sc_inv_ns`), each probe's
+    chain end checked against Python integers."""
     import numpy as np
 
     from bulletproofs_plus_tpu_torch.models.verifier_kernels import scalar_pass_plain
@@ -707,6 +776,15 @@ def _scalar_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict,
     long = kernel_ms(lambda: cs.mul_latency_probe(x, 1280))
     sc_mul_ns = (long - short) * 1e6 / 1024
     out["sc_mul_ns"] = sc_mul_ns
+    edges = [0, 1, 2, hr.L - 1, hr.L - 2, (hr.L + 1) // 2, 2**252] + vals[7:]
+    xe = torch.as_tensor(pack_ints(edges).astype(np.int64), device="cuda")
+    if ([int_from_limbs(r) for r in cs.inv_latency_probe(xe, 1).cpu().numpy()]
+            != [pow(v, -1, hr.L) if v else 0 for v in edges] or not torch.equal(cs.inv_latency_probe(xe, 6), xe)):
+        raise AssertionError("S1's inversion probe disagrees with Python integers")
+    short = kernel_ms(lambda: cs.inv_latency_probe(x, 4))
+    long = kernel_ms(lambda: cs.inv_latency_probe(x, 20))
+    sc_inv_ns = (long - short) * 1e6 / 16
+    out["sc_inv_ns"] = sc_inv_ns
 
     by_shape = {}
     for label, seed, batch, max_mn in SCALAR_SHAPES:
@@ -722,32 +800,40 @@ def _scalar_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict,
         if err != 0 or launches != {"scalar_pass": 1} or any(g.shape != w.shape for g, w in zip(got, want)):
             raise AssertionError(f"S1 ({label}) disagrees with the plain scalar pass: max_abs_err {err}, "
                                  f"launches {launches}")
-        if got[9][5].any() or not got[9][4].any():
-            raise AssertionError(f"S1 ({label}): the zero challenge did not poison lane 5's inverses alone")
-        per_proof, per_lane, products, needed = _scalar_products(batch, rounds, m, deg, m * n)
+        if got[9][5].any() or got[9][7].any() or not got[9][4].any():
+            raise AssertionError(f"S1 ({label}): the zero challenge and y = 1 did not poison lanes 5 and 7 alone")
+        prog, per_lane, products, inversions, needed = _scalar_products(args, rounds, m, n, deg)
         threads = cs.lane_threads(batch)
         n_in = 6 + rounds + deg + m
         n_out = batch * (m + 3 + 2 * rounds) + 2 * max_mn + deg + 1
-        b_ms, b_by = bound_ms((batch * n_in + n_out) * LIMB_BYTES, needed * SC_MULADDS_PER_MUL)
+        b_ms, b_by = bound_ms((batch * n_in + n_out) * LIMB_BYTES, needed)
         by_shape[label] = {
             "lanes": batch, "m": m, "bits": n, "rounds": rounds, "deg": deg, "max_mn": max_mn, "max_abs_err": err,
-            "launches": launches["scalar_pass"], "products": products, "products_needed": needed,
+            "launches": launches["scalar_pass"], "products": products, "inversions": inversions,
+            "operations_needed": needed,
             "ms": kernel_ms(lambda: cs.scalar_pass(**args, **kw)),
             "graph_ms": graph_ms(lambda: cs.scalar_pass(**args, **kw)),
+            **_s1_device_ms(torch, lambda: cs.scalar_pass(**args, **kw)),
             "plain_ms": median_ms(lambda: scalar_pass_plain(**args, **kw), 1),
             "bound_ms": b_ms, "bound_by": b_by,
-            # S1a's thread, then S1b's threads' proofs one after another (the trees' sums not counted)
-            "chain_ms": (per_proof + -(-batch // threads) * per_lane) * sc_mul_ns * 1e-6,
-            "s1a_blocks": -(-batch // cs.PROOF_THREADS), "s1b_blocks": max_mn + deg + 1, "s1b_threads": threads,
+            # S1a's program (its product steps, then its inversion step), then S1b's threads' proofs one after
+            # another (sums and the trees' sums not counted)
+            "chain_ms": ((prog.mul_steps + -(-batch // threads) * per_lane) * sc_mul_ns + sc_inv_ns) * 1e-6,
+            "lanes_per_proof": prog.lanes, "program_steps": len(prog.words), "mul_steps": prog.mul_steps,
+            "slots": prog.slots, "s1a_blocks": -(-batch * prog.lanes // cs.WARP), "s1b_blocks": max_mn + deg + 1,
+            "s1b_threads": threads,
         }
     out["scalar_by_shape"] = by_shape
     first = by_shape[SCALAR_SHAPES[0][0]]
     rows["scalar_pass"] = {
-        **first, "sc_mul_ns": sc_mul_ns, "threads": cs.PROOF_THREADS,
-        "ptxas": {k: ptxas.get(k, {}) for k in ("scalar_proof_kernel", "scalar_lane_kernel")},
+        **first, "sc_mul_ns": sc_mul_ns, "sc_inv_ns": sc_inv_ns, "threads": cs.WARP,
+        "ptxas": {k: ptxas.get(k, {})
+                  for k in ("scalar_proof_kernel", "scalar_proof_global_kernel", "scalar_lane_kernel")},
         **ptxas.get("scalar_proof_kernel", {}),
-        "by_shape": {k: {kk: v[kk] for kk in ("graph_ms", "ms", "plain_ms", "bound_ms", "chain_ms", "launches",
-                                               "max_abs_err", "products", "products_needed", "s1b_blocks")}
+        "by_shape": {k: {kk: v[kk] for kk in ("graph_ms", "ms", "s1a_device_ms", "s1b_device_ms", "plain_ms",
+                                               "bound_ms", "chain_ms", "launches",
+                                               "max_abs_err", "products", "inversions", "operations_needed",
+                                               "mul_steps", "lanes_per_proof", "s1a_blocks", "s1b_blocks")}
                      for k, v in by_shape.items()},
     }
 
@@ -2223,8 +2309,8 @@ def main() -> int:
                                                 "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
                                                 "spill_stores", "spill_loads", "lanes", "permutations",
                                                 "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape",
-                                                "sc_mul_ns", "ptxas", "one_lane_graph_ms", "four_lanes_graph_ms",
-                                                "products", "round", "by_round")
+                                                "sc_mul_ns", "sc_inv_ns", "ptxas", "one_lane_graph_ms",
+                                                "four_lanes_graph_ms", "products", "inversions", "round", "by_round")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

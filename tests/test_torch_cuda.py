@@ -684,12 +684,18 @@ def _scalar_inputs(batch, m, n, deg, seed, card, mins=False, zero_lane=None, one
 
 # (batch, m, bit length, extension degree, max_mn, minimum values, zero-challenge lane, lane with y = 1): one
 # proof; a 256 x 64-bit verify's group; a 64 x m4 one of degree 5; the mixed batch's m=2 group (minimum values)
-# and its m=1 group padded to the batch's widest; a zero challenge and a y of 1 poisoning their lanes
+# and its m=1 group padded to the batch's widest; a zero challenge and a y of 1 poisoning their lanes; one-bit
+# proofs (no rounds) with a y of 1; m = 512, whose program needs 1,318 slots and 142 KB of shared memory a block;
+# m = 1024, one proof a block at 32 lanes; m = 2048, whose slots lie in global memory; m = 32768, slot indices past
+# 16 bits
 @pytest.mark.parametrize("batch, m, n, deg, max_mn, mins, zero_lane, one_y", [
     (1, 1, 64, 1, 64, False, None, None), (256, 1, 64, 1, 64, False, None, None),
     (64, 4, 64, 5, 256, False, None, None), (128, 2, 64, 1, 128, True, None, None),
-    (128, 1, 64, 1, 128, False, None, None), (40, 1, 64, 1, 64, True, 3, 7),
-], ids=["b1", "b256_m1", "b64_m4_deg5", "mixed_m2", "mixed_m1_padded", "zero_challenge"])
+    (128, 1, 64, 1, 128, False, None, None), (40, 1, 64, 1, 64, True, 3, 7), (9, 1, 1, 2, 2, True, None, 4),
+    (3, 512, 2, 1, 1024, True, None, 1), (2, 1024, 1, 1, 1024, True, None, None),
+    (3, 2048, 1, 1, 2048, True, None, None), (1, 32768, 1, 1, 32768, True, None, None),
+], ids=["b1", "b256_m1", "b64_m4_deg5", "mixed_m2", "mixed_m1_padded", "zero_challenge", "rounds0_y_one",
+        "m512_wide_program", "m1024_one_proof_a_block", "m2048_global_slots", "m32768_wide_slot_indices"])
 def test_scalar_pass_kernel_matches_plain(card, batch, m, n, deg, max_mn, mins, zero_lane, one_y):
     """S1 on the card equals the plain scalar pass limb for limb, every output."""
     from bulletproofs_plus_tpu_torch.models.verifier_kernels import scalar_pass, scalar_pass_plain
@@ -703,6 +709,57 @@ def test_scalar_pass_kernel_matches_plain(card, batch, m, n, deg, max_mn, mins, 
         assert g.shape == w.shape and torch.equal(g, w), k
     if zero_lane is not None:  # the poisoned lanes' inverses are 0: their R scalars vanish
         assert not got[9][zero_lane].any() and not got[9][one_y].any() and got[9][0].any()
+
+
+def test_scalar_inv_probe_matches_python(card):
+    """sc_inv_l, Bernstein and Yang's divsteps, on the card against Python's
+    pow(x, -1, l): 0 (gives 0), 1, 2, l - 1, l - 2, (l + 1) / 2, 2^252 and
+    small values, then 1,024 seeded values, 32 lanes a launch; two
+    inversions in a row give x back."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_scalar as cs
+
+    L = hr.L
+    rs = np.random.RandomState(13)
+    edges = [0, 1, 2, L - 1, L - 2, (L + 1) // 2, 2**252] + list(range(3, 28))
+    vals = edges + [int.from_bytes(rs.bytes(32), "little") % L for _ in range(1024)]
+    for lo in range(0, len(vals), 32):
+        chunk = vals[lo:lo + 32]
+        x = torch.as_tensor(pack_ints(chunk).astype(np.int64), device=card)
+        got = [int_from_limbs(r) for r in cs.inv_latency_probe(x, 1).cpu().numpy()]
+        assert got == [pow(v, -1, L) if v else 0 for v in chunk], lo
+        assert torch.equal(cs.inv_latency_probe(x, 2), x)
+
+
+@pytest.mark.parametrize("action", ["VERIFY_ONLY", "RECOVER_AND_VERIFY", "RECOVER_ONLY"])
+def test_one_bit_verify_on_card(card, action):
+    """One-bit proofs (n = 1, m = 1, degrees 1 and 2: no rounds) through
+    verify_batch(engine="device") on the card give the host engine's
+    verdicts and masks, through R1 (no round challenges) and S1 (y and
+    y - 1 inverted alone)."""
+    import bulletproofs_plus_tpu_torch as tbp
+
+    for deg in (1, 2):
+        pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(deg))
+        params = tbp.RangeParameters.init(1, 1, pc)
+        openings = [tbp.CommitmentOpening(v, [17 + 5 * v + k for k in range(deg)]) for v in (1, 0, 1)]
+        statements = [tbp.RangeStatement.init(params, [pc.commit(o.v, o.r)], [None], 40 + i)
+                      for i, o in enumerate(openings)]
+        proofs = tbp.RangeProof.prove_batch_with_rng(
+            [tbp.Transcript(b"one") for _ in openings], statements, [tbp.RangeWitness.init([o]) for o in openings],
+            tbp.SeededRng(9), device="cpu")
+        assert not proofs[0].li
+
+        def verify(**kw):
+            masks = tbp.RangeProof.verify_batch([tbp.Transcript(b"one") for _ in proofs], statements, proofs,
+                                                getattr(tbp.VerifyAction, action), **kw)
+            return [None if m is None else m.blindings() for m in masks]
+
+        want = verify(engine="host")
+        cuda.reset_launches()
+        assert verify(engine="device", device=card) == want
+        assert cuda.launches["replay"] == 1
+        assert cuda.launches["scalar_pass"] == (0 if action == "RECOVER_ONLY" else 1)
+        assert (want[0] is None) == (action == "VERIFY_ONLY")
 
 
 def test_scalar_latency_probe_matches_python(card):

@@ -233,11 +233,11 @@ def _wide_batch():
 
 
 def test_reduce_wide_model_matches_integers_and_reduce_wide_l():
-    """R1's epilogue, word for word (ops/scalar_model.py, every carry and
-    bound checked), against int % l, the port's F.reduce_wide_l and the JAX
-    package's: equal on every value; zero exactly on the multiples of l."""
+    """R1's epilogue, word for word (ops/scalar_model.py's fold, every carry
+    and bound checked), against int % l, the port's F.reduce_wide_l and the
+    JAX package's: equal on every value; zero exactly on the multiples of l."""
     vals = _wide_batch()
-    model = [SM.from_words(SM.reduce_wide(SM.to_words(v, 16))) for v in vals]
+    model = [SM.from_words(SM.reduce_fold(SM.to_words(v, 16))) for v in vals]
     assert model == [v % SM.L for v in vals]
     arr = np.frombuffer(b"".join(v.to_bytes(64, "little") for v in vals), dtype=np.uint8).reshape(-1, 64)
     limbs = (arr[:, 0::2].astype(np.int64) | (arr[:, 1::2].astype(np.int64) << 8))
@@ -245,15 +245,22 @@ def test_reduce_wide_model_matches_integers_and_reduce_wide_l():
     jax_out = np.asarray(JF.reduce_wide_l(limbs.astype(np.uint32)))
     assert [int_from_limbs(r) for r in port.numpy()] == model
     assert [int_from_limbs(r) for r in jax_out] == model
-    # the conditional subtraction is taken on some inputs and not on others
-    assert 0 < sum((v - (v >> 224) * SM.MU // 2**288 * SM.L) >= SM.L for v in vals) < len(vals)
-    zero = [not any(SM.reduce_wide(SM.to_words(v, 16))) for v in vals]
+    assert 0 < sum(_fold_before_csub(v) >= SM.L for v in vals) < len(vals)
+    zero = [not any(SM.reduce_fold(SM.to_words(v, 16))) for v in vals]
     assert zero == [v % SM.L == 0 for v in vals] == F.is_zero_l(port).tolist()
     assert sum(zero) == 8  # 0, l, the largest multiple below 2^512 and k l for five k near 2^259
 
 
+def _fold_before_csub(v: int) -> int:
+    """The fold's value before its conditional subtraction of l, in integers."""
+    low = (1 << 252) - 1
+    x1 = (v >> 252) * SM.DELTA
+    w = (x1 >> 252) * SM.DELTA + SM.L + (v & low) - (x1 & low)
+    return (w & low) + SM.L - (w >> 252) * SM.DELTA
+
+
 def test_scalar_header_constants_match_model():
-    """csrc/scalar_l.cuh's mu and l words are the model's floor(2^512 / l) and l."""
+    """csrc/scalar_l.cuh's l and delta words are the model's."""
     import re
 
     path = os.path.join(os.path.dirname(cr.__file__), "..", "csrc", "scalar_l.cuh")
@@ -261,10 +268,10 @@ def test_scalar_header_constants_match_model():
         text = f.read()
 
     def words(name):
-        body = re.search(r"const u32 " + name + r"\[SC_N\] = \{([^}]*)\}", text).group(1)
+        body = re.search(r"#define " + name + r" \{([^}]*)\}", text).group(1)
         return [int(w.strip().rstrip("u"), 0) for w in body.split(",")]
 
-    assert words("mu") == SM.MU_WORDS and words("l") == SM.L_WORDS
+    assert words("SC_L_WORDS") == SM.L_WORDS and words("SC_DELTA") == SM.DELTA_WORDS
 
 
 def test_keccak_warp_lane_schedule_matches_host():

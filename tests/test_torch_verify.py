@@ -345,3 +345,46 @@ def test_argument_errors_and_engines():
         tbp.RangeProof.verify_batch(
             [tbp.Transcript(b"torch")], [st_t], [proof], tbp.VerifyAction.VERIFY_ONLY, engine="oracle"
         )
+
+
+def _one_bit_cells(degree):
+    """Two seeded one-bit proofs (n = 1, m = 1: no rounds) of extension
+    `degree`, values 1 and 0, from the JAX package's host prover.  A proof
+    with no rounds has no byte form (`from_bytes` needs an L/R pair, as the
+    reference's does), so it crosses to the port field by field."""
+    pc = jbp.create_pedersen_gens_with_extension_degree(jbp.ExtensionDegree(degree))
+    params = jbp.RangeParameters.init(1, 1, pc)
+    cells = []
+    for value, seed in ((1, 3), (0, 4)):
+        blinds = [_det(f"one{seed}-{k}") for k in range(degree)]
+        comms = [pc.commit(value, blinds)]
+        nonce = _det(f"one-nonce{seed}")
+        st = jbp.RangeStatement.init(params, comms, [None], nonce)
+        wit = jbp.RangeWitness.init([jbp.CommitmentOpening(value, blinds)])
+        p = jbp.RangeProof.prove_with_rng(jbp.Transcript(b"one"), st, wit, jbp.SeededRng(seed))
+        assert not p.li
+        port = tbp.RangeProof(a=p.a, a1=p.a1, b=p.b, r1=p.r1, s1=p.s1, d1=list(p.d1), li=[], ri=[],
+                              extension_degree=tbp.ExtensionDegree(degree))
+        cells.append((st, _port_statement(1, 1, degree, comms, [None], nonce), p, port))
+    return cells
+
+
+@pytest.mark.parametrize("action", ACTIONS)
+@pytest.mark.parametrize("degree", [1, 2])
+def test_one_bit_proofs_on_device_engine(degree, action):
+    """One-bit proofs (no rounds, no round challenges) through the device
+    engine on the CPU give the port's host engine's verdicts and masks and
+    the JAX package's host engine's: the device replay hands over no round
+    challenges, and the scalar pass inverts y and y - 1 alone."""
+    cells = _one_bit_cells(degree)
+
+    def outcome(pkg, statements, proofs, **kw):
+        masks = pkg.RangeProof.verify_batch([pkg.Transcript(b"one") for _ in proofs], statements, proofs,
+                                            getattr(pkg.VerifyAction, action), **kw)
+        return [None if m is None else m.blindings() for m in masks]
+
+    port_statements, port_proofs = [c[1] for c in cells], [c[3] for c in cells]
+    got = outcome(tbp, port_statements, port_proofs, engine="device", device="cpu")
+    assert got == outcome(tbp, port_statements, port_proofs, engine="host")
+    assert got == outcome(jbp, [c[0] for c in cells], [c[2] for c in cells], engine="host")
+    assert (got[0] is None) == (action == "VERIFY_ONLY")
