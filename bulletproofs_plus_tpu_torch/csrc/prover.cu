@@ -36,8 +36,9 @@
 //
 // Arithmetic: GF(l) of scalar_l.cuh (`sc_mul_l`, `sc_add_l`, `sc_sub_l`),
 // every value canonical, so each output equals the plain version limb for
-// limb whatever order its products and sums take (c_L and c_R are a block's
-// tree of `sc_add_l`, as `_batch_sum_l` is one exact sum and one reduction).
+// limb whatever order its products and sums take (c_L and c_R are sums of
+// `sc_add_l` by shuffles, as `_batch_sum_l` is one exact sum and one
+// reduction).
 // P4 is point code on field25519.cuh: the generators are read from the fixed
 // tables' window 0, digit 1 entry, the affine (y + x, y - x, 2d x y) of the
 // point, and -h swaps its first two words; a point enters the sum as
@@ -49,13 +50,15 @@
 // mn = 64 prove needs some 0.45 M products mod l in all, under 0.01 ms at the
 // multiply rate, spread over 1 + rounds + 2 launches of a block a proof; each
 // block's thread runs a few to a few dozen dependent products (P1's y^k by
-// squaring and multiplying, P2's fold then its lanes then the tree of c_L),
-// and P4 a chain of four-lane additions.  A simple, exact design first.
+// squaring and multiplying, P3's fold then its lanes), and P4 a chain of
+// four-lane additions.  P2, once a round, is redesigned for that latency:
+// more threads a proof, so that no thread runs more than a few products, the
+// folded vectors in shared memory, and two barriers (below).
 
 #include "fold4.cuh"
 #include "scalar_l.cuh"
 
-#define PR_MAX_THREADS 256  // P1-P3: a block a proof, up to 256 threads striding over its lanes
+#define PR_MAX_THREADS 256  // P1 and P3: a block a proof, up to 256 threads striding over its lanes
 #define PR_RESP_THREADS 128 // P3's second entry: a thread a proof
 #define PR_ENTRY_WORDS 24   // a fixed table entry: y + x, y - x, 2d x y, 8 words each
 #define PR_MAX_M 1024       // P1's z^(2(j+1)) in 32 KB of shared memory
@@ -78,26 +81,6 @@ __device__ __forceinline__ void sc_pow_small(const u32 *x, unsigned k, u32 *r) {
 // Element j of proof b in a (B, X, 16) limb tensor.
 __device__ __forceinline__ const int64_t *at(const int64_t *p, long b, long x, long j) { return p + 16 * (b * x + j); }
 __device__ __forceinline__ int64_t *at(int64_t *p, long b, long x, long j) { return p + 16 * (b * x + j); }
-
-// The block's modular sum of each thread's two values (blockDim.x a power of two), left in thread 0's.
-__device__ __forceinline__ void block_sum2(u32 *x, u32 *y, u32 (*sx)[8], u32 (*sy)[8]) {
-    const int t = threadIdx.x;
-    copy8(sx[t], x);
-    copy8(sy[t], y);
-    __syncthreads();
-    for (int s = blockDim.x >> 1; s > 0; s >>= 1) {
-        if (t < s) {
-            u32 u[8];
-            copy8(u, sx[t + s]);
-            sc_add_l(x, u, x);
-            copy8(sx[t], x);
-            copy8(u, sy[t + s]);
-            sc_add_l(y, u, y);
-            copy8(sy[t], y);
-        }
-        __syncthreads();
-    }
-}
 
 // P1.  y, z, y_inv: (B, 16); bits: (B, mn) in {0, 1}; r_blind: (B, m, deg, 16); alpha0: (B, deg, 16).
 // Out: a, b (B, mn, 16); y_pows (B, mn + 1, 16), y^1..y^(mn+1); y_inv_n (B, rounds, 16), y^-(mn >> (r + 1));
@@ -242,76 +225,267 @@ __device__ __forceinline__ void coeff_fold(const Fold &f, long b, int mn, int hi
     sc_mul_l(h, hi ? f.ei : f.e, h);
 }
 
-// P2, round r of `rounds` (n = mn >> (r + 1)).  a_in, b_in: (B, 4n, 16) with a fold, else (B, 2n, 16);
-// g_in, h_in: (B, mn, 16) with a fold, else unused; e_in, ei_in: (B, 16) the previous round's challenge and
-// its inverse, null in round 0; dl_prev, dr_prev: that round's masks; dl, dr: this round's (B, deg, 16).
-// Out: a, b (B, 2n, 16); g, h (B, mn, 16); alpha (B, deg, 16); scalars (B, 2 (mn + deg + 1), 16), group L
-// then group R, each [g lanes, h lanes, d_1..d_deg, c].
-__global__ void __launch_bounds__(PR_MAX_THREADS) prove_round_kernel(
+// P2, round r of `rounds` (n = mn >> (r + 1), len = 2n the vectors' length after the fold).  a_in, b_in: (B, 2 len,
+// 16) with a fold, else (B, len, 16); g_in, h_in: (B, mn, 16) with a fold, else unused; e_in, ei_in: (B, 16) the
+// previous round's challenge and its inverse, null in round 0; dl_prev, dr_prev: that round's masks; dl, dr: this
+// round's (B, deg, 16).  Out: a, b (B, len, 16); g, h (B, mn, 16); alpha (B, deg, 16); scalars (B, 2 (mn + deg +
+// 1), 16), group L then group R, each [g lanes, h lanes, d_1..d_deg, c].
+//
+// A block a proof of T threads: TL = T - 32 lane threads (2 mn, from 32 to 512: ops/cuda_prover.round_threads)
+// and one warp for alpha's fold and the Pedersen lanes' masks, which no lane thread waits for.  Before the one
+// barrier of the values: lane item q < mn (thread q) folds lane q's g and keeps g y^(-+n), the factor its L/R
+// scalar takes with a (hi lanes L's y^-n, lo lanes R's y^n); item mn + q folds h; fold item j (thread TL - 1 - j,
+// so on h threads) folds a_j or b_j and, for a, keeps a'_j y^(1 + j), c_L's and c_R's factor.  The folded values
+// stay in `buf` as 8-word values (shared memory; a scratch in device memory where a proof's do not fit), not the
+// outputs' int64 limbs.  After it: each lane item's one product with a' or b'; c_L's terms a'_j y^(1+j) b'_(j+n)
+// on threads j, c_R's a'_(n+j) y^(n+1+j) b'_j on threads TL / 2 + j; both sums by shuffles within each warp, the
+// warps' partial sums by one thread after a second barrier.  Longest chain at 128 x mn 64: an h thread's h, a's
+// factor e^-1 y^len, its fold and a' y^(1+j) before the barrier, a g thread's scalar and c_L's term after it, then
+// the sums.  Every product is one call of one copy (`sc_mul_v`), and every value moves as 16-byte accesses
+// (`load_limbs16`).  The `// P2 phase:` comments mark the phases that scripts/profile_torch_p2.py stamps.
+#define P2_MAX_THREADS 544  // 512 lane threads and the alpha warp: 120 registers a thread
+#define P2_MAX_SMEM 232448  // shared memory a block may use: 227 KB
+
+// 8-word values of a proof's P2 scratch: a', b', a'_j y^(1+j) (len each), g y^(-+n) and h (mn each), the warps'
+// partial sums of c_L and c_R (2 a warp).
+__host__ __device__ __forceinline__ long p2_words(long mn, long r, long threads) {
+    return 8 * (3 * (mn >> r) + 2 * mn + 2 * (threads / 32));
+}
+
+// r = c ? a : b word by word: a select of two register arrays that keeps both out of local memory.
+__device__ __forceinline__ void select8(u32 *r, bool c, const u32 *a, const u32 *b) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = c ? a[k] : b[k];
+}
+
+// The sum of every lane's x over the warp, in every lane: five levels of shuffles.
+__device__ __forceinline__ void warp_sum_l(u32 *x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        u32 o[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) o[k] = __shfl_xor_sync(0xffffffffu, x[k], off);
+        sc_add_l(x, o, x);
+    }
+}
+
+// A value's 16 int64 limbs as eight 16-byte accesses, half the memory instructions of load_limbs and
+// store_limbs (P2's tensors are 16-byte aligned: the wrapper checks).
+__device__ __forceinline__ void load_limbs16(const int64_t *p, u32 *w) {
+    const longlong2 *q = reinterpret_cast<const longlong2 *>(p);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const longlong2 v = q[k];
+        w[k] = (u32)v.x | ((u32)v.y << 16);
+    }
+}
+
+__device__ __forceinline__ void store_limbs16(int64_t *p, const u32 *w) {
+    longlong2 *q = reinterpret_cast<longlong2 *>(p);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) q[k] = make_longlong2((long long)(w[k] & 0xffffu), (long long)(w[k] >> 16));
+}
+
+// One copy of the product mod l for all of P2's call sites, called by value: inline, its dozen products were some
+// 100 KB of straight-line code that every SM fetched once a launch, and the fetch, not the products, set the pace.
+struct sc8 {
+    u32 w[8];
+};
+
+__device__ __noinline__ sc8 sc_mul_v(sc8 a, sc8 b) {
+    sc8 r;
+    sc_mul_l(a.w, b.w, r.w);
+    return r;
+}
+
+__device__ __forceinline__ void sc_mul_n(const u32 *a, const u32 *b, u32 *r) {
+    sc8 x, y;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        x.w[k] = a[k];
+        y.w[k] = b[k];
+    }
+    const sc8 z = sc_mul_v(x, y);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = z.w[k];
+}
+
+template <bool SHARED>
+__device__ __forceinline__ void prove_round_body(
     const int64_t *__restrict__ a_in, const int64_t *__restrict__ b_in, const int64_t *__restrict__ g_in,
     const int64_t *__restrict__ h_in, const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in,
     const int64_t *__restrict__ ei_in, const int64_t *__restrict__ dl_prev, const int64_t *__restrict__ dr_prev,
     const int64_t *__restrict__ y_pows, const int64_t *__restrict__ yinv_n, const int64_t *__restrict__ dl,
-    const int64_t *__restrict__ dr, int mn, int rounds, int r, int deg, int64_t *a_out, int64_t *b_out,
-    int64_t *__restrict__ g_out, int64_t *__restrict__ h_out, int64_t *__restrict__ alpha_out,
-    int64_t *__restrict__ scalars) {
-    __shared__ u32 sx[PR_MAX_THREADS][8], sy[PR_MAX_THREADS][8];
+    const int64_t *__restrict__ dr, int mn, int rounds, int r, int deg, int64_t *__restrict__ a_out,
+    int64_t *__restrict__ b_out, int64_t *__restrict__ g_out, int64_t *__restrict__ h_out,
+    int64_t *__restrict__ alpha_out, int64_t *__restrict__ scalars, u32 *buf) {
     const long b = blockIdx.x;
-    const int t = threadIdx.x, T = blockDim.x;
-    const int hb = rounds - 1 - r, n = 1 << hb, half = mn >> 1, group = mn + deg + 1, width = 2 * group;
-    const Fold f = fold_vectors(b, mn, r, rounds, deg, a_in, b_in, alpha_in, e_in, ei_in, dl_prev, dr_prev, y_pows,
-                                yinv_n, a_out, b_out, alpha_out);
-    for (int k = t; k < deg; k += T) {  // the Pedersen lanes' masks
-        u32 u[8];
-        load_limbs(at(dl, b, deg, k), u);
-        store_limbs(at(scalars, b, width, mn + k), u);
-        load_limbs(at(dr, b, deg, k), u);
-        store_limbs(at(scalars, b, width, group + mn + k), u);
+    const int t = threadIdx.x, T = blockDim.x, TL = T - 32;
+    const int hb = rounds - 1 - r, n = 1 << hb, len = 2 * n, half = mn >> 1, group = mn + deg + 1, width = 2 * group;
+    const bool fold = e_in != nullptr;
+    u32 *sa = buf, *sb = sa + 8 * len, *say = sb + 8 * len, *sg = say + 8 * len, *sh = sg + 8 * mn;
+    u32 *parts = sh + 8 * mn;
+    u32 e[8], ei[8], u[8], v[8];
+    if (fold) {
+        load_limbs16(e_in + 16 * b, e);
+        load_limbs16(ei_in + 16 * b, ei);
     }
-    __syncthreads();  // the folded a and b, written above, are read by every thread below
-    u32 yn[8], yin[8];
-    load_limbs(at(y_pows, b, mn + 1, n - 1), yn);
-    load_limbs(at(yinv_n, b, rounds, r), yin);
-    for (int i = t; i < mn; i += T) {
-        u32 g[8], h[8], u[8];
-        coeff_fold(f, b, mn, hb + 1, i, g_in, h_in, g, h);
-        store_limbs(at(g_out, b, mn, i), g);
-        store_limbs(at(h_out, b, mn, i), h);
-        const int p = i & (n - 1);
-        const bool hi = (i >> hb) & 1;
-        const int k = ((i >> (hb + 1)) << hb) | p;  // lane i's rank among the lanes of its kind
-        load_limbs(at(a_out, b, 2 * n, hi ? p : p + n), u);
-        sc_mul_l(g, u, g);
-        sc_mul_l(g, hi ? yin : yn, g);
-        store_limbs(at(scalars, b, width, hi ? k : group + k), g);
-        load_limbs(at(b_out, b, 2 * n, hi ? p : p + n), u);
-        sc_mul_l(h, u, h);
-        store_limbs(at(scalars, b, width, hi ? group + half + k : half + k), h);
+    // P2 phase: start
+    if (t >= TL) {  // the last warp: alpha += dL e^2 + dR e^-2, the Pedersen lanes' masks
+        for (int k = t - TL; k < deg; k += 32) {
+            load_limbs16(at(alpha_in, b, deg, k), u);
+            if (fold) {
+                u32 w[8];
+                sc_mul_n(e, e, w);
+                load_limbs16(at(dl_prev, b, deg, k), v);
+                sc_mul_n(v, w, v);
+                sc_add_l(u, v, u);
+                sc_mul_n(ei, ei, w);
+                load_limbs16(at(dr_prev, b, deg, k), v);
+                sc_mul_n(v, w, v);
+                sc_add_l(u, v, u);
+            }
+            store_limbs16(at(alpha_out, b, deg, k), u);
+            load_limbs16(at(dl, b, deg, k), u);
+            store_limbs16(at(scalars, b, width, mn + k), u);
+            load_limbs16(at(dr, b, deg, k), u);
+            store_limbs16(at(scalars, b, width, group + mn + k), u);
+        }
+    } else {
+        for (int q = t; q < 2 * mn; q += TL) {  // lane q's g, then mn + q's h: the coefficient folds
+            const bool is_g = q < mn;
+            const int i = is_g ? q : q - mn;
+            const bool hi_prev = (i >> (hb + 1)) & 1, hi = (i >> hb) & 1;  // round r - 1's half, round r's
+            if (fold) {
+                load_limbs16(at(is_g ? g_in : h_in, b, mn, i), u);
+                if (is_g) {
+                    if (hi_prev) {  // e y^-len
+                        load_limbs16(at(yinv_n, b, rounds, r - 1), v);
+                        sc_mul_n(e, v, v);
+                    } else {
+                        copy8(v, ei);
+                    }
+                } else {
+                    select8(v, hi_prev, ei, e);
+                }
+                sc_mul_n(u, v, u);
+            } else {
+                set_small(u, 1u);
+            }
+            store_limbs16(at(is_g ? g_out : h_out, b, mn, i), u);
+            if (is_g) {  // g y^-n on a hi lane (L), g y^n on a lo lane (R)
+                if (hi) load_limbs16(at(yinv_n, b, rounds, r), v);
+                else load_limbs16(at(y_pows, b, mn + 1, n - 1), v);
+                sc_mul_n(u, v, u);
+            }
+            copy8((is_g ? sg : sh) + 8 * i, u);
+        }
+        // fold item j < len: a'_j = a_j e + a_(j+len) e^-1 y^len and a'_j y^(1+j);
+        // item len + j: b'_j = b_j e^-1 + b_(j+len) e
+        for (int j = TL - 1 - t; j < 2 * len; j += TL) {
+            const bool is_a = j < len;
+            const int p = is_a ? j : j - len;
+            const int64_t *src = is_a ? a_in : b_in;
+            load_limbs16(at(src, b, fold ? 2 * len : len, p), u);
+            if (fold) {
+                u32 w[8];
+                if (is_a) {
+                    load_limbs16(at(y_pows, b, mn + 1, len - 1), w);  // y^len
+                    sc_mul_n(ei, w, w);
+                } else {
+                    copy8(w, e);
+                }
+                load_limbs16(at(src, b, 2 * len, p + len), v);
+                sc_mul_n(v, w, v);
+                select8(w, is_a, e, ei);
+                sc_mul_n(u, w, u);
+                sc_add_l(u, v, u);
+            }
+            store_limbs16(at(is_a ? a_out : b_out, b, len, p), u);
+            copy8((is_a ? sa : sb) + 8 * p, u);
+            if (is_a) {
+                load_limbs16(at(y_pows, b, mn + 1, p), v);  // y^(1 + p)
+                sc_mul_n(u, v, u);
+                copy8(say + 8 * p, u);
+            }
+        }
     }
-    // c_L = sum_j a_j y^(1+j) b_(j+n), c_R = sum_j a_(n+j) y^(n+1+j) b_j, j < n
+    // P2 phase: fold
+    __syncthreads();
+    // P2 phase: barrier
     u32 cl[8], cr[8];
     set_small(cl, 0u);
     set_small(cr, 0u);
-    for (int j = t; j < n; j += T) {
-        u32 u[8], v[8];
-        load_limbs(at(a_out, b, 2 * n, j), u);
-        load_limbs(at(y_pows, b, mn + 1, j), v);
-        sc_mul_l(u, v, u);
-        load_limbs(at(b_out, b, 2 * n, j + n), v);
-        sc_mul_l(u, v, u);
-        sc_add_l(cl, u, cl);
-        load_limbs(at(a_out, b, 2 * n, n + j), u);
-        load_limbs(at(y_pows, b, mn + 1, n + j), v);
-        sc_mul_l(u, v, u);
-        load_limbs(at(b_out, b, 2 * n, j), v);
-        sc_mul_l(u, v, u);
-        sc_add_l(cr, u, cr);
+    if (t < TL) {
+        for (int q = t; q < 2 * mn; q += TL) {  // each lane's L/R scalars, in the order of the JAX program's `perm`
+            const bool is_g = q < mn;
+            const int i = is_g ? q : q - mn, p = i & (n - 1);
+            const bool hi = (i >> hb) & 1;
+            const int k = ((i >> (hb + 1)) << hb) | p;  // lane i's rank among the lanes of its kind
+            const int at_p = hi ? p : p + n;
+            copy8(u, (is_g ? sg : sh) + 8 * i);
+            copy8(v, (is_g ? sa : sb) + 8 * at_p);
+            sc_mul_n(u, v, u);
+            store_limbs16(at(scalars, b, width, is_g ? (hi ? k : group + k) : (hi ? group + half + k : half + k)), u);
+        }
+        // c_L = sum_j a'_j y^(1+j) b'_(j+n), c_R = sum_j a'_(n+j) y^(n+1+j) b'_j, j < n
+        for (int j = t; j < n; j += TL) {
+            copy8(u, say + 8 * j);
+            copy8(v, sb + 8 * (j + n));
+            sc_mul_n(u, v, u);
+            sc_add_l(cl, u, cl);
+        }
+        for (int j = t < TL / 2 ? t + TL - TL / 2 : t - TL / 2; j < n; j += TL) {
+            copy8(u, say + 8 * (n + j));
+            copy8(v, sb + 8 * j);
+            sc_mul_n(u, v, u);
+            sc_add_l(cr, u, cr);
+        }
     }
-    block_sum2(cl, cr, sx, sy);
-    if (t == 0) {
-        store_limbs(at(scalars, b, width, mn + deg), cl);
-        store_limbs(at(scalars, b, width, group + mn + deg), cr);
+    // P2 phase: lanes
+    warp_sum_l(cl);
+    warp_sum_l(cr);
+    const int warp = t >> 5, warps = T >> 5;
+    if ((t & 31) == 0) {
+        copy8(parts + 8 * warp, cl);
+        copy8(parts + 8 * (warps + warp), cr);
     }
+    __syncthreads();
+    // P2 phase: c_sums
+    if (t == 0 || t == 32) {  // c_L in warp 0, c_R in warp 1
+        const u32 *from = parts + (t ? 8 * warps : 0);
+        copy8(u, from);
+        for (int w = 1; w < warps; ++w) sc_add_l(u, from + 8 * w, u);
+        store_limbs16(at(scalars, b, width, (t ? group : 0) + mn + deg), u);
+    }
+    // P2 phase: store
+}
+
+__global__ void __launch_bounds__(P2_MAX_THREADS) prove_round_kernel(
+    const int64_t *__restrict__ a_in, const int64_t *__restrict__ b_in, const int64_t *__restrict__ g_in,
+    const int64_t *__restrict__ h_in, const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in,
+    const int64_t *__restrict__ ei_in, const int64_t *__restrict__ dl_prev, const int64_t *__restrict__ dr_prev,
+    const int64_t *__restrict__ y_pows, const int64_t *__restrict__ yinv_n, const int64_t *__restrict__ dl,
+    const int64_t *__restrict__ dr, int mn, int rounds, int r, int deg, int64_t *__restrict__ a_out,
+    int64_t *__restrict__ b_out, int64_t *__restrict__ g_out, int64_t *__restrict__ h_out,
+    int64_t *__restrict__ alpha_out, int64_t *__restrict__ scalars) {
+    extern __shared__ __align__(16) u32 p2_smem[];
+    prove_round_body<true>(a_in, b_in, g_in, h_in, alpha_in, e_in, ei_in, dl_prev, dr_prev, y_pows, yinv_n, dl, dr,
+                           mn, rounds, r, deg, a_out, b_out, g_out, h_out, alpha_out, scalars, p2_smem);
+}
+
+// The same where a proof's scratch exceeds a block's shared memory: `scratch` (B x p2_words) in device memory.
+__global__ void __launch_bounds__(P2_MAX_THREADS) prove_round_global_kernel(
+    const int64_t *__restrict__ a_in, const int64_t *__restrict__ b_in, const int64_t *__restrict__ g_in,
+    const int64_t *__restrict__ h_in, const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in,
+    const int64_t *__restrict__ ei_in, const int64_t *__restrict__ dl_prev, const int64_t *__restrict__ dr_prev,
+    const int64_t *__restrict__ y_pows, const int64_t *__restrict__ yinv_n, const int64_t *__restrict__ dl,
+    const int64_t *__restrict__ dr, int mn, int rounds, int r, int deg, int64_t *__restrict__ a_out,
+    int64_t *__restrict__ b_out, int64_t *__restrict__ g_out, int64_t *__restrict__ h_out,
+    int64_t *__restrict__ alpha_out, int64_t *__restrict__ scalars, u32 *__restrict__ scratch) {
+    prove_round_body<false>(a_in, b_in, g_in, h_in, alpha_in, e_in, ei_in, dl_prev, dr_prev, y_pows, yinv_n, dl, dr,
+                            mn, rounds, r, deg, a_out, b_out, g_out, h_out, alpha_out, scalars,
+                            scratch + (size_t)blockIdx.x * p2_words(mn, r, blockDim.x));
 }
 
 // P3, first entry.  The last round's fold (none where rounds = 0), then ry_ar = r y b0 + s y a0, rys = r y s,
@@ -456,20 +630,40 @@ extern "C" int bppt_prove_prep(const void *y, const void *z, const void *y_inv, 
     return (int)cudaGetLastError();
 }
 
-// e, e_inv, dl_prev, dr_prev, g, h: null in round 0 (no fold).
+// e, e_inv, dl_prev, dr_prev, g, h: null in round 0 (no fold).  threads: a multiple of 32 from 64 to 544.  scratch:
+// null where a proof's p2_words fit in a block's shared memory, else B x p2_words 32-bit words.
 extern "C" int bppt_prove_round(const void *a, const void *b, const void *g, const void *h, const void *alpha,
                                 const void *e, const void *e_inv, const void *dl_prev, const void *dr_prev,
                                 const void *y_pows, const void *y_inv_n, const void *dl, const void *dr, long batch,
                                 long mn, long rounds, long r, long deg, long threads, void *a_out, void *b_out,
-                                void *g_out, void *h_out, void *alpha_out, void *scalars, void *stream) {
-    if (!shape_ok(batch, mn, rounds, deg, threads) || r < 0 || r >= rounds || (r > 0) != (e != nullptr))
+                                void *g_out, void *h_out, void *alpha_out, void *scalars, void *scratch, void *stream) {
+    if (!shape_ok(batch, mn, rounds, deg, 32) || r < 0 || r >= rounds || (r > 0) != (e != nullptr) ||
+        threads < 64 || threads > P2_MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
-    prove_round_kernel<<<(unsigned)batch, (unsigned)threads, 0, (cudaStream_t)stream>>>(
-        (const int64_t *)a, (const int64_t *)b, (const int64_t *)g, (const int64_t *)h, (const int64_t *)alpha,
-        (const int64_t *)e, (const int64_t *)e_inv, (const int64_t *)dl_prev, (const int64_t *)dr_prev,
-        (const int64_t *)y_pows, (const int64_t *)y_inv_n, (const int64_t *)dl, (const int64_t *)dr, (int)mn,
-        (int)rounds, (int)r, (int)deg, (int64_t *)a_out, (int64_t *)b_out, (int64_t *)g_out, (int64_t *)h_out,
-        (int64_t *)alpha_out, (int64_t *)scalars);
+    const long smem = p2_words(mn, r, threads) * (long)sizeof(u32);
+    const bool shared = smem <= P2_MAX_SMEM;
+    if (shared == (scratch != nullptr)) return (int)cudaErrorInvalidValue;
+    if (shared && smem > 48 * 1024) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(prove_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (shared) {
+        prove_round_kernel<<<(unsigned)batch, (unsigned)threads, (size_t)smem, st>>>(
+            (const int64_t *)a, (const int64_t *)b, (const int64_t *)g, (const int64_t *)h, (const int64_t *)alpha,
+            (const int64_t *)e, (const int64_t *)e_inv, (const int64_t *)dl_prev, (const int64_t *)dr_prev,
+            (const int64_t *)y_pows, (const int64_t *)y_inv_n, (const int64_t *)dl, (const int64_t *)dr, (int)mn,
+            (int)rounds, (int)r, (int)deg, (int64_t *)a_out, (int64_t *)b_out, (int64_t *)g_out, (int64_t *)h_out,
+            (int64_t *)alpha_out, (int64_t *)scalars);
+    } else {
+        prove_round_global_kernel<<<(unsigned)batch, (unsigned)threads, 0, st>>>(
+            (const int64_t *)a, (const int64_t *)b, (const int64_t *)g, (const int64_t *)h, (const int64_t *)alpha,
+            (const int64_t *)e, (const int64_t *)e_inv, (const int64_t *)dl_prev, (const int64_t *)dr_prev,
+            (const int64_t *)y_pows, (const int64_t *)y_inv_n, (const int64_t *)dl, (const int64_t *)dr, (int)mn,
+            (int)rounds, (int)r, (int)deg, (int64_t *)a_out, (int64_t *)b_out, (int64_t *)g_out, (int64_t *)h_out,
+            (int64_t *)alpha_out, (int64_t *)scalars, (u32 *)scratch);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -8,6 +8,8 @@
 //      verifier_kernels.py:263) -> ops/ristretto.py:68 `decompress`;
 //   C1 `compress_kernel`: ops/ristretto.py:47 `compress`, inside the fused
 //      prover (bulletproofs_plus_tpu/models/prover_device.py:182, 293, 384);
+//      on the port's prover path since the halved tables, C1's double-and-encode
+//      `double_compress_kernel` (below) in its place;
 //   I1 `is_identity_kernel`: ops/ristretto.py:103 `is_identity`, the closing
 //      check of `final_msm_is_identity`, `mixed_msm_is_identity` and
 //      `combine_groups_msm` (verifier_kernels.py:439, 446, 405).
@@ -40,9 +42,11 @@
 // `compress_words`, `is_identity_words`); tests/test_torch_ristretto.py holds
 // the models against the JAX package.
 
+#include "divsteps.cuh"
 #include "sqrt_ratio.cuh"
 
 #define RIST_THREADS 128
+#define DC_THREADS 32  // the double-and-encode: a block is one warp, which inverts its lanes' product
 
 __device__ __forceinline__ fe fe_d() {  // d = -121665/121666 mod p
     fe r;
@@ -187,6 +191,86 @@ __global__ void __launch_bounds__(RIST_THREADS) compress_coop_kernel(const int64
     compress_body<FourLanes>(x, y, z, t, out, n);
 }
 
+// C1's double-and-encode: the encoding of 2Q for each point Q, which is
+// that of P where the prover's tables hold halved generators (Q_i =
+// ((l + 1) / 2) G_i, so 2Q = P + l (sum s_i G_i), the second term in E[4]):
+// curve25519-dalek's `RistrettoPoint::double_and_compress_batch`
+// (src/ristretto.rs), which needs one inversion for the batch and no square
+// root.  For Q = (X : Y : Z : T): e = 2XY, f = Z^2 + dT^2, g = Y^2 + X^2,
+// h = Z^2 - dT^2, so that 2Q = (eh : fg : fh : eg); the lanes' efgh are
+// inverted together by Montgomery's trick, then Zinv = 1 / fh = eg / efgh and
+// Tinv = 1 / eg = fh / efgh,
+// and two sign checks pick the rotation and the sign of g before
+// s = |(h - g) magic g Tinv|.
+//
+// Bound on this card: the chain, as for C1's sqrt form, but some 20 products
+// and one inversion deep in place of K4's 262 products and the formula's 9:
+// the lane's efgh (a squaring and three products), the product tree (five
+// levels up, five down), fe_inv (divsteps.cuh, 20 batches of 30 divsteps) and
+// six products of the tail.
+//
+// Design: a block is one warp of 32 lanes, one lane a point, and inverts its
+// own lanes' product, so any n is one launch and the blocks' inversions run
+// side by side.  The tree is a butterfly of shuffles: at level k every lane
+// takes the product of the 2^k lanes beside its own group (`sib[k]`) and
+// multiplies, so after five levels every lane holds the warp's product and
+// inverts it (all 32 the same value: one warp's issue whatever the count);
+// going down, inv * sib[k] is the inverse of the lane's own group at level k,
+// with no shuffle.  A lane whose e is 0 (Q in E[4], whose double is the
+// identity, encoded as 0; f, g and h are never 0 on the curve) and a lane past
+// n (which reads element n - 1) put 1 into the product; the first stores 0,
+// the second nothing.  ops/field_model.py `double_compress_words` repeats the
+// kernel lane for lane.
+__global__ void __launch_bounds__(DC_THREADS) double_compress_kernel(const int64_t *__restrict__ x,
+                                                                    const int64_t *__restrict__ y,
+                                                                    const int64_t *__restrict__ z,
+                                                                    const int64_t *__restrict__ t,
+                                                                    int64_t *__restrict__ out, long n) {
+    const long g_i = (long)blockIdx.x * DC_THREADS + threadIdx.x;
+    const long i = g_i < n ? g_i : n - 1;
+    const int lane = threadIdx.x;
+    ge p;
+    p.x = fe_load(x + i * 16, 1);
+    p.y = fe_load(y + i * 16, 1);
+    p.z = fe_load(z + i * 16, 1);
+    p.t = fe_load(t + i * 16, 1);
+    const fe xx = fe_sqr(p.x), yy = fe_sqr(p.y), zz = fe_sqr(p.z);
+    const fe dtt = fe_mul(fe_sqr(p.t), fe_d());
+    const fe e = fe_mul(p.x, fe_add(p.y, p.y));
+    const fe f = fe_add(zz, dtt);
+    const fe g = fe_add(yy, xx);
+    const fe h = fe_sub(zz, dtt);
+    const fe eg = fe_mul(e, g), fh = fe_mul(f, h);
+    const bool torsion = fe_is_zero(e);
+    fe acc = fe_select(torsion || g_i >= n, fe_one(), fe_mul(eg, fh));
+    fe sib[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+        sib[k] = fe_from_lane(acc, lane ^ (1 << k));
+        acc = fe_mul(acc, sib[k]);
+    }
+    fe inv = fe_inv(acc);
+#pragma unroll
+    for (int k = 4; k >= 0; --k) inv = fe_mul(inv, sib[k]);
+    const fe zinv = fe_mul(eg, inv), tinv = fe_mul(fh, inv);
+    const bool rotate = fe_is_negative(fe_mul(eg, zinv));
+    const fe e1 = fe_select(rotate, g, e);
+    fe g1 = fe_select(rotate, fe_neg(e), g);
+    const fe h1 = fe_select(rotate, fe_mul(f, fe_sqrt_m1()), h);
+    const fe magic = fe_select(rotate, fe_sqrt_m1(), fe_invsqrt_a_minus_d());
+    g1 = fe_select(fe_is_negative(fe_mul(fe_mul(h1, e1), zinv)), fe_neg(g1), g1);
+    const fe s = fe_abs(fe_mul(fe_sub(h1, g1), fe_mul(magic, fe_mul(g1, tinv))));
+    if (g_i < n) fe_store(out + g_i * 16, 1, fe_select(torsion, fe_zero(), s));
+}
+
+// One warp, each lane a chain of `iters` dependent fe_inv of x: x^((-1)^iters) mod p, canonical.  The probe
+// behind the double-and-encode's `chain_ms` (`fe_inv_ns`).
+__global__ void fe_inv_latency_kernel(const int64_t *in, int64_t *out, int iters) {
+    fe acc = fe_load(in + 16 * threadIdx.x, 1);
+    for (int k = 0; k < iters; ++k) acc = fe_inv(acc);
+    fe_store(out + 16 * threadIdx.x, 1, acc);
+}
+
 // I1.  ops/ristretto.py:95-103: is_identity(p) = point_equal(p, (0 : 1 : 1 : 0)),
 // and point_equal(p, q) = [X_p Y_q == Y_p X_q] or [Y_p Y_q == X_p X_q], each
 // side compared canonically mod p.  With X_q = 0 and Y_q = 1 the first is
@@ -230,6 +314,20 @@ extern "C" int bppt_compress(const void *x, const void *y, const void *z, const 
         compress_kernel<<<rist_blocks(coop, n), RIST_THREADS, 0, st>>>(
             (const int64_t *)x, (const int64_t *)y, (const int64_t *)z, (const int64_t *)t, (int64_t *)out, n);
     }
+    return (int)cudaGetLastError();
+}
+
+// x, y, z, t, out: (n, 16) int64 limbs each.
+extern "C" int bppt_double_compress(const void *x, const void *y, const void *z, const void *t, void *out, long n,
+                                    void *stream) {
+    double_compress_kernel<<<(unsigned)((n + DC_THREADS - 1) / DC_THREADS), DC_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t *)x, (const int64_t *)y, (const int64_t *)z, (const int64_t *)t, (int64_t *)out, n);
+    return (int)cudaGetLastError();
+}
+
+// in, out: (32, 16) int64 limbs.
+extern "C" int bppt_fe_inv_latency(const void *in, void *out, long iters, void *stream) {
+    fe_inv_latency_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const int64_t *)in, (int64_t *)out, (int)iters);
     return (int)cudaGetLastError();
 }
 

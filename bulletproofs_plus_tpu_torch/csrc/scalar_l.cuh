@@ -21,7 +21,7 @@
 // less l where that does not borrow, `sc_sub_l` is a - b plus l mod 2^256
 // where a - b borrows, as field.py's `add_l` and `sub_l`, so canonical inputs
 // give the canonical result; `sc_inv_l_warp` is the inverse of a canonical
-// value by Bernstein and Yang's divsteps (below), which is x^(l - 2) as
+// value by Bernstein and Yang's divsteps (divsteps.cuh), which is x^(l - 2) as
 // `F.inv_l` computes it, with inv(0) = 0.
 //
 // ops/scalar_model.py repeats this file word for word in Python, with every
@@ -31,7 +31,7 @@
 
 #pragma once
 
-#include "field25519.cuh"
+#include "divsteps.cuh"
 
 __device__ __forceinline__ u32 mad_hi_cc(u32 a, u32 b, u32 c) {
     u32 r;
@@ -211,135 +211,34 @@ __device__ __forceinline__ void sc_sub_l(const u32 *a, const u32 *b, u32 *r) {
 }
 
 // ---------------------------------------------------------------------------
-// The inverse mod l: Bernstein and Yang's divsteps ("Fast constant-time gcd
-// computation and modular inversion", 2019) on nine signed 30-bit limbs, in
-// batches of 30 divsteps applied as one 2 x 2 matrix, as libsecp256k1's
-// modinv32 arranges them.  From f = l, g = x, d = 0, e = 1 each batch keeps
-// f = d x and g = e x (mod l); once g = 0, f = +-1 and x^-1 = +-d.  600
-// divsteps (20 batches) suffice for any input below 2^256; random inputs
-// reach g = 0 after 17 or 18.  The divsteps are branch-free (selects on
-// zeta < 0 and g odd); the calling lanes leave their loop when all have g = 0,
-// and the batches a lane runs past its own g = 0 leave d the same mod l.
-// inv(0) = 0: g starts at 0 and d stays 0.
+// The inverse mod l: Bernstein and Yang's divsteps (divsteps.cuh) with modulus
+// l, its calling lanes leaving their loop when all have g = 0: the batches a
+// lane runs past its own g = 0 leave d the same mod l.
 // ---------------------------------------------------------------------------
 
-#define SC_M30 0x3fffffff
+#define SC_M30 DS_M30
 #define SC_INV_BATCHES 20
 #define SC_L_S30 {0x1cf5d3ed, 0x20498c69, 0x2f79cd65, 0x37be77a8, 0x14, 0, 0, 0, 0x1000}  // l in 30-bit limbs
 #define SC_L_INV30 0x2dab81e5u  // l^-1 mod 2^30
 
-// 30 divsteps on the low words of f (odd) and g; zeta = -(delta + 1/2).  t: the transition matrix (u, v, q, r)
-// scaled by 2^30, each entry in [-2^30, 2^30].  Each step is selects on two conditions, zeta < 0 and g odd: g (and
-// q, r) gains f (u, v) negated where zeta < 0, where g is odd; where both hold, f (u, v) takes the old g (q, r),
-// which is f plus the new g, and zeta becomes -zeta - 2, else zeta - 1; then g halves and u, v double.  g's own
-// path is a parity, an addition and a shift a step.
-__device__ __forceinline__ int32_t sc_divsteps_30(int32_t zeta, u32 f, u32 g, int32_t t[4]) {
-    u32 u = 1u, v = 0u, q = 0u, r = 1u;
-#pragma unroll
-    for (int i = 0; i < 30; ++i) {
-        const bool neg = zeta < 0, odd = g & 1u, swap = neg && odd;
-        const u32 x = neg ? 0u - f : f, y = neg ? 0u - u : u, z = neg ? 0u - v : v;
-        const u32 g2 = odd ? g + x : g, q2 = odd ? q + y : q, r2 = odd ? r + z : r;
-        f = swap ? g : f;
-        u = swap ? q : u;
-        v = swap ? r : v;
-        zeta = swap ? -zeta - 2 : zeta - 1;
-        g = g2 >> 1;
-        q = q2;
-        r = r2;
-        u <<= 1;
-        v <<= 1;
+struct ModL {
+    static constexpr u32 inv30 = SC_L_INV30;
+    __host__ __device__ static constexpr int32_t limb(int i) {
+        constexpr int32_t limbs[9] = SC_L_S30;
+        return limbs[i];
     }
-    t[0] = (int32_t)u;
-    t[1] = (int32_t)v;
-    t[2] = (int32_t)q;
-    t[3] = (int32_t)r;
-    return zeta;
-}
-
-// (d, e) <- t (d, e) / 2^30 mod l: md and me multiples of l clear the low 30 bits; d and e stay in (-2l, l).
-__device__ __forceinline__ void sc_update_de_30(int32_t *d, int32_t *e, const int32_t t[4]) {
-    const int32_t lm[9] = SC_L_S30;
-    const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
-    const int32_t sd = d[8] >> 31, se = e[8] >> 31;
-    int32_t md = (u & sd) + (v & se), me = (q & sd) + (r & se);
-    int64_t cd = (int64_t)u * d[0] + (int64_t)v * e[0];
-    int64_t ce = (int64_t)q * d[0] + (int64_t)r * e[0];
-    md -= (int32_t)((SC_L_INV30 * (u32)cd + (u32)md) & SC_M30);
-    me -= (int32_t)((SC_L_INV30 * (u32)ce + (u32)me) & SC_M30);
-    cd += (int64_t)lm[0] * md;
-    ce += (int64_t)lm[0] * me;
-    cd >>= 30;
-    ce >>= 30;
-#pragma unroll
-    for (int i = 1; i < 9; ++i) {
-        cd += (int64_t)u * d[i] + (int64_t)v * e[i];
-        ce += (int64_t)q * d[i] + (int64_t)r * e[i];
-        if (lm[i]) {
-            cd += (int64_t)lm[i] * md;
-            ce += (int64_t)lm[i] * me;
-        }
-        d[i - 1] = (int32_t)cd & SC_M30;
-        e[i - 1] = (int32_t)ce & SC_M30;
-        cd >>= 30;
-        ce >>= 30;
-    }
-    d[8] = (int32_t)cd;
-    e[8] = (int32_t)ce;
-}
-
-// (f, g) <- t (f, g) / 2^30, exact.
-__device__ __forceinline__ void sc_update_fg_30(int32_t *f, int32_t *g, const int32_t t[4]) {
-    const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
-    int64_t cf = (int64_t)u * f[0] + (int64_t)v * g[0];
-    int64_t cg = (int64_t)q * f[0] + (int64_t)r * g[0];
-    cf >>= 30;
-    cg >>= 30;
-#pragma unroll
-    for (int i = 1; i < 9; ++i) {
-        cf += (int64_t)u * f[i] + (int64_t)v * g[i];
-        cg += (int64_t)q * f[i] + (int64_t)r * g[i];
-        f[i - 1] = (int32_t)cf & SC_M30;
-        g[i - 1] = (int32_t)cg & SC_M30;
-        cf >>= 30;
-        cg >>= 30;
-    }
-    f[8] = (int32_t)cf;
-    g[8] = (int32_t)cg;
-}
-
-// d in (-2l, l) -> d, negated where sign < 0, in [0, l): add l where negative, negate, carry; add l where
-// still negative, carry.
-__device__ __forceinline__ void sc_normalize_30(int32_t *d, int32_t sign) {
-    const int32_t lm[9] = SC_L_S30;
-#pragma unroll
-    for (int round = 0; round < 2; ++round) {
-        const int32_t add = d[8] >> 31;
-#pragma unroll
-        for (int i = 0; i < 9; ++i) d[i] += lm[i] & add;
-        if (round == 0) {
-            const int32_t neg = sign >> 31;
-#pragma unroll
-            for (int i = 0; i < 9; ++i) d[i] = (d[i] ^ neg) - neg;
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-            d[i + 1] += d[i] >> 30;
-            d[i] &= SC_M30;
-        }
-    }
-}
+};
 
 // r = x^-1 mod l (inv(0) = 0); r may be x.  x must be canonical, below l: a non-zero multiple of l has no
 // inverse here where Fermat's chain gave 0.  Every lane of `mask` calls it together, with the same mask, from
 // converged code: the batches end by a vote of those lanes (`__all_sync`), so a lane outside the mask or one that
 // does not arrive is undefined behaviour.
 __device__ __forceinline__ void sc_inv_l_warp(const u32 *x, u32 *r, u32 mask) {
-    int32_t f[9] = SC_L_S30, g[9], d[9], e[9];
+    int32_t f[9], g[9], d[9], e[9];
+    words_to_s30(x, g);
 #pragma unroll
     for (int i = 0; i < 9; ++i) {
-        const int w = (30 * i) >> 5;
-        g[i] = (int32_t)(__funnelshift_r(x[w], w + 1 < 8 ? x[w + 1] : 0u, (30 * i) & 31) & SC_M30);
+        f[i] = ModL::limb(i);
         d[i] = 0;
         e[i] = i == 0;
     }
@@ -351,14 +250,10 @@ __device__ __forceinline__ void sc_inv_l_warp(const u32 *x, u32 *r, u32 mask) {
         for (int i = 0; i < 9; ++i) live |= (u32)g[i];
         if (__all_sync(mask, live == 0u)) break;
         int32_t t[4];
-        zeta = sc_divsteps_30(zeta, (u32)f[0], (u32)g[0], t);
-        sc_update_de_30(d, e, t);
-        sc_update_fg_30(f, g, t);
+        zeta = divsteps_30(zeta, (u32)f[0], (u32)g[0], t);
+        divsteps_update_de<ModL>(d, e, t);
+        divsteps_update_fg(f, g, t);
     }
-    sc_normalize_30(d, f[8]);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        const int i = (32 * k) / 30, off = (32 * k) % 30;
-        r[k] = ((u32)d[i] >> off) | ((u32)d[i + 1] << (30 - off));
-    }
+    divsteps_normalize<ModL>(d, f[8]);
+    s30_to_words(d, r);
 }

@@ -11,8 +11,9 @@ Device design: the generators are materialised once per device as a
 consumes, and cached; the host tuples remain available for setup-time host
 math.  The prover's fixed-base digit tables (ops/fixed_base.py) are built
 on first use, over as many generators as the proof shape needs, and cached
-per device (`fixed_tables_joined` appends the Pedersen bases' for the
-batched prover); on the verifier's kernel path the static generators join the
+per device (`fixed_tables_joined` appends the Pedersen bases';
+`halved_tables_joined`, the batched prover's, is the same over the halved
+points ((l + 1) / 2) P); on the verifier's kernel path the static generators join the
 dynamic MSM as plain points (ops/fixed_base.mixed_msm).
 """
 
@@ -37,6 +38,7 @@ class BulletproofGens:
         "_interleaved_device",
         "_fixed_tables",
         "_joined_tables",
+        "_halved_tables",
     )
 
     def __init__(self, gens_capacity: int, party_capacity: int):
@@ -55,6 +57,7 @@ class BulletproofGens:
         self._interleaved_device = {}
         self._fixed_tables = {}
         self._joined_tables = {}
+        self._halved_tables = {}
 
     def g_iter(self, n: int, m: int) -> List[hr.Point]:
         """First n of each of the first m parties' G generators, flattened."""
@@ -125,3 +128,24 @@ class BulletproofGens:
             self._joined_tables[key] = torch.cat([self._build_tables(n_static, dev), pc_gens.device_base_tables(dev)],
                                                  dim=2)
         return self._joined_tables[key]
+
+    def halved_tables_joined(self, n_static: int, pc_gens, device="cuda"):
+        """The batched prover's tables: `fixed_tables_joined`'s layout, int32
+        (64, 16, n_static + deg + 1, 24), over the halved points
+        ((l + 1) / 2) P (`ops.fixed_base.halve`) of the first n_static
+        interleaved generators and of the Pedersen bases [G_1..G_deg, H].  A
+        fixed-base MSM over them gives Q with 2Q the ristretto point the
+        original generators give, which `ristretto.double_and_compress`
+        encodes with one inversion a block and no square root.  Built once
+        per size, Pedersen bases and device, under a key of their own; the
+        verify's tables and `fixed_tables_joined` are not touched."""
+        from ..ops import edwards as ed
+        from ..ops.fixed_base import build_tables, halve, pack_tables
+
+        dev = ed.resolve_device(device)
+        key = (n_static, dev, tuple(pc_gens.g_base_compressed_vec), pc_gens.h_base_compressed)
+        if key not in self._halved_tables:
+            gens = ed.PointArray(*(c[:n_static] for c in self.interleaved_device(dev)))
+            points = ed.cat([gens, *pc_gens.device_bases(dev)])
+            self._halved_tables[key] = pack_tables(build_tables(halve(points)))
+        return self._halved_tables[key]

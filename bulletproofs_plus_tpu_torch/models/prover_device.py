@@ -10,11 +10,15 @@ generators, so no point is ever folded: per-lane scalar coefficients
 (g_coeff/h_coeff) are tracked instead, and every round's L/R and the final
 A1/B are fixed-base MSMs over the original gi/hi and the Pedersen bases
 [G_1..G_deg, H], whose 4-bit digit tables are precomputed
-(ops/fixed_base.py), joined on the lane axis
-(`BulletproofGens.fixed_tables_joined`) and read by the kernels K5 and K6
-(ops/cuda_fixed.py): a round's L and R are one grouped MSM.  Each batch of
-points is encoded with `compress`, one launch of C1 (csrc/ristretto.cu, K4's
-chain inside) on the card.
+(ops/fixed_base.py), joined on the lane axis and read by the kernels K5 and
+K6 (ops/cuda_fixed.py): a round's L and R are one grouped MSM.
+
+**Halved generators.**  The tables hold ((l + 1) / 2) P for every generator
+and Pedersen base P (`BulletproofGens.halved_tables_joined`), so each MSM
+gives Q whose double is the proof's point as a ristretto point, and each
+batch of points is encoded with `double_and_compress`: one launch of C1's
+double-and-encode (csrc/ristretto.cu), which inverts a block's points
+together and takes no square root.  No scalar changes.
 
 **The scalar protocol on the card.**  The vector prep, each round's fold
 and MSM scalars, the final fold and responses, and the A commitment's
@@ -265,15 +269,16 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
         B, m, deg,
     )
 
-    # The generators' tables joined with the Pedersen bases' [G_1..G_deg, H], at lanes 2mn..2mn+deg
-    tables = gens.bp_gens.fixed_tables_joined(2 * mn, gens.pc_gens, device)
+    # The tables of the halved generators joined with the halved Pedersen bases' [G_1..G_deg, H], at lanes
+    # 2mn..2mn+deg: every MSM gives Q, and 2Q is the point of the proof, encoded by `double_and_compress`
+    tables = gens.bp_gens.halved_tables_joined(2 * mn, gens.pc_gens, device)
     pedersen = 2 * mn + np.arange(deg + 1)
 
     # --- A commitment (range_proof.rs:299-345): the static scalars ARE the
     # bit decomposition (a_li in {0,1}, a_ri in {0,-1}), so the MSM collapses
     # to a masked sum (P4) on top of the alpha fixed-base MSM.
     a_pt = bit_sum(fixed_msm_batched(alpha, tables, lanes=pedersen[:deg]), bits, tables)
-    a_bytes = _point_bytes(rist.compress(a_pt))
+    a_bytes = _point_bytes(rist.double_and_compress(a_pt))
 
     # --- challenges y, z (transcripts.rs:124-138); vector prep (range_proof.rs:350-373)
     y_list, z_list = rpt.challenges_y_z(a_bytes)
@@ -295,7 +300,7 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
             av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, d_l, d_r, r=r
         )
         lr_pts = fixed_msm_grouped(scalars, tables, 2, lanes=round_lanes(mn, deg, r))
-        lr_bytes = _point_bytes(rist.compress(lr_pts))  # (B, 2, 32)
+        lr_bytes = _point_bytes(rist.double_and_compress(lr_pts))  # (B, 2, 32)
         li_bytes.append(lr_bytes[:, 0])
         ri_bytes.append(lr_bytes[:, 1])
 
@@ -314,7 +319,7 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
     a1_pt = fixed_msm_batched(a1_scalars, tables)
     b_pt = fixed_msm_batched(b_scalars, tables, lanes=pedersen)
     final_pts = PointArray(*(torch.stack([a, b], dim=1) for a, b in zip(a1_pt, b_pt)))
-    final_bytes = _point_bytes(rist.compress(final_pts))  # (B, 2, 32)
+    final_bytes = _point_bytes(rist.double_and_compress(final_pts))  # (B, 2, 32)
 
     e_list = rpt.challenge_final_e(final_bytes[:, 0], final_bytes[:, 1])
     r1, s1, d1 = prove_responses(r_s, s_s, a0, b0, eta, d_mask, alpha, upload(e_list, B))

@@ -51,6 +51,8 @@ LIBRARIES = {
         {
             "bppt_decompress": [_VP, _VP, _VP, _LONG, _LONG, _VP],
             "bppt_compress": [_VP, _VP, _VP, _VP, _VP, _LONG, _LONG, _VP],
+            "bppt_double_compress": [_VP, _VP, _VP, _VP, _VP, _LONG, _VP],
+            "bppt_fe_inv_latency": [_VP, _VP, _LONG, _VP],
             "bppt_is_identity": [_VP, _VP, _VP, _LONG, _VP],
         },
     ),
@@ -75,7 +77,7 @@ LIBRARIES = {
         "prover.cu",
         {
             "bppt_prove_prep": [_VP] * 6 + [_LONG] * 5 + [_VP] * 6,
-            "bppt_prove_round": [_VP] * 13 + [_LONG] * 6 + [_VP] * 7,
+            "bppt_prove_round": [_VP] * 13 + [_LONG] * 6 + [_VP] * 8,
             "bppt_prove_final": [_VP] * 15 + [_LONG] * 5 + [_VP] * 6,
             "bppt_prove_responses": [_VP] * 8 + [_LONG] * 2 + [_VP] * 4,
             "bppt_bit_sum": [_VP, _LONG] + [_VP] * 5 + [_LONG] * 5 + [_VP] * 2,

@@ -29,12 +29,26 @@ from ..native import cuda
 from .edwards import PointArray
 from .limbs import NLIMBS
 
-MAX_THREADS = 256  # P1-P3's block: a proof, its threads striding over the lanes
+MAX_THREADS = 256  # P1 and P3's block: a proof, its threads striding over the lanes
+MAX_SMEM = 232448  # shared memory a block may use: 227 KB; P2's scratch past it lies in device memory
 
 
 def block_threads(mn: int) -> int:
-    """P1-P3's threads a block: mn rounded up to a power of two, from 32 to 256."""
+    """P1 and P3's threads a block: mn rounded up to a power of two, from 32 to 256."""
     return min(MAX_THREADS, max(32, 1 << (mn - 1).bit_length()))
+
+
+def round_threads(mn: int) -> int:
+    """P2's threads a block: a g and an h thread for each lane, 2 mn from 32 to
+    512 lane threads, and one warp more (alpha's fold, the Pedersen lanes)."""
+    return min(512, max(32, 2 * mn)) + 32
+
+
+def round_words(mn: int, r: int, threads: int) -> int:
+    """32-bit words of one proof's P2 scratch in round r (csrc/prover.cu
+    `p2_words`): a', b' and a'_j y^(1+j), g y^(-+n) and h, the warps'
+    partial sums, 8 words each."""
+    return 8 * (3 * (mn >> r) + 2 * mn + 2 * (threads // 32))
 
 
 def bit_sum_threads(mn: int) -> int:
@@ -114,17 +128,23 @@ def prove_round(a, b, g, h, alpha, fold, y_pows, y_inv_n, d_l, d_r, *, r: int):
     if fold is not None:
         named.update({"prove_round g": (g, (B, mn, NLIMBS)), "prove_round h": (h, (B, mn, NLIMBS))})
     dev = _check(named)
+    for what, (t, _) in named.items():  # P2 moves each value as 16-byte accesses
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: expected a 16-byte aligned tensor")
     e, e_inv, dl_prev, dr_prev, g, h = (*fold, g, h) if fold is not None else (None,) * 6
     new = functools.partial(torch.empty, dtype=torch.int64, device=dev)
     a_out, b_out = new((B, 2 * n, NLIMBS)), new((B, 2 * n, NLIMBS))
     g_out, h_out = new((B, mn, NLIMBS)), new((B, mn, NLIMBS))
     alpha_out, scalars = new((B, deg, NLIMBS)), new((B, 2 * (mn + deg + 1), NLIMBS))
+    threads = round_threads(mn)
+    words = round_words(mn, r, threads)
+    scratch = None if 4 * words <= MAX_SMEM else torch.empty((B, words), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         status = cuda.lib("prover").bppt_prove_round(
             a.data_ptr(), b.data_ptr(), _ptr(g), _ptr(h), alpha.data_ptr(), _ptr(e), _ptr(e_inv), _ptr(dl_prev),
             _ptr(dr_prev), y_pows.data_ptr(), y_inv_n.data_ptr(), d_l.data_ptr(), d_r.data_ptr(), B, mn, rounds, r,
-            deg, block_threads(mn), a_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(), h_out.data_ptr(),
-            alpha_out.data_ptr(), scalars.data_ptr(), _stream(),
+            deg, threads, a_out.data_ptr(), b_out.data_ptr(), g_out.data_ptr(), h_out.data_ptr(),
+            alpha_out.data_ptr(), scalars.data_ptr(), _ptr(scratch), _stream(),
         )
     cuda.check("prover", status, "prove_round")
     cuda.launches["prove_round"] += 1

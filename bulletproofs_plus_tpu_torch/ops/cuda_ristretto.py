@@ -6,10 +6,13 @@ bulletproofs_plus_tpu/ops/ristretto.py (`decompress`, `compress`,
 `is_identity`).  Each wrapper checks its arguments (`cuda.require`), copies an
 input only where its rows are not contiguous already, launches its kernel on
 the current stream and counts the launch in `cuda.launches` ("decompress",
-"compress", "is_identity").  The plain versions and the dispatch by device
+"compress", "double_compress", "is_identity").  The plain versions and the dispatch by device
 live with the callers in ops/ristretto.py.  D1 and C1 have K4's two forms, one
 lane an element and four lanes an element; the launcher takes the second up
-to 4224 elements, and `lanes=` forces either.  There are no fallbacks.
+to 4224 elements, and `lanes=` forces either.  C1's double-and-encode
+(`double_compress_cuda`, the prover's) is a block of 32 points a warp, one
+inversion a block; `fe_inv_probe` times its inversion.  There are no
+fallbacks.
 """
 
 from __future__ import annotations
@@ -82,6 +85,34 @@ def compress_cuda(p: PointArray, lanes=None) -> torch.Tensor:
         cuda.check("ristretto", status, "compress")
         cuda.launches["compress"] += 1
     return out.reshape(lead + (NLIMBS,))
+
+
+def double_compress_cuda(q: PointArray) -> torch.Tensor:
+    """C1's double-and-encode: points Q of (..., 16) int64 limb coordinates
+    on a CUDA device -> (..., 16) canonical limbs of the encodings of 2Q, in
+    one launch (a block of 32 lanes inverts its lanes' product)."""
+    (x, y, z, t), lead, n = _coords(q, "xyzt", "double_compress")
+    out = torch.empty((n, NLIMBS), dtype=torch.int64, device=q.x.device)
+    if n:
+        with torch.cuda.device(q.x.device):
+            status = cuda.lib("ristretto").bppt_double_compress(
+                x.data_ptr(), y.data_ptr(), z.data_ptr(), t.data_ptr(), out.data_ptr(), n, _stream()
+            )
+        cuda.check("ristretto", status, "double_compress")
+        cuda.launches["double_compress"] += 1
+    return out.reshape(lead + (NLIMBS,))
+
+
+def fe_inv_probe(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """One warp, lane t a chain of `iters` dependent `fe_inv` of x[t] ((32,
+    16) int64 limbs on a CUDA device): x^((-1)^iters) mod p, canonical, 0
+    for 0.  Counts no launch."""
+    cuda.require(x, "fe_inv_probe input", (32, NLIMBS))
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = cuda.lib("ristretto").bppt_fe_inv_latency(x.data_ptr(), out.data_ptr(), iters, _stream())
+    cuda.check("ristretto", status, "fe_inv_probe")
+    return out
 
 
 def is_identity_cuda(p: PointArray) -> torch.Tensor:

@@ -6,10 +6,12 @@ it can go wrong.  This module repeats that file step by step on eight
 flag as its state, every loop in the order of the CUDA loop.  Where the CUDA
 code relies on a bound (a carry that cannot occur, a word that cannot
 overflow), the model asserts it.  The kernels' own functions follow in the
-same way: K4's chain and SQRT_RATIO_M1 (csrc/sqrt_ratio.cuh), and D1, C1 and
-I1 (csrc/ristretto.cu).  tests/test_torch_field.py holds the model against
-Python integers, tests/test_torch_ristretto.py its D1, C1 and I1 against the
-JAX package; nothing else uses it.
+same way: K4's chain and SQRT_RATIO_M1 (csrc/sqrt_ratio.cuh), D1, C1 and I1
+(csrc/ristretto.cu), and C1's double-and-encode with its inversion mod p by
+divsteps (`fe_inv`, csrc/divsteps.cuh, on ops/scalar_model.py's divsteps
+steps).  tests/test_torch_field.py holds the model against Python integers,
+tests/test_torch_ristretto.py its D1, C1 (both forms), I1 and `fe_inv`
+against the JAX package and Python integers; nothing else uses it.
 """
 
 from __future__ import annotations
@@ -357,3 +359,73 @@ def compress_words(x: list, y: list, z: list, t: list) -> list:
 def is_identity_words(x: list, y: list) -> bool:
     """ristretto.cu is_identity_kernel: X or Y is 0 mod p."""
     return fe_is_zero(x) or fe_is_zero(y)
+
+
+# ---------------------------------------------------------------------------
+# csrc/divsteps.cuh fe_inv and csrc/ristretto.cu double_compress_kernel
+# ---------------------------------------------------------------------------
+
+DC_THREADS = 32  # the double-and-encode's block: one warp
+
+
+def fe_inv(x: list) -> list:
+    """divsteps.cuh fe_inv: x^-1 mod p, canonical (inv(0) = 0), by a fixed
+    DS_BATCHES batches of 30 divsteps whatever the input: f = p, g = the
+    canonical x, d = 0, e = 1, each batch one 2 x 2 matrix applied to (f, g)
+    and (d, e); then f = +-1 and x^-1 = +-d."""
+    from . import scalar_model as sm
+
+    c = fe_canon(x)
+    f, g = sm._s30(P), sm.words_to_s30(c)
+    d, e = [0] * 9, [1] + [0] * 8
+    zeta = -1
+    for _ in range(sm.INV_BATCHES):
+        zeta, t = sm.divsteps_30(zeta, f[0], g[0])
+        d, e = sm._update_de(d, e, t, P)
+        f, g = sm._update_fg(f, g, t)
+    assert not any(g) and sm._s30_value(f) in ((1, -1) if any(c) else (P,))
+    return sm.s30_to_words(sm._normalize(d, f[8], P))
+
+
+def double_compress_words(points: list) -> list:
+    """ristretto.cu double_compress_kernel: the canonical encodings of 2Q for
+    n points Q = [x, y, z, t] (words), block by block of DC_THREADS lanes:
+    each lane's e, f, g, h and efgh (1 where e is 0 and past n), the
+    butterfly of products over the warp, one fe_inv a lane of the warp's
+    product, the way down by the siblings' products, then the tail."""
+    n = len(points)
+    out = []
+    for base in range(0, n, DC_THREADS):
+        lanes = []
+        for lane in range(DC_THREADS):
+            x, y, z, t = points[min(base + lane, n - 1)]
+            xx, yy, zz = fe_sqr(x), fe_sqr(y), fe_sqr(z)
+            dtt = fe_mul(fe_sqr(t), to_words(D))
+            e = fe_mul(x, fe_add(y, y))
+            f, g, h = fe_add(zz, dtt), fe_add(yy, xx), fe_sub(zz, dtt)
+            eg, fh = fe_mul(e, g), fe_mul(f, h)
+            torsion = fe_is_zero(e)
+            acc = fe_select(torsion or base + lane >= n, to_words(1), fe_mul(eg, fh))
+            lanes.append({"e": e, "f": f, "g": g, "h": h, "eg": eg, "fh": fh, "torsion": torsion, "acc": acc,
+                          "sib": []})
+        for k in range(5):
+            sibs = [lanes[lane ^ (1 << k)]["acc"] for lane in range(DC_THREADS)]
+            for lane, sib in zip(lanes, sibs):
+                lane["sib"].append(sib)
+                lane["acc"] = fe_mul(lane["acc"], sib)
+        for lane in lanes[: n - base]:
+            inv = fe_inv(lane["acc"])
+            for k in range(4, -1, -1):
+                inv = fe_mul(inv, lane["sib"][k])
+            e, f, g, h, eg, fh = (lane[k] for k in ("e", "f", "g", "h", "eg", "fh"))
+            zinv, tinv = fe_mul(eg, inv), fe_mul(fh, inv)
+            rotate = fe_is_negative(fe_mul(eg, zinv))
+            sqrt_m1 = to_words(SQRT_M1)
+            e1 = fe_select(rotate, g, e)
+            g1 = fe_select(rotate, fe_neg(e), g)
+            h1 = fe_select(rotate, fe_mul(f, sqrt_m1), h)
+            magic = fe_select(rotate, sqrt_m1, to_words(INVSQRT_A_MINUS_D))
+            g1 = fe_select(fe_is_negative(fe_mul(fe_mul(h1, e1), zinv)), fe_neg(g1), g1)
+            s = fe_abs(fe_mul(fe_sub(h1, g1), fe_mul(magic, fe_mul(g1, tinv))))
+            out.append(fe_select(lane["torsion"], [0] * 8, s))
+    return out

@@ -1,13 +1,14 @@
 """Batched ristretto255 encoding, decoding and equality (RFC 9496).
 
 Counterpart of bulletproofs_plus_tpu/ops/ristretto.py.  `compress`,
-`decompress` and `is_identity` handle a whole batch: on CUDA tensors each is
-one launch of its hand-written kernel (C1, D1, I1 in csrc/ristretto.cu, by way
-of ops/cuda_ristretto.py), on CPU tensors its plain torch twin (`*_plain`),
-and any other device raises.  `sqrt_ratio_m1` dispatches the same way to K4's
-fused entry (csrc/pow.cu `sqrt_ratio_m1_kernel`); the plain twins use its
-plain version.  Canonicality failures (non-canonical field element, negative
-sign, non-square) come back as a boolean mask, like
+`double_and_compress`, `decompress` and `is_identity` handle a whole batch:
+on CUDA tensors each is one launch of its hand-written kernel (C1's two
+forms, D1, I1 in csrc/ristretto.cu, by way of ops/cuda_ristretto.py), on CPU
+tensors its plain torch twin (`*_plain`), and any other device raises.
+`sqrt_ratio_m1` dispatches the same way to K4's fused entry (csrc/pow.cu
+`sqrt_ratio_m1_kernel`); the plain twins use its plain version.
+Canonicality failures (non-canonical field element, negative sign,
+non-square) come back as a boolean mask, like
 `CompressedRistretto::decompress` returning `Option`.
 """
 
@@ -18,7 +19,7 @@ import torch
 from . import field as F
 from . import host_ristretto as hr
 from .cuda_pow import pow_p58_plain, sqrt_ratio_m1_cuda
-from .cuda_ristretto import compress_cuda, decompress_cuda, is_identity_cuda
+from .cuda_ristretto import compress_cuda, decompress_cuda, double_compress_cuda, is_identity_cuda
 from .edwards import PointArray, identity, select
 
 
@@ -75,6 +76,44 @@ def compress_plain(p: PointArray) -> torch.Tensor:
     y = F.select(F.is_negative25519(F.mul25519(x, z_inv)), F.neg25519(y), y)
     s = F.abs25519(F.mul25519(den_inv, F.sub25519(p.z, y)))
     return F.canon25519(s)
+
+
+def double_and_compress(q: PointArray) -> torch.Tensor:
+    """Batched ristretto encode of 2Q -> (..., 16) canonical limbs: C1's
+    double-and-encode on CUDA tensors, the plain version on CPU tensors.  The
+    batched prover encodes this way the points it computes over halved
+    generators, whose doubles are the points of the proof."""
+    if q.x.device.type == "cpu":
+        return double_and_compress_plain(q)
+    return double_compress_cuda(q)
+
+
+def double_and_compress_plain(q: PointArray) -> torch.Tensor:
+    """Batched ristretto encode of 2Q, plain torch (any device): the formula
+    of C1's double-and-encode (curve25519-dalek's
+    `double_and_compress_batch`) with each lane's efgh inverted on its own,
+    1 in its place where e = 2XY is 0 (Q in E[4], whose double encodes as 0)."""
+    like = q.x
+    one = F.limbs_const(1, like).expand(like.shape)
+    sqrt_m1 = F.limbs_const(hr.SQRT_M1, like).expand(like.shape)
+    dtt = F.mul25519(F.sqr25519(q.t), F.limbs_const(hr.D, like).expand(like.shape))
+    zz = F.sqr25519(q.z)
+    e = F.mul25519(q.x, F.add25519(q.y, q.y))
+    f = F.add25519(zz, dtt)
+    g = F.add25519(F.sqr25519(q.y), F.sqr25519(q.x))
+    h = F.sub25519(zz, dtt)
+    eg, fh = F.mul25519(e, g), F.mul25519(f, h)
+    torsion = F.is_zero25519(e)
+    inv = F.inv25519(F.select(torsion, one, F.mul25519(eg, fh)))
+    zinv, tinv = F.mul25519(eg, inv), F.mul25519(fh, inv)
+    rotate = F.is_negative25519(F.mul25519(eg, zinv))
+    e1 = F.select(rotate, g, e)
+    g1 = F.select(rotate, F.neg25519(e), g)
+    h1 = F.select(rotate, F.mul25519(f, sqrt_m1), h)
+    magic = F.select(rotate, sqrt_m1, F.limbs_const(hr.INVSQRT_A_MINUS_D, like).expand(like.shape))
+    g1 = F.select(F.is_negative25519(F.mul25519(F.mul25519(h1, e1), zinv)), F.neg25519(g1), g1)
+    s = F.abs25519(F.mul25519(F.sub25519(h1, g1), F.mul25519(magic, F.mul25519(g1, tinv))))
+    return F.select(torsion, torch.zeros_like(s), F.canon25519(s))
 
 
 def decompress(s: torch.Tensor):

@@ -191,7 +191,7 @@ def _s30_value(s: list) -> int:
 
 
 def divsteps_30(zeta: int, f0: int, g0: int):
-    """sc_divsteps_30: 30 divsteps on the low words of f and g (f odd), zeta
+    """divsteps.cuh divsteps_30: 30 divsteps on the low words of f and g (f odd), zeta
     = -(delta + 1/2); returns zeta and the transition matrix (u, v, q, r),
     each in [-2^30, 2^30], scaled by 2^30.  Each step is selects on two
     conditions, zeta < 0 and g odd: g (and q, r) gains f (u, v) negated
@@ -218,28 +218,34 @@ def divsteps_30(zeta: int, f0: int, g0: int):
     return zeta, t
 
 
-def _update_de(d: list, e: list, t, modulus_bound: int) -> tuple:
-    """sc_update_de_30: (d, e) <- t (d, e) / 2^30 mod l, with the multiples
-    md, me of l that clear the low 30 bits; d and e stay in (-2l, l)."""
+def _s30(modulus: int) -> list:
+    return [(modulus >> (30 * i)) & M30 for i in range(9)]
+
+
+def _update_de(d: list, e: list, t, modulus: int = L) -> tuple:
+    """divsteps.cuh divsteps_update_de: (d, e) <- t (d, e) / 2^30 mod M,
+    with the multiples md, me of M that clear the low 30 bits; d and e stay
+    in (-2M, M)."""
+    m30, inv30 = _s30(modulus), pow(modulus, -1, 1 << 30)
     u, v, q, r = t
     for x in (d, e):
-        assert -2 * modulus_bound < _s30_value(x) < modulus_bound
+        assert -2 * modulus < _s30_value(x) < modulus
     sd, se = d[8] < 0, e[8] < 0
     md = (u if sd else 0) + (v if se else 0)
     me = (q if sd else 0) + (r if se else 0)
     cd = u * d[0] + v * e[0]
     ce = q * d[0] + r * e[0]
-    md -= (L_INV30 * (cd & M32) + md) & M30
-    me -= (L_INV30 * (ce & M32) + me) & M30
-    cd += L_S30[0] * md
-    ce += L_S30[0] * me
+    md -= (inv30 * (cd & M32) + md) & M30
+    me -= (inv30 * (ce & M32) + me) & M30
+    cd += m30[0] * md
+    ce += m30[0] * me
     assert cd & M30 == 0 and ce & M30 == 0
     cd >>= 30
     ce >>= 30
     nd, ne = [0] * 9, [0] * 9
     for i in range(1, 9):
-        cd += u * d[i] + v * e[i] + L_S30[i] * md
-        ce += q * d[i] + r * e[i] + L_S30[i] * me
+        cd += u * d[i] + v * e[i] + m30[i] * md
+        ce += q * d[i] + r * e[i] + m30[i] * me
         assert abs(cd) < 1 << 63 and abs(ce) < 1 << 63
         nd[i - 1], ne[i - 1] = cd & M30, ce & M30
         cd >>= 30
@@ -250,7 +256,7 @@ def _update_de(d: list, e: list, t, modulus_bound: int) -> tuple:
 
 
 def _update_fg(f: list, g: list, t) -> tuple:
-    """sc_update_fg_30: (f, g) <- t (f, g) / 2^30, exact."""
+    """divsteps.cuh divsteps_update_fg: (f, g) <- t (f, g) / 2^30, exact."""
     u, v, q, r = t
     cf = u * f[0] + v * g[0]
     cg = q * f[0] + r * g[0]
@@ -269,12 +275,13 @@ def _update_fg(f: list, g: list, t) -> tuple:
     return nf, ng
 
 
-def _normalize(d: list, sign: int) -> list:
-    """sc_normalize_30: d in (-2l, l), negated where sign < 0, to [0, l)."""
+def _normalize(d: list, sign: int, modulus: int = L) -> list:
+    """divsteps.cuh divsteps_normalize: d in (-2M, M), negated where sign <
+    0, to [0, M)."""
     r = list(d)
     for _ in range(2):
         if r[8] < 0:
-            r = [a + m for a, m in zip(r, L_S30)]
+            r = [a + m for a, m in zip(r, _s30(modulus))]
         if sign < 0:
             r = [-a for a in r]
             sign = 0
@@ -282,12 +289,12 @@ def _normalize(d: list, sign: int) -> list:
             r[i + 1] += r[i] >> 30
             r[i] &= M30
     value = _s30_value(r)
-    assert 0 <= value < L and all(0 <= a <= M30 for a in r)
+    assert 0 <= value < modulus and all(0 <= a <= M30 for a in r)
     return r
 
 
 def words_to_s30(x: list) -> list:
-    """8 words -> nine 30-bit limbs (funnel shifts)."""
+    """divsteps.cuh words_to_s30: 8 words -> nine 30-bit limbs (funnel shifts)."""
     out = []
     for i in range(9):
         w, sh = (30 * i) >> 5, (30 * i) & 31
@@ -297,7 +304,7 @@ def words_to_s30(x: list) -> list:
 
 
 def s30_to_words(s: list) -> list:
-    """Nine limbs in [0, 2^30) -> 8 words."""
+    """divsteps.cuh s30_to_words: nine limbs in [0, 2^30) -> 8 words."""
     out = []
     for k in range(8):
         i, off = (32 * k) // 30, (32 * k) % 30

@@ -8,9 +8,11 @@ its plain torch version on the card (K1, K7 and K2 at the MSM widths of both
 verify batches below, 4736 and 2048 lanes; R1, the Fiat-Shamir replay, at
 both batches' shapes; S1, the scalar pass, at both batches' groups and the
 mixed batch's two; D1, C1 and I1, ristretto decoding, encoding and the
-identity check, at the verify's and the prover's shapes; P1-P4, the prover's
-scalar protocol and the A commitment's masked sum, at the 128-proof
-prove's shape, P2 at each of its six rounds), replays and
+identity check, at the verify's and the prover's shapes, C1 in both its
+forms: the RFC 9496 encoder and the double-and-encode the prover runs; P1-P4,
+the prover's scalar protocol and the A commitment's masked sum, at the
+128-proof prove's shape, P2 at each of its six rounds and, at its row's
+round, by phase), replays and
 verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
 and the host engine with their MSMs on the card (`msm_backend="device"`),
 verifies the 256 x 64-bit and 64 x m4 batches through
@@ -19,8 +21,10 @@ MSM through K7, the default signed digits; once more through K1 with
 BPPT_MSM_SIGNED=0), verifies a 256-proof batch of two shapes (`mixed`,
 against `engine="host"`) and a stream of nine batches through
 `verify_batches_pipelined` (`pipelined`, against per-batch calls), proves
-128 x 64-bit statements with `RangeProof.prove_batch_with_rng` and verifies
-what it proved, with launch counters proving the kernels ran and a counter
+128 x 64-bit statements with `RangeProof.prove_batch_with_rng` over tables
+of halved generators, built before the clock starts, and verifies what it
+proved, with launch counters proving the kernels ran (C1's
+double-and-encode eight times, its sqrt form never) and a counter
 of plain field and point calls on CUDA tensors (`PLAIN_FUNCTIONS`) proving
 that nothing else computed, then 64 x (64-bit, m=4, degree 5) statements
 against the sequential prover at lanes 0 and 63, and checks
@@ -107,7 +111,17 @@ and C1 count K4's chain and SQRT_RATIO_M1 as K4's row does (POW_*, RATIO_*)
 and the squarings and products of the formula around them (DECODE_*,
 ENCODE_*, counted from ops/ristretto.py), I1 none.  Their `chain_ms` is the
 same chain and the formula's products on its longest path
-(DECODE_CHAIN_*, ENCODE_CHAIN_*) at `fe_sqr_ns` and `fe_mul_ns`.  The main
+(DECODE_CHAIN_*, ENCODE_CHAIN_*) at `fe_sqr_ns` and `fe_mul_ns`.  C1's
+double-and-encode reads a point and writes an encoding as the sqrt form
+does, and counts its lane's squarings and products (DC_SQR, DC_MUL:
+Montgomery's trick 3 a lane) and one inversion a block of 32 (FE_INV_OPS:
+20 batches of divsteps at the multiply-add rate); its `chain_ms` is a
+squaring and DC_CHAIN_MUL products at `fe_sqr_ns` and `fe_mul_ns` and one
+inversion at `fe_inv_ns`, one warp's chain of dependent `fe_inv` (20
+against 4, its ends checked against Python integers).  It is held at
+(128,), (128, 2), (64, 2), 1 and 1025 points with E[4] lanes (e = 0) among
+them, against its plain twin and, at (128,), against the sqrt form's
+encoding of the doubled points.  The main
 phase times, beside the scalar pass, the decompression and the identity
 check as stages of a verify, and reads D1's and I1's device time there.
 
@@ -115,7 +129,10 @@ P1-P3 read each input once and write each output once as int64 limbs, and
 count the products mod l that one proof needs at the fewest
 (`_prover_products`), each `SC_MULADDS_PER_MUL`; their `chain_ms` is the
 products one thread runs one after another (`_prover_chains`) at
-`sc_mul_ns`.  P4 reads the bits, the start points and the generators' first
+`sc_mul_ns` (P2's: its items handed out as its threads take them,
+`_p2_chain`); P2's row also gives its phases, clock64() stamps at the
+`// P2 phase:` markers of a copy built by scripts/profile_torch_p2.py, and
+that copy's own `stamped_graph_ms`.  P4 reads the bits, the start points and the generators' first
 two table words once and writes a point a proof, and counts a mixed addition
 (7 products) a lane; its chain is an adder's four-lane additions and the
 tree's levels at `fe_mul_ns`.
@@ -178,6 +195,16 @@ DECODE_SQR, DECODE_MUL = 2, 9  # s^2, u2^2; d u1 u1 (2), v u2^2, den_x, invsqrt 
 ENCODE_SQR, ENCODE_MUL = 1, 13  # u2^2; u1, u2, u1 u2^2, den1, den2, z_inv (2), i x, i y, enchanted, t z_inv, x z_inv, s
 DECODE_CHAIN_SQR, DECODE_CHAIN_MUL = 1, 8  # s^2, d u1 u1, v u2^2; den_x, invsqrt den_x, den_y, y, t
 ENCODE_CHAIN_SQR, ENCODE_CHAIN_MUL = 1, 8  # u1 or u2, u2^2, u1 u2^2; den1, den1 den2, z_inv, t z_inv, x z_inv, s
+# C1's double-and-encode (csrc/ristretto.cu double_compress_kernel): a lane's X^2, Y^2, Z^2, T^2, then d T^2, e,
+# eg, fh and efgh; Montgomery's trick 3 a lane; the tail's Zinv, Tinv, eg Zinv, f sqrt(-1), h e, h e Zinv, g Tinv,
+# magic g Tinv and s.  On its longest path T^2, d T^2, fh and efgh, the tree's five levels up and five down, and
+# the tail's Zinv, eg Zinv, h e Zinv, g Tinv, magic g Tinv and s; one inversion a block beside them
+DC_SQR, DC_MUL = 4, 5 + 3 + 9
+DC_CHAIN_SQR, DC_CHAIN_MUL = 1, 3 + 5 + 5 + 6
+DC_THREADS = 32  # a block: one warp, one inversion
+# fe_inv (csrc/divsteps.cuh): a fixed 20 batches of 30 divsteps, each batch as INV_BATCH_OPS counts it with p's nine
+# non-zero 30-bit limbs in place of l's six
+FE_INV_OPS = 20 * (30 * 27 + 2 * (36 + 18 + 1 + 36))
 # RFC 9496 Appendix A.2: encodings a decoder must reject (as tests/test_host_ristretto.py lists them)
 RFC9496_BAD = (
     "00ffffffffffffffffffffffffffffffffffffffffffffffffffffffffffffff",
@@ -221,6 +248,8 @@ K4_MANY = 32768  # beyond the launchers' switch to one lane an element (4224): w
 M4_LANES = 1536 + 512
 PROVE_BATCH = 128
 COMPRESS_SHAPES = ((PROVE_BATCH,), (PROVE_BATCH, 2))  # a prove's C1 launches: A, then L/R and A1/B a lane
+# the double-and-encode: both provers' shapes (the 64 x m4 prove's (64, 2)), one lane, and past one block of 1024
+DOUBLE_COMPRESS_SHAPES = ((PROVE_BATCH,), (PROVE_BATCH, 2), (64, 2), (1,), (1025,))
 # R1: 32-bit integer instructions a Keccak-f[1600] permutation needs at the least, 180 a round for 25 64-bit
 # lanes as 32-bit halves: theta's column parities 20 (a three-input XOR is one LOP3), its rotations 10 and their
 # application 50 (c[x-1] ^ rot(c[x+1]) ^ a in one LOP3 a half), rho 48 (two funnel shifts a rotation, lane 0
@@ -376,6 +405,7 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
                                                 "reduce_wide_kernel")))
     sass.update(sass_histogram(cuda, "scalar", ("scalar_latency_kernel", "scalar_inv_latency_kernel",
                                                 "scalar_proof_kernel", "scalar_lane_kernel")))
+    sass.update(sass_histogram(cuda, "ristretto", ("fe_inv_latency_kernel", "double_compress_kernel")))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
             "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
@@ -865,6 +895,28 @@ def _forms_ms(call) -> dict:
     return {"one_lane_graph_ms": statistics.mean((turns[0], turns[3])), "four_lanes_graph_ms": statistics.mean(turns[1:3])}
 
 
+def _fe_inv_probe(torch, rc, pack_ints, rs: random.Random) -> float:
+    """`fe_inv_ns`: one warp, dependent inversions mod p (fe_inv, a fixed 20
+    batches of divsteps), a chain of 20 against one of 4, the difference over
+    16; one inversion of edge values and random ones against Python
+    integers, and two in a row give x back (canonical)."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs
+
+    p = 2**255 - 19
+    edges = [0, 1, 2, p - 1, p, p + 1, 2**255 - 20, 2**256 - 1, 2**200, 3 << 128]
+    vals = edges + [rs.randrange(2**256) for _ in range(32 - len(edges))]
+    x = torch.as_tensor(pack_ints(vals).astype(np.int64), device="cuda")
+    got = [int_from_limbs(r) for r in rc.fe_inv_probe(x, 1).cpu().numpy()]
+    twice = [int_from_limbs(r) for r in rc.fe_inv_probe(x, 2).cpu().numpy()]
+    if got != [pow(v, p - 2, p) for v in vals] or twice != [v % p for v in vals]:
+        raise AssertionError("fe_inv disagrees with Python integers")
+    short = kernel_ms(lambda: rc.fe_inv_probe(x, 4))
+    long = kernel_ms(lambda: rc.fe_inv_probe(x, 20))
+    return (long - short) * 1e6 / 16
+
+
 def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict, ptxas: dict, probe: dict) -> None:
     """D1, C1 and I1 against their plain twins on the card, exact (D1's mask
     and canonical coordinates, C1's canonical limbs, I1's bool), each form
@@ -947,6 +999,49 @@ def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: di
         **ptxas.get("compress_coop_kernel", {}),
     }
 
+    # C1's double-and-encode, the prover's: against its plain twin at each shape, the identity's coset (e = 0)
+    # among ordinary lanes, and at (128,) against the sqrt form's encoding of the doubled points too
+    fe_inv_ns = _fe_inv_probe(torch, rc, pack_ints, rs)
+    flat = _rand_points(torch, ed, hr, 1025, rs, "cuda")
+    at = [0, 5, 33, 64, 100, 1024]  # e = 0 lanes: in the first block, others, the last lane past 1024
+    for k, pos in enumerate(at):
+        for c, v in zip(flat, coset):
+            c[pos] = v[k % len(coset.x)]
+    by_shape, err_dc = {}, 0.0
+    for shape in DOUBLE_COMPRESS_SHAPES:
+        k = int(np.prod(shape))
+        p = ed.PointArray(*(c[:k].reshape(shape + (16,)) for c in flat))
+        cuda_launches = dict(rc.cuda.launches)
+        got = rc.double_compress_cuda(p)
+        if rc.cuda.launches["double_compress"] != cuda_launches.get("double_compress", 0) + 1:
+            raise AssertionError("double_compress: not one launch a call")
+        want = rist.double_and_compress_plain(p)
+        err_dc = max(err_dc, float((got - want).abs().max()))
+        zero_lanes = [pos for pos in at if pos < k]
+        if err_dc != 0 or got.reshape(-1, 16)[zero_lanes].any():
+            raise AssertionError(f"double_compress {shape} disagrees with its plain version (max_abs_err {err_dc}), "
+                                 f"or an e = 0 lane did not encode as zero")
+        if shape == COMPRESS_SHAPES[0] and not torch.equal(got, rist.compress_plain(ed.double(p))):
+            raise AssertionError("double_compress disagrees with the encoding of the doubled points")
+        if k < 128:
+            continue
+        blocks = -(-k // DC_THREADS)
+        bd = bound_ms(k * 5 * LIMB_BYTES,
+                      k * (DC_SQR * MULADDS_PER_FSQR + DC_MUL * MULADDS_PER_FMUL) + blocks * FE_INV_OPS)
+        by_shape[str(shape)] = {"elements": k, "blocks": blocks, "ms": kernel_ms(lambda: rc.double_compress_cuda(p)),
+                                "graph_ms": graph_ms(lambda: rc.double_compress_cuda(p)),
+                                "plain_ms": median_ms(lambda: rist.double_and_compress_plain(p), 3),
+                                "bound_ms": bd[0], "bound_by": bd[1]}
+    main_shape = by_shape[str(COMPRESS_SHAPES[1])]
+    rows["double_compress"] = {
+        "max_abs_err": err_dc, "lanes": main_shape["elements"], **main_shape, "threads": DC_THREADS,
+        "checked": [list(s) for s in DOUBLE_COMPRESS_SHAPES], "e_zero_lanes": at,
+        "chain_ms": (DC_CHAIN_SQR * sqr_ns + DC_CHAIN_MUL * mul_ns + fe_inv_ns) * 1e-6, "fe_inv_ns": fe_inv_ns,
+        "by_shape": by_shape, **ptxas.get("double_compress_kernel", {}),
+        "ptxas": {k: ptxas.get(k, {}) for k in ("double_compress_kernel", "fe_inv_latency_kernel")},
+    }
+    out["fe_inv_ns"] = fe_inv_ns
+
     # I1: K3's output from a verify of the golden batch and of the same with one r1 tampered
     statements, proofs = _tiled(bp, hr, next(c for c in cells if c["seed"] == 3), 256)
     tampered = list(proofs)
@@ -989,7 +1084,7 @@ def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: di
         "chain_ms": 0.0,  # no product: two canonical forms
         **ptxas.get("is_identity_kernel", {}),
     }
-    out["ristretto"] = {k: rows[k] for k in ("decompress", "compress", "is_identity")}
+    out["ristretto"] = {k: rows[k] for k in ("decompress", "compress", "double_compress", "is_identity")}
 
 
 PROVER_KERNELS = ("prove_prep", "prove_round", "prove_final", "prove_responses", "bit_sum")
@@ -1056,12 +1151,40 @@ def _prover_chains(mn: int, m: int, deg: int, rounds: int, r: int) -> dict:
     t = block_threads(mn)
     per = -(-mn // t)
     pows = max(sum(k.bit_length() + bin(k).count("1") - 2 for k in range(j + 1, mn + 2, t)) for j in range(t))
-    n = mn >> (r + 1)
-    fold = 2 + 4 * -(-2 * n // t) + 4
     return {"prove_prep": max(m + max(rounds - 1, 0), pows) + 2 * per + 2 * m,
-            "prove_round": (fold if r else 0) + (5 if r else 3) * per + 4 * -(-n // t),
+            "prove_round": _p2_chain(mn, rounds, r, deg) if r < rounds else 0,
             "prove_final": 2 + 4 + 4 + 4 * per + 5,
             "prove_responses": 3 + 2 * deg}
+
+
+def _p2_chain(mn: int, rounds: int, r: int, deg: int) -> int:
+    """P2's longest path in products mod l, its items handed to threads as
+    csrc/prover.cu's prove_round_body hands them out: the most that one
+    thread runs before the barrier, then the most after it, an item's
+    independent products side by side.  Before: a g item its fold (e y^-len
+    first on a hi lane) and y^(-+n), an h item its fold, an a fold item e^-1
+    y^len, its fold and a' y^(1+j), a b fold item its fold, alpha's warp two a
+    term; after: a lane item's product and a c term's; the sums' additions
+    are not counted."""
+    from bulletproofs_plus_tpu_torch.ops.cuda_prover import round_threads
+
+    lanes = round_threads(mn) - 32
+    hb = rounds - 1 - r
+    length, fold = 2 << hb, r > 0
+    pre, post = [0] * lanes, [0] * lanes
+    for q in range(2 * mn):
+        i = q % mn
+        if q < mn:  # g: its fold (e y^-len first on a hi lane of round r - 1), then y^(-+n)
+            pre[q % lanes] += (1 + ((i >> (hb + 1)) & 1) if fold else 0) + 1
+        else:  # h: its fold
+            pre[q % lanes] += int(fold)
+        post[q % lanes] += 1
+    for j in range(2 * length):
+        pre[lanes - 1 - j % lanes] += (3 if fold else 1) if j < length else int(fold)
+    for j in range(length // 2):
+        post[j % lanes] += 1
+        post[(j + lanes // 2) % lanes] += 1
+    return max(max(pre), 2 * -(-deg // 32) if fold else 0) + max(post)
 
 
 def _prover_inputs():
@@ -1073,6 +1196,16 @@ def _prover_inputs():
     import torch_prover_inputs
 
     return torch_prover_inputs
+
+
+def _p2_profiler():
+    """scripts/profile_torch_p2.py, P2's phase stamps."""
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import profile_torch_p2
+
+    return profile_torch_p2
 
 
 def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict) -> None:
@@ -1089,7 +1222,7 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
     pin = _prover_inputs()
 
     from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
-    from bulletproofs_plus_tpu_torch.native import cuda
+    from bulletproofs_plus_tpu_torch.native import BUILD_DIR, cuda
     from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
     from bulletproofs_plus_tpu_torch.ops import edwards as ed
     from bulletproofs_plus_tpu_torch.ops import field as F
@@ -1122,7 +1255,8 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
                 "graph_ms": graph_ms(lambda: call(*args[0], **args[1])),
                 "plain_ms": median_ms(lambda: plain(*args[0], **args[1]), 3), "bound_ms": b_ms, "bound_by": b_by,
                 "chain_ms": chain * sc_ns * 1e-6, "products": products, "bytes": moved,
-                "threads": cpr.block_threads(mn), "blocks": batch, **ptxas.get(f"{name}_kernel", {}), **(extra or {})}
+                "threads": (cpr.round_threads if name == "prove_round" else cpr.block_threads)(mn), "blocks": batch,
+                **ptxas.get(f"{name}_kernel", {}), **(extra or {})}
 
     cuda.reset_launches()
     prep = pin.to_device(pin.prep_inputs(batch, m, n, deg, seed=1), torch, "cuda")
@@ -1142,6 +1276,16 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
                            "by_round": {r: {k: v[k] for k in ("graph_ms", "ms", "bound_ms", "chain_ms", "products",
                                                               "bytes")}
                                         for r, v in by_round.items()}}
+    # P2's row round by phase: clock64() stamps at its `// P2 phase:` markers, in a copy built for this
+    # (scripts/profile_torch_p2.py)
+    p2p = _p2_profiler()
+    so, names, _ = p2p.build(os.path.join(cuda.CSRC, "prover.cu"), os.path.join(BUILD_DIR, "p2_phases"), cuda)
+    inp = pin.to_device(pin.round_inputs(batch, m, n, deg, PROVER_ROW_ROUND, seed=10 + PROVER_ROW_ROUND), torch,
+                        "cuda")
+    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
+    split = p2p.split(lambda: cpr.prove_round(*(inp[k] for k in keys), r=PROVER_ROW_ROUND),
+                      p2p.load_stamped(so, cuda), names, cuda, batch, cpr.round_threads(mn) // 32, graph_ms)
+    rows["prove_round"].update(phases=split["phases"], stamped_graph_ms=split["stamped_graph_ms"])
 
     keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "r_s", "s_s", "d_mask", "eta")
     inp = pin.to_device(pin.final_inputs(batch, m, n, deg, seed=2), torch, "cuda")
@@ -1272,6 +1416,20 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
 
     _scalar_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
     section_done("s1")
+
+    # the prover's tables, built and timed here, the first use of each: the joined generators' and Pedersen bases'
+    # (P4's and K5's rows below), the halved ones (the batched prover's)
+    t0 = time.perf_counter()
+    joined = params.bp_gens.fixed_tables_joined(2 * 64, params.pc_gens, dev)
+    torch.cuda.synchronize()
+    out["table_build_s"] = time.perf_counter() - t0
+    out["table_bytes"] = {"generators": joined[:, :, : 2 * 64].numel() * 4, "joined": joined.numel() * 4}
+    t0 = time.perf_counter()  # the batched prover's: halved generators and Pedersen bases, built once
+    halved = params.bp_gens.halved_tables_joined(2 * 64, params.pc_gens, dev)
+    torch.cuda.synchronize()
+    out["halved_tables_build_s"] = time.perf_counter() - t0
+    out["table_bytes"]["halved_joined"] = halved.numel() * 4
+    section_done("tables")
 
     _prover_rows(torch, params, rows, out, ptxas, probe)
     section_done("p1_p4")
@@ -1444,12 +1602,6 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     # B (128 rows x 1 and 2 lanes; B's timed).
     from bulletproofs_plus_tpu_torch.models.prover_kernels import round_lanes
 
-    t0 = time.perf_counter()
-    joined = params.bp_gens.fixed_tables_joined(2 * 64, params.pc_gens, dev)
-    torch.cuda.synchronize()
-    out["table_build_s"] = time.perf_counter() - t0
-    out["table_bytes"] = {"generators": joined[:, :, : 2 * 64].numel() * 4, "joined": joined.numel() * 4}
-    section_done("tables")
 
     def rand_scalars(f, s):
         vals = [[rs.randrange(hr.L) for _ in range(s)] for _ in range(f)]
@@ -1584,15 +1736,17 @@ def _verify(bp, statements, proofs):
 # no path.  The MSM's first stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0); a
 # single-shape verify replays its transcripts once through R1; S1 runs the scalar pass once a shape group
 VERIFY_KERNELS = ("replay", "scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "decompress", "is_identity")
-PROVE_KERNELS = ("fixed_acc", "fixed_fold", "compress") + PROVER_KERNELS
+PROVE_KERNELS = ("fixed_acc", "fixed_fold", "double_compress") + PROVER_KERNELS
 # a 64-bit prove, 6 rounds: K5 and K6 once a round (L and R with their Pedersen lanes) and for alpha, A1 and B;
-# C1 for A, each round's L/R and A1/B; P1 once, P2 once a round, P3's entries and P4 once
-PROVE_LAUNCHES = {"fixed_acc": 9, "fixed_fold": 9, "compress": 8, "prove_prep": 1, "prove_round": 6,
+# C1's double-and-encode for A, each round's L/R and A1/B (its sqrt form and K4's own entries never); P1 once, P2
+# once a round, P3's entries and P4 once
+PROVE_LAUNCHES = {"fixed_acc": 9, "fixed_fold": 9, "double_compress": 8, "prove_prep": 1, "prove_round": 6,
                   "prove_final": 1, "prove_responses": 1, "bit_sum": 1}
 # the plain field and point functions that no prove on the card may call on a CUDA tensor
 PLAIN_FUNCTIONS = {"ops.field": ("mul_l", "add_l", "sub_l", "sqr_l", "select"), "ops.edwards": ("add",),
                    "ops.msm": ("tree_reduce",)}
 K4_ENTRIES = ("pow_p58", "sqrt_ratio_m1")
+OFF_PROVE = K4_ENTRIES + ("compress",)  # entries a prove launches 0 times
 
 
 def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
@@ -1710,7 +1864,7 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         first_s = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
         if (not all(counts.values()) or [counts[k] for k in ("replay", "scalar_pass", "decompress", "is_identity")]
-                != [1, 1, 1, 1] or any(cuda.launches[k] for k in K4_ENTRIES + ("compress", "dyn_acc"))):
+                != [1, 1, 1, 1] or any(cuda.launches[k] for k in OFF_PROVE + ("double_compress", "dyn_acc"))):
             raise AssertionError(f"{label}: wrong kernel launches: {dict(cuda.launches)}")
         if seed == 3:
             launches.update(counts)
@@ -1945,8 +2099,10 @@ def _prove_m4(torch, bp, hr) -> dict:
         raise AssertionError("an aggregated statement took a seed nonce")
     except bp.InvalidArgument as exc:
         seeded = f"refused: {exc}"
-    params.bp_gens.fixed_tables_joined(2 * 256, pc, "cuda")  # built before the clock starts
+    t0 = time.perf_counter()
+    tables = params.bp_gens.halved_tables_joined(2 * 256, pc, "cuda")  # built before the clock starts
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     ts = [bp.Transcript(b"m4") for _ in range(M4_BATCH)]
     cuda.reset_launches()
     t0 = time.perf_counter()
@@ -1954,8 +2110,8 @@ def _prove_m4(torch, bp, hr) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
-    want = {**PROVE_LAUNCHES, "prove_round": 8, "fixed_acc": 11, "fixed_fold": 11, "compress": 10}
-    if counts != want:
+    want = {**PROVE_LAUNCHES, "prove_round": 8, "fixed_acc": 11, "fixed_fold": 11, "double_compress": 10}
+    if counts != want or any(cuda.launches[k] for k in OFF_PROVE):
         raise AssertionError(f"m4 prove: expected launches {want}, got {counts}")
     for lane in (0, M4_BATCH - 1):
         seq_t = bp.Transcript(b"m4")
@@ -1969,6 +2125,7 @@ def _prove_m4(torch, bp, hr) -> dict:
     if verdicts != [None] * M4_BATCH:
         raise AssertionError("m4 prove: the batch did not verify")
     return {"proofs": M4_BATCH, "m": 4, "bits": 64, "deg": 5, "rounds": 8, "seconds": seconds, "launches": counts,
+            "halved_tables_build_s": build_s, "halved_tables_bytes": tables.numel() * 4,
             "lanes_equal_to_sequential": [0, M4_BATCH - 1], "verified": M4_BATCH, "seeded": seeded}
 
 
@@ -1986,8 +2143,9 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     def transcripts():
         return [bp.Transcript(b"golden") for _ in range(PROVE_BATCH)]
 
-    # the digit tables, built and timed in the kernels phase, are cached in `params`: no prove below builds them
-    params.bp_gens.fixed_tables_joined(2 * cell["bits"], pc, "cuda")
+    # the halved generators' tables, built and timed in the kernels phase, are cached in `params`: no prove below
+    # builds them
+    params.bp_gens.halved_tables_joined(2 * cell["bits"], pc, "cuda")
     out = {"proofs": PROVE_BATCH}
 
     seeded = statements(True)
@@ -1999,7 +2157,7 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
         torch.cuda.synchronize()
     out["first_s"] = time.perf_counter() - t0
     counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
-    if counts != PROVE_LAUNCHES or any(cuda.launches[k] for k in K4_ENTRIES):
+    if counts != PROVE_LAUNCHES or any(cuda.launches[k] for k in OFF_PROVE):
         raise AssertionError(f"prove: expected launches {PROVE_LAUNCHES}, got {dict(cuda.launches)}")
     if plain.counts or not plain.patched:
         raise AssertionError(f"prove: plain field or point functions ran on CUDA tensors: {plain.counts} "
@@ -2012,7 +2170,7 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     if control.counts != {"ops.field.add_l": 1}:
         raise AssertionError(f"prove: the plain-call counter missed a call on the card: {control.counts}")
     out["plain_calls_on_cuda"] = {"counts": plain.counts, "names_wrapped": len(plain.patched)}
-    launches.update(counts)
+    launches.update(counts, compress=cuda.launches["compress"])
     out["launches"] = dict(cuda.launches)
     if proofs[0].to_bytes().hex() != cell["proof"]:
         raise AssertionError("prove: lane 0 is not golden proof 3")
@@ -2156,7 +2314,7 @@ def _sharded_checks(torch, mesh, collectives: dict) -> dict:
     got, launches, calls = counted(lambda: prove(mesh=mesh))
     if got != want or got[0][0] != cell["proof"]:
         raise AssertionError("sharded prove: proofs or transcript states differ from the unsharded prove's")
-    if (not all(launches.get(k) for k in PROVE_KERNELS) or any(launches.get(k) for k in K4_ENTRIES)
+    if (not all(launches.get(k) for k in PROVE_KERNELS) or any(launches.get(k) for k in OFF_PROVE)
             or not calls):
         raise AssertionError(f"sharded prove: wrong launches {launches}, {calls} collectives")
     out["prove"] = {"lanes": PROVE_BATCH, "equal_to_unsharded": True, "golden_lane0": "equal", "launches": launches,
@@ -2296,6 +2454,7 @@ def main() -> int:
         "scalar_pass": ("scalar_pass.cu", "bulletproofs_plus_tpu/models/verifier_kernels.py:130"),
         "decompress": ("ristretto.cu", "bulletproofs_plus_tpu/models/verifier_kernels.py:263"),
         "compress": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:47"),
+        "double_compress": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:47"),
         "is_identity": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:103"),
         **{k: ("prover.cu", "bulletproofs_plus_tpu/models/prover_device.py:90") for k in PROVER_KERNELS},
     }
@@ -2309,8 +2468,9 @@ def main() -> int:
                                                 "tile", "blocks", "threads", "waves", "blocks_per_sm", "registers",
                                                 "spill_stores", "spill_loads", "lanes", "permutations",
                                                 "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape",
-                                                "sc_mul_ns", "sc_inv_ns", "ptxas", "one_lane_graph_ms",
-                                                "four_lanes_graph_ms", "products", "inversions", "round", "by_round")
+                                                "sc_mul_ns", "sc_inv_ns", "fe_inv_ns", "ptxas", "one_lane_graph_ms",
+                                                "four_lanes_graph_ms", "products", "inversions", "round", "by_round",
+                                                "phases", "stamped_graph_ms")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

@@ -7,11 +7,13 @@ Proves `--batch` 64-bit statements (one commitment, extension degree 1,
 seed nonces; lane 0 is golden cell 3 of tests/golden/golden_vectors.json)
 with `RangeProof.prove_batch_with_rng` of the port
 (bulletproofs_plus_tpu_torch).  Prints one JSON line per measurement:
-  * "tables_s": the digit tables' build, once per generator set;
+  * "tables_s": the digit tables' build, once per generator set (the
+    halved generators' where the tree's prover reads them);
   * "prove_ms": median of 5 whole proves with the tables built;
   * "stages_ms": one prove with a device synchronise around each stage, so
     device time is charged where it was enqueued: the fixed-base MSMs (K5 +
-    K6 and their glue), `compress` (C1), the A commitment's masked sums
+    K6 and their glue), the encodings (C1: `double_and_compress` where the
+    tree has it, else `compress`), the A commitment's masked sums
     (`tree_reduce`, or P4 `bit_sum` where the tree has it), the readbacks of
     compressed points, the host transcript (challenges, RNG rebuilds and
     draws), the argument checks (each witness's commitment recomputed in
@@ -75,7 +77,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     pc.device_base_tables("cuda")
-    if hasattr(params.bp_gens, "fixed_tables_joined"):  # a tree whose prover reads the joined tables
+    if hasattr(params.bp_gens, "halved_tables_joined"):  # a tree whose prover reads halved generators' tables
+        params.bp_gens.halved_tables_joined(2 * cell["bits"], pc, "cuda")
+    elif hasattr(params.bp_gens, "fixed_tables_joined"):  # a tree whose prover reads the joined tables
         params.bp_gens.fixed_tables_joined(2 * cell["bits"], pc, "cuda")  # builds the kernels too
     else:
         params.bp_gens.fixed_tables_sliced(2 * cell["bits"], "cuda")
@@ -108,7 +112,8 @@ def main() -> int:
 
     patched = [
         (pd, "fixed_msm_batched", "fixed_base_msms"), (pd, "fixed_msm_grouped", "fixed_base_msms"),
-        (pd.rist, "compress", "compress"), (pd, "tree_reduce", "a_commitment_sums"),
+        (pd.rist, "compress", "compress"), (pd.rist, "double_and_compress", "compress"),
+        (pd, "tree_reduce", "a_commitment_sums"),
         (pd, "_point_bytes", "readbacks"), (RangeProofTranscript, "__init__", "host_transcript"),
         (RangeProofTranscript, "challenges_y_z", "host_transcript"),
         (RangeProofTranscript, "challenge_round_e", "host_transcript"),
@@ -117,7 +122,8 @@ def main() -> int:
         (type(pc), "commit", "argument_checks"),
     ]
     patched.append((pd, "bit_sum", "a_commitment_sums"))
-    patched = [p for p in patched if hasattr(p[0], p[1])]  # a tree's A sum is P4 `bit_sum` or `tree_reduce`
+    # a tree's A sum is P4 `bit_sum` or `tree_reduce`, its encoder `double_and_compress` or `compress`
+    patched = [p for p in patched if hasattr(p[0], p[1])]
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patched]
     try:
         for owner, attr, stage in patched:

@@ -422,6 +422,46 @@ def test_compress_kernel_matches_plain(card, shape):
     assert torch.equal(rist.compress(strided), rist.compress_plain(strided))  # rows that are views
 
 
+# the provers' shapes (128 proofs, 64 x m4's (64, 2)), one lane, past one block of 32 and of 1024
+@pytest.mark.parametrize("shape", [(1,), (128,), (128, 2), (64, 2), (1025,)])
+def test_double_compress_kernel_matches_plain(card, shape):
+    """C1's double-and-encode against its plain twin, limb for limb, and
+    against the sqrt form's encoding of the doubled points; lanes whose e is
+    0 (the identity and the three other points of E[4]) among ordinary ones,
+    in the first block and the last, encode as zero; one launch a call."""
+    n = int(np.prod(shape))
+    rs = np.random.RandomState(43 + n)
+    i = hr.SQRT_M1
+    e4 = [hr.IDENTITY, (0, P - 1, 1, 0), (i, 0, 1, 0), (P - i, 0, 1, 0)]
+    base = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(16)], device=card)
+    base = ed.cat([ed.from_host(e4, device=card), base, ed.double(base)])
+    idx = rs.randint(len(e4), base.x.shape[0], size=n)
+    zero = sorted({0, n // 2, n - 1} | ({33} if n > 33 else set()))
+    idx[zero] = np.arange(len(zero)) % len(e4)
+    pts = ed.PointArray(*(c[torch.as_tensor(idx, device=card)].reshape(shape + (16,)) for c in base))
+    cuda.reset_launches()
+    got = rist.double_and_compress(pts)
+    assert dict(cuda.launches) == {"double_compress": 1}
+    assert got.shape == shape + (16,) and torch.equal(got, rist.double_and_compress_plain(pts))
+    assert not got.reshape(n, 16)[zero].any()
+    assert torch.equal(got, rist.compress_plain(ed.double(pts)))
+
+
+def test_fe_inv_probe_matches_python(card):
+    """fe_inv (csrc/divsteps.cuh, a fixed 20 batches of divsteps mod p) on the
+    card against Python's pow(x, p - 2, p): 0, 1, p - 1, p and above,
+    2^256 - 1, many trailing zeros, then 256 seeded values below 2^256,
+    32 lanes a launch; two inversions in a row give x mod p back."""
+    rs = np.random.RandomState(14)
+    edges = [0, 1, 2, P - 1, P, P + 1, 2**256 - 1, 2**200, 3 << 128, 1 << 254]
+    vals = edges + [int.from_bytes(rs.bytes(32), "little") for _ in range(256 - len(edges))]
+    for lo in range(0, len(vals), 32):
+        chunk = vals[lo:lo + 32]
+        x = torch.as_tensor(pack_ints(chunk).astype(np.int64), device=card)
+        assert [int_from_limbs(r) for r in rcu.fe_inv_probe(x, 1).cpu().numpy()] == [pow(v, P - 2, P) for v in chunk]
+        assert [int_from_limbs(r) for r in rcu.fe_inv_probe(x, 2).cpu().numpy()] == [v % P for v in chunk]
+
+
 def test_is_identity_kernel_matches_plain(card):
     """I1 against its plain twin: the identity, its coset with X = 0 or
     Y = 0, coordinates not canonical (p, 2p), random points; and K3's (4, 16)
@@ -624,9 +664,9 @@ def test_sharded_prove_and_verify_on_card(card, backend, world):
     NCCL, which takes one card a rank: one rank): each rank's sharded prove
     equals its unsharded prove byte for byte, its sharded verify the
     unsharded masks, a tampered batch fails on every rank, and each rank
-    launched the prover's (K5, K6, C1) and the verifier's (K7, K2, K3, D1,
-    I1) kernels itself, with no device replay under a mesh and no launch of
-    K4's own entries."""
+    launched the prover's (K5, K6, C1's double-and-encode) and the
+    verifier's (K7, K2, K3, D1, I1) kernels itself, with no device replay
+    under a mesh and no launch of K4's own entries or C1's sqrt form."""
     import torch_ranks
 
     cuda.build()  # in the parent, so that the ranks do not compile at once
@@ -640,8 +680,9 @@ def test_sharded_prove_and_verify_on_card(card, backend, world):
         assert all(m is not None for m in rank["masks"])
         assert rank["tampered"] == ["VerificationFailed", "Range proof batch not valid"]
         prove, verify = rank["prove_launches"], rank["verify_launches"]
-        assert all(prove.get(k) for k in ("fixed_acc", "fixed_fold", "compress", "prove_prep", "prove_round",
+        assert all(prove.get(k) for k in ("fixed_acc", "fixed_fold", "double_compress", "prove_prep", "prove_round",
                                           "prove_final", "prove_responses", "bit_sum")), prove
+        assert not prove.get("compress"), prove
         assert all(verify.get(k) for k in ("dyn_acc_signed", "lane_fold", "horner", "decompress", "is_identity")), verify
         assert not verify.get("replay") and not verify.get("sqrt_ratio_m1") and not prove.get("sqrt_ratio_m1"), verify
 
@@ -837,6 +878,27 @@ def test_prove_scalar_kernels_match_plain(card, batch, m, n, deg):
                                    "prove_responses": 1}
 
 
+# both prove shapes, and mn = 2048, whose items the threads stride over and whose scratch lies in device memory
+@pytest.mark.parametrize("batch, m, n, deg", PROVER_SHAPES + [(2, 32, 64, 1)], ids=PROVER_IDS + ["b2_mn2048"])
+def test_prove_round_kernel_every_round(card, batch, m, n, deg):
+    """P2 on the card against its plain twin on the CPU at every round,
+    every output limb for limb, one launch a round; the folds' challenges
+    zero-free and not."""
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from torch_prover_inputs import round_inputs, to_device
+
+    mn = m * n
+    rounds = mn.bit_length() - 1
+    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
+    cuda.reset_launches()
+    for r in range(rounds):
+        inp = round_inputs(batch, m, n, deg, r, seed=100 + r, zero_free=r % 2 == 1)
+        got = cpr.prove_round(*(to_device(inp, torch, card)[k] for k in keys), r=r)
+        assert _equal(got, PK.prove_round_plain(*(to_device(inp, torch, "cpu")[k] for k in keys), r=r)), r
+    assert dict(cuda.launches) == {"prove_round": rounds}
+
+
 @pytest.mark.parametrize("batch, m, n, deg", PROVER_SHAPES, ids=PROVER_IDS)
 def test_bit_sum_kernel_matches_plain(card, batch, m, n, deg):
     """P4 on the card against its plain twin on the card, as points
@@ -873,8 +935,9 @@ def test_prove_batch_on_card_matches_cpu(card, seeded, n, m, deg):
     """prove_batch_with_rng on the card equals the same call on the CPU (the
     plain twins) byte for byte, proofs and final transcript states, and
     launches P1 once, P2 once a round, each entry of P3 and P4 once, K5 and
-    K6 once a round and three times besides (alpha, A1, B), C1 once a round
-    and twice besides."""
+    K6 once a round and three times besides (alpha, A1, B), C1's
+    double-and-encode once a round and twice besides, and C1's sqrt form
+    never."""
     import bulletproofs_plus_tpu_torch as tbp
 
     pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(deg))
@@ -898,6 +961,6 @@ def test_prove_batch_on_card_matches_cpu(card, seeded, n, m, deg):
     cuda.reset_launches()
     assert prove(card) == want
     assert {k: cuda.launches[k] for k in ("prove_prep", "prove_round", "prove_final", "prove_responses", "bit_sum",
-                                          "fixed_acc", "fixed_fold", "compress")} == {
+                                          "fixed_acc", "fixed_fold", "double_compress", "compress")} == {
         "prove_prep": 1, "prove_round": rounds, "prove_final": 1, "prove_responses": 1, "bit_sum": 1,
-        "fixed_acc": rounds + 3, "fixed_fold": rounds + 3, "compress": rounds + 2}
+        "fixed_acc": rounds + 3, "fixed_fold": rounds + 3, "double_compress": rounds + 2, "compress": 0}

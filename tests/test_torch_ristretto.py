@@ -203,6 +203,147 @@ def test_compress_model_matches_jax():
         assert fm.from_words(fm.compress_words(*(fm.to_words(c) for c in p))) == int_from_limbs(w)
 
 
+def _msm_inputs():
+    """Four scalars and four points for a fixed-base MSM, one point with an
+    order-4 torsion part."""
+    rs = np.random.RandomState(15)
+    scalars = [int.from_bytes(rs.bytes(32), "little") % hr.L for _ in range(4)]
+    points = [hr.point_mul(int.from_bytes(rs.bytes(32), "little") % hr.L, hr.BASEPOINT) for _ in range(4)]
+    points[3] = hr.point_add(points[3], (hr.SQRT_M1, 0, 1, 0))
+    return scalars, points
+
+
+@functools.lru_cache(maxsize=1)
+def _doubled_encodings():
+    """The JAX package's `compress`, in one call, of 2Q for each point Q of
+    `_encode_points()` (doubled on the host), then of the host Pippenger's
+    MSM over `_msm_inputs()`: int64 limbs, the encodings C1's
+    double-and-encode must give."""
+    from bulletproofs_plus_tpu_torch.ops.msm import host_msm
+
+    doubled = [hr.point_double(tuple(c % P for c in p)) for p in _encode_points()]
+    return np.asarray(jrist.compress(_jax_points(doubled + [host_msm(*_msm_inputs())]))).astype(np.int64)
+
+
+# subsets of `_encode_points()`: all (the coset forms' e = 0 lanes among ordinary ones), one, an odd count, the
+# identity and the three other points of E[4] alone
+DOUBLE_SUBSETS = {"all": list(range(24)), "one": [9], "odd": list(range(3, 16)), "e4": [0, 1, 2, 3]}
+
+
+@pytest.mark.parametrize("subset", list(DOUBLE_SUBSETS))
+def test_double_and_compress_plain_matches_jax(subset):
+    """C1's double-and-encode, plain twin: the encoding of 2Q against the
+    JAX package's `compress` of the doubled points, limb for limb; the e = 0
+    lanes (Q in E[4]) encode as zero."""
+    pts = _encode_points()
+    want = _doubled_encodings()
+    assert len(pts) == 24 and not want[: len(_coset_forms())].any()
+    idx = DOUBLE_SUBSETS[subset]
+    got = rist.double_and_compress_plain(_from_ints([pts[i] for i in idx])).numpy()
+    assert np.array_equal(got, want[idx])
+
+
+@pytest.mark.parametrize("subset", list(DOUBLE_SUBSETS) + ["two_blocks"])
+def test_double_compress_model_matches_jax(subset):
+    """C1's double-and-encode, word-exact model (ops/field_model.py
+    `double_compress_words`: the warp's product tree, one fe_inv a block,
+    the tail) against the JAX package, word for word; "two_blocks" is 48
+    points, past one block of 32 lanes."""
+    pts = _encode_points()
+    want = _doubled_encodings()
+    idx = DOUBLE_SUBSETS.get(subset, list(range(24)) * 2)
+    got = fm.double_compress_words([[fm.to_words(c) for c in pts[i]] for i in idx])
+    assert [fm.from_words(w) for w in got] == [int_from_limbs(w) for w in want[idx]]
+
+
+def test_fe_inv_model_matches_python():
+    """fe_inv's word-exact model (csrc/divsteps.cuh, a fixed 20 batches of
+    divsteps mod p) against pow(x, p - 2, p): edges (0, 1, p - 1, 2^255 - 20,
+    p and above, many trailing zeros) and seeded values below 2^256."""
+    rs = np.random.RandomState(16)
+    vals = [0, 1, 2, P - 1, 2**255 - 20, P, P + 1, 2**256 - 1, 2**200, 3 << 128, 1 << 254]
+    vals += [int.from_bytes(rs.bytes(32), "little") for _ in range(48)]
+    for v in vals:
+        assert fm.from_words(fm.fe_inv(fm.to_words(v))) == pow(v, P - 2, P), v
+
+
+def test_divsteps_sources_match_models():
+    """csrc/divsteps.cuh's p in 30-bit limbs, p^-1 mod 2^30 and batch count
+    are the model's, fe_inv's batch loop has no exit, and ristretto.cu's
+    double-and-encode block is the model's."""
+    import os
+    import re
+
+    from bulletproofs_plus_tpu_torch.ops import scalar_model as sm
+
+    csrc = os.path.join(os.path.dirname(rist.__file__), "..", "csrc")
+    with open(os.path.join(csrc, "divsteps.cuh")) as f:
+        header = f.read()
+    assert int(re.search(r"#define DS_BATCHES (\d+)", header).group(1)) == sm.INV_BATCHES
+    assert int(re.search(r"inv30 = (\w+)u;\n    __host__ __device__ static constexpr int32_t limb\(int i\) \{\n"
+                         r"        return i == 0", header).group(1), 0) == pow(P, -1, 1 << 30)
+    limbs = re.search(r"return i == 0 \? (\w+) : i == 8 \? (\w+) : (\w+);", header).groups()
+    assert [int(limbs[0], 0)] + [int(limbs[2], 0)] * 7 + [int(limbs[1], 0)] == sm._s30(P)
+    body = header[header.index("fe_inv(const fe &x)"):]
+    assert "DS_BATCHES; ++batch)" in body and "break" not in body and "_sync" not in body
+    with open(os.path.join(csrc, "ristretto.cu")) as f:
+        assert int(re.search(r"#define DC_THREADS (\d+)", f.read()).group(1)) == fm.DC_THREADS
+
+
+def test_halved_table_msm_double_encoded_matches_jax():
+    """An MSM over tables of halved points ((l + 1) / 2) P (K5 then K6's plain
+    versions here), double-encoded, against the JAX package's `compress` of
+    the MSM over the original points (the host Pippenger's) and the host
+    encoder; one point carries an order-4 torsion part, and a zero row's Q
+    (the identity) encodes as zero."""
+    from bulletproofs_plus_tpu_torch.ops.fixed_base import build_tables, fixed_msm_batched, halve, pack_tables
+    from bulletproofs_plus_tpu_torch.ops.msm import host_msm
+
+    scalars, points = _msm_inputs()
+    tables = pack_tables(build_tables(halve(ed.from_host(points, device="cpu"))))
+    rows = torch.as_tensor(pack_ints(scalars + [0] * 4).astype(np.int64)).reshape(2, 4, 16)
+    got = rist.double_and_compress(fixed_msm_batched(rows, tables)).numpy()
+    assert np.array_equal(got[0], _doubled_encodings()[-1]) and not got[1].any()
+    assert int_from_limbs(got[0]) == int.from_bytes(hr.compress(host_msm(scalars, points)), "little")
+
+
+def test_halved_tables_joined():
+    """`BulletproofGens.halved_tables_joined`: the generators' and the
+    Pedersen bases' halved points, in `fixed_tables_joined`'s layout, each
+    lane's first entry (window 0, digit 1) doubled the original point as a
+    ristretto point; cached under a key of its own, beside the joined tables
+    it leaves alone."""
+    import bulletproofs_plus_tpu_torch as tbp
+    from bulletproofs_plus_tpu_torch.ops.cuda_fixed import words_to_limbs
+
+    pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(2))
+    gens = tbp.BulletproofGens(2, 1)
+    halved = gens.halved_tables_joined(4, pc, "cpu")
+    assert halved is gens.halved_tables_joined(4, pc, "cpu") and not gens._joined_tables
+    assert tuple(halved.shape) == (64, 16, 4 + 3, 24)
+    entries = words_to_limbs(halved[0, 1]).numpy()  # (7 lanes, [y + x, y - x, 2d x y], 16)
+    want = gens.interleaved()[:4] + list(pc.g_base_vec) + [pc.h_base]
+    for lane, p in enumerate(want):
+        y_plus_x, y_minus_x = int_from_limbs(entries[lane, 0]), int_from_limbs(entries[lane, 1])
+        x, y = (y_plus_x - y_minus_x) * pow(2, P - 2, P) % P, (y_plus_x + y_minus_x) * pow(2, P - 2, P) % P
+        assert hr.point_equal(hr.point_double((x, y, 1, x * y % P)), p)
+
+
+def test_double_and_compress_dispatch(monkeypatch):
+    """A CPU tensor takes the plain twin and never reaches the CUDA wrapper;
+    a tensor on another device goes to the wrapper, which refuses it."""
+
+    def no_launch(*a, **k):
+        raise AssertionError("a CUDA wrapper was called for a CPU tensor")
+
+    monkeypatch.setattr(rist, "double_compress_cuda", no_launch)
+    pts = _from_ints(_encode_points()[:6])
+    assert torch.equal(rist.double_and_compress(pts), rist.double_and_compress_plain(pts))
+    monkeypatch.undo()
+    with pytest.raises(ValueError):
+        rist.double_and_compress(ed.PointArray(*(c.to("meta") for c in pts)))
+
+
 def test_is_identity_plain_model_and_jax():
     """I1's plain twin and its model against the JAX package: true on every
     coset form of the identity, false on the other points."""
