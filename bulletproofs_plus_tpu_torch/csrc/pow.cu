@@ -24,7 +24,8 @@
 //
 // `field_mul_latency_kernel` and `field_sqr_latency_kernel` are the probe
 // behind the `chain_ms` figures: every warp of one block runs a chain of
-// dependent fe_mul or fe_sqr.  The `point*_latency_kernel`s do the same for
+// dependent fe_mul or fe_sqr; `field4_latency_kernel` the same for the
+// four-lane product and squaring of D1's chain (`fe_mul4_ns`, `fe_sqr4_ns`).  The `point*_latency_kernel`s do the same for
 // the point operations, one lane a point and four lanes a point.
 
 #include "sqrt_ratio.cuh"
@@ -106,6 +107,19 @@ __global__ void __launch_bounds__(1024) field_sqr_latency_kernel(const int64_t *
     field_latency_chain<true>(x, out, iters);
 }
 
+// The same for the four-lane multiplier of sqrt_ratio.cuh (D1's and C1's chain): each group of four lanes runs
+// the chain together, all holding the product.
+template <bool SQUARE>
+__global__ void __launch_bounds__(1024) field4_latency_kernel(const int64_t *__restrict__ x,
+                                                             int64_t *__restrict__ out, int iters) {
+    const FourLanes m{(int)(threadIdx.x & 3)};
+    const fe start = fe_load(x, 1);
+    fe acc = start;
+#pragma unroll 1
+    for (int i = 0; i < iters; ++i) acc = SQUARE ? m.sqr(acc) : m.mul(acc, start);
+    if (threadIdx.x == 0) fe_store(out, 1, acc);
+}
+
 // The same probe for the point operations: every thread of one block runs
 // `iters` dependent doublings (acc <- 2 acc) or additions (acc <- acc + p)
 // from p, (4, 16) limbs, and the chain's end goes to out.  In the one-lane
@@ -164,15 +178,20 @@ extern "C" int bppt_sqrt_ratio_m1(const void *u, long u_stride, const void *v, v
     return (int)cudaGetLastError();
 }
 
-// One block of `warps` warps (1 to 32), every thread the same chain.
+// One block of `warps` warps (1 to 32), every thread (or group of four lanes) the same chain.  op: 0 fe_mul,
+// 1 fe_sqr, 2 the four-lane product, 3 the four-lane squaring.
 extern "C" int bppt_field_latency(const void *x, void *out, long op, long iters, long warps, void *stream) {
     const unsigned threads = 32u * (unsigned)warps;
-    if (op == 0) {
-        field_mul_latency_kernel<<<1, threads, 0, (cudaStream_t)stream>>>((const int64_t *)x, (int64_t *)out,
-                                                                          (int)iters);
-    } else {
-        field_sqr_latency_kernel<<<1, threads, 0, (cudaStream_t)stream>>>((const int64_t *)x, (int64_t *)out,
-                                                                          (int)iters);
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int64_t *in = (const int64_t *)x;
+    int64_t *o = (int64_t *)out;
+    const int n = (int)iters;
+    switch (op) {
+        case 0: field_mul_latency_kernel<<<1, threads, 0, st>>>(in, o, n); break;
+        case 1: field_sqr_latency_kernel<<<1, threads, 0, st>>>(in, o, n); break;
+        case 2: field4_latency_kernel<false><<<1, threads, 0, st>>>(in, o, n); break;
+        case 3: field4_latency_kernel<true><<<1, threads, 0, st>>>(in, o, n); break;
+        default: return (int)cudaErrorInvalidValue;
     }
     return (int)cudaGetLastError();
 }

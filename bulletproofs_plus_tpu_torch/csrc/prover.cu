@@ -48,18 +48,19 @@
 //
 // What bounds them on this card: latency and the launch.  A 128-proof,
 // mn = 64 prove needs some 0.45 M products mod l in all, under 0.01 ms at the
-// multiply rate, spread over 1 + rounds + 2 launches of a block a proof; each
-// block's thread runs a few to a few dozen dependent products (P1's y^k by
-// squaring and multiplying, P3's fold then its lanes), and P4 a chain of
-// four-lane additions.  P2, once a round, is redesigned for that latency:
-// more threads a proof, so that no thread runs more than a few products, the
-// folded vectors in shared memory, and two barriers (below).
+// multiply rate, spread over 1 + rounds + 2 launches; each thread runs a few
+// to a few dozen dependent products (P1's y^k by squaring and multiplying),
+// and P4 a chain of four-lane additions.  P2 and P3 are redesigned for that
+// latency: more threads a proof, so that no thread runs more than a few
+// products, values handed on through shared memory, few or no barriers, one
+// copy of the product and 16-byte accesses (below); P3's second entry a
+// thread an output.
 
 #include "fold4.cuh"
 #include "scalar_l.cuh"
 
-#define PR_MAX_THREADS 256  // P1 and P3: a block a proof, up to 256 threads striding over its lanes
-#define PR_RESP_THREADS 128 // P3's second entry: a thread a proof
+#define PR_MAX_THREADS 256  // P1: a block a proof, up to 256 threads striding over its lanes
+#define PR_RESP_THREADS 32  // P3's second entry: a thread an output, a warp a block
 #define PR_ENTRY_WORDS 24   // a fixed table entry: y + x, y - x, 2d x y, 8 words each
 #define PR_MAX_M 1024       // P1's z^(2(j+1)) in 32 KB of shared memory
 
@@ -145,84 +146,6 @@ __global__ void __launch_bounds__(PR_MAX_THREADS) prove_prep_kernel(
         }
         store_limbs(at(alpha_out, b, deg, k), u);
     }
-}
-
-// The fold of round r - 1 (P2 at round r, P3 at r = rounds), for proof b, shared by P2 and P3: a and b from
-// 2 len to len = mn >> r values, a'_p = a_p e + a_(p+len) e^-1 y^len, b'_p = b_p e^-1 + b_(p+len) e; alpha
-// += dL e^2 + dR e^-2; without a fold (round 0) a copy.  The coefficients g and h fold lane by lane where
-// each kernel uses them (`coeff_fold`).
-struct Fold {
-    u32 e[8], ei[8], g_hi[8];  // e, e^-1, e y^-len (g's factor on a hi lane of round r - 1)
-    bool on;
-};
-
-__device__ __forceinline__ Fold fold_vectors(
-    long b, int mn, int r, int rounds, int deg, const int64_t *a_in, const int64_t *b_in,
-    const int64_t *alpha_in, const int64_t *e_in, const int64_t *ei_in, const int64_t *dl_prev,
-    const int64_t *dr_prev, const int64_t *y_pows, const int64_t *yinv_n, int64_t *a_out, int64_t *b_out,
-    int64_t *alpha_out) {
-    const int t = threadIdx.x, T = blockDim.x, len = mn >> r;
-    Fold f;
-    f.on = e_in != nullptr;
-    u32 u[8], v[8], a_hi[8];
-    if (f.on) {
-        load_limbs(e_in + 16 * b, f.e);
-        load_limbs(ei_in + 16 * b, f.ei);
-        load_limbs(at(y_pows, b, mn + 1, len - 1), u);  // y^len
-        sc_mul_l(f.ei, u, a_hi);
-        load_limbs(at(yinv_n, b, rounds, r - 1), u);  // y^-len
-        sc_mul_l(f.e, u, f.g_hi);
-    }
-    for (int p = t; p < len; p += T) {
-        load_limbs(at(a_in, b, f.on ? 2 * len : len, p), u);
-        if (f.on) {
-            sc_mul_l(u, f.e, u);
-            load_limbs(at(a_in, b, 2 * len, p + len), v);
-            sc_mul_l(v, a_hi, v);
-            sc_add_l(u, v, u);
-        }
-        store_limbs(at(a_out, b, len, p), u);
-        load_limbs(at(b_in, b, f.on ? 2 * len : len, p), u);
-        if (f.on) {
-            sc_mul_l(u, f.ei, u);
-            load_limbs(at(b_in, b, 2 * len, p + len), v);
-            sc_mul_l(v, f.e, v);
-            sc_add_l(u, v, u);
-        }
-        store_limbs(at(b_out, b, len, p), u);
-    }
-    for (int k = t; k < deg; k += T) {
-        load_limbs(at(alpha_in, b, deg, k), u);
-        if (f.on) {
-            u32 w[8];
-            sc_sqr_l(f.e, w);
-            load_limbs(at(dl_prev, b, deg, k), v);
-            sc_mul_l(v, w, v);
-            sc_add_l(u, v, u);
-            sc_sqr_l(f.ei, w);
-            load_limbs(at(dr_prev, b, deg, k), v);
-            sc_mul_l(v, w, v);
-            sc_add_l(u, v, u);
-        }
-        store_limbs(at(alpha_out, b, deg, k), u);
-    }
-    return f;
-}
-
-// Lane i's g and h coefficients after the fold: g_i (hi ? e y^-len : e^-1), h_i (hi ? e^-1 : e), hi being
-// bit `hi_bit` = log2(len) of i, round r - 1's hi bit; ones without a fold (round 0).
-__device__ __forceinline__ void coeff_fold(const Fold &f, long b, int mn, int hi_bit, int i, const int64_t *g_in,
-                                           const int64_t *h_in, u32 *g, u32 *h) {
-    if (!f.on) {
-        set_small(g, 1u);
-        set_small(h, 1u);
-        return;
-    }
-    const bool hi = (i >> hi_bit) & 1;
-    load_limbs(at(g_in, b, mn, i), g);
-    sc_mul_l(g, hi ? f.g_hi : f.ei, g);
-    load_limbs(at(h_in, b, mn, i), h);
-    sc_mul_l(h, hi ? f.ei : f.e, h);
 }
 
 // P2, round r of `rounds` (n = mn >> (r + 1), len = 2n the vectors' length after the fold).  a_in, b_in: (B, 2 len,
@@ -489,86 +412,156 @@ __global__ void __launch_bounds__(P2_MAX_THREADS) prove_round_global_kernel(
 }
 
 // P3, first entry.  The last round's fold (none where rounds = 0), then ry_ar = r y b0 + s y a0, rys = r y s,
-// and the final MSMs' scalars.  a_in, b_in: (B, 2, 16) with a fold, else (B, 1, 16); r_s, s_s: (B, 16); d_mask,
-// eta: (B, deg, 16).  Out: a1 (B, 2 mn + deg + 1, 16) = [g_i r, h_i s interleaved, d_mask, ry_ar]; brow
-// (B, deg + 1, 16) = [eta, rys]; a0, b0 (B, 1, 16); alpha (B, deg, 16).
-__global__ void __launch_bounds__(PR_MAX_THREADS) prove_final_kernel(
+// and the final MSMs' scalars.  a_in, b_in: (B, 2, 16) with a fold, else (B, 1, 16); g_in, h_in: (B, mn, 16) with
+// a fold, else unused; r_s, s_s: (B, 16); d_mask, eta: (B, deg, 16).  Out: a1 (B, 2 mn + deg + 1, 16) = [g_i r,
+// h_i s interleaved, d_mask, ry_ar]; brow (B, deg + 1, 16) = [eta, rys]; a0, b0 (B, 16); alpha (B, deg, 16).
+//
+// A block a proof of T threads, as P2's (ops/cuda_prover.round_threads): TL = T - 32 lane threads and one closing
+// warp; no barrier.  Lane item q < mn (thread q) takes g_q (hi ? e y^-1 : e^-1) r, item mn + q h_q (hi ? e^-1 :
+// e) s, hi being bit 0 of q: at most three products (e y^-1 first on a hi g lane).  The closing warp runs its
+// items in three steps, each lane's items side by side, the values passed on through shared memory after a
+// __syncwarp: first two products an item, a_0 e, a_1 (e^-1 y), b_0 e^-1, b_1 e, r y, s y and each alpha mask's
+// d_L e^2 and d_R e^-2; then a0 and b0 as sums, one product for each of r y b0, s y a0 and r y s, and alpha's
+// sums; then ry_ar.  Its chain is three products, as a hi g lane's.  Every product is one call of one copy
+// (`sc_mul_n`), every value moves as 16-byte accesses; the `// P3 phase:` comments mark the phases that
+// scripts/profile_torch_p2.py --kernel final stamps.
+#define P3_ITEMS 6  // the closing warp's first items before alpha's: a_0 e, a_1 e^-1 y, b_0 e^-1, b_1 e, r y, s y
+#define P3_SLOTS (P3_ITEMS + 2 * 64 + 2)  // and two a mask (deg <= 64), then r y b0 and s y a0
+
+__global__ void __launch_bounds__(P2_MAX_THREADS) prove_final_kernel(
     const int64_t *__restrict__ a_in, const int64_t *__restrict__ b_in, const int64_t *__restrict__ g_in,
     const int64_t *__restrict__ h_in, const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in,
     const int64_t *__restrict__ ei_in, const int64_t *__restrict__ dl_prev, const int64_t *__restrict__ dr_prev,
     const int64_t *__restrict__ y_pows, const int64_t *__restrict__ yinv_n, const int64_t *__restrict__ r_in,
     const int64_t *__restrict__ s_in, const int64_t *__restrict__ dmask_in, const int64_t *__restrict__ eta_in,
     int mn, int rounds, int deg, int64_t *__restrict__ a1_out, int64_t *__restrict__ brow_out,
-    int64_t *a0_out, int64_t *b0_out, int64_t *__restrict__ alpha_out) {
+    int64_t *__restrict__ a0_out, int64_t *__restrict__ b0_out, int64_t *__restrict__ alpha_out) {
+    __shared__ __align__(16) u32 slot[8 * P3_SLOTS];
     const long b = blockIdx.x;
-    const int t = threadIdx.x, T = blockDim.x, width = 2 * mn + deg + 1;
-    // thread 0 folds position 0, the only one, and keeps a0 and b0 in its registers
-    const Fold f = fold_vectors(b, mn, rounds, rounds, deg, a_in, b_in, alpha_in, e_in, ei_in, dl_prev, dr_prev,
-                                y_pows, yinv_n, a0_out, b0_out, alpha_out);
-    u32 rs[8], ss[8], u[8], v[8];
-    load_limbs(r_in + 16 * b, rs);
-    load_limbs(s_in + 16 * b, ss);
-    for (int i = t; i < mn; i += T) {
-        u32 g[8], h[8];
-        coeff_fold(f, b, mn, 0, i, g_in, h_in, g, h);
-        sc_mul_l(g, rs, g);
-        store_limbs(at(a1_out, b, width, 2 * i), g);
-        sc_mul_l(h, ss, h);
-        store_limbs(at(a1_out, b, width, 2 * i + 1), h);
+    const int t = threadIdx.x, TL = blockDim.x - 32, width = 2 * mn + deg + 1;
+    const bool fold = e_in != nullptr;
+    u32 e[8], ei[8], u[8], v[8], w[8];
+    if (fold) {
+        load_limbs16(e_in + 16 * b, e);
+        load_limbs16(ei_in + 16 * b, ei);
+    } else {
+        set_small(e, 1u);
+        set_small(ei, 1u);
     }
-    for (int k = t; k < deg; k += T) {
-        load_limbs(at(dmask_in, b, deg, k), u);
-        store_limbs(at(a1_out, b, width, 2 * mn + k), u);
-        load_limbs(at(eta_in, b, deg, k), u);
-        store_limbs(at(brow_out, b, deg + 1, k), u);
+    // P3 phase: start
+    if (t < TL) {
+        for (int q = t; q < 2 * mn; q += TL) {  // g_i r at 2i, h_i s at 2i + 1
+            const bool is_g = q < mn;
+            const int i = is_g ? q : q - mn;
+            const bool hi = i & 1;
+            if (fold) {
+                load_limbs16(at(is_g ? g_in : h_in, b, mn, i), u);
+                if (is_g && hi) {  // e y^-1
+                    load_limbs16(at(yinv_n, b, rounds, rounds - 1), v);
+                    sc_mul_n(e, v, v);
+                } else {
+                    select8(v, is_g == hi, e, ei);  // g lo: e^-1; h hi: e^-1, lo: e
+                }
+                sc_mul_n(u, v, u);
+            } else {
+                set_small(u, 1u);
+            }
+            load_limbs16((is_g ? r_in : s_in) + 16 * b, v);
+            sc_mul_n(u, v, u);
+            store_limbs16(at(a1_out, b, width, 2 * i + (is_g ? 0 : 1)), u);
+        }
+    } else {  // the closing warp, step 1: x y z an item
+        for (int j = t - TL; j < P3_ITEMS + 2 * deg; j += 32) {
+            set_small(w, 1u);
+            if (j < 4) {  // the fold of position 0: a_0 e, a_1 e^-1 y, b_0 e^-1, b_1 e (copies of a_0, b_0 without)
+                const int64_t *src = j < 2 ? a_in : b_in;
+                load_limbs16(at(src, b, fold ? 2 : 1, fold ? (j & 1) : 0), u);
+                select8(v, j == 0 || j == 3, e, ei);
+                if (j == 1 && fold) load_limbs16(at(y_pows, b, mn + 1, 0), w);
+            } else if (j < P3_ITEMS) {  // r y, s y
+                load_limbs16((j == 4 ? r_in : s_in) + 16 * b, u);
+                load_limbs16(at(y_pows, b, mn + 1, 0), v);
+            } else {  // alpha's mask k: d_L e^2 or d_R e^-2
+                const int k = (j - P3_ITEMS) >> 1;
+                const bool left = ((j - P3_ITEMS) & 1) == 0;
+                select8(u, left, e, ei);
+                copy8(v, u);
+                if (fold) load_limbs16(at(left ? dl_prev : dr_prev, b, deg, k), w);
+            }
+            sc_mul_n(u, v, u);
+            sc_mul_n(u, w, u);
+            copy8(slot + 8 * j, u);
+        }
     }
-    if (t == 0) {
-        u32 y1[8], ry[8], a0[8], b0[8];
-        load_limbs(a0_out + 16 * b, a0);  // its own store above
-        load_limbs(b0_out + 16 * b, b0);
-        load_limbs(at(y_pows, b, mn + 1, 0), y1);
-        sc_mul_l(rs, y1, ry);
-        sc_mul_l(ry, b0, u);
-        sc_mul_l(ss, y1, v);
-        sc_mul_l(v, a0, v);
-        sc_add_l(u, v, u);
-        store_limbs(at(a1_out, b, width, 2 * mn + deg), u);
-        sc_mul_l(ry, ss, u);
-        store_limbs(at(brow_out, b, deg + 1, deg), u);
+    __syncwarp();
+    // P3 phase: products
+    if (t >= TL) {  // step 2: a0, b0, r y b0, s y a0, r y s; alpha and the copied masks
+        const int l = t - TL;
+        for (int j = l; j < 5 + deg; j += 32) {
+            if (j < 4) {  // a0 (items 0 and 3), b0 (1 and 2)
+                const bool is_a = j == 0 || j == 3;
+                if (fold) {
+                    sc_add_l(slot + (is_a ? 0 : 16), slot + (is_a ? 8 : 24), u);
+                } else {
+                    load_limbs16(is_a ? a_in + 16 * b : b_in + 16 * b, u);
+                }
+                if (j < 2) store_limbs16((is_a ? a0_out : b0_out) + 16 * b, u);
+            }
+            if (j >= 2 && j < 5) {  // r y b0, s y a0, r y s
+                if (j == 4) load_limbs16(s_in + 16 * b, u);
+                copy8(v, slot + 8 * (j == 3 ? 5 : 4));
+                sc_mul_n(u, v, u);
+                if (j < 4) copy8(slot + 8 * (P3_ITEMS + 2 * deg + j - 2), u);
+                else store_limbs16(at(brow_out, b, deg + 1, deg), u);
+            }
+            if (j >= 5) {  // alpha += d_L e^2 + d_R e^-2; d_mask and eta copied
+                const int k = j - 5;
+                load_limbs16(at(alpha_in, b, deg, k), u);
+                if (fold) {
+                    sc_add_l(u, slot + 8 * (P3_ITEMS + 2 * k), u);
+                    sc_add_l(u, slot + 8 * (P3_ITEMS + 2 * k + 1), u);
+                }
+                store_limbs16(at(alpha_out, b, deg, k), u);
+                load_limbs16(at(dmask_in, b, deg, k), u);
+                store_limbs16(at(a1_out, b, width, 2 * mn + k), u);
+                load_limbs16(at(eta_in, b, deg, k), u);
+                store_limbs16(at(brow_out, b, deg + 1, k), u);
+            }
+        }
     }
+    __syncwarp();
+    // P3 phase: close
+    if (t == TL) {  // ry_ar = r y b0 + s y a0
+        sc_add_l(slot + 8 * (P3_ITEMS + 2 * deg), slot + 8 * (P3_ITEMS + 2 * deg + 1), u);
+        store_limbs16(at(a1_out, b, width, 2 * mn + deg), u);
+    }
+    // P3 phase: store
 }
 
-// P3, second entry, a thread a proof: r1 = r + a0 e, s1 = s + b0 e, d1_k = eta_k + d_mask_k e + alpha_k e^2.
+// P3, second entry, a thread an output (2 + deg a proof, in blocks of one warp so that a prove's few outputs
+// reach many SMs): r1 = r + a0 e, s1 = s + b0 e, d1_k = eta_k + (d_mask_k + alpha_k e) e, one or two products.
 __global__ void __launch_bounds__(PR_RESP_THREADS) prove_responses_kernel(
     const int64_t *__restrict__ r_in, const int64_t *__restrict__ s_in, const int64_t *__restrict__ a0_in,
     const int64_t *__restrict__ b0_in, const int64_t *__restrict__ eta_in, const int64_t *__restrict__ dmask_in,
     const int64_t *__restrict__ alpha_in, const int64_t *__restrict__ e_in, long batch, int deg,
     int64_t *__restrict__ r1_out, int64_t *__restrict__ s1_out, int64_t *__restrict__ d1_out) {
-    const long b = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long g = (long)blockIdx.x * blockDim.x + threadIdx.x, b = g / (2 + deg);
+    const int j = (int)(g % (2 + deg));
     if (b >= batch) return;
-    u32 e[8], e2[8], u[8], v[8];
-    load_limbs(e_in + 16 * b, e);
-    sc_sqr_l(e, e2);
-    load_limbs(a0_in + 16 * b, u);
-    sc_mul_l(u, e, u);
-    load_limbs(r_in + 16 * b, v);
-    sc_add_l(v, u, v);
-    store_limbs(r1_out + 16 * b, v);
-    load_limbs(b0_in + 16 * b, u);
-    sc_mul_l(u, e, u);
-    load_limbs(s_in + 16 * b, v);
-    sc_add_l(v, u, v);
-    store_limbs(s1_out + 16 * b, v);
-    for (int k = 0; k < deg; ++k) {
-        load_limbs(at(dmask_in, b, deg, k), u);
-        sc_mul_l(u, e, u);
-        load_limbs(at(alpha_in, b, deg, k), v);
-        sc_mul_l(v, e2, v);
-        sc_add_l(u, v, u);
-        load_limbs(at(eta_in, b, deg, k), v);
-        sc_add_l(v, u, v);
-        store_limbs(at(d1_out, b, deg, k), v);
+    u32 e[8], u[8], v[8];
+    load_limbs16(e_in + 16 * b, e);
+    if (j < 2) {
+        load_limbs16((j ? b0_in : a0_in) + 16 * b, u);
+    } else {
+        load_limbs16(at(alpha_in, b, deg, j - 2), u);
+        sc_mul_n(u, e, u);
+        load_limbs16(at(dmask_in, b, deg, j - 2), v);
+        sc_add_l(v, u, u);
     }
+    sc_mul_n(u, e, u);
+    load_limbs16(j < 2 ? (j ? s_in : r_in) + 16 * b : at(eta_in, b, deg, j - 2), v);
+    sc_add_l(v, u, u);
+    store_limbs16(j < 2 ? (j ? s1_out : r1_out) + 16 * b : at(d1_out, b, deg, j - 2), u);
 }
 
 // P4, a block a proof on four-lane adders.  table: (64, 16, s_tab, 24) words, lanes 2i (g_i) and 2i + 1 (h_i)
@@ -667,14 +660,16 @@ extern "C" int bppt_prove_round(const void *a, const void *b, const void *g, con
     return (int)cudaGetLastError();
 }
 
-// e, e_inv, dl_prev, dr_prev, g, h: null where rounds = 0 (no fold).
+// e, e_inv, dl_prev, dr_prev, g, h: null where rounds = 0 (no fold).  threads: P2's, a multiple of 32 from 64 to
+// 544.  Every tensor 16-byte aligned (the wrapper checks).
 extern "C" int bppt_prove_final(const void *a, const void *b, const void *g, const void *h, const void *alpha,
                                 const void *e, const void *e_inv, const void *dl_prev, const void *dr_prev,
                                 const void *y_pows, const void *y_inv_n, const void *r_s, const void *s_s,
                                 const void *d_mask, const void *eta, long batch, long mn, long rounds, long deg,
                                 long threads, void *a1, void *brow, void *a0, void *b0, void *alpha_out,
                                 void *stream) {
-    if (!shape_ok(batch, mn, rounds, deg, threads) || (rounds > 0) != (e != nullptr))
+    if (!shape_ok(batch, mn, rounds, deg, 32) || (rounds > 0) != (e != nullptr) || threads < 64 ||
+        threads > P2_MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
     prove_final_kernel<<<(unsigned)batch, (unsigned)threads, 0, (cudaStream_t)stream>>>(
         (const int64_t *)a, (const int64_t *)b, (const int64_t *)g, (const int64_t *)h, (const int64_t *)alpha,
@@ -689,7 +684,7 @@ extern "C" int bppt_prove_responses(const void *r_s, const void *s_s, const void
                                     const void *d_mask, const void *alpha, const void *e, long batch, long deg,
                                     void *r1, void *s1, void *d1, void *stream) {
     if (batch < 1 || batch >= (1L << 24) || deg < 1 || deg > 64) return (int)cudaErrorInvalidValue;
-    prove_responses_kernel<<<(unsigned)((batch + PR_RESP_THREADS - 1) / PR_RESP_THREADS), PR_RESP_THREADS, 0,
+    prove_responses_kernel<<<(unsigned)((batch * (2 + deg) + PR_RESP_THREADS - 1) / PR_RESP_THREADS), PR_RESP_THREADS, 0,
                              (cudaStream_t)stream>>>(
         (const int64_t *)r_s, (const int64_t *)s_s, (const int64_t *)a0, (const int64_t *)b0, (const int64_t *)eta,
         (const int64_t *)d_mask, (const int64_t *)alpha, (const int64_t *)e, batch, (int)deg, (int64_t *)r1,

@@ -25,7 +25,22 @@
 //   more to issue in all, but a quarter of the multiplier's time, and
 //   with at most 4224 elements (eight a warp, one warp on each of the 528
 //   schedulers) nothing else wants that scheduler.  The launchers take this
-//   form up to that count.
+//   form up to that count.  A step is a chain of dependent instructions
+//   (a lone warp issues its some 120 SASS instructions well below one a
+//   clock: chip_smoke.py's `fe_sqr4_ns`, `fe_mul4_ns` and the probe's SASS),
+//   so what shortens the chain pays: the lane's two words of the
+//   second operand are picked by two levels of selects, not three (the
+//   product 12% and the squaring 2% faster on an H100).  Tried on the same
+//   card and not kept: every lane gathering the whole product by xor
+//   shuffles and folding it itself (no hand-back, but 44 more selects:
+//   slower), eight lanes an element (a row a lane, a third shuffle round:
+//   the squaring slower, D1 at 4096 elements 43% slower with two warps a
+//   scheduler), and the fold's last carry by lookahead (slower).  A squaring
+//   of only the 36 distinct word products cannot be split evenly over four
+//   lanes that run one instruction stream: the products along each
+//   diagonal j - i = d number 8 - d, which four lanes share evenly only for
+//   d = 0 and 4, so the lanes would need per-lane operand selects that cost
+//   more than the 7 products they save.
 
 #pragma once
 
@@ -50,8 +65,11 @@ struct FourLanes {
 
     __device__ __forceinline__ fe mul(const fe &a, const fe &b) const {
         const unsigned full = 0xFFFFFFFFu;
-        const u32 b0 = t == 0 ? b.w[0] : t == 1 ? b.w[2] : t == 2 ? b.w[4] : b.w[6];
-        const u32 b1 = t == 0 ? b.w[1] : t == 1 ? b.w[3] : t == 2 ? b.w[5] : b.w[7];
+        // words 2t and 2t + 1 of b, picked by two levels of selects: each step begins by waiting for them
+        const bool odd = t & 1, upper = t & 2;
+        const u32 lo0 = odd ? b.w[2] : b.w[0], hi0 = odd ? b.w[6] : b.w[4];
+        const u32 lo1 = odd ? b.w[3] : b.w[1], hi1 = odd ? b.w[7] : b.w[5];
+        const u32 b0 = upper ? hi0 : lo0, b1 = upper ? hi1 : lo1;
         u32 e[16], o[16];
 #pragma unroll
         for (int k = 0; k < 16; ++k) e[k] = o[k] = 0u;

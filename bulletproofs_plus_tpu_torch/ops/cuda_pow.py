@@ -94,11 +94,16 @@ def sqrt_ratio_m1_cuda(u: torch.Tensor, v: torch.Tensor, lanes=None):
     return was_square.reshape(lead), r.reshape(lead + (NLIMBS,))
 
 
+FIELD_PROBE_OPS = {"mul": 0, "sqr": 1, "mul4": 2, "sqr4": 3}
+
+
 def field_latency_probe(x: torch.Tensor, op: str, iters: int, warps: int = 1) -> torch.Tensor:
     """One block of `warps` warps (1 to 32), every thread running `iters`
     dependent field multiplications (op "mul", acc <- acc * x) or squarings
     (op "sqr") from x, (16,) int64 limbs on a CUDA device; returns the
-    chain's end.  One warp gives the dependent latency of an operation, 32
+    chain's end.  "mul4" and "sqr4" run the four-lane product and squaring
+    of csrc/sqrt_ratio.cuh (`FourLanes`, D1's chain), a group of four lanes
+    an operation.  One warp gives the dependent latency of an operation, 32
     warps (eight on each of the SM's four schedulers) what a busy scheduler
     takes for one.  Not a kernel of any path, so it counts no launch."""
     cuda.require(x, "field_latency_probe x", (NLIMBS,))
@@ -107,7 +112,7 @@ def field_latency_probe(x: torch.Tensor, op: str, iters: int, warps: int = 1) ->
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         status = cuda.lib("pow").bppt_field_latency(
-            x.data_ptr(), out.data_ptr(), {"mul": 0, "sqr": 1}[op], iters, warps,
+            x.data_ptr(), out.data_ptr(), FIELD_PROBE_OPS[op], iters, warps,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda.check("pow", status, "field_latency_probe")

@@ -29,19 +29,28 @@ from ..native import cuda
 from .edwards import PointArray
 from .limbs import NLIMBS
 
-MAX_THREADS = 256  # P1 and P3's block: a proof, its threads striding over the lanes
+MAX_THREADS = 256  # P1's block: a proof, its threads striding over the lanes
 MAX_SMEM = 232448  # shared memory a block may use: 227 KB; P2's scratch past it lies in device memory
+RESPONSE_THREADS = 32  # P3's second entry: a thread an output, a warp a block (csrc/prover.cu PR_RESP_THREADS)
 
 
 def block_threads(mn: int) -> int:
-    """P1 and P3's threads a block: mn rounded up to a power of two, from 32 to 256."""
+    """P1's threads a block: mn rounded up to a power of two, from 32 to 256."""
     return min(MAX_THREADS, max(32, 1 << (mn - 1).bit_length()))
 
 
 def round_threads(mn: int) -> int:
-    """P2's threads a block: a g and an h thread for each lane, 2 mn from 32 to
-    512 lane threads, and one warp more (alpha's fold, the Pedersen lanes)."""
+    """P2's and P3's first entry's threads a block: a g and an h thread for
+    each lane, 2 mn from 32 to 512 lane threads, and one warp more (P2:
+    alpha's fold and the Pedersen lanes; P3: the last fold of a and b,
+    alpha's and the closing terms)."""
     return min(512, max(32, 2 * mn)) + 32
+
+
+def response_blocks(batch: int, deg: int) -> int:
+    """P3's second entry's blocks of RESPONSE_THREADS: a thread for each of a
+    proof's 2 + deg outputs (r1, s1, d1_1..d1_deg)."""
+    return -(-batch * (2 + deg) // RESPONSE_THREADS)
 
 
 def round_words(mn: int, r: int, threads: int) -> int:
@@ -74,6 +83,13 @@ def _check(named: dict) -> torch.device:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _aligned(named: dict) -> None:
+    """P2 and P3 move each value as 16-byte accesses: every tensor of `named` 16-byte aligned."""
+    for what, (t, _) in named.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: expected a 16-byte aligned tensor")
 
 
 def _fold_args(fold, batch: int, deg: int, what: str) -> dict:
@@ -128,9 +144,7 @@ def prove_round(a, b, g, h, alpha, fold, y_pows, y_inv_n, d_l, d_r, *, r: int):
     if fold is not None:
         named.update({"prove_round g": (g, (B, mn, NLIMBS)), "prove_round h": (h, (B, mn, NLIMBS))})
     dev = _check(named)
-    for what, (t, _) in named.items():  # P2 moves each value as 16-byte accesses
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: expected a 16-byte aligned tensor")
+    _aligned(named)
     e, e_inv, dl_prev, dr_prev, g, h = (*fold, g, h) if fold is not None else (None,) * 6
     new = functools.partial(torch.empty, dtype=torch.int64, device=dev)
     a_out, b_out = new((B, 2 * n, NLIMBS)), new((B, 2 * n, NLIMBS))
@@ -168,6 +182,7 @@ def prove_final(a, b, g, h, alpha, fold, y_pows, y_inv_n, r_s, s_s, d_mask, eta)
     if fold is not None:
         named.update({"prove_final g": (g, (B, mn, NLIMBS)), "prove_final h": (h, (B, mn, NLIMBS))})
     dev = _check(named)
+    _aligned(named)
     e, e_inv, dl_prev, dr_prev, g, h = (*fold, g, h) if fold is not None else (None,) * 6
     new = functools.partial(torch.empty, dtype=torch.int64, device=dev)
     a1, brow = new((B, 2 * mn + deg + 1, NLIMBS)), new((B, deg + 1, NLIMBS))
@@ -176,7 +191,7 @@ def prove_final(a, b, g, h, alpha, fold, y_pows, y_inv_n, r_s, s_s, d_mask, eta)
         status = cuda.lib("prover").bppt_prove_final(
             a.data_ptr(), b.data_ptr(), _ptr(g), _ptr(h), alpha.data_ptr(), _ptr(e), _ptr(e_inv), _ptr(dl_prev),
             _ptr(dr_prev), y_pows.data_ptr(), y_inv_n.data_ptr(), r_s.data_ptr(), s_s.data_ptr(), d_mask.data_ptr(),
-            eta.data_ptr(), B, mn, rounds, deg, block_threads(mn), a1.data_ptr(), brow.data_ptr(), a0.data_ptr(),
+            eta.data_ptr(), B, mn, rounds, deg, round_threads(mn), a1.data_ptr(), brow.data_ptr(), a0.data_ptr(),
             b0.data_ptr(), alpha_out.data_ptr(), _stream(),
         )
     cuda.check("prover", status, "prove_final")
@@ -187,11 +202,12 @@ def prove_final(a, b, g, h, alpha, fold, y_pows, y_inv_n, r_s, s_s, d_mask, eta)
 def prove_responses(r_s, s_s, a0, b0, eta, d_mask, alpha, e):
     """P3's second entry: (r1, s1 (B, 16), d1 (B, deg, 16)), in one launch."""
     B, deg = alpha.shape[0], alpha.shape[1]
-    dev = _check({"prove_responses r": (r_s, (B, NLIMBS)), "prove_responses s": (s_s, (B, NLIMBS)),
-                  "prove_responses a0": (a0, (B, NLIMBS)), "prove_responses b0": (b0, (B, NLIMBS)),
-                  "prove_responses eta": (eta, (B, deg, NLIMBS)),
-                  "prove_responses d_mask": (d_mask, (B, deg, NLIMBS)),
-                  "prove_responses alpha": (alpha, (B, deg, NLIMBS)), "prove_responses e": (e, (B, NLIMBS))})
+    named = {"prove_responses r": (r_s, (B, NLIMBS)), "prove_responses s": (s_s, (B, NLIMBS)),
+             "prove_responses a0": (a0, (B, NLIMBS)), "prove_responses b0": (b0, (B, NLIMBS)),
+             "prove_responses eta": (eta, (B, deg, NLIMBS)), "prove_responses d_mask": (d_mask, (B, deg, NLIMBS)),
+             "prove_responses alpha": (alpha, (B, deg, NLIMBS)), "prove_responses e": (e, (B, NLIMBS))}
+    dev = _check(named)
+    _aligned(named)
     new = functools.partial(torch.empty, dtype=torch.int64, device=dev)
     r1, s1, d1 = new((B, NLIMBS)), new((B, NLIMBS)), new((B, deg, NLIMBS))
     with torch.cuda.device(dev):

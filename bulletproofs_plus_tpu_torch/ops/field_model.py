@@ -9,7 +9,8 @@ overflow), the model asserts it.  The kernels' own functions follow in the
 same way: K4's chain and SQRT_RATIO_M1 (csrc/sqrt_ratio.cuh), D1, C1 and I1
 (csrc/ristretto.cu), and C1's double-and-encode with its inversion mod p by
 divsteps (`fe_inv`, csrc/divsteps.cuh, on ops/scalar_model.py's divsteps
-steps).  tests/test_torch_field.py holds the model against Python integers,
+steps), and the four-lane product of K4's chain lane by lane
+(`fe_mul4_lanes`).  tests/test_torch_field.py holds the model against Python integers,
 tests/test_torch_ristretto.py its D1, C1 (both forms), I1 and `fe_inv`
 against the JAX package and Python integers; nothing else uses it.
 """
@@ -144,14 +145,7 @@ def fe_reduce_wide(cc: Carry, e: list, o: list) -> list:
     for k in range(2, 16):
         t[k] = cc.addc_cc(e[k], o[k - 1])
     assert cc.cf == 0, "the product reached 2^512"
-    s = [t[k + 8] * 38 + t[k] for k in range(8)]
-    r = [0] * 8
-    r[0] = s[0] & M32
-    r[1] = cc.add_cc(s[1] & M32, s[0] >> 32)
-    for k in range(2, 8):
-        r[k] = cc.addc_cc(s[k] & M32, s[k - 1] >> 32)
-    fe_fold_top(cc, r, cc.addc(s[7] >> 32, 0))
-    return r
+    return _fold_wide(cc, t)
 
 
 def wide_mul(a: list, b: list):
@@ -246,6 +240,59 @@ def fe_select(c: bool, a: list, b: list) -> list:
 def fe_abs(a: list) -> list:
     c = fe_canon(a)
     return fe_select((c[0] & 1) != 0, fe_canon(fe_neg(c)), c)
+
+
+def _fold_wide(cc: Carry, t: list) -> list:
+    """field25519.cuh fe_fold_wide: 16 words (a value below 2^512) -> 8."""
+    s = [t[k + 8] * 38 + t[k] for k in range(8)]
+    r = [0] * 8
+    r[0] = s[0] & M32
+    r[1] = cc.add_cc(s[1] & M32, s[0] >> 32)
+    for k in range(2, 8):
+        r[k] = cc.addc_cc(s[k] & M32, s[k - 1] >> 32)
+    fe_fold_top(cc, r, cc.addc(s[7] >> 32, 0))
+    return r
+
+
+def fe_mul4_lanes(a: list, b: list):
+    """csrc/sqrt_ratio.cuh `FourLanes::mul` (D1's and C1's four-lane product;
+    its squaring is mul(a, a)), lane by lane: each lane t's share, a times
+    words 2t and 2t + 1 of b as ten words `p` to be weighed by 2^(64 t); the
+    first shuffle round's sums in lanes 0 and 2, p_t + 2^64 p_(t+1) as
+    twelve words; the second's in lane 0, the whole 512-bit product `w` as
+    sixteen; and the folded eight words every lane receives from lane 0.
+    -> (shares, (s_0, s_2), w, r)."""
+    shares = []
+    for t in range(4):
+        cc = Carry()
+        e, o = [0] * 16, [0] * 16
+        for i, y in enumerate((b[2 * t], b[2 * t + 1])):  # fe_mul_row(e, o, a, y, i)
+            j0 = i & 1
+            j1 = 1 - j0
+            for j in range(j0, 8, 2):
+                _mad_pair(cc, e, i + j, a[j], y, j == j0)
+            _mad_chain_end(cc, e, i + j0 + 8)
+            for j in range(j1, 8, 2):
+                _mad_pair(cc, o, i + j - 1, a[j], y, j == j1)
+            _mad_chain_end(cc, o, i + j1 + 7)
+        p = [0] * 10
+        p[0] = e[0]
+        p[1] = cc.add_cc(e[1], o[0])
+        for k in range(2, 10):
+            p[k] = cc.addc_cc(e[k], o[k - 1])
+        shares.append(p)
+    pairs = []
+    for t in (0, 2):  # s = p + W^2 * (the next lane's p)
+        cc = Carry()
+        p, got = shares[t], shares[t + 1]
+        s = p[:2] + [cc.add_cc(p[2], got[0])] + [cc.addc_cc(p[k], got[k - 2]) for k in range(3, 10)]
+        s += [cc.addc_cc(0, got[8]), cc.addc(0, got[9])]
+        pairs.append(s)
+    cc = Carry()
+    s, got = pairs
+    w = s[:4] + [cc.add_cc(s[4], got[0])] + [cc.addc_cc(s[k], got[k - 4]) for k in range(5, 12)]
+    w += [cc.addc_cc(0, got[k - 4]) for k in range(12, 15)] + [cc.addc(0, got[11])]
+    return shares, tuple(pairs), w, _fold_wide(Carry(), w)
 
 
 def fe_sqr_n(x: list, n: int) -> list:

@@ -12,7 +12,7 @@ identity check, at the verify's and the prover's shapes, C1 in both its
 forms: the RFC 9496 encoder and the double-and-encode the prover runs; P1-P4,
 the prover's scalar protocol and the A commitment's masked sum, at the
 128-proof prove's shape, P2 at each of its six rounds and, at its row's
-round, by phase), replays and
+round, by phase, P3's first entry by phase too), replays and
 verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
 and the host engine with their MSMs on the card (`msm_backend="device"`),
 verifies the 256 x 64-bit and 64 x m4 batches through
@@ -111,7 +111,9 @@ and C1 count K4's chain and SQRT_RATIO_M1 as K4's row does (POW_*, RATIO_*)
 and the squarings and products of the formula around them (DECODE_*,
 ENCODE_*, counted from ops/ristretto.py), I1 none.  Their `chain_ms` is the
 same chain and the formula's products on its longest path
-(DECODE_CHAIN_*, ENCODE_CHAIN_*) at `fe_sqr_ns` and `fe_mul_ns`.  C1's
+(DECODE_CHAIN_*, ENCODE_CHAIN_*) at `fe_sqr_ns` and `fe_mul_ns`; D1's
+`chain4_ms` the same at the four-lane form's own latencies (`fe_sqr4_ns`,
+`fe_mul4_ns`: the form D1 takes at a verify's 4096 points).  C1's
 double-and-encode reads a point and writes an encoding as the sqrt form
 does, and counts its lane's squarings and products (DC_SQR, DC_MUL:
 Montgomery's trick 3 a lane) and one inversion a block of 32 (FE_INV_OPS:
@@ -129,9 +131,10 @@ P1-P3 read each input once and write each output once as int64 limbs, and
 count the products mod l that one proof needs at the fewest
 (`_prover_products`), each `SC_MULADDS_PER_MUL`; their `chain_ms` is the
 products one thread runs one after another (`_prover_chains`) at
-`sc_mul_ns` (P2's: its items handed out as its threads take them,
-`_p2_chain`); P2's row also gives its phases, clock64() stamps at the
-`// P2 phase:` markers of a copy built by scripts/profile_torch_p2.py, and
+`sc_mul_ns` (P2's and P3's first entry's: their items handed out as their
+threads take them, `_p2_chain`, `_p3_chain`); P2's and P3's first entry's
+rows also give their phases, clock64() stamps at the `// P2 phase:` and
+`// P3 phase:` markers of a copy built by scripts/profile_torch_p2.py, and
 that copy's own `stamped_graph_ms`.  P4 reads the bits, the start points and the generators' first
 two table words once and writes a point a proof, and counts a mixed addition
 (7 products) a lane; its chain is an adder's four-lane additions and the
@@ -400,7 +403,8 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
     ptxas.update(regs)
     for name in cuda.LIBRARIES:
         cuda.lib(name)
-    sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel"))
+    sass = sass_histogram(cuda, "pow", ("field_mul_latency_kernel", "field_sqr_latency_kernel",
+                                        "field4_latency_kernelILb0E", "field4_latency_kernelILb1E"))
     sass.update(sass_histogram(cuda, "replay", ("perm_latency_kernel", "keccak_latency_kernel", "replay_kernel",
                                                 "reduce_wide_kernel")))
     sass.update(sass_histogram(cuda, "scalar", ("scalar_latency_kernel", "scalar_inv_latency_kernel",
@@ -496,16 +500,18 @@ def _fixed_rows(torch, cf, F, tables, lane_idx, scalars, groups: int, probe: dic
 
 
 def _latency_probe(torch, cp, F, pack_ints, int_from_limbs, rs) -> dict:
-    """Dependent latency of one fe_mul and one fe_sqr (`fe_*_ns`): a one-warp
-    chain of 1280 against one of 256, the difference over 1024; the ends
-    checked.  `fe_*_busy_ns` is the same with 32 warps, over the eight that
-    share a scheduler: what one operation takes where the SM is kept busy."""
+    """Dependent latency of one fe_mul and one fe_sqr (`fe_*_ns`), and of the
+    four-lane product and squaring of D1's chain (`fe_mul4_ns`,
+    `fe_sqr4_ns`, sqrt_ratio.cuh `FourLanes`): a one-warp chain of 1280
+    against one of 256, the difference over 1024; the ends checked.
+    `fe_*_busy_ns` is the same with 32 warps, over the eight that share a
+    scheduler: what one operation takes where the SM is kept busy."""
     v = rs.randrange(2**256)
     x = torch.as_tensor(pack_ints([v]).astype("int64")[0], device="cuda")
     out = {}
-    for op in ("mul", "sqr"):
+    for op in ("mul", "sqr", "mul4", "sqr4"):
         got = int_from_limbs(cp.field_latency_probe(x, op, 40).cpu().numpy()) % F.P
-        if got != (pow(v, 41, F.P) if op == "mul" else pow(v, 2**40, F.P)):
+        if got != (pow(v, 41, F.P) if op.startswith("mul") else pow(v, 2**40, F.P)):
             raise AssertionError(f"latency probe: a chain of 40 fe_{op} is wrong")
         for key, warps in ((f"fe_{op}_ns", 1), (f"fe_{op}_busy_ns", 32)):
             short = kernel_ms(lambda: cp.field_latency_probe(x, op, 256, warps))
@@ -963,6 +969,9 @@ def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: di
         "ms": kernel_ms(lambda: rc.decompress_cuda(sb)), "graph_ms": graph_ms(lambda: rc.decompress_cuda(sb)),
         **forms, "plain_ms": median_ms(lambda: rist.decompress_plain(sb), 3), "bound_ms": b_ms, "bound_by": b_by,
         "chain_ms": ((k4_sqr + DECODE_CHAIN_SQR) * sqr_ns + (k4_mul + DECODE_CHAIN_MUL) * mul_ns) * 1e-6,
+        "chain4_ms": ((k4_sqr + DECODE_CHAIN_SQR) * probe["fe_sqr4_ns"]
+                      + (k4_mul + DECODE_CHAIN_MUL) * probe["fe_mul4_ns"]) * 1e-6,
+        "fe_mul4_ns": probe["fe_mul4_ns"], "fe_sqr4_ns": probe["fe_sqr4_ns"],
         "ptxas": {k: ptxas.get(k, {}) for k in ("decompress_kernel", "decompress_coop_kernel")},
         **ptxas.get("decompress_coop_kernel", {}),
     }
@@ -1104,14 +1113,15 @@ def _prover_products(mn: int, m: int, deg: int, rounds: int, r: int | None = Non
     one) and two a term of c_L and of c_R; P3's first entry the same fold to
     one value, four factors (g's two and h's two, each by r or s), one for
     each of g and h a lane and five for ry_ar and rys (only those five
-    without rounds); its second 3 + 2 deg."""
+    without rounds); its second 2 + 2 deg (r1 and s1 one each, d1_k
+    (d_mask_k + alpha_k e) e two)."""
     n = mn >> ((r or 0) + 1)
     fold = 2 + 8 * n + 2 + 2 * deg + 2 * mn
     last = 2 + 4 + 2 + 2 * deg + 4 + 2 * mn if rounds else 0
     return {"prove_prep": mn + max(rounds - 1, 0) + m + mn + m + m * deg,
             "prove_round": (fold + 2 * mn if r else 0) + 2 * n + 4 * n,
             "prove_final": last + 5,
-            "prove_responses": 3 + 2 * deg}
+            "prove_responses": 2 + 2 * deg}
 
 
 def _prover_bytes(mn: int, m: int, deg: int, rounds: int, r: int | None = None) -> dict:
@@ -1139,13 +1149,12 @@ def _prover_bytes(mn: int, m: int, deg: int, rounds: int, r: int | None = None) 
 
 
 def _prover_chains(mn: int, m: int, deg: int, rounds: int, r: int) -> dict:
-    """Products one thread of P1-P3 runs one after another at its longest (the
-    block's threads, `cuda_prover.block_threads`, striding over the lanes):
-    P1 the larger of thread 0's z ladder and y^-n squarings and a thread's
-    y^k (squarings and products of k's bits), then two a lane and two an
-    alpha term; P2 the fold's factors and four a folded pair, e^2 and e^-2
-    and two a mask, then five a lane (three in round 0) and four a c term;
-    P3 as P2 with one folded pair and two a lane, then five."""
+    """Products one thread of P1-P3 runs one after another at its longest:
+    P1 (the block's threads, `cuda_prover.block_threads`, striding over the
+    lanes) the larger of thread 0's z ladder and y^-n squarings and a
+    thread's y^k (squarings and products of k's bits), then two a lane and
+    two an alpha term; P2 as `_p2_chain`; P3's first entry as `_p3_chain`;
+    its second two, a d1 thread's."""
     from bulletproofs_plus_tpu_torch.ops.cuda_prover import block_threads
 
     t = block_threads(mn)
@@ -1153,8 +1162,26 @@ def _prover_chains(mn: int, m: int, deg: int, rounds: int, r: int) -> dict:
     pows = max(sum(k.bit_length() + bin(k).count("1") - 2 for k in range(j + 1, mn + 2, t)) for j in range(t))
     return {"prove_prep": max(m + max(rounds - 1, 0), pows) + 2 * per + 2 * m,
             "prove_round": _p2_chain(mn, rounds, r, deg) if r < rounds else 0,
-            "prove_final": 2 + 4 + 4 + 4 * per + 5,
-            "prove_responses": 3 + 2 * deg}
+            "prove_final": _p3_chain(mn, rounds, deg),
+            "prove_responses": 2}
+
+
+def _p3_chain(mn: int, rounds: int, deg: int) -> int:
+    """P3's first entry's longest path in products mod l, its items handed
+    out as csrc/prover.cu's prove_final_kernel hands them: a lane thread's
+    items one after another (a g item on a hi lane three products, e y^-1
+    first, every other two; one without a fold, the product by r or s), and
+    the closing warp's three steps, two products an item of the first and
+    one of the second, its items strided over 32 lanes."""
+    from bulletproofs_plus_tpu_torch.ops.cuda_prover import round_threads
+
+    lanes = round_threads(mn) - 32
+    per = [0] * lanes
+    for q in range(2 * mn):
+        i = q % mn
+        per[q % lanes] += (3 if q < mn and i & 1 else 2) if rounds else 1
+    closing = 2 * -(-(6 + 2 * deg) // 32) + -(-(5 + deg) // 32)
+    return max(max(per), closing)
 
 
 def _p2_chain(mn: int, rounds: int, r: int, deg: int) -> int:
@@ -1255,7 +1282,7 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
                 "graph_ms": graph_ms(lambda: call(*args[0], **args[1])),
                 "plain_ms": median_ms(lambda: plain(*args[0], **args[1]), 3), "bound_ms": b_ms, "bound_by": b_by,
                 "chain_ms": chain * sc_ns * 1e-6, "products": products, "bytes": moved,
-                "threads": (cpr.round_threads if name == "prove_round" else cpr.block_threads)(mn), "blocks": batch,
+                "threads": (cpr.block_threads if name == "prove_prep" else cpr.round_threads)(mn), "blocks": batch,
                 **ptxas.get(f"{name}_kernel", {}), **(extra or {})}
 
     cuda.reset_launches()
@@ -1291,11 +1318,17 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
     inp = pin.to_device(pin.final_inputs(batch, m, n, deg, seed=2), torch, "cuda")
     args = ([inp[k] for k in keys], {})
     rows["prove_final"] = row("prove_final", cpr.prove_final, PK.prove_final_plain, args, cpr.prove_final(*args[0]))
+    # P3's first entry by phase: its `// P3 phase:` markers, stamped in a copy (profile_torch_p2.py --kernel final)
+    so, names, _ = p2p.build(os.path.join(cuda.CSRC, "prover.cu"), os.path.join(BUILD_DIR, "p3_phases"), cuda, "P3")
+    split = p2p.split(lambda: cpr.prove_final(*args[0]), p2p.load_stamped(so, cuda), names, cuda, batch,
+                      cpr.round_threads(mn) // 32, graph_ms)
+    rows["prove_final"].update(phases=split["phases"], stamped_graph_ms=split["stamped_graph_ms"])
     keys = ("r_s", "s_s", "a0", "b0", "eta", "d_mask", "alpha", "e")
     inp = pin.to_device(pin.responses_inputs(batch, deg, seed=3), torch, "cuda")
     args = ([inp[k] for k in keys], {})
     rows["prove_responses"] = row("prove_responses", cpr.prove_responses, PK.prove_responses_plain, args,
-                                  cpr.prove_responses(*args[0]), extra={"threads": 128, "blocks": -(-batch // 128)})
+                                  cpr.prove_responses(*args[0]),
+                                  extra={"threads": cpr.RESPONSE_THREADS, "blocks": cpr.response_blocks(batch, deg)})
 
     # P4 on the joined tables of the prove's generators, from alpha's point as K6 leaves it
     table = params.bp_gens.fixed_tables_joined(2 * mn, params.pc_gens, "cuda")
@@ -2470,7 +2503,7 @@ def main() -> int:
                                                 "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape",
                                                 "sc_mul_ns", "sc_inv_ns", "fe_inv_ns", "ptxas", "one_lane_graph_ms",
                                                 "four_lanes_graph_ms", "products", "inversions", "round", "by_round",
-                                                "phases", "stamped_graph_ms")
+                                                "phases", "stamped_graph_ms", "chain4_ms", "fe_mul4_ns", "fe_sqr4_ns")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

@@ -173,15 +173,16 @@ def test_pow_p58_kernel_matches_python(card):
     assert cp.pow_p58_cuda(x[:0]).shape == (0, 16)
 
 
-@pytest.mark.parametrize("op", ["mul", "sqr"])
+@pytest.mark.parametrize("op", ["mul", "sqr", "mul4", "sqr4"])
 def test_field_probe_chains_match_python(card, op):
-    """The latency probe's chains of dependent fe_mul and fe_sqr from each
-    edge value: x^(n + 1) and x^(2^n)."""
+    """The latency probe's chains of dependent fe_mul and fe_sqr, and of the
+    four-lane product and squaring of D1's chain, from each edge value: x^(n
+    + 1) and x^(2^n), with one warp and with three."""
     for v in FIELD_EDGES + [2**255 + 12345]:
         x = torch.as_tensor(pack_ints([v]).astype(np.int64)[0], device=card)
-        for n in (1, 2, 37):
-            got = int_from_limbs(cp.field_latency_probe(x, op, n).cpu().numpy()) % P
-            assert got == (pow(v, n + 1, P) if op == "mul" else pow(v, 2**n, P))
+        for n, warps in ((1, 1), (2, 1), (37, 1), (5, 3)):
+            got = int_from_limbs(cp.field_latency_probe(x, op, n, warps).cpu().numpy()) % P
+            assert got == (pow(v, n + 1, P) if op.startswith("mul") else pow(v, 2**n, P))
 
 
 @pytest.mark.parametrize("op", cp.POINT_PROBE_OPS)
@@ -379,8 +380,9 @@ def _ristretto_inputs(card, n, seed):
     return torch.as_tensor(pack_ints(vals).astype(np.int64), device=card)
 
 
-# empty, one lane, the four-lane form with a ragged last warp, just past its cut (one lane an element)
-@pytest.mark.parametrize("n", [0, 1, 4099, 4225])
+# empty, one lane, a verify's 4096 points, the four-lane form with a ragged last warp and at its cut, just past
+# it (one lane an element)
+@pytest.mark.parametrize("n", [0, 1, 4096, 4099, 4224, 4225])
 def test_decompress_kernel_matches_plain(card, n):
     """D1 against its plain twin in both forms and the launcher's pick: the
     mask exactly, the coordinates canonical and equal mod p, the identity on
@@ -398,6 +400,26 @@ def test_decompress_kernel_matches_plain(card, n):
     for lanes in (1, 4):
         pts_l, ok_l = rcu.decompress_cuda(s, lanes=lanes)
         assert torch.equal(ok_l, ok) and all(torch.equal(a, b) for a, b in zip(pts_l, pts))
+
+
+def test_decompress_kernel_decode_edges(card):
+    """D1 at the 39 decode edges of chip_smoke.py (RFC 9496 Appendix A.2's
+    bad encodings, s >= p, odd s, p - 1, the largest raw inputs, 0) before
+    one valid encoding, in both forms: every edge but 0 rejected, its lane
+    the identity, equal to the plain twin."""
+    from chip_smoke import RFC9496_BAD
+
+    valid = int.from_bytes(hr.compress(hr.point_mul(12345, hr.BASEPOINT)), "little")
+    edges = [int.from_bytes(bytes.fromhex(h), "little") for h in RFC9496_BAD]
+    edges += [P, P + 1, 2 * P, 2 * P - valid, 1, P - valid, P - 1, 2**256 - 1, 2**255 - 2, 0]
+    assert len(edges) == 39
+    s = torch.as_tensor(pack_ints(edges + [valid]).astype(np.int64), device=card)
+    want_pts, want_ok = rist.decompress_plain(s)
+    assert want_ok.tolist() == [False] * 38 + [True, True]
+    for lanes in (1, 4):
+        pts, ok = rcu.decompress_cuda(s, lanes=lanes)
+        assert torch.equal(ok, want_ok)
+        assert all(torch.equal(c, F.canon25519(w)) for c, w in zip(pts, want_pts))
 
 
 @pytest.mark.parametrize("shape", [(0,), (1,), (128,), (128, 2), (4225,)])  # the prover's shapes, and ragged
@@ -876,6 +898,48 @@ def test_prove_scalar_kernels_match_plain(card, batch, m, n, deg):
     assert _equal(got, PK.prove_responses_plain(*(to_device(inp, torch, "cpu")[k] for k in keys)))
     assert dict(cuda.launches) == {"prove_prep": 1, "prove_round": len({0, 1, rounds - 1}), "prove_final": 1,
                                    "prove_responses": 1}
+
+
+# (batch, m, bit length, extension degree): mn 1 (no rounds, no fold) to 2,048 (lane items strided), degrees 1, 5
+# and 6, batches of one proof, 128, 129 and 1,025
+FINAL_SHAPES = [(1, 1, 1, 1), (1025, 1, 1, 6), (128, 1, 64, 1), (129, 1, 64, 5), (1025, 1, 64, 6), (128, 4, 64, 5),
+                (1, 4, 64, 6), (129, 4, 64, 1), (2, 32, 64, 1), (1, 32, 64, 6)]
+
+
+@pytest.mark.parametrize("batch, m, n, deg", FINAL_SHAPES,
+                         ids=[f"b{b}_mn{m * n}_deg{d}" for b, m, n, d in FINAL_SHAPES])
+def test_prove_final_kernel_matches_plain(card, batch, m, n, deg):
+    """P3's first entry on the card against its plain twin on the CPU, every
+    output limb for limb, one launch; the fold's challenge zero-free at odd
+    degrees."""
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from torch_prover_inputs import final_inputs, to_device
+
+    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "r_s", "s_s", "d_mask", "eta")
+    inp = final_inputs(batch, m, n, deg, seed=batch + m * n + deg, zero_free=deg % 2 == 1)
+    cuda.reset_launches()
+    got = cpr.prove_final(*(to_device(inp, torch, card)[k] for k in keys))
+    assert _equal(got, PK.prove_final_plain(*(to_device(inp, torch, "cpu")[k] for k in keys)))
+    assert dict(cuda.launches) == {"prove_final": 1}
+
+
+def test_prove_responses_kernel_matches_plain(card):
+    """P3's second entry on the card against its plain twin on the CPU at
+    batches 1, 128, 129 and 1,025 and degrees 1, 5 and 6 (a ragged last
+    block), every output limb for limb, one launch a call."""
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from torch_prover_inputs import responses_inputs, to_device
+
+    keys = ("r_s", "s_s", "a0", "b0", "eta", "d_mask", "alpha", "e")
+    cuda.reset_launches()
+    cases = [(batch, deg) for batch in (1, 128, 129, 1025) for deg in (1, 5, 6)]
+    for batch, deg in cases:
+        inp = responses_inputs(batch, deg, seed=batch + deg)
+        got = cpr.prove_responses(*(to_device(inp, torch, card)[k] for k in keys))
+        assert _equal(got, PK.prove_responses_plain(*(to_device(inp, torch, "cpu")[k] for k in keys))), (batch, deg)
+    assert dict(cuda.launches) == {"prove_responses": len(cases)}
 
 
 # both prove shapes, and mn = 2048, whose items the threads stride over and whose scratch lies in device memory

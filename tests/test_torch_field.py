@@ -10,6 +10,8 @@ can run, is held against Python integers through its word-exact model
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -22,9 +24,12 @@ from bulletproofs_plus_tpu_torch.ops import field_model as fm
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import pfield as pf
 from bulletproofs_plus_tpu_torch.ops import ristretto as rist
+from torch_jax_loops import jax_loops_jitted_once  # noqa: F401  (the fixture, used by pytestmark)
 
 P, L = F.P, F.L
 torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers off each other's cores
+# the JAX package's eager references: each fori_loop compiled once, not at every call (tests/torch_jax_loops.py)
+pytestmark = pytest.mark.usefixtures("jax_loops_jitted_once")
 # Values below 2^256 that sit at the reduction edges, including the
 # carry-out window of the 2^256 == 38 fold (2^256 - 30 squared).
 EDGES_P = [0, 1, 2, 19, P - 1, P, P + 1, 2**255, 2**256 - 1, 2**256 - 30, 2**256 - 38, 2**256 - 19]
@@ -331,6 +336,45 @@ def test_field_model_carry_out_window(a, b):
     assert V(fm.fe_mul(W(a), W(b))) % P == a * b % P
     if a == b:
         assert V(fm.fe_sqr(W(a))) % P == a * a % P
+
+
+def _words_value(words):
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
+def _check_mul4_lanes(a, b):
+    """FourLanes::mul's model (`fe_mul4_lanes`) on a, b: the four lanes'
+    shares weighed by 2^(64 t) sum to a b, so do the first round's two sums
+    and the second round's sixteen words, and the folded words are fe_mul's
+    (fe_sqr's for a square), word for word."""
+    W = fm.to_words
+    shares, (s0, s2), w, r = fm.fe_mul4_lanes(W(a), W(b))
+    assert all(len(p) == 10 for p in shares) and len(s0) == len(s2) == 12 and len(w) == 16
+    assert sum(_words_value(p) << (64 * t) for t, p in enumerate(shares)) == a * b
+    assert _words_value(s0) + (_words_value(s2) << 128) == _words_value(w) == a * b
+    assert r == fm.fe_mul(W(a), W(b))
+    if a == b:
+        assert r == fm.fe_sqr(W(a))
+
+
+@pytest.mark.parametrize("square", [False, True], ids=["mul4", "sqr4"])
+def test_field_model_four_lanes_match_one_lane(square):
+    """D1's four-lane product and squaring (csrc/sqrt_ratio.cuh, modelled
+    lane by lane) against Python integers and the one-lane fe_mul and fe_sqr
+    words, on the model's edge operands (0, 1, p - 1, p, 2^255 - 1, 2^256 -
+    1, words of all ones, the carry-out window) and random ones."""
+    vals = _model_operands()
+    for a in vals:
+        for b in [a] if square else vals[::3]:
+            _check_mul4_lanes(a, b)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(0, 2**256 - 1), st.integers(0, 2**256 - 1))
+def test_field_model_four_lanes_any_operands(a, b):
+    """The same on any two values below 2^256, and on the square of each."""
+    _check_mul4_lanes(a, b)
+    _check_mul4_lanes(a, a)
 
 
 def test_field_model_pow_p58_and_sqrt_ratio():

@@ -32,8 +32,11 @@ from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 from bulletproofs_plus_tpu_torch.ops.limbs import bytes_from_limbs
 from bulletproofs_plus_tpu_torch.ops.msm import host_msm, msm_kernel, signed_digits4, tree_reduce
+from torch_jax_loops import jax_loops_jitted_once  # noqa: F401  (the fixture, used by pytestmark)
 
 torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers off each other's cores
+# the JAX package's eager references: each fori_loop compiled once, not at every call (tests/torch_jax_loops.py)
+pytestmark = pytest.mark.usefixtures("jax_loops_jitted_once")
 
 S_TAB = 8
 BASE_PTS = [hr.point_mul(9 * i + 4, hr.BASEPOINT) for i in range(S_TAB)]

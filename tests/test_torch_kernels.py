@@ -31,9 +31,12 @@ from bulletproofs_plus_tpu_torch.ops import field as F
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 from bulletproofs_plus_tpu_torch.ops.msm import host_msm, msm_kernel
+from torch_jax_loops import jax_loops_jitted_once  # noqa: F401  (the fixture, used by pytestmark)
 
 P = hr.P
 torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers off each other's cores
+# the JAX package's eager references: each fori_loop compiled once, not at every call (tests/torch_jax_loops.py)
+pytestmark = pytest.mark.usefixtures("jax_loops_jitted_once")
 
 
 @pytest.fixture
@@ -182,8 +185,9 @@ def horner_edges():
     """K3's edge inputs, the four stacked on a trailing axis, through the
     plain version (CPU tensor: one call of the wrapper's path) and through
     the TPU kernel's body, `pm._horner_kernel`, run eagerly on the same limbs
-    in its bit-reversed window order: {case: (host window sums, torch
-    result, JAX result)}, results as host points."""
+    in its bit-reversed window order (its six levels' doubling loops over
+    one jitted doubling, tests/torch_jax_loops.py): {case: (host window
+    sums, torch result, JAX result)}, results as host points."""
     pts, wsum = _window_sums(63)
     identity = cm.coords_t(ed.identity((64,), device="cpu"))
     moved_host, moved = _not_canonical(pts)

@@ -9,6 +9,7 @@ port's own `prove_with_rng` must reproduce it and the golden vectors.
 Tolerance: exact everywhere.
 """
 
+import functools
 import hashlib
 import json
 import os
@@ -33,13 +34,21 @@ def _det(tag: str) -> int:
     return int.from_bytes(hashlib.shake_256(tag.encode()).digest(64), "little") % hr.L
 
 
+@functools.lru_cache(maxsize=None)
+def _params(pkg, bit_length: int, m: int, deg: int):
+    """One RangeParameters a shape and package for the whole module, as an
+    application keeps one: the port builds its generator tables once a
+    parameter set (some 2-8 s on the CPU), not once a test."""
+    return pkg.RangeParameters.init(bit_length, m, pkg.create_pedersen_gens_with_extension_degree(pkg.ExtensionDegree(deg)))
+
+
 def _setup(pkg, seeded: bool, bit_length: int = 4, m: int = 1, deg: int = 1, B: int = 2):
     """B statements and witnesses in package `pkg`, from the same integers
     whichever package: m = 1 is tests/test_prover_batch.py's plain case, m > 1
     its matrix case (aggregation, extension degree, a minimum-value promise
     on slot 0)."""
-    pc = pkg.create_pedersen_gens_with_extension_degree(pkg.ExtensionDegree(deg))
-    params = pkg.RangeParameters.init(bit_length, m, pc)
+    params = _params(pkg, bit_length, m, deg)
+    pc = params.pc_gens
     statements, witnesses = [], []
     for i in range(B):
         openings, commitments, promises = [], [], []

@@ -251,3 +251,35 @@ def test_dispatch_refuses_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         PK.bit_sum(start, torch.zeros((B, 8), dtype=torch.int64, device="meta"),
                    torch.zeros((64, 16, 16, 24), dtype=torch.int32, device="meta"))
+
+
+def test_p3_launch_shapes_cover_every_output():
+    """P3's host-side launch shapes (ops/cuda_prover.py) against what
+    csrc/prover.cu takes, over mn 1 to 2,048, degrees 1 to 6 and batches 1
+    to 1,025: the first entry's block is P2's, a multiple of 32 from 64 to
+    544 (the C entry's range) whose TL = T - 32 lane threads stride over the
+    2 mn lane items, each item taken by exactly one thread, and whose
+    closing warp's items fit its shared slots; the second entry's blocks of
+    RESPONSE_THREADS hold one thread for each of a proof's 2 + deg outputs
+    and leave less than one block idle."""
+    import os
+    import re
+
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+
+    source = open(os.path.join(os.path.dirname(cpr.__file__), "..", "csrc", "prover.cu")).read()
+    define = lambda name: int(re.search(rf"#define {name} (\d+)", source).group(1))  # noqa: E731
+    assert define("PR_RESP_THREADS") == cpr.RESPONSE_THREADS == 32
+    assert define("P2_MAX_THREADS") == 544 and define("P3_ITEMS") == 6
+    assert "#define P3_SLOTS (P3_ITEMS + 2 * 64 + 2)" in source  # deg <= 64, as the C entries check
+    for mn in (1 << k for k in range(12)):
+        t = cpr.round_threads(mn)
+        lanes = t - 32
+        assert t % 32 == 0 and 64 <= t <= 544 and lanes == min(512, max(32, 2 * mn))
+        taken = sorted(q for thread in range(lanes) for q in range(thread, 2 * mn, lanes))
+        assert taken == list(range(2 * mn)), mn
+    for deg in range(1, 7):
+        assert 6 + 2 * deg + 2 <= 6 + 2 * 64 + 2
+        for batch in range(1, 1026):
+            blocks = cpr.response_blocks(batch, deg)
+            assert 0 <= blocks * cpr.RESPONSE_THREADS - batch * (2 + deg) < cpr.RESPONSE_THREADS, (batch, deg)

@@ -30,10 +30,13 @@ from bulletproofs_plus_tpu_torch.ops import field_model as fm
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs, pack_ints
+from torch_jax_loops import jax_loops_jitted_once  # noqa: F401  (the fixture, used by pytestmark)
 from test_host_ristretto import INVALID_ENCODINGS
 
 P = hr.P
 torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers off each other's cores
+# the JAX package's eager references: each fori_loop compiled once, not at every call (tests/torch_jax_loops.py)
+pytestmark = pytest.mark.usefixtures("jax_loops_jitted_once")
 RULES = ("canonical", "even", "square", "t_nonneg", "y_nonzero")
 
 
@@ -183,12 +186,27 @@ def _jax_points(points):
     return jed.PointArray(*(jnp.asarray(pack_ints([p[c] for p in points])) for c in range(4)))
 
 
+@functools.lru_cache(maxsize=1)
+def _jax_compressed():
+    """The JAX package's `compress`, in one call (one eager pass of its ops,
+    each compiled once): of every point of `_encode_points()`, then of 2Q
+    for each of them (doubled on the host), then of the host Pippenger's MSM
+    over `_msm_inputs()` -> (the first encodings, the doubled ones) as int64
+    limbs."""
+    from bulletproofs_plus_tpu_torch.ops.msm import host_msm
+
+    pts = _encode_points()
+    doubled = [hr.point_double(tuple(c % P for c in p)) for p in pts]
+    out = np.asarray(jrist.compress(_jax_points(pts + doubled + [host_msm(*_msm_inputs())]))).astype(np.int64)
+    return out[: len(pts)], out[len(pts) :]
+
+
 def test_compress_plain_matches_jax():
     """C1's plain twin against the JAX package, limb for limb, and the host
     encoder: the coset forms all encode as zero."""
     pts = _encode_points()
     got = rist.compress_plain(_from_ints(pts)).numpy()
-    want = np.asarray(jrist.compress(_jax_points(pts)))
+    want = _jax_compressed()[0]
     assert np.array_equal(got, want.astype(np.int64))
     assert [int_from_limbs(r) for r in got] == [int.from_bytes(hr.compress(tuple(c % P for c in p)), "little")
                                                  for p in pts]
@@ -198,7 +216,7 @@ def test_compress_plain_matches_jax():
 def test_compress_model_matches_jax():
     """C1's word-exact model against the JAX package, word for word."""
     pts = _encode_points()
-    want = np.asarray(jrist.compress(_jax_points(pts)))
+    want = _jax_compressed()[0]
     for p, w in zip(pts, want):
         assert fm.from_words(fm.compress_words(*(fm.to_words(c) for c in p))) == int_from_limbs(w)
 
@@ -213,16 +231,12 @@ def _msm_inputs():
     return scalars, points
 
 
-@functools.lru_cache(maxsize=1)
 def _doubled_encodings():
-    """The JAX package's `compress`, in one call, of 2Q for each point Q of
-    `_encode_points()` (doubled on the host), then of the host Pippenger's
-    MSM over `_msm_inputs()`: int64 limbs, the encodings C1's
+    """The JAX package's `compress` of 2Q for each point Q of
+    `_encode_points()`, then of the host Pippenger's MSM over
+    `_msm_inputs()` (`_jax_compressed`): int64 limbs, the encodings C1's
     double-and-encode must give."""
-    from bulletproofs_plus_tpu_torch.ops.msm import host_msm
-
-    doubled = [hr.point_double(tuple(c % P for c in p)) for p in _encode_points()]
-    return np.asarray(jrist.compress(_jax_points(doubled + [host_msm(*_msm_inputs())]))).astype(np.int64)
+    return _jax_compressed()[1]
 
 
 # subsets of `_encode_points()`: all (the coset forms' e = 0 lanes among ordinary ones), one, an odd count, the
