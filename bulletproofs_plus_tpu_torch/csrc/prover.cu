@@ -41,28 +41,30 @@
 // reduction).
 // P4 is point code on field25519.cuh: the generators are read from the fixed
 // tables' window 0, digit 1 entry, the affine (y + x, y - x, 2d x y) of the
-// point, and -h swaps its first two words; a point enters the sum as
-// (2(y+x - (y-x)), 2(y+x + y-x), 4, (y+x - (y-x))(y+x + y-x)) = 4 (x, y, 1, x y),
-// and the block sums them on fold4.cuh's four-lane adders (ge_add4), starting
-// from alpha's point, so that A goes straight to the encoder C1.
+// point, and -h swaps its first two words and negates the third; each point
+// enters the sum by a four-lane mixed addition on that entry, and the block
+// sums its adders on four-lane additions, starting from alpha's point, so
+// that A goes straight to the encoder C1.
 //
 // What bounds them on this card: latency and the launch.  A 128-proof,
 // mn = 64 prove needs some 0.45 M products mod l in all, under 0.01 ms at the
 // multiply rate, spread over 1 + rounds + 2 launches; each thread runs a few
-// to a few dozen dependent products (P1's y^k by squaring and multiplying),
-// and P4 a chain of four-lane additions.  P2 and P3 are redesigned for that
-// latency: more threads a proof, so that no thread runs more than a few
-// products, values handed on through shared memory, few or no barriers, one
-// copy of the product and 16-byte accesses (below); P3's second entry a
-// thread an output.
+// dependent products, and P4 a chain of four-lane additions.  Every kernel is
+// designed for that latency: more threads a proof, so that no thread runs more
+// than a few products (P1's powers of y by a ladder spread over the block),
+// values handed on through shared memory, few barriers, one copy of the
+// product mod l (`sc_mul_n`; P4 keeps its field products inline, which
+// measured faster) and 16-byte accesses; P3's second entry a thread an
+// output.
 
-#include "fold4.cuh"
+#include "field25519.cuh"
 #include "scalar_l.cuh"
 
-#define PR_MAX_THREADS 256  // P1: a block a proof, up to 256 threads striding over its lanes
+#define P1_MAX_THREADS 512  // P1: a block a proof, its ladder threads and the alpha warp
 #define PR_RESP_THREADS 32  // P3's second entry: a thread an output, a warp a block
 #define PR_ENTRY_WORDS 24   // a fixed table entry: y + x, y - x, 2d x y, 8 words each
-#define PR_MAX_M 1024       // P1's z^(2(j+1)) in 32 KB of shared memory
+#define PR_MAX_M 1024       // P1's commitments a proof at most (the C entry's check)
+#define PR_MAX_SMEM 232448  // shared memory a block may use: 227 KB
 
 // l - 1, the a_R entry of a zero bit
 __device__ __forceinline__ void set_l_minus_1(u32 *r) {
@@ -70,82 +72,279 @@ __device__ __forceinline__ void set_l_minus_1(u32 *r) {
     r[4] = 0u; r[5] = 0u; r[6] = 0u; r[7] = 0x10000000u;
 }
 
-// r = x^k for k >= 1, square and multiply from k's top bit.
-__device__ __forceinline__ void sc_pow_small(const u32 *x, unsigned k, u32 *r) {
-    copy8(r, x);
-    for (int bit = 30 - __clz(k); bit >= 0; --bit) {
-        sc_sqr_l(r, r);
-        if ((k >> bit) & 1u) sc_mul_l(r, x, r);
-    }
-}
-
 // Element j of proof b in a (B, X, 16) limb tensor.
 __device__ __forceinline__ const int64_t *at(const int64_t *p, long b, long x, long j) { return p + 16 * (b * x + j); }
 __device__ __forceinline__ int64_t *at(int64_t *p, long b, long x, long j) { return p + 16 * (b * x + j); }
 
+// r = c ? a : b word by word: a select of two register arrays that keeps both out of local memory.
+__device__ __forceinline__ void select8(u32 *r, bool c, const u32 *a, const u32 *b) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = c ? a[k] : b[k];
+}
+
+// The sum of every lane's x over the warp, in every lane: five levels of shuffles.
+__device__ __forceinline__ void warp_sum_l(u32 *x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        u32 o[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) o[k] = __shfl_xor_sync(0xffffffffu, x[k], off);
+        sc_add_l(x, o, x);
+    }
+}
+
+// A value's 16 int64 limbs as eight 16-byte accesses, half the memory instructions of load_limbs and
+// store_limbs (P1-P3's tensors are 16-byte aligned: the wrappers check).
+__device__ __forceinline__ void load_limbs16(const int64_t *p, u32 *w) {
+    const longlong2 *q = reinterpret_cast<const longlong2 *>(p);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const longlong2 v = q[k];
+        w[k] = (u32)v.x | ((u32)v.y << 16);
+    }
+}
+
+__device__ __forceinline__ void store_limbs16(int64_t *p, const u32 *w) {
+    longlong2 *q = reinterpret_cast<longlong2 *>(p);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) q[k] = make_longlong2((long long)(w[k] & 0xffffu), (long long)(w[k] >> 16));
+}
+
+// An 8-word slot of a block's scratch (shared memory, or device memory past a block's) as two 16-byte accesses.
+__device__ __forceinline__ void ld_slot(const u32 *s, u32 *w) {
+    const uint4 lo = reinterpret_cast<const uint4 *>(s)[0], hi = reinterpret_cast<const uint4 *>(s)[1];
+    w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
+    w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
+}
+
+__device__ __forceinline__ void st_slot(u32 *s, const u32 *w) {
+    reinterpret_cast<uint4 *>(s)[0] = make_uint4(w[0], w[1], w[2], w[3]);
+    reinterpret_cast<uint4 *>(s)[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// One copy of the product mod l for all of P1-P3's call sites, called by value: inline, P2's dozen products were
+// some 100 KB of straight-line code that every SM fetched once a launch, and the fetch, not the products, set the
+// pace.
+struct sc8 {
+    u32 w[8];
+};
+
+__device__ __noinline__ sc8 sc_mul_v(sc8 a, sc8 b) {
+    sc8 r;
+    sc_mul_l(a.w, b.w, r.w);
+    return r;
+}
+
+__device__ __forceinline__ void sc_mul_n(const u32 *a, const u32 *b, u32 *r) {
+    sc8 x, y;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        x.w[k] = a[k];
+        y.w[k] = b[k];
+    }
+    const sc8 z = sc_mul_v(x, y);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) r[k] = z.w[k];
+}
+
 // P1.  y, z, y_inv: (B, 16); bits: (B, mn) in {0, 1}; r_blind: (B, m, deg, 16); alpha0: (B, deg, 16).
 // Out: a, b (B, mn, 16); y_pows (B, mn + 1, 16), y^1..y^(mn+1); y_inv_n (B, rounds, 16), y^-(mn >> (r + 1));
-// alpha (B, deg, 16).  Dynamic shared memory: z^(2(j+1)) for j < m, 8 words each.
-__global__ void __launch_bounds__(PR_MAX_THREADS) prove_prep_kernel(
+// alpha (B, deg, 16).
+//
+// A block a proof of T threads (ops/cuda_prover.prep_threads): TL = T - 32 ladder threads and one warp for
+// alpha's z-term.  The ladder threads run `p1_levels` levels, log2(mn) where n >= 2, each closed by a barrier of
+// their own (bar.sync 1, which the alpha warp never joins).  A level's items, one product each, are strided over
+// them in this order (ops/cuda_prover.prep_levels counts them):
+//   y's ladder: at level t, h = 2^(t-1), y^(h+1+j) = y^h y^(1+j) for j < h, up to y^mn, so that after level t
+//     every power up to 2^t is in the slots (each thread takes y^k by its own square and multiply no more);
+//   y^-n: one squaring a level, y^-1 before level 1 and y^-(2^t) at level t;
+//   z: z^2 at level 1, then its ladder over m, z^(2(h+1+j)) = z^(2h) z^(2(1+j)) at level t >= 2, h = 2^(t-2);
+//   the lanes' factors d_i = z^(2(j+1)) 2^k (i = jn + k) at level log2(m) + 2, once z's powers are in.
+// Meanwhile the alpha warp takes S_k = y sum_j z^(2(j+1)) r_jk, G = min(m, 32) lanes a k and 32 / G values of k
+// a pass: lane g its own y z^(2(g+1)) by a ladder over its group's lanes (shuffles), its terms j = g mod G, their
+// sum over the group by shuffles.  Then the block's one barrier, and every thread takes its items of the last step,
+// one product each: b_i = d_i y^(mn-i) + z (+ l - 1 for a zero bit) and a_i = bit_i - z, y^(mn+1) = y^mn y,
+// alpha_k = alpha0_k + S_k y^mn.  Longest chain: log2(mn) + 1 products (7 at mn 64; the alpha warp's 3 at m = 1
+// beside it).  The values live in `buf` as 8-word slots (shared memory; a scratch in device memory where a
+// proof's do not fit, prove_prep_global_kernel): y^1..y^mn, d_0..d_(mn-1), z^2..z^(2m), S_1..S_deg and the y^-n
+// chain.  Every product is one call of one copy (`sc_mul_n`), every value moves as 16-byte accesses; the
+// `// P1 phase:` comments mark the phases that scripts/profile_torch_p2.py --kernel prep stamps.
+
+// 8-word values of a proof's P1 scratch: y^1..y^mn, d_0..d_(mn-1), z^2..z^(2m), S_1..S_deg, the y^-n chain.
+__host__ __device__ __forceinline__ long p1_words(long mn, long m, long deg) { return 8 * (2 * mn + m + deg + 1); }
+
+// The ladder threads' levels: y's ladder to y^mn, and z's (z^2, then log2(m)) before the lanes' factors.
+__host__ __device__ __forceinline__ int p1_levels(int lmn, int lm) { return lmn > lm + 2 ? lmn : lm + 2; }
+
+// bar.sync 1 for the first `count` threads, a multiple of 32: the ladder threads' barrier.
+__device__ __forceinline__ void sync_ladder(int count) { asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory"); }
+
+__device__ __forceinline__ void prove_prep_body(
     const int64_t *__restrict__ y_in, const int64_t *__restrict__ z_in, const int64_t *__restrict__ yinv_in,
     const int64_t *__restrict__ bits, const int64_t *__restrict__ r_blind, const int64_t *__restrict__ alpha0,
     int m, int n, int deg, int rounds, int64_t *__restrict__ a_out, int64_t *__restrict__ b_out,
-    int64_t *y_pows, int64_t *__restrict__ yinv_out, int64_t *__restrict__ alpha_out) {
-    extern __shared__ u32 z2[];
+    int64_t *__restrict__ y_pows, int64_t *__restrict__ yinv_out, int64_t *__restrict__ alpha_out, u32 *buf) {
     const long b = blockIdx.x;
-    const int t = threadIdx.x, T = blockDim.x, mn = m * n;
-    u32 y[8], z[8], u[8], v[8], w[8];
-    load_limbs(y_in + 16 * b, y);
-    load_limbs(z_in + 16 * b, z);
-    if (t == 0) {
-        u32 zsq[8];
-        sc_sqr_l(z, zsq);
-        copy8(u, zsq);
-        for (int j = 0; j < m; ++j) {
-            copy8(z2 + 8 * j, u);
-            if (j + 1 < m) sc_mul_l(u, zsq, u);
+    const int t = threadIdx.x, T = blockDim.x, TL = T - 32, mn = m * n;
+    const int lm = 31 - __clz(m), ln = 31 - __clz(n);
+    u32 *ys = buf, *ds = ys + 8 * mn, *zs = ds + 8 * mn, *sk = zs + 8 * m, *yi = sk + 8 * deg;
+    u32 u[8], v[8], w[8], zv[8], first[8];
+    // P1 phase: start
+    // z, and what this thread's first item of the last step reads from device memory (its bit, or alpha0_k), in
+    // flight while the levels run: without the second, P1 read 0.0128-0.0131 ms against 0.0114-0.0116 (128 x
+    // mn 64, NVIDIA H100 80GB HBM3, 700.00 W)
+    load_limbs16(z_in + 16 * b, zv);
+    const u32 first_bit = t < mn ? (u32)bits[b * mn + t] : 0u;
+    if (t > mn && t <= mn + deg) load_limbs16(at(alpha0, b, deg, t - mn - 1), first);
+    if (t < TL) {
+        if (t == 0) {
+            load_limbs16(y_in + 16 * b, u);
+            st_slot(ys, u);
+            store_limbs16(at(y_pows, b, mn + 1, 0), u);
+        } else if (t == 1 && rounds > 0) {
+            load_limbs16(yinv_in + 16 * b, u);
+            st_slot(yi, u);
+            store_limbs16(at(yinv_out, b, rounds, rounds - 1), u);
         }
-        load_limbs(yinv_in + 16 * b, u);  // y^-n for n = 1, 2, 4, ..: the last round first
-        for (int r = rounds - 1; r >= 0; --r) {
-            store_limbs(at(yinv_out, b, rounds, r), u);
-            if (r) sc_sqr_l(u, u);
+        sync_ladder(TL);
+        const int levels = p1_levels(lm + ln, lm);
+        for (int lv = 1; lv <= levels; ++lv) {
+            const int h = 1 << (lv - 1), hz = h >> 1;
+            const int ny = lv <= lm + ln ? h : 0, ni = lv < rounds ? 1 : 0;
+            const int nz = lv == 1 ? 1 : lv <= lm + 1 ? hz : 0, nd = lv == lm + 2 ? mn : 0;
+            for (int q = t; q < ny + ni + nz + nd; q += TL) {
+                u32 *slot;
+                int64_t *out = nullptr;
+                if (q < ny) {  // y^(h+1+q) = y^h y^(1+q)
+                    ld_slot(ys + 8 * (h - 1), u);
+                    ld_slot(ys + 8 * q, v);
+                    slot = ys + 8 * (h + q);
+                    out = at(y_pows, b, mn + 1, h + q);
+                } else if (q < ny + ni) {  // y^-(2^lv), round rounds - 1 - lv's
+                    ld_slot(yi, u);
+                    copy8(v, u);
+                    slot = yi;
+                    out = at(yinv_out, b, rounds, rounds - 1 - lv);
+                } else if (q < ny + ni + nz) {
+                    const int j = q - ny - ni;
+                    if (lv == 1) {  // z^2
+                        copy8(u, zv);
+                        copy8(v, zv);
+                    } else {  // z^(2(hz+1+j)) = z^(2hz) z^(2(1+j))
+                        ld_slot(zs + 8 * (hz - 1), u);
+                        ld_slot(zs + 8 * j, v);
+                    }
+                    slot = zs + 8 * (lv == 1 ? 0 : hz + j);
+                } else {  // d_i = z^(2(j+1)) 2^k, i = jn + k: a product by the one-word power of two
+                    const int i = q - ny - ni - nz, k = i & (n - 1);
+                    ld_slot(zs + 8 * (i >> ln), u);
+#pragma unroll
+                    for (int s = 0; s < 8; ++s) v[s] = s == (k >> 5) ? 1u << (k & 31) : 0u;
+                    slot = ds + 8 * i;
+                }
+                sc_mul_n(u, v, w);
+                st_slot(slot, w);
+                if (out) store_limbs16(out, w);
+            }
+            sync_ladder(TL);
+        }
+    } else {  // the alpha warp: S_k = y sum_j z^(2(j+1)) r_jk
+        const int lane = t - TL, G = m < 32 ? m : 32, lg = 31 - __clz(G), g = lane & (G - 1), base = lane - g;
+        u32 zg[8];
+        sc_mul_n(zv, zv, v);  // z^2
+        for (int h = 1; h < G; h <<= 1) {  // lanes g in [h, 2h): z^(2(g+1)) = z^(2h) z^(2(g-h+1))
+#pragma unroll
+            for (int s = 0; s < 8; ++s) {
+                u[s] = __shfl_sync(0xffffffffu, v[s], base + h - 1);
+                w[s] = __shfl_sync(0xffffffffu, v[s], base + ((g - h) & (G - 1)));
+            }
+            if (g >= h && g < 2 * h) sc_mul_n(u, w, v);
+        }
+#pragma unroll
+        for (int s = 0; s < 8; ++s) zg[s] = __shfl_sync(0xffffffffu, v[s], base + G - 1);  // z^(2G)
+        load_limbs16(y_in + 16 * b, u);
+        sc_mul_n(v, u, v);  // y z^(2(g+1))
+        for (int k0 = 0; k0 < deg; k0 += 32 >> lg) {
+            const int k = k0 + (lane >> lg);
+            u32 acc[8];
+            set_small(acc, 0u);
+            copy8(u, v);
+            for (int j = g; j < m; j += G) {  // y z^(2(j+1)) r_jk for j = g, g + G, ..: m / G terms in every lane
+                if (j > g) sc_mul_n(u, zg, u);
+                if (k < deg) {
+                    load_limbs16(r_blind + 16 * ((b * m + j) * deg + k), w);
+                    sc_mul_n(u, w, w);
+                    sc_add_l(acc, w, acc);
+                }
+            }
+            for (int off = G >> 1; off > 0; off >>= 1) {  // the group's sum
+#pragma unroll
+                for (int s = 0; s < 8; ++s) w[s] = __shfl_xor_sync(0xffffffffu, acc[s], off);
+                sc_add_l(acc, w, acc);
+            }
+            if (g == 0 && k < deg) st_slot(sk + 8 * k, acc);
         }
     }
-    for (int k = t + 1; k <= mn + 1; k += T) {
-        sc_pow_small(y, (unsigned)k, u);
-        store_limbs(at(y_pows, b, mn + 1, k - 1), u);
-    }
-    __syncthreads();  // z^(2(j+1)) in shared memory, y's powers in device memory
-    for (int i = t; i < mn; i += T) {
-        const int j = i / n, k = i % n;
-        const u32 bit = (u32)bits[b * mn + i];
-        set_small(u, bit);
-        sc_sub_l(u, z, u);  // a_i = bit - z
-        store_limbs(at(a_out, b, mn, i), u);
-        set_small(v, 0u);  // d_i = z^(2(j+1)) 2^k
-        v[k >> 5] = 1u << (k & 31);
-        sc_mul_l(z2 + 8 * j, v, v);
-        load_limbs(at(y_pows, b, mn + 1, mn - i - 1), w);  // y^(mn - i)
-        sc_mul_l(v, w, v);
-        sc_add_l(v, z, v);
-        if (!bit) {  // a_R = bit - 1
-            set_l_minus_1(w);
-            sc_add_l(w, v, v);
+    // P1 phase: levels
+    __syncthreads();
+    // P1 phase: barrier
+    for (int q = t; q < mn + 1 + deg; q += T) {
+        u32 bit = 0u;
+        if (q < mn) {  // lane q: d_q y^(mn-q)
+            bit = q == t ? first_bit : (u32)bits[b * mn + q];
+            ld_slot(ds + 8 * q, u);
+            ld_slot(ys + 8 * (mn - 1 - q), v);
+        } else if (q == mn) {  // y^(mn+1) = y^mn y
+            ld_slot(ys + 8 * (mn - 1), u);
+            ld_slot(ys, v);
+        } else {  // S_k y^mn
+            ld_slot(sk + 8 * (q - mn - 1), u);
+            ld_slot(ys + 8 * (mn - 1), v);
         }
-        store_limbs(at(b_out, b, mn, i), v);
-    }
-    for (int k = t; k < deg; k += T) {  // alpha_k + sum_j z^(2(j+1)) y^(mn+1) r_jk
-        load_limbs(at(y_pows, b, mn + 1, mn), w);
-        load_limbs(at(alpha0, b, deg, k), u);
-        for (int j = 0; j < m; ++j) {
-            sc_mul_l(z2 + 8 * j, w, v);
-            u32 r[8];
-            load_limbs(r_blind + 16 * ((b * m + j) * deg + k), r);
-            sc_mul_l(v, r, v);
-            sc_add_l(u, v, u);
+        sc_mul_n(u, v, w);
+        if (q < mn) {
+            sc_add_l(w, zv, w);  // b_q = d_q y^(mn-q) + z (+ l - 1, the a_R entry of a zero bit)
+            if (!bit) {
+                set_l_minus_1(u);
+                sc_add_l(u, w, w);
+            }
+            store_limbs16(at(b_out, b, mn, q), w);
+            set_small(u, bit);
+            sc_sub_l(u, zv, u);  // a_q = bit - z
+            store_limbs16(at(a_out, b, mn, q), u);
+        } else if (q == mn) {
+            store_limbs16(at(y_pows, b, mn + 1, mn), w);
+        } else {
+            if (q == t) {
+                copy8(u, first);
+            } else {
+                load_limbs16(at(alpha0, b, deg, q - mn - 1), u);
+            }
+            sc_add_l(u, w, w);
+            store_limbs16(at(alpha_out, b, deg, q - mn - 1), w);
         }
-        store_limbs(at(alpha_out, b, deg, k), u);
     }
+    // P1 phase: store
+}
+
+__global__ void __launch_bounds__(P1_MAX_THREADS) prove_prep_kernel(
+    const int64_t *__restrict__ y_in, const int64_t *__restrict__ z_in, const int64_t *__restrict__ yinv_in,
+    const int64_t *__restrict__ bits, const int64_t *__restrict__ r_blind, const int64_t *__restrict__ alpha0,
+    int m, int n, int deg, int rounds, int64_t *__restrict__ a_out, int64_t *__restrict__ b_out,
+    int64_t *__restrict__ y_pows, int64_t *__restrict__ yinv_out, int64_t *__restrict__ alpha_out) {
+    extern __shared__ __align__(16) u32 p1_smem[];
+    prove_prep_body(y_in, z_in, yinv_in, bits, r_blind, alpha0, m, n, deg, rounds, a_out, b_out, y_pows, yinv_out,
+                    alpha_out, p1_smem);
+}
+
+// The same where a proof's slots exceed a block's shared memory: `scratch` (B x p1_words) in device memory.
+__global__ void __launch_bounds__(P1_MAX_THREADS) prove_prep_global_kernel(
+    const int64_t *__restrict__ y_in, const int64_t *__restrict__ z_in, const int64_t *__restrict__ yinv_in,
+    const int64_t *__restrict__ bits, const int64_t *__restrict__ r_blind, const int64_t *__restrict__ alpha0,
+    int m, int n, int deg, int rounds, int64_t *__restrict__ a_out, int64_t *__restrict__ b_out,
+    int64_t *__restrict__ y_pows, int64_t *__restrict__ yinv_out, int64_t *__restrict__ alpha_out, u32 *scratch) {
+    prove_prep_body(y_in, z_in, yinv_in, bits, r_blind, alpha0, m, n, deg, rounds, a_out, b_out, y_pows, yinv_out,
+                    alpha_out, scratch + (size_t)blockIdx.x * p1_words((long)m * n, m, deg));
 }
 
 // P2, round r of `rounds` (n = mn >> (r + 1), len = 2n the vectors' length after the fold).  a_in, b_in: (B, 2 len,
@@ -167,70 +366,11 @@ __global__ void __launch_bounds__(PR_MAX_THREADS) prove_prep_kernel(
 // the sums.  Every product is one call of one copy (`sc_mul_v`), and every value moves as 16-byte accesses
 // (`load_limbs16`).  The `// P2 phase:` comments mark the phases that scripts/profile_torch_p2.py stamps.
 #define P2_MAX_THREADS 544  // 512 lane threads and the alpha warp: 120 registers a thread
-#define P2_MAX_SMEM 232448  // shared memory a block may use: 227 KB
 
 // 8-word values of a proof's P2 scratch: a', b', a'_j y^(1+j) (len each), g y^(-+n) and h (mn each), the warps'
 // partial sums of c_L and c_R (2 a warp).
 __host__ __device__ __forceinline__ long p2_words(long mn, long r, long threads) {
     return 8 * (3 * (mn >> r) + 2 * mn + 2 * (threads / 32));
-}
-
-// r = c ? a : b word by word: a select of two register arrays that keeps both out of local memory.
-__device__ __forceinline__ void select8(u32 *r, bool c, const u32 *a, const u32 *b) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) r[k] = c ? a[k] : b[k];
-}
-
-// The sum of every lane's x over the warp, in every lane: five levels of shuffles.
-__device__ __forceinline__ void warp_sum_l(u32 *x) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        u32 o[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) o[k] = __shfl_xor_sync(0xffffffffu, x[k], off);
-        sc_add_l(x, o, x);
-    }
-}
-
-// A value's 16 int64 limbs as eight 16-byte accesses, half the memory instructions of load_limbs and
-// store_limbs (P2's tensors are 16-byte aligned: the wrapper checks).
-__device__ __forceinline__ void load_limbs16(const int64_t *p, u32 *w) {
-    const longlong2 *q = reinterpret_cast<const longlong2 *>(p);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        const longlong2 v = q[k];
-        w[k] = (u32)v.x | ((u32)v.y << 16);
-    }
-}
-
-__device__ __forceinline__ void store_limbs16(int64_t *p, const u32 *w) {
-    longlong2 *q = reinterpret_cast<longlong2 *>(p);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) q[k] = make_longlong2((long long)(w[k] & 0xffffu), (long long)(w[k] >> 16));
-}
-
-// One copy of the product mod l for all of P2's call sites, called by value: inline, its dozen products were some
-// 100 KB of straight-line code that every SM fetched once a launch, and the fetch, not the products, set the pace.
-struct sc8 {
-    u32 w[8];
-};
-
-__device__ __noinline__ sc8 sc_mul_v(sc8 a, sc8 b) {
-    sc8 r;
-    sc_mul_l(a.w, b.w, r.w);
-    return r;
-}
-
-__device__ __forceinline__ void sc_mul_n(const u32 *a, const u32 *b, u32 *r) {
-    sc8 x, y;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        x.w[k] = a[k];
-        y.w[k] = b[k];
-    }
-    const sc8 z = sc_mul_v(x, y);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) r[k] = z.w[k];
 }
 
 template <bool SHARED>
@@ -564,62 +704,159 @@ __global__ void __launch_bounds__(PR_RESP_THREADS) prove_responses_kernel(
     store_limbs16(j < 2 ? (j ? s1_out : r1_out) + 16 * b : at(d1_out, b, deg, j - 2), u);
 }
 
-// P4, a block a proof on four-lane adders.  table: (64, 16, s_tab, 24) words, lanes 2i (g_i) and 2i + 1 (h_i)
-// for i < mn; bits: (B, mn); start: coordinate c, limb k of proof b at start_c[b * row_stride + k * limb_stride]
-// (K6's output, read in place); out: (4, B, 16), coordinate-major rows.
-__global__ void __launch_bounds__(FOLD_MAX_THREADS, 1) bit_sum_kernel(
+// P4, a block a proof of T threads, T / 4 four-lane adders (ops/cuda_prover.bit_sum_threads).  table: (64, 16,
+// s_tab, 24) words, lanes 2i (g_i) and 2i + 1 (h_i) for i < mn; bits: (B, mn); start: coordinate c, limb k of
+// proof b at start_c[b * row_stride + k * limb_stride] (K6's output, read in place); out: (4, B, 16),
+// coordinate-major rows.
+//
+// Adder a starts from alpha's point (a = 0) or the identity and adds lanes a, a + T / 4, .. by a four-lane mixed
+// addition (`p4_madd4`, 2 products deep) on the affine entry the table holds, the next lane's words in flight while
+// an addition runs: each lane of a group loads its one operand of g_i and of h_i at once, and the bit only selects
+// (-h_i swaps y + x and y - x and negates 2d x y).  Then a tree sums the adders on four-lane additions (`p4_add4`,
+// 3 products deep), first across the warps through shared memory, then three levels inside warp 0 by shuffles, as
+// fold4.cuh's `ge4_block_sum` does (K2 and K6 keep that one).  Longest chain: 2 mn / (T / 4) products for the
+// leaves and 3 a level of the tree, 19 at mn 64 and 128 threads (the design before: 22).  The products are
+// inline: one copy of the product called from every site (`sc_mul_n`'s way) measured 0.0109-0.0110 ms at 128 x
+// mn 64 against 0.0100 inline (NVIDIA H100 80GB HBM3, 700.00 W; scripts/profile_torch_p2.py --kernel bit_sum
+// --source on a copy).  The `// P4 phase:` comments mark the phases that scripts/profile_torch_p2.py --kernel
+// bit_sum stamps.
+#define P4_MAX_THREADS 512  // 128 adders: 128 registers a thread at most
+
+// The tail that both of P4's additions share, field25519.cuh's ge_add4 from its exchange 3: lanes 0-3 of a group
+// hold A, B, D and C; E = B - A, H = B + A, F = D - C, G = D + C, then (EF, GH, FG, EH) back in (X, Y, Z, T) order.
+__device__ __forceinline__ fe p4_tail(const fe &m) {
+    const int lane = threadIdx.x & 31, c = lane & 3, base = lane & 28;
+    const bool odd = (c & 1) != 0;
+    const fe partner = fe_from_lane(m, lane ^ 1);
+    const bool holds_hi = c == 1 || c == 2;  // B and D are the minuends
+    const fe hi = fe_select(holds_hi, m, partner), lo = fe_select(holds_hi, partner, m);
+    const fe d = fe_sub(hi, lo), s = fe_add(hi, lo);
+    // lane 1 takes F from lane 3, lane 3 takes H from lane 1
+    const fe far = fe_from_lane(fe_select(c < 2, s, d), lane ^ 2);
+    // lane 0 T3 = E H, lane 1 X3 = E F, lane 2 Z3 = F G, lane 3 Y3 = G H
+    const fe r = fe_mul(fe_select(c == 3, s, d), fe_select(odd, far, s));
+    return fe_from_lane(r, base + (c == 0 ? 1 : c == 1 ? 3 : c == 2 ? 2 : 0));
+}
+
+// madd-2008-hwcd-3 for a = -1 over four lanes: p this lane's coordinate of the sum so far, w its operand of the
+// affine point: lane 0 y - x, lane 1 y + x, lane 2 one, lane 3 2d x y.  2 products deep.
+__device__ __forceinline__ fe p4_madd4(const fe &p, const fe &w) {
+    const int lane = threadIdx.x & 31, c = lane & 3;
+    // lane 0 takes Y1 from lane 1, lane 1 X1 from lane 0 (lanes 2 and 3 swap Z1 and T1 and ignore it)
+    const fe got = fe_from_lane(p, lane ^ 1);
+    const fe o = fe_select(c == 2, p, got);
+    const fe sum = fe_add(p, o), diff = fe_sub(o, p);  // lane 0 Y1 - X1; lane 1 Y1 + X1, lane 2 D = 2 Z1
+    // lane 0 A = (Y1 - X1)(y - x), lane 1 B = (Y1 + X1)(y + x), lane 2 D, lane 3 C = T1 2d x y
+    return p4_tail(fe_mul(fe_select(c == 0, diff, fe_select(c == 3, p, sum)), w));
+}
+
+// field25519.cuh's ge_add4 (add-2008-hwcd-3) over p4_tail: 3 products deep.
+__device__ __forceinline__ fe p4_add4(const fe &p, const fe &q) {
+    const int lane = threadIdx.x & 31, c = lane & 3;
+    const bool odd = (c & 1) != 0;
+    const fe got = fe_from_lane(fe_select(odd, p, q), lane ^ 1);
+    const fe xx = fe_select(odd, got, p), yy = fe_select(odd, q, got);
+    const fe diff = fe_sub(yy, xx), sum = fe_add(yy, xx);
+    const fe other = fe_from_lane(fe_select(odd, diff, sum), lane ^ 1);
+    // lane 0 (Y1 - X1)(Y2 - X2), lane 1 (Y1 + X1)(Y2 + X2), lane 2 Z1 Z2, lane 3 T1 T2; then D = 2 Z1 Z2, C = 2d T1 T2
+    const fe m = fe_mul(fe_select(c == 0, diff, fe_select(c == 1, other, p)),
+                        fe_select(c == 0, other, fe_select(c == 1, sum, q)));
+    fe k = fe_one();
+    k.w[0] = c == 2 ? 2u : 1u;
+    return p4_tail(fe_mul(m, fe_select(c == 3, fe_d2(), k)));
+}
+
+__global__ void __launch_bounds__(P4_MAX_THREADS, 1) bit_sum_kernel(
     const u32 *__restrict__ table, long s_tab, const int64_t *__restrict__ bits, const int64_t *__restrict__ sx,
     const int64_t *__restrict__ sy, const int64_t *__restrict__ sz, const int64_t *__restrict__ st,
     long row_stride, long limb_stride, long batch, int mn, int64_t *__restrict__ out) {
-    __shared__ __align__(16) u32 sh[FOLD_SMEM_WORDS];
+    __shared__ __align__(16) u32 sh[(P4_MAX_THREADS / 32) * 32 * 8];  // a coordinate a lane
     const long b = blockIdx.x;
-    const int c = threadIdx.x & 3;
-    const int64_t *start = c == 0 ? sx : c == 1 ? sy : c == 2 ? sz : st;
-    const u32 *digit1 = table + s_tab * PR_ENTRY_WORDS;  // window 0, digit 1: the point itself
-    const fe acc = ge4_block_sum(
-        [&](int i) {
-            if (i == 0) return fe_load(start + b * row_stride, limb_stride);
-            const int lane = i - 1;
-            const bool bit = bits[b * mn + lane] != 0;
-            const long at_lane = (long)(2 * lane + (bit ? 0 : 1)) * PR_ENTRY_WORDS;  // g_i, or h_i
-            const uint4 *entry = reinterpret_cast<const uint4 *>(digit1 + at_lane);
-            const fe w0 = fe_load_words(entry), w1 = fe_load_words(entry + 2);
-            const fe yp = bit ? w0 : w1, ym = bit ? w1 : w0;  // -h: y - x and y + x swap
-            const fe e = fe_sub(yp, ym), h = fe_add(yp, ym);
-            if (c == 0) return fe_add(e, e);
-            if (c == 1) return fe_add(h, h);
-            if (c == 2) {
-                fe four = fe_zero();
-                four.w[0] = 4u;
-                return four;
+    const int tid = threadIdx.x, lane = tid & 31, c = tid & 3, warp = tid >> 5, a = tid >> 2, A = blockDim.x >> 2;
+    const uint4 *digit1 = reinterpret_cast<const uint4 *>(table + s_tab * PR_ENTRY_WORDS);  // window 0, digit 1
+    const int wg = c == 0 ? 2 : c == 1 ? 0 : 4, wh = c == 0 ? 0 : c == 1 ? 2 : 4;  // 16-byte words of y - x, ..
+    // lane i's operand: g_i's, or -h_i's; the identity's (1, 1, one, 0) past the last lane
+    auto leaf = [&](int i) {
+        fe w = fe_one();
+        if (i < mn) {
+            const bool bit = bits[b * mn + i] != 0;
+            const uint4 *g = digit1 + (long)i * (2 * PR_ENTRY_WORDS / 4), *h = g + PR_ENTRY_WORDS / 4;
+            if (c != 2) {
+                const fe wg_ = fe_load_words(g + wg), wh_ = fe_load_words(h + wh);
+                w = bit ? wg_ : c == 3 ? fe_neg(wh_) : wh_;
             }
-            return fe_mul(e, h);
-        },
-        mn + 1, sh);
-    if (threadIdx.x < 4) fe_store(out + (c * batch + b) * 16, 1, acc);
+        } else if (c == 3) {
+            w = fe_zero();
+        }
+        return w;
+    };
+    // P4 phase: start
+    fe acc = ge4_identity(c);
+    if (a == 0) acc = fe_load((c == 0 ? sx : c == 1 ? sy : c == 2 ? sz : st) + b * row_stride, limb_stride);
+    fe w = leaf(a);
+#pragma unroll 1
+    for (int i0 = 0; i0 < mn; i0 += A) {  // the same count for every adder: mn and A are powers of two
+        const fe next = leaf(i0 + A < mn ? i0 + A + a : mn);
+        acc = p4_madd4(acc, w);
+        w = next;
+    }
+    // P4 phase: leaves
+    const int n = mn < A ? mn : A;  // adders that hold a point
+    for (int wv = n >> 4; wv >= 1; wv >>= 1) {  // n / 8 warps hold points; the upper half hands its sums down
+        if (warp >= wv && warp < 2 * wv) fe_store_words(reinterpret_cast<uint4 *>(sh + (warp * 32 + lane) * 8), acc);
+        __syncthreads();
+        if (warp < wv) acc = p4_add4(acc, fe_load_words_shared(reinterpret_cast<const uint4 *>(sh + ((warp + wv) * 32 + lane) * 8)));
+    }
+    // P4 phase: warps
+    if (warp == 0) {
+#pragma unroll 1
+        for (int s = 1; s < n && s < 8; s <<= 1) acc = p4_add4(acc, fe_from_lane(acc, lane ^ (4 * s)));
+    }
+    // P4 phase: lanes
+    if (tid < 4) fe_store(out + (c * batch + b) * 16, 1, acc);
+    // P4 phase: store
 }
 
 extern "C" const char *bppt_prover_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
 static bool pow2(long v) { return v > 0 && (v & (v - 1)) == 0; }
 
-static bool shape_ok(long batch, long mn, long rounds, long deg, long threads) {
+static bool shape_ok(long batch, long mn, long rounds, long deg) {
     return batch >= 1 && batch < (1L << 24) && rounds >= 0 && rounds <= 30 && mn == (1L << rounds) && deg >= 1 &&
-           deg <= 64 && pow2(threads) && threads >= 32 && threads <= PR_MAX_THREADS;
+           deg <= 64;
 }
 
-// Every tensor int64 limbs, contiguous, on the current device.
+// Every tensor int64 limbs, contiguous, 16-byte aligned (the wrapper checks), on the current device.  threads: a
+// multiple of 32 from 64 to 512.  scratch: null where a proof's p1_words fit in a block's shared memory, else B x
+// p1_words 32-bit words.
 extern "C" int bppt_prove_prep(const void *y, const void *z, const void *y_inv, const void *bits, const void *r_blind,
                                const void *alpha0, long batch, long m, long n, long deg, long threads, void *a,
-                               void *b, void *y_pows, void *y_inv_n, void *alpha, void *stream) {
+                               void *b, void *y_pows, void *y_inv_n, void *alpha, void *scratch, void *stream) {
     const long mn = m * n;
     const long rounds = mn > 0 ? 63 - __builtin_clzl((unsigned long)mn) : -1;
-    if (!pow2(m) || !pow2(n) || m > PR_MAX_M || !shape_ok(batch, mn, rounds, deg, threads))
+    if (!pow2(m) || !pow2(n) || m > PR_MAX_M || !shape_ok(batch, mn, rounds, deg) || threads < 64 ||
+        threads > P1_MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
-    prove_prep_kernel<<<(unsigned)batch, (unsigned)threads, (size_t)(32 * m), (cudaStream_t)stream>>>(
-        (const int64_t *)y, (const int64_t *)z, (const int64_t *)y_inv, (const int64_t *)bits,
-        (const int64_t *)r_blind, (const int64_t *)alpha0, (int)m, (int)n, (int)deg, (int)rounds, (int64_t *)a,
-        (int64_t *)b, (int64_t *)y_pows, (int64_t *)y_inv_n, (int64_t *)alpha);
+    const long smem = p1_words(mn, m, deg) * (long)sizeof(u32);
+    const bool shared = smem <= PR_MAX_SMEM;
+    if (shared == (scratch != nullptr)) return (int)cudaErrorInvalidValue;
+    if (shared && smem > 48 * 1024) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(prove_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (shared) {
+        prove_prep_kernel<<<(unsigned)batch, (unsigned)threads, (size_t)smem, st>>>(
+            (const int64_t *)y, (const int64_t *)z, (const int64_t *)y_inv, (const int64_t *)bits,
+            (const int64_t *)r_blind, (const int64_t *)alpha0, (int)m, (int)n, (int)deg, (int)rounds, (int64_t *)a,
+            (int64_t *)b, (int64_t *)y_pows, (int64_t *)y_inv_n, (int64_t *)alpha);
+    } else {
+        prove_prep_global_kernel<<<(unsigned)batch, (unsigned)threads, 0, st>>>(
+            (const int64_t *)y, (const int64_t *)z, (const int64_t *)y_inv, (const int64_t *)bits,
+            (const int64_t *)r_blind, (const int64_t *)alpha0, (int)m, (int)n, (int)deg, (int)rounds, (int64_t *)a,
+            (int64_t *)b, (int64_t *)y_pows, (int64_t *)y_inv_n, (int64_t *)alpha, (u32 *)scratch);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -630,11 +867,11 @@ extern "C" int bppt_prove_round(const void *a, const void *b, const void *g, con
                                 const void *y_pows, const void *y_inv_n, const void *dl, const void *dr, long batch,
                                 long mn, long rounds, long r, long deg, long threads, void *a_out, void *b_out,
                                 void *g_out, void *h_out, void *alpha_out, void *scalars, void *scratch, void *stream) {
-    if (!shape_ok(batch, mn, rounds, deg, 32) || r < 0 || r >= rounds || (r > 0) != (e != nullptr) ||
+    if (!shape_ok(batch, mn, rounds, deg) || r < 0 || r >= rounds || (r > 0) != (e != nullptr) ||
         threads < 64 || threads > P2_MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
     const long smem = p2_words(mn, r, threads) * (long)sizeof(u32);
-    const bool shared = smem <= P2_MAX_SMEM;
+    const bool shared = smem <= PR_MAX_SMEM;
     if (shared == (scratch != nullptr)) return (int)cudaErrorInvalidValue;
     if (shared && smem > 48 * 1024) {
         const cudaError_t err =
@@ -668,7 +905,7 @@ extern "C" int bppt_prove_final(const void *a, const void *b, const void *g, con
                                 const void *d_mask, const void *eta, long batch, long mn, long rounds, long deg,
                                 long threads, void *a1, void *brow, void *a0, void *b0, void *alpha_out,
                                 void *stream) {
-    if (!shape_ok(batch, mn, rounds, deg, 32) || (rounds > 0) != (e != nullptr) || threads < 64 ||
+    if (!shape_ok(batch, mn, rounds, deg) || (rounds > 0) != (e != nullptr) || threads < 64 ||
         threads > P2_MAX_THREADS || threads % 32)
         return (int)cudaErrorInvalidValue;
     prove_final_kernel<<<(unsigned)batch, (unsigned)threads, 0, (cudaStream_t)stream>>>(
@@ -694,12 +931,12 @@ extern "C" int bppt_prove_responses(const void *r_s, const void *s_s, const void
 
 // table: int32 words (64, 16, s_tab, 24) with s_tab >= 2 mn; bits: int64 (B, mn); x, y, z, t: the start
 // points' coordinates, int64 limbs with the strides given; out: int64 (4, B, 16).  threads: a power of two
-// from 32 to 512 (fold4.cuh's tree).
+// from 32 to 512 (the tree halves the adders).
 extern "C" int bppt_bit_sum(const void *table, long s_tab, const void *bits, const void *x, const void *y,
                             const void *z, const void *t, long row_stride, long limb_stride, long batch, long mn,
                             long threads, void *out, void *stream) {
     if (batch < 1 || batch >= (1L << 24) || !pow2(mn) || s_tab < 2 * mn || threads < 32 ||
-        threads > FOLD_MAX_THREADS || !pow2(threads))
+        threads > P4_MAX_THREADS || !pow2(threads))
         return (int)cudaErrorInvalidValue;
     bit_sum_kernel<<<(unsigned)batch, (unsigned)threads, 0, (cudaStream_t)stream>>>(
         (const u32 *)table, s_tab, (const int64_t *)bits, (const int64_t *)x, (const int64_t *)y,

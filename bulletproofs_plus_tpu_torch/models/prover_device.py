@@ -35,8 +35,9 @@ read back, the challenges are squeezed and the round's masks drawn with
 `rpt.rng().random_not_zero()` in the sequential prover's order, and the
 scalars are uploaded.  The external RNG is so consumed by the transcript
 itself, in the reference's call order.  Challenge inverses (y^-1, each e^-1)
-are taken on the host too: B modular inversions instead of one Fermat
-ladder of ~380 batched multiplications on the device each.
+are taken on the host too, one batch inversion a challenge
+(`batch_invert_l`: one modular inversion and 3B products) instead of
+one Fermat ladder of ~380 batched multiplications on the device each.
 
 Bit-exactness contract: proofs and the callers' final transcript states are
 byte-identical to sequential `RangeProof.prove_with_rng` calls fed the same
@@ -72,6 +73,24 @@ from .transcripts import RangeProofTranscript
 from .verifier_kernels import _on
 
 L = hr.L
+
+
+def batch_invert_l(values: Sequence[int]) -> List[int]:
+    """The inverses mod l of nonzero `values` by Montgomery's trick: the
+    running products, one `pow(., -1, L)` of the last, then back through
+    the values, 3 n products in all.  The inverse is unique, so each
+    equals `pow(v, -1, L)`; a zero value raises, as `pow` does (the
+    transcript refuses a zero challenge before any inversion)."""
+    prefix, acc = [], 1
+    for v in values:
+        prefix.append(acc)
+        acc = acc * v % L
+    inv = pow(acc, -1, L)
+    out = [0] * len(prefix)
+    for i in range(len(prefix) - 1, -1, -1):
+        out[i] = inv * prefix[i] % L
+        inv = inv * values[i] % L
+    return out
 
 
 def _point_bytes(comp: torch.Tensor) -> np.ndarray:
@@ -282,7 +301,7 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
 
     # --- challenges y, z (transcripts.rs:124-138); vector prep (range_proof.rs:350-373)
     y_list, z_list = rpt.challenges_y_z(a_bytes)
-    y_inv = upload([pow(v, -1, L) for v in y_list], B)
+    y_inv = upload(batch_invert_l(y_list), B)
     av, bv, y_pows, y_inv_n, alpha = prove_prep(
         upload(y_list, B), upload(z_list, B), y_inv, bits, r_blind, alpha, bit_length=bit_length
     )
@@ -305,7 +324,7 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
         ri_bytes.append(lr_bytes[:, 1])
 
         e_list = rpt.challenge_round_e(lr_bytes[:, 0], lr_bytes[:, 1])
-        fold = (upload(e_list, B), upload([pow(v, -1, L) for v in e_list], B), d_l, d_r)
+        fold = (upload(e_list, B), upload(batch_invert_l(e_list), B), d_l, d_r)
 
     # --- final masks and A1/B (range_proof.rs:540-584): A1 spans ALL original
     # generator lanes after the last fold, and the Pedersen lanes; B only the latter

@@ -76,7 +76,7 @@ LIBRARIES = {
     "prover": (
         "prover.cu",
         {
-            "bppt_prove_prep": [_VP] * 6 + [_LONG] * 5 + [_VP] * 6,
+            "bppt_prove_prep": [_VP] * 6 + [_LONG] * 5 + [_VP] * 7,
             "bppt_prove_round": [_VP] * 13 + [_LONG] * 6 + [_VP] * 8,
             "bppt_prove_final": [_VP] * 15 + [_LONG] * 5 + [_VP] * 6,
             "bppt_prove_responses": [_VP] * 8 + [_LONG] * 2 + [_VP] * 4,

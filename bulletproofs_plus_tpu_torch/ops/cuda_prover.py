@@ -29,14 +29,38 @@ from ..native import cuda
 from .edwards import PointArray
 from .limbs import NLIMBS
 
-MAX_THREADS = 256  # P1's block: a proof, its threads striding over the lanes
-MAX_SMEM = 232448  # shared memory a block may use: 227 KB; P2's scratch past it lies in device memory
+PREP_MAX_THREADS = 512  # P1's block: a proof, its ladder threads and the alpha warp (csrc/prover.cu P1_MAX_THREADS)
+MAX_SMEM = 232448  # shared memory a block may use: 227 KB; P1's and P2's scratch past it lies in device memory
 RESPONSE_THREADS = 32  # P3's second entry: a thread an output, a warp a block (csrc/prover.cu PR_RESP_THREADS)
 
 
-def block_threads(mn: int) -> int:
-    """P1's threads a block: mn rounded up to a power of two, from 32 to 256."""
-    return min(MAX_THREADS, max(32, 1 << (mn - 1).bit_length()))
+def prep_levels(mn: int, m: int) -> list:
+    """P1's ladder levels 1, 2, .. (csrc/prover.cu `prove_prep_body`), each
+    a tuple of its items' counts, one product each: y's ladder (y^(h+1+j) =
+    y^h y^(1+j), h = 2^(t-1), up to y^mn), the y^-n squaring, z's (z^2 at
+    level 1, then its ladder over m) and the lanes' factors d_i (at level
+    log2(m) + 2)."""
+    lm, lmn = m.bit_length() - 1, mn.bit_length() - 1
+    levels = []
+    for t in range(1, max(lmn, lm + 2) + 1):
+        h = 1 << (t - 1)
+        levels.append((h if t <= lmn else 0, int(t < lmn), 1 if t == 1 else h >> 1 if t <= lm + 1 else 0,
+                       mn if t == lm + 2 else 0))
+    return levels
+
+
+def prep_threads(mn: int, m: int) -> int:
+    """P1's threads a block: ladder threads enough for the widest level's
+    items, a multiple of 32, and the alpha warp; at most PREP_MAX_THREADS."""
+    widest = max(sum(level) for level in prep_levels(mn, m))
+    return min(PREP_MAX_THREADS, 32 * -(-widest // 32) + 32)
+
+
+def prep_words(mn: int, m: int, deg: int) -> int:
+    """32-bit words of one proof's P1 scratch (csrc/prover.cu `p1_words`):
+    y^1..y^mn, the lanes' factors d_i, z^2..z^(2m), alpha's S_k and the y^-n
+    chain, 8 words each."""
+    return 8 * (2 * mn + m + deg + 1)
 
 
 def round_threads(mn: int) -> int:
@@ -61,8 +85,9 @@ def round_words(mn: int, r: int, threads: int) -> int:
 
 
 def bit_sum_threads(mn: int) -> int:
-    """P4's threads a block (four a four-lane adder): 128, or 256 from 256 lanes on."""
-    return 256 if mn >= 256 else 128
+    """P4's threads a block, four a four-lane adder: 2 mn, from 32 to 256
+    (128 at mn 64: two lanes an adder, then a tree of five levels)."""
+    return min(256, max(32, 2 * mn))
 
 
 def _stream() -> int:
@@ -86,7 +111,7 @@ def _ptr(t):
 
 
 def _aligned(named: dict) -> None:
-    """P2 and P3 move each value as 16-byte accesses: every tensor of `named` 16-byte aligned."""
+    """P1-P3 move each value as 16-byte accesses: every tensor of `named` 16-byte aligned."""
     for what, (t, _) in named.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: expected a 16-byte aligned tensor")
@@ -108,18 +133,21 @@ def prove_prep(y, z, y_inv, bits, r_blind, alpha0, *, bit_length: int):
     rounds = mn.bit_length() - 1
     if m * bit_length != mn:
         raise ValueError(f"prove_prep: {m} commitments of {bit_length} bits are not {mn} lanes")
-    dev = _check({"prove_prep y": (y, (B, NLIMBS)), "prove_prep z": (z, (B, NLIMBS)),
-                  "prove_prep y_inv": (y_inv, (B, NLIMBS)), "prove_prep bits": (bits, (B, mn)),
-                  "prove_prep r_blind": (r_blind, (B, m, deg, NLIMBS)),
-                  "prove_prep alpha": (alpha0, (B, deg, NLIMBS))})
+    named = {"prove_prep y": (y, (B, NLIMBS)), "prove_prep z": (z, (B, NLIMBS)),
+             "prove_prep y_inv": (y_inv, (B, NLIMBS)), "prove_prep bits": (bits, (B, mn)),
+             "prove_prep r_blind": (r_blind, (B, m, deg, NLIMBS)), "prove_prep alpha": (alpha0, (B, deg, NLIMBS))}
+    dev = _check(named)
+    _aligned(named)
     new = functools.partial(torch.empty, dtype=torch.int64, device=dev)
     a, b, y_pows = new((B, mn, NLIMBS)), new((B, mn, NLIMBS)), new((B, mn + 1, NLIMBS))
     y_inv_n, alpha = new((B, rounds, NLIMBS)), new((B, deg, NLIMBS))
+    words = prep_words(mn, m, deg)
+    scratch = None if 4 * words <= MAX_SMEM else torch.empty((B, words), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         status = cuda.lib("prover").bppt_prove_prep(
             y.data_ptr(), z.data_ptr(), y_inv.data_ptr(), bits.data_ptr(), r_blind.data_ptr(), alpha0.data_ptr(),
-            B, m, bit_length, deg, block_threads(mn), a.data_ptr(), b.data_ptr(), y_pows.data_ptr(),
-            y_inv_n.data_ptr(), alpha.data_ptr(), _stream(),
+            B, m, bit_length, deg, prep_threads(mn, m), a.data_ptr(), b.data_ptr(), y_pows.data_ptr(),
+            y_inv_n.data_ptr(), alpha.data_ptr(), _ptr(scratch), _stream(),
         )
     cuda.check("prover", status, "prove_prep")
     cuda.launches["prove_prep"] += 1

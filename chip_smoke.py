@@ -11,8 +11,9 @@ mixed batch's two; D1, C1 and I1, ristretto decoding, encoding and the
 identity check, at the verify's and the prover's shapes, C1 in both its
 forms: the RFC 9496 encoder and the double-and-encode the prover runs; P1-P4,
 the prover's scalar protocol and the A commitment's masked sum, at the
-128-proof prove's shape, P2 at each of its six rounds and, at its row's
-round, by phase, P3's first entry by phase too), replays and
+128-proof prove's shape, P2 at each of its six rounds, and each but P3's
+second entry by phase (P2 at its row's round), P4 on the tables of halved
+points the prove sums), replays and
 verifies the golden proofs, proves and verifies golden proof 3 through the sequential prover
 and the host engine with their MSMs on the card (`msm_backend="device"`),
 verifies the 256 x 64-bit and 64 x m4 batches through
@@ -131,14 +132,16 @@ P1-P3 read each input once and write each output once as int64 limbs, and
 count the products mod l that one proof needs at the fewest
 (`_prover_products`), each `SC_MULADDS_PER_MUL`; their `chain_ms` is the
 products one thread runs one after another (`_prover_chains`) at
-`sc_mul_ns` (P2's and P3's first entry's: their items handed out as their
-threads take them, `_p2_chain`, `_p3_chain`); P2's and P3's first entry's
-rows also give their phases, clock64() stamps at the `// P2 phase:` and
-`// P3 phase:` markers of a copy built by scripts/profile_torch_p2.py, and
-that copy's own `stamped_graph_ms`.  P4 reads the bits, the start points and the generators' first
-two table words once and writes a point a proof, and counts a mixed addition
-(7 products) a lane; its chain is an adder's four-lane additions and the
-tree's levels at `fe_mul_ns`.
+`sc_mul_ns` (their items handed out as their threads take them,
+`_p1_chain`, `_p2_chain`, `_p3_chain`); the rows of P1, P2, P3's first
+entry and P4 also give their phases, clock64() stamps at the `// P1
+phase:` to `// P4 phase:` markers of copies built at once by
+scripts/profile_torch_p2.py, and each copy's own `stamped_graph_ms`.  P4
+reads the bits, the start points and the generators' first two table
+words once and writes a point a proof, and counts a mixed addition (7
+products) a lane; its chain (`_p4_chain`) is an adder's four-lane mixed
+additions, 2 products deep, and the tree's four-lane additions, 3 deep, at
+`fe_mul_ns`.
 
 S1 reads each input once and writes each output once as int64 limbs; its
 bound counts what the scalar pass needs at the fewest (`_scalar_products`):
@@ -189,6 +192,7 @@ MULADDS_PER_FSQR = 72
 FMUL_PER_ADD, FMUL_PER_MIXED_ADD = 9, 7
 FMUL_PER_CACHED_ADD = 8  # an addition whose second point is cached as (Y + X, Y - X, 2d T, 2Z)
 FMUL_DEEP_ADD4 = 3  # an addition spread over four lanes (ge_add4): three multiplications one after another
+FMUL_DEEP_MADD4 = 2  # a mixed addition of an affine entry over four lanes (P4's p4_madd4): two
 DBL_FMUL, DBL_FSQR = 4, 4
 POW_SQR, POW_MUL = 251, 11  # the x^((p-5)/8) addition chain
 RATIO_SQR, RATIO_MUL = 3, 8  # SQRT_RATIO_M1 around the chain: v^3, v^7, u v^3, u v^7, r, v r^2, two by sqrt(-1)
@@ -1150,20 +1154,37 @@ def _prover_bytes(mn: int, m: int, deg: int, rounds: int, r: int | None = None) 
 
 def _prover_chains(mn: int, m: int, deg: int, rounds: int, r: int) -> dict:
     """Products one thread of P1-P3 runs one after another at its longest:
-    P1 (the block's threads, `cuda_prover.block_threads`, striding over the
-    lanes) the larger of thread 0's z ladder and y^-n squarings and a
-    thread's y^k (squarings and products of k's bits), then two a lane and
-    two an alpha term; P2 as `_p2_chain`; P3's first entry as `_p3_chain`;
+    P1 as `_p1_chain`; P2 as `_p2_chain`; P3's first entry as `_p3_chain`;
     its second two, a d1 thread's."""
-    from bulletproofs_plus_tpu_torch.ops.cuda_prover import block_threads
-
-    t = block_threads(mn)
-    per = -(-mn // t)
-    pows = max(sum(k.bit_length() + bin(k).count("1") - 2 for k in range(j + 1, mn + 2, t)) for j in range(t))
-    return {"prove_prep": max(m + max(rounds - 1, 0), pows) + 2 * per + 2 * m,
+    return {"prove_prep": _p1_chain(mn, m, deg),
             "prove_round": _p2_chain(mn, rounds, r, deg) if r < rounds else 0,
             "prove_final": _p3_chain(mn, rounds, deg),
             "prove_responses": 2}
+
+
+def _p1_chain(mn: int, m: int, deg: int) -> int:
+    """P1's longest path in products mod l, its items handed out as
+    csrc/prover.cu's prove_prep_body hands them: the ladder threads' levels
+    (`cuda_prover.prep_levels`, each level's items strided over T - 32
+    threads, `prep_threads`) beside the alpha warp's z^2, its group's ladder
+    over G = min(m, 32) lanes, the product by y, and for each pass of 32 / G
+    values of k a lane's m / G terms and the m / G - 1 steps of z^(2G)
+    between them; then the last step's items strided over all T threads."""
+    from bulletproofs_plus_tpu_torch.ops.cuda_prover import prep_levels, prep_threads
+
+    threads = prep_threads(mn, m)
+    ladder = sum(-(-sum(level) // (threads - 32)) for level in prep_levels(mn, m))
+    g = min(m, 32)
+    alpha = 2 + (g.bit_length() - 1) + -(-deg // (32 // g)) * (2 * (m // g) - 1)
+    return max(ladder, alpha) + -(-(mn + 1 + deg) // threads)
+
+
+def _p4_chain(mn: int, threads: int) -> int:
+    """P4's longest path in products mod p: an adder's four-lane mixed
+    additions, one a lane it takes (mn / (threads / 4)), then the tree's
+    four-lane additions over the adders that hold a point."""
+    adders = threads // 4
+    return (-(-mn // adders) * FMUL_DEEP_MADD4 + (min(mn, adders).bit_length() - 1) * FMUL_DEEP_ADD4)
 
 
 def _p3_chain(mn: int, rounds: int, deg: int) -> int:
@@ -1226,7 +1247,7 @@ def _prover_inputs():
 
 
 def _p2_profiler():
-    """scripts/profile_torch_p2.py, P2's phase stamps."""
+    """scripts/profile_torch_p2.py, the prover kernels' phase stamps."""
     scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
     if scripts not in sys.path:
         sys.path.insert(0, scripts)
@@ -1235,7 +1256,7 @@ def _p2_profiler():
     return profile_torch_p2
 
 
-def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict) -> None:
+def _prover_rows(torch, rows: dict, out: dict, ptxas: dict, probe: dict) -> None:
     """P1-P4 against their plain twins on the card at the 128-proof prove's
     shape, every output exact (P2 at every round; P4 as canonical affine
     points, its start read as K6 leaves it), each timed beside its twin, with
@@ -1243,17 +1264,16 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
     `SC_MULADDS_PER_MUL`, or for P4 a mixed addition a lane; the bytes of
     `_prover_bytes`, or for P4 its bits, start and result as int64 limbs and
     its generators as their first two table words) and its chain (`_prover_chains` at `sc_mul_ns`;
-    P4 an adder's four-lane additions and the tree's levels at `fe_mul_ns`)."""
-    import numpy as np
-
+    P4 `_p4_chain` at `fe_mul_ns`), P4 on the tables the prove sums
+    (`halved_tables_joined`); each kernel but P3's second entry also by
+    phase, clock64() stamps at its markers in a copy built for this (the four
+    copies built at once, scripts/profile_torch_p2.py `build_all`)."""
     pin = _prover_inputs()
 
     from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
     from bulletproofs_plus_tpu_torch.native import BUILD_DIR, cuda
     from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
-    from bulletproofs_plus_tpu_torch.ops import edwards as ed
     from bulletproofs_plus_tpu_torch.ops import field as F
-    from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 
     batch, m, n, deg = PROVER_SHAPE
     mn = m * n
@@ -1282,8 +1302,18 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
                 "graph_ms": graph_ms(lambda: call(*args[0], **args[1])),
                 "plain_ms": median_ms(lambda: plain(*args[0], **args[1]), 3), "bound_ms": b_ms, "bound_by": b_by,
                 "chain_ms": chain * sc_ns * 1e-6, "products": products, "bytes": moved,
-                "threads": (cpr.block_threads if name == "prove_prep" else cpr.round_threads)(mn), "blocks": batch,
+                "threads": cpr.prep_threads(mn, m) if name == "prove_prep" else cpr.round_threads(mn), "blocks": batch,
                 **ptxas.get(f"{name}_kernel", {}), **(extra or {})}
+
+    # the stamped copies of P1-P4, one nvcc each, started together
+    p2p = _p2_profiler()
+    stamped = {tag: (p2p.load_stamped(so, cuda), names) for tag, (so, names, _) in
+               p2p.build_all(os.path.join(cuda.CSRC, "prover.cu"), BUILD_DIR, cuda, ("P1", "P2", "P3", "P4")).items()}
+
+    def phases(tag, call, threads):
+        lib, names = stamped[tag]
+        split = p2p.split(call, lib, names, cuda, batch, threads // 32, graph_ms)
+        return {"phases": split["phases"], "stamped_graph_ms": split["stamped_graph_ms"]}
 
     cuda.reset_launches()
     prep = pin.to_device(pin.prep_inputs(batch, m, n, deg, seed=1), torch, "cuda")
@@ -1291,6 +1321,8 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
     args = ([prep[k] for k in keys], {"bit_length": n})
     rows["prove_prep"] = row("prove_prep", cpr.prove_prep, PK.prove_prep_plain, args,
                              cpr.prove_prep(*args[0], **args[1]), r=0)
+    # P1 by phase: its `// P1 phase:` markers
+    rows["prove_prep"].update(phases("P1", lambda: cpr.prove_prep(*args[0], **args[1]), cpr.prep_threads(mn, m)))
 
     keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
     by_round = {}
@@ -1303,26 +1335,19 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
                            "by_round": {r: {k: v[k] for k in ("graph_ms", "ms", "bound_ms", "chain_ms", "products",
                                                               "bytes")}
                                         for r, v in by_round.items()}}
-    # P2's row round by phase: clock64() stamps at its `// P2 phase:` markers, in a copy built for this
-    # (scripts/profile_torch_p2.py)
-    p2p = _p2_profiler()
-    so, names, _ = p2p.build(os.path.join(cuda.CSRC, "prover.cu"), os.path.join(BUILD_DIR, "p2_phases"), cuda)
+    # P2's row round by phase: its `// P2 phase:` markers
     inp = pin.to_device(pin.round_inputs(batch, m, n, deg, PROVER_ROW_ROUND, seed=10 + PROVER_ROW_ROUND), torch,
                         "cuda")
     keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
-    split = p2p.split(lambda: cpr.prove_round(*(inp[k] for k in keys), r=PROVER_ROW_ROUND),
-                      p2p.load_stamped(so, cuda), names, cuda, batch, cpr.round_threads(mn) // 32, graph_ms)
-    rows["prove_round"].update(phases=split["phases"], stamped_graph_ms=split["stamped_graph_ms"])
+    rows["prove_round"].update(phases("P2", lambda: cpr.prove_round(*(inp[k] for k in keys), r=PROVER_ROW_ROUND),
+                                      cpr.round_threads(mn)))
 
     keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "r_s", "s_s", "d_mask", "eta")
     inp = pin.to_device(pin.final_inputs(batch, m, n, deg, seed=2), torch, "cuda")
     args = ([inp[k] for k in keys], {})
     rows["prove_final"] = row("prove_final", cpr.prove_final, PK.prove_final_plain, args, cpr.prove_final(*args[0]))
-    # P3's first entry by phase: its `// P3 phase:` markers, stamped in a copy (profile_torch_p2.py --kernel final)
-    so, names, _ = p2p.build(os.path.join(cuda.CSRC, "prover.cu"), os.path.join(BUILD_DIR, "p3_phases"), cuda, "P3")
-    split = p2p.split(lambda: cpr.prove_final(*args[0]), p2p.load_stamped(so, cuda), names, cuda, batch,
-                      cpr.round_threads(mn) // 32, graph_ms)
-    rows["prove_final"].update(phases=split["phases"], stamped_graph_ms=split["stamped_graph_ms"])
+    # P3's first entry by phase: its `// P3 phase:` markers
+    rows["prove_final"].update(phases("P3", lambda: cpr.prove_final(*args[0]), cpr.round_threads(mn)))
     keys = ("r_s", "s_s", "a0", "b0", "eta", "d_mask", "alpha", "e")
     inp = pin.to_device(pin.responses_inputs(batch, deg, seed=3), torch, "cuda")
     args = ([inp[k] for k in keys], {})
@@ -1330,27 +1355,22 @@ def _prover_rows(torch, params, rows: dict, out: dict, ptxas: dict, probe: dict)
                                   cpr.prove_responses(*args[0]),
                                   extra={"threads": cpr.RESPONSE_THREADS, "blocks": cpr.response_blocks(batch, deg)})
 
-    # P4 on the joined tables of the prove's generators, from alpha's point as K6 leaves it
-    table = params.bp_gens.fixed_tables_joined(2 * mn, params.pc_gens, "cuda")
-    rs = np.random.RandomState(4)
-    bits = torch.as_tensor(rs.randint(0, 2, size=(batch, mn)).astype(np.int64), device="cuda")
-    bits[0], bits[1] = 1, 0
-    start = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(batch)], device="cuda")
-    start = ed.PointArray(*(c.t().contiguous().t() for c in start))
+    # P4 on the tables the prove sums, from alpha's point as K6 leaves it; lane 0 all ones, lane 1 all zeros
+    table, bits, _, start = pin.bit_sum_inputs(batch, m, n, deg, "cuda", seed=4)
     got, want = cpr.bit_sum(start, bits, table), PK.bit_sum_plain(start, bits, table)
     e4 = _point_err(F, torch, torch.stack(list(got)).movedim(-1, 1), torch.stack(list(want)).movedim(-1, 1))
     if e4 != 0:
         raise AssertionError(f"bit_sum disagrees with its plain twin (max_abs_err {e4})")
     threads = cpr.bit_sum_threads(mn)
-    adders = threads // 4
     b4 = bound_ms(nbytes(bits, *start) + 2 * mn * 64 + batch * POINT_BYTES,
                   batch * mn * FMUL_PER_MIXED_ADD * MULADDS_PER_FMUL)
-    chain4 = (1 + (-(-(mn + 1) // adders) - 1 + (adders - 1).bit_length()) * FMUL_DEEP_ADD4) * probe["fe_mul_ns"]
     rows["bit_sum"] = {"max_abs_err": e4, "ms": kernel_ms(lambda: cpr.bit_sum(start, bits, table)),
                        "graph_ms": graph_ms(lambda: cpr.bit_sum(start, bits, table)),
                        "plain_ms": median_ms(lambda: PK.bit_sum_plain(start, bits, table), 3),
-                       "bound_ms": b4[0], "bound_by": b4[1], "chain_ms": chain4 * 1e-6, "threads": threads,
-                       "blocks": batch, **ptxas.get("bit_sum_kernel", {})}
+                       "bound_ms": b4[0], "bound_by": b4[1],
+                       "chain_ms": _p4_chain(mn, threads) * probe["fe_mul_ns"] * 1e-6, "threads": threads,
+                       "blocks": batch, **ptxas.get("bit_sum_kernel", {}),
+                       **phases("P4", lambda: cpr.bit_sum(start, bits, table), threads)}
     out["prover"] = {k: rows[k] for k in PROVER_KERNELS}
     out["prover_shape"] = {"proofs": batch, "m": m, "bits": n, "deg": deg, "rounds": rounds}
 
@@ -1464,7 +1484,7 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     out["table_bytes"]["halved_joined"] = halved.numel() * 4
     section_done("tables")
 
-    _prover_rows(torch, params, rows, out, ptxas, probe)
+    _prover_rows(torch, rows, out, ptxas, probe)
     section_done("p1_p4")
 
     # K1-K3 on the main path's MSM shape: 4098 dynamic lanes padded to 4608

@@ -1,26 +1,30 @@
 #!/usr/bin/env python3
-"""Where P2's or P3's time goes, phase by phase: clock64() stamps at the
-phase markers of the port's prove_round_kernel or prove_final_kernel
-(csrc/prover.cu).
+"""Where the time of one of the prover's kernels goes, phase by phase:
+clock64() stamps at the phase markers of the port's prove_prep_kernel (P1),
+prove_round_kernel (P2), prove_final_kernel (P3) or bit_sum_kernel (P4) in
+csrc/prover.cu.
 
-    python3 scripts/profile_torch_p2.py [--kernel round|final] [--source PATH] [--shape b128_mn64]
+    python3 scripts/profile_torch_p2.py [--kernel round|final|prep|bit_sum] [--source PATH]
+                                        [--shape b128_mn64] [--threads N[,N..]]
 
 Copies prover.cu (or PATH, a prover.cu of another tree) and the headers
 beside it into a scratch directory under the port's build directory, turns
-each marker line `// P2 phase: <name>` (with `--kernel final`, `// P3
-phase: <name>`) into a stamp (lane 0 of every warp writes clock64() to a
-device buffer: no barrier is added), builds that copy with nvcc as
-native/cuda.py builds the library, and runs P2 through the port's own
-wrapper (ops/cuda_prover.prove_round) at every round of the prove's shape,
-or P3's first entry (ops/cuda_prover.prove_final) once, on the seeded
-inputs of tests/torch_prover_inputs.py, its outputs checked against the
-unpatched kernel's.  For each round (or the one P3 launch) it prints one
-JSON line: for each phase the SM cycles from the marker before (the last
-warp of a block to pass each marker, averaged over the blocks), its share of
-the stamped time and that share of the unpatched kernel's `graph_ms`
-measured in the same run, and the patched kernel's own `graph_ms`, which
-shows what the stamps cost.  Then the card's name and power limit.  Needs a
-CUDA device and nvcc.
+each marker line `// P2 phase: <name>` (`// P3 phase:` with `--kernel
+final`, `// P1 phase:` with `prep`, `// P4 phase:` with `bit_sum`) into a
+stamp (lane 0 of every warp writes clock64() to a device buffer: no barrier
+is added), builds that copy with nvcc as native/cuda.py builds the library,
+and runs the kernel through the port's own wrapper (ops/cuda_prover.py) on
+the seeded inputs of tests/torch_prover_inputs.py, its outputs checked
+against the unpatched kernel's: P2 at every round of the prove's shape, the
+others once (P4 on the tables the prove sums).  For each launch it prints
+one JSON line: for each phase the SM cycles from the marker before (the
+last warp of a block to pass each marker, averaged over the blocks), its
+share of the stamped time and that share of the unpatched kernel's
+`graph_ms` measured in the same run, and the patched kernel's own
+`graph_ms`, which shows what the stamps cost.  `--threads` (P1 and P4)
+runs the launch at each block size given instead of the wrapper's own
+(`prep_threads`, `bit_sum_threads`), one line each.  Then the card's name
+and power limit.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -40,8 +44,8 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-MARKER = re.compile(r"^(\s*)// (P[23]) phase: (\S+)\s*$")
-TAGS = {"round": "P2", "final": "P3"}  # --kernel -> the markers it stamps
+MARKER = re.compile(r"^(\s*)// (P[1-4]) phase: (\S+)\s*$")
+TAGS = {"round": "P2", "final": "P3", "prep": "P1", "bit_sum": "P4"}  # --kernel -> the markers it stamps
 MAX_BLOCKS, MAX_WARPS, MAX_STAMPS = 256, 32, 16
 SHAPES = {"b128_mn64": (128, 1, 64, 1), "b64_mn256": (64, 4, 64, 5)}  # proofs, m, bit length, degree
 STAMP_CODE = f"""
@@ -77,9 +81,10 @@ def patch(source: str, tag: str = "P2"):
     return text[:at] + STAMP_CODE + text[at:], names
 
 
-def build(source_path: str, out_dir: str, cuda, tag: str = "P2"):
-    """The copy of source_path stamped at its `// <tag> phase:` markers, built
-    into out_dir: (its library, the phase names, nvcc's output)."""
+def _start(source_path: str, out_dir: str, cuda, tag: str):
+    """Writes the copy of source_path stamped at its `// <tag> phase:`
+    markers into out_dir and starts nvcc on it: (the process, its library,
+    the phase names)."""
     os.makedirs(out_dir, exist_ok=True)
     for header in glob.glob(os.path.join(os.path.dirname(source_path), "*.cuh")):
         shutil.copy(header, out_dir)
@@ -91,12 +96,31 @@ def build(source_path: str, out_dir: str, cuda, tag: str = "P2"):
     so = os.path.join(out_dir, "libbppt_prover_phases.so")
     cmd = [cuda.nvcc(), "-gencode", f"arch=compute_{cuda.ARCH[3:]},code={cuda.ARCH}", "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", so, cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so, names
+
+
+def _finish(proc, so: str, names, out_dir: str):
+    out, _ = proc.communicate()
     with open(os.path.join(out_dir, "prover_phases.log"), "w") as f:
-        f.write(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise SystemExit(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
-    return so, names, res.stdout + res.stderr
+        f.write(out)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed:\n{out}")
+    return so, names, out
+
+
+def build(source_path: str, out_dir: str, cuda, tag: str = "P2"):
+    """The copy of source_path stamped at its `// <tag> phase:` markers, built
+    into out_dir: (its library, the phase names, nvcc's output)."""
+    return _finish(*_start(source_path, out_dir, cuda, tag), out_dir)
+
+
+def build_all(source_path: str, out_root: str, cuda, tags) -> dict:
+    """`build` for each tag at once, one nvcc each, all started together:
+    tag -> (its library, the phase names, nvcc's output), each under
+    out_root/<tag>_phases."""
+    started = {tag: (_start(source_path, os.path.join(out_root, f"{tag.lower()}_phases"), cuda, tag),
+                     os.path.join(out_root, f"{tag.lower()}_phases")) for tag in tags}
+    return {tag: _finish(*job, out_dir) for tag, (job, out_dir) in started.items()}
 
 
 def load_stamped(so: str, cuda):
@@ -150,24 +174,57 @@ def split(call, stamped, names, cuda, blocks: int, warps: int, graph_ms) -> dict
                        for name, c in zip(names[1:], cycles)}}
 
 
+PREP_KEYS = ("y", "z", "y_inv", "bits", "r_blind", "alpha0")
+ROUND_KEYS = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
+FINAL_KEYS = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "r_s", "s_s", "d_mask", "eta")
+
+
+def launches(kernel: str, shape, torch, cpr, pin):
+    """(name, the launch through the port's wrapper) for each launch that
+    `--kernel` stamps, at `shape` (proofs, m, bit length, degree)."""
+    batch, m, n, deg = shape
+    if kernel == "prep":
+        inp = pin.to_device(pin.prep_inputs(batch, m, n, deg, seed=1), torch, "cuda")
+        return [("prove_prep", lambda: cpr.prove_prep(*(inp[k] for k in PREP_KEYS), bit_length=n))]
+    if kernel == "final":
+        inp = pin.to_device(pin.final_inputs(batch, m, n, deg, seed=2), torch, "cuda")
+        return [("prove_final", lambda: cpr.prove_final(*(inp[k] for k in FINAL_KEYS)))]
+    if kernel == "bit_sum":
+        table, bits, _, start = pin.bit_sum_inputs(batch, m, n, deg, "cuda", seed=4)
+        return [("bit_sum", lambda: cpr.bit_sum(start, bits, table))]
+    out = []
+    for r in range((m * n).bit_length() - 1):
+        inp = pin.to_device(pin.round_inputs(batch, m, n, deg, r, seed=10 + r), torch, "cuda")
+        out.append((f"round {r}", lambda inp=inp, r=r: cpr.prove_round(*(inp[k] for k in ROUND_KEYS), r=r)))
+    return out
+
+
+def block_threads(kernel: str, cpr, m: int, mn: int) -> int:
+    """The wrapper's own threads a block for `--kernel`."""
+    if kernel == "prep":  # a tree before P1's redesign: `block_threads`
+        return cpr.prep_threads(mn, m) if hasattr(cpr, "prep_threads") else cpr.block_threads(mn)
+    if kernel == "bit_sum":
+        return cpr.bit_sum_threads(mn)
+    return cpr.round_threads(mn)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("profile_torch_p2: no CUDA device", file=sys.stderr)
         return 2
+    import torch_prover_inputs as pin
     from chip_smoke import graph_ms, nvidia_smi, ptxas_report
 
     from bulletproofs_plus_tpu_torch.native import BUILD_DIR, cuda
     from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
-    from torch_prover_inputs import round_inputs, to_device
-
-    from torch_prover_inputs import final_inputs
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default="round", choices=sorted(TAGS))
     ap.add_argument("--source", default=os.path.join(ROOT, "bulletproofs_plus_tpu_torch", "csrc", "prover.cu"))
     ap.add_argument("--shape", default="b128_mn64", choices=sorted(SHAPES))
+    ap.add_argument("--threads", default="", help="P1 and P4: block sizes to run instead of the wrapper's")
     args = ap.parse_args()
 
     tag = TAGS[args.kernel]
@@ -175,24 +232,25 @@ def main() -> int:
     stamped = load_stamped(so, cuda)
     batch, m, n, deg = SHAPES[args.shape]
     mn = m * n
-    threads = getattr(cpr, "round_threads", cpr.block_threads)(mn)  # a tree before P2's redesign: P1's blocks
     source = os.path.relpath(os.path.abspath(args.source), ROOT)
-    if args.kernel == "final":
-        keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "r_s", "s_s", "d_mask", "eta")
-        inp = to_device(final_inputs(batch, m, n, deg, seed=2), torch, "cuda")
-        row = split(lambda: cpr.prove_final(*(inp[k] for k in keys)), stamped, names, cuda, batch, threads // 32,
-                    graph_ms)
-        print(json.dumps({"kernel": "prove_final", "shape": args.shape, "threads": threads, "source": source, **row,
-                          "stamped_ptxas": ptxas_report(log).get("prove_final_kernel", {})}), flush=True)
-        print(nvidia_smi())
-        return 0
-    keys = ("a", "b", "g", "h", "alpha", "fold", "y_pows", "y_inv_n", "d_l", "d_r")
-    for r in range(mn.bit_length() - 1):
-        inp = to_device(round_inputs(batch, m, n, deg, r, seed=10 + r), torch, "cuda")
-        row = split(lambda: cpr.prove_round(*(inp[k] for k in keys), r=r), stamped, names, cuda, batch,  # noqa: B023
-                    threads // 32, graph_ms)
-        print(json.dumps({"round": r, "shape": args.shape, "threads": threads, "source": source, **row,
-                          "stamped_ptxas": ptxas_report(log).get("prove_round_kernel", {})}), flush=True)
+    kernel_name = {"prep": "prove_prep_kernel", "round": "prove_round_kernel", "final": "prove_final_kernel",
+                   "bit_sum": "bit_sum_kernel"}[args.kernel]
+    sizes = [int(t) for t in args.threads.split(",") if t] or [None]
+    if sizes != [None] and args.kernel not in ("prep", "bit_sum"):
+        raise SystemExit("--threads: P1 and P4 only")
+    own = getattr(cpr, {"prep": "prep_threads", "bit_sum": "bit_sum_threads"}.get(args.kernel, ""), None)
+    for size in sizes:
+        if size is not None:  # the wrappers look their block size up at each call
+            setattr(cpr, own.__name__, lambda *_, size=size: size)
+        try:
+            threads = block_threads(args.kernel, cpr, m, mn)
+            for name, call in launches(args.kernel, SHAPES[args.shape], torch, cpr, pin):
+                row = split(call, stamped, names, cuda, batch, threads // 32, graph_ms)
+                print(json.dumps({"kernel": name, "shape": args.shape, "threads": threads, "source": source, **row,
+                                  "stamped_ptxas": ptxas_report(log).get(kernel_name, {})}), flush=True)
+        finally:
+            if own is not None:
+                setattr(cpr, own.__name__, own)
     print(nvidia_smi())
     return 0
 

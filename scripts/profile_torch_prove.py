@@ -24,7 +24,9 @@ with `RangeProof.prove_batch_with_rng` of the port
     kernels with the most device time;
   * "host_profile": one prove under cProfile: its wall time (inflated by
     the profiler) and the twelve functions with the most time in their own
-    code, with their calls.
+    code, with their calls;
+  * "host_inversions": the `pow(., -1, L)` calls that the prover's module
+    (models/prover_device.py) makes in one prove.
 Ends with the card's name and power limit.  Needs a CUDA device.
 """
 
@@ -176,6 +178,20 @@ def main() -> int:
                   pstats.Stats(prof).stats.items()), reverse=True)[:12]
     print(json.dumps({"host_profile": {"wall_ms": wall_ms, "top_own_ms": {name: {"ms": tt * 1e3, "calls": nc}
                                                                           for tt, nc, name in own}}}), flush=True)
+    # The host's inversions mod l: a module global `pow` shadows the builtin for the prover's own calls
+    inversions = []
+
+    def counting_pow(*a):
+        if len(a) == 3 and a[1] == -1:
+            inversions.append(a[2])
+        return pow(*a)
+
+    pd.pow = counting_pow
+    try:
+        prove()
+    finally:
+        del pd.pow
+    print(json.dumps({"host_inversions": len(inversions), "batch": args.batch}), flush=True)
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(res.stdout.strip())

@@ -963,34 +963,76 @@ def test_prove_round_kernel_every_round(card, batch, m, n, deg):
     assert dict(cuda.launches) == {"prove_round": rounds}
 
 
+# (batch, m, bit length, extension degree): P1 at mn 1 (no rounds) to 2,048 (m 32), m 1,024 with n 1 (the C entry's
+# most), and mn 4,096, whose slots lie in device memory (prove_prep_global_kernel); degrees 1, 5 and 6, batches 1,
+# 129 and 1,025
+PREP_SHAPES = [(1, 1, 1, 1), (1025, 1, 1, 6), (129, 1, 64, 5), (1025, 1, 64, 6), (1, 1, 64, 1), (128, 4, 64, 5),
+               (129, 4, 64, 1), (1, 4, 64, 6), (2, 32, 64, 1), (129, 32, 64, 6), (1, 1024, 1, 5), (2, 64, 64, 1)]
+
+
+@pytest.mark.parametrize("batch, m, n, deg", PREP_SHAPES, ids=[f"b{b}_m{m}_mn{m * n}_deg{d}" for b, m, n, d in PREP_SHAPES])
+def test_prove_prep_kernel_matches_plain(card, batch, m, n, deg):
+    """P1 on the card against its plain twin on the CPU, every output limb
+    for limb, one launch; y = 1 in lane 0 where the batch has two proofs or
+    more."""
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from torch_prover_inputs import prep_inputs, to_device
+
+    inp = prep_inputs(batch, m, n, deg, seed=batch + m * n + deg)
+    cuda.reset_launches()
+    got = cpr.prove_prep(**to_device(inp, torch, card), bit_length=n)
+    assert dict(cuda.launches) == {"prove_prep": 1}
+    assert _equal(got, PK.prove_prep_plain(**to_device(inp, torch, "cpu"), bit_length=n))
+
+
+def _bit_sum_equal(got, want):
+    """Two (B,) point arrays as canonical affine coordinates."""
+    return all(torch.equal(F.canon25519(F.mul25519(got[c], F.inv25519(got.z))),
+                           F.canon25519(F.mul25519(want[c], F.inv25519(want.z)))) for c in range(2))
+
+
 @pytest.mark.parametrize("batch, m, n, deg", PROVER_SHAPES, ids=PROVER_IDS)
 def test_bit_sum_kernel_matches_plain(card, batch, m, n, deg):
     """P4 on the card against its plain twin on the card, as points
     (canonical affine coordinates): the start points as K6 leaves them (a
-    (B, 16) view of limb-major storage) and contiguous, on the joined tables
-    of the prove's generators; lane 0 all bits set, lane 1 none."""
-    import bulletproofs_plus_tpu_torch as tbp
+    (B, 16) view of limb-major storage) and contiguous, on the tables the
+    prove sums (the halved generators' and Pedersen bases'); lane 0 all bits
+    set, lane 1 none."""
     from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
     from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from torch_prover_inputs import bit_sum_inputs
 
-    mn = m * n
-    pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(deg))
-    params = tbp.RangeParameters.init(n, m, pc)
-    table = params.bp_gens.fixed_tables_joined(2 * mn, pc, card)
-    rs = np.random.RandomState(mn)
-    bits = rs.randint(0, 2, size=(batch, mn)).astype(np.int64)
-    bits[0], bits[1] = 1, 0
-    bits_t = torch.as_tensor(bits, device=card)
-    start = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(batch)], device=card)
-    view = ed.PointArray(*(c.t().contiguous().t() for c in start))
-    want = PK.bit_sum_plain(start, bits_t, table)
+    table, bits, start, view = bit_sum_inputs(batch, m, n, deg, card, seed=m * n)
+    want = PK.bit_sum_plain(start, bits, table)
     for pts in (start, view):
         cuda.reset_launches()
-        got = cpr.bit_sum(pts, bits_t, table)
+        got = cpr.bit_sum(pts, bits, table)
         assert dict(cuda.launches) == {"bit_sum": 1}
-        for c in range(2):
-            zinv_g, zinv_w = F.inv25519(got.z), F.inv25519(want.z)
-            assert torch.equal(F.canon25519(F.mul25519(got[c], zinv_g)), F.canon25519(F.mul25519(want[c], zinv_w)))
+        assert _bit_sum_equal(got, want)
+
+
+# (batch, m, bit length, extension degree): P4 at mn 1 (more adders than lanes) to 2,048, batches 1, 129 and 1,025
+BIT_SUM_SHAPES = [(1, 1, 1, 1), (129, 1, 1, 1), (1025, 1, 64, 1), (129, 1, 64, 1), (1, 4, 64, 5), (129, 4, 64, 5),
+                  (2, 32, 64, 1), (129, 32, 64, 1)]
+
+
+@pytest.mark.parametrize("batch, m, n, deg", BIT_SUM_SHAPES,
+                         ids=[f"b{b}_mn{m * n}_deg{d}" for b, m, n, d in BIT_SUM_SHAPES])
+def test_bit_sum_kernel_shapes(card, batch, m, n, deg):
+    """P4 on the card against its plain twin at every shape of
+    BIT_SUM_SHAPES, as points, one launch, on the halved tables; a lane of
+    all ones and (where the batch has two) one of all zeros; the start as K6
+    leaves it."""
+    from bulletproofs_plus_tpu_torch.models import prover_kernels as PK
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+    from torch_prover_inputs import bit_sum_inputs
+
+    table, bits, start, view = bit_sum_inputs(batch, m, n, deg, card, seed=batch + m * n)
+    cuda.reset_launches()
+    got = cpr.bit_sum(view, bits, table)
+    assert dict(cuda.launches) == {"bit_sum": 1}
+    assert _bit_sum_equal(got, PK.bit_sum_plain(start, bits, table))
 
 
 @pytest.mark.parametrize("seeded, n, m, deg", [(True, 8, 1, 1), (False, 8, 2, 2), (False, 4, 4, 6), (True, 1, 1, 2)],

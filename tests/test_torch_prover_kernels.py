@@ -283,3 +283,175 @@ def test_p3_launch_shapes_cover_every_output():
         for batch in range(1, 1026):
             blocks = cpr.response_blocks(batch, deg)
             assert 0 <= blocks * cpr.RESPONSE_THREADS - batch * (2 + deg) < cpr.RESPONSE_THREADS, (batch, deg)
+
+
+def _prep_model(y, z, y_inv, bits, r_blind, alpha0, m, n):
+    """One proof through P1's schedule (csrc/prover.cu `prove_prep_body`) on
+    ints: the ladder threads' levels as `cuda_prover.prep_levels` counts
+    them, each item reading only slots that a level before it wrote; the
+    alpha warp's groups of G = min(m, 32) lanes, their ladder and sums by
+    shuffles lane by lane; then the last step."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+
+    mn, deg = m * n, len(alpha0)
+    lm, ln, rounds = m.bit_length() - 1, n.bit_length() - 1, mn.bit_length() - 1
+    ys, ds, zs = [y] + [None] * (mn - 1), [None] * mn, [None] * m
+    y_pows, y_inv_n, yi = [y] + [None] * mn, [None] * (rounds - 1) + [y_inv] if rounds else [], y_inv
+
+    def known(values, i):
+        assert values[i] is not None, i
+        return values[i]
+
+    for lv, (ny, ni, nz, nd) in enumerate(cpr.prep_levels(mn, m), start=1):
+        h = 1 << (lv - 1)
+        hz = h >> 1
+        old_ys, old_zs, old_yi = list(ys), list(zs), yi
+        for q in range(ny + ni + nz + nd):
+            if q < ny:
+                assert ys[h + q] is None
+                ys[h + q] = y_pows[h + q] = known(old_ys, h - 1) * known(old_ys, q) % L
+            elif q < ny + ni:
+                yi = y_inv_n[rounds - 1 - lv] = old_yi * old_yi % L
+            elif q < ny + ni + nz:
+                j = q - ny - ni
+                if lv == 1:
+                    zs[0] = z * z % L
+                else:
+                    zs[hz + j] = known(old_zs, hz - 1) * known(old_zs, j) % L
+            else:
+                i = q - ny - ni - nz
+                ds[i] = known(old_zs, i >> ln) * (1 << (i & (n - 1))) % L
+    assert None not in ys and None not in ds and None not in y_inv_n
+    # the alpha warp, lane by lane
+    G = min(m, 32)
+    lg = G.bit_length() - 1
+    v, h = [z * z % L] * 32, 1
+    while h < G:
+        old = list(v)
+        for lane in range(32):
+            g, base = lane & (G - 1), lane - (lane & (G - 1))
+            if h <= g < 2 * h:
+                v[lane] = old[base + h - 1] * old[base + ((g - h) & (G - 1))] % L
+        h <<= 1
+    zg = [v[lane - (lane & (G - 1)) + G - 1] for lane in range(32)]
+    v = [x * y % L for x in v]
+    sk = [None] * deg
+    for k0 in range(0, deg, 32 >> lg):
+        acc = [0] * 32
+        for lane in range(32):
+            g, k, u = lane & (G - 1), k0 + (lane >> lg), v[lane]
+            for j in range(g, m, G):
+                if j > g:
+                    u = u * zg[lane] % L
+                if k < deg:
+                    acc[lane] = (acc[lane] + u * r_blind[j][k]) % L
+        off = G >> 1
+        while off:
+            acc = [(acc[lane] + acc[lane ^ off]) % L for lane in range(32)]
+            off >>= 1
+        for lane in range(0, 32, G):
+            if k0 + (lane >> lg) < deg:
+                sk[k0 + (lane >> lg)] = acc[lane]
+    y_pows[mn] = ys[mn - 1] * ys[0] % L
+    a = [(bit - z) % L for bit in bits]
+    b = [(ds[i] * ys[mn - 1 - i] + z + (0 if bits[i] else L - 1)) % L for i in range(mn)]
+    alpha = [(alpha0[k] + sk[k] * ys[mn - 1]) % L for k in range(deg)]
+    return a, b, y_pows, y_inv_n, alpha
+
+
+@pytest.mark.parametrize("m, n, deg", [(1, 1, 1), (1, 64, 1), (2, 8, 6), (4, 16, 5), (64, 1, 3), (32, 2, 2)],
+                         ids=["mn1", "mn64", "mn16_deg6", "m4_mn64_deg5", "m64_n1", "m32_n2"])
+def test_prove_prep_schedule_matches_plain(m, n, deg):
+    """P1's schedule, its levels and the alpha warp's groups (m above 32
+    among them: two terms a lane), modelled on ints, gives the plain twin's
+    every output; and `prep_threads` gives every level's items and the last
+    step's a thread each at the prove's shapes."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+
+    mn = m * n
+    inp = prep_inputs(B, m, n, deg, seed=7 * mn + deg)
+    want = PK.prove_prep(**to_device(inp, torch, "cpu"), bit_length=n)
+    for lane in range(B):
+        y, z, y_inv = (_ints(inp[k][lane]) for k in ("y", "z", "y_inv"))
+        got = _prep_model(y, z, y_inv, inp["bits"][lane].tolist(), _ints(inp["r_blind"][lane]),
+                          _ints(inp["alpha0"][lane]), m, n)
+        assert list(got) == [_ints(w[lane]) if w[lane].numel() else [] for w in want]
+    for mn, m in ((64, 1), (256, 4)):
+        threads = cpr.prep_threads(mn, m)
+        assert all(sum(level) <= threads - 32 for level in cpr.prep_levels(mn, m)) and mn + 1 + 6 <= threads
+
+
+def test_prep_launch_shapes():
+    """P1's and P4's host-side launch shapes against csrc/prover.cu: P1's
+    block a multiple of 32 from 64 to its 512 and its scratch `p1_words`,
+    over mn 1 to 65,536 and m 1 to 1,024; P4's a power of two from 32 to its
+    512 threads."""
+    import os
+    import re
+
+    from bulletproofs_plus_tpu_torch.ops import cuda_prover as cpr
+
+    source = open(os.path.join(os.path.dirname(cpr.__file__), "..", "csrc", "prover.cu")).read()
+    define = lambda name: int(re.search(rf"#define {name} (\d+)", source).group(1))  # noqa: E731
+    assert define("P1_MAX_THREADS") == cpr.PREP_MAX_THREADS == 512 and define("P4_MAX_THREADS") == 512
+    assert "return 8 * (2 * mn + m + deg + 1);" in source
+    assert define("PR_MAX_SMEM") == cpr.MAX_SMEM
+    for lmn in range(17):
+        for lm in range(min(lmn, 10) + 1):
+            t = cpr.prep_threads(1 << lmn, 1 << lm)
+            assert t % 32 == 0 and 64 <= t <= 512, (lmn, lm)
+            assert len(cpr.prep_levels(1 << lmn, 1 << lm)) == max(lmn, lm + 2)
+        t = cpr.bit_sum_threads(1 << lmn)
+        assert t & (t - 1) == 0 and 32 <= t <= 256
+    assert cpr.prep_threads(64, 1) == 128 and cpr.bit_sum_threads(64) == 128
+    assert cpr.prep_words(64, 1, 1) == 8 * 131
+
+
+@pytest.mark.parametrize("mn, threads", [(1, 32), (8, 32), (16, 32), (16, 128)])
+def test_bit_sum_schedule_matches_host_points(joined, mn, threads):
+    """P4's schedule on host points: adder a from alpha's point (a = 0) or
+    the identity adds lanes a, a + T / 4, .. (the identity past the last),
+    then the tree over the adders that hold a point, across warps, then the
+    three levels of warp 0, gives start + sum_i (bit_i ? g_i : -h_i)."""
+    _, gens, _ = joined
+    rs = np.random.default_rng(mn + threads)
+    bits = rs.integers(0, 2, size=mn)
+    start = hr.point_mul(int(rs.integers(1, 2**62)), hr.BASEPOINT)
+    adders = threads // 4
+    acc = [start if a == 0 else hr.IDENTITY for a in range(adders)]
+    for i0 in range(0, mn, adders):
+        for a in range(adders):
+            i = i0 + a
+            if i < mn:
+                acc[a] = hr.point_add(acc[a], gens[2 * i] if bits[i] else hr.point_neg(gens[2 * i + 1]))
+    n = min(mn, adders)
+    wv = n >> 4
+    while wv >= 1:  # adder k of warp w + wv into adder k of warp w
+        for w in range(wv):
+            for k in range(8):
+                acc[8 * w + k] = hr.point_add(acc[8 * w + k], acc[8 * (w + wv) + k])
+        wv >>= 1
+    s = 1
+    while s < n and s < 8:  # warp 0: each group adds the group at xor distance s
+        acc[:8] = [hr.point_add(acc[k], acc[k ^ s]) for k in range(8)]
+        s <<= 1
+    want = start
+    for i in range(mn):
+        want = hr.point_add(want, gens[2 * i] if bits[i] else hr.point_neg(gens[2 * i + 1]))
+    assert hr.compress(acc[0]) == hr.compress(want)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 129])
+def test_batch_invert_l_matches_pow(batch):
+    """The prover's batch inversion of its challenges (one `pow` and 3B
+    products) against `pow(v, -1, L)` value by value, 1 and l - 1 among the
+    values."""
+    from bulletproofs_plus_tpu_torch.models.prover_device import batch_invert_l
+
+    rs = np.random.default_rng(batch)
+    values = [int.from_bytes(rs.bytes(32), "little") % (L - 1) + 1 for _ in range(batch)]
+    values[0] = 1
+    values[-1] = L - 1 if batch > 1 else values[-1]
+    assert batch_invert_l(values) == [pow(v, -1, L) for v in values]
+    with pytest.raises(ValueError):
+        batch_invert_l(values[:-1] + [0])

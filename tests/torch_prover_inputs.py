@@ -1,6 +1,6 @@
 """Seeded inputs of the prover's kernels P1-P4 (csrc/prover.cu), shared by
-the port's CPU tests (tests/test_torch_prover_kernels.py) and its card tests
-(tests/test_torch_cuda.py), and `LaneRng`, one lane of a batched SeededRng
+the port's CPU tests (tests/test_torch_prover_kernels.py), its card tests
+(tests/test_torch_cuda.py), chip_smoke.py and scripts/profile_torch_p2.py, and `LaneRng`, one lane of a batched SeededRng
 for the sequential prover (tests/test_torch_prover.py,
 tests/test_torch_parallel.py and chip_smoke.py).  Canonical scalars as numpy int64 limbs, from
 numpy's seeded generator; y^k and y^-n consistent with one random y a proof.
@@ -135,6 +135,31 @@ def responses_inputs(batch, deg, seed):
     one = {k: _limbs(_ints(rs, batch), (batch,)) for k in ("r_s", "s_s", "a0", "b0")}
     many = {k: _limbs(_ints(rs, batch * deg), (batch, deg)) for k in ("eta", "d_mask", "alpha")}
     return {**one, **many, "e": _limbs(_ints(rs, batch), (batch,))}
+
+
+def bit_sum_inputs(batch, m, n, deg, device, seed):
+    """P4's inputs on `device`: the tables the prove sums, the halved
+    generators' joined with the halved Pedersen bases'
+    (`BulletproofGens.halved_tables_joined`); bits (batch, mn), lane 0 all
+    ones and lane 1 (where there is one) all zeros; and seeded start points,
+    contiguous and as K6 leaves them (a (batch, 16) view of limb-major
+    storage)."""
+    import torch
+
+    import bulletproofs_plus_tpu_torch as tbp
+    from bulletproofs_plus_tpu_torch.ops import edwards as ed
+    from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
+
+    mn = m * n
+    pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(deg))
+    table = tbp.RangeParameters.init(n, m, pc).bp_gens.halved_tables_joined(2 * mn, pc, device)
+    rs = np.random.RandomState(seed)
+    bits = rs.randint(0, 2, size=(batch, mn)).astype(np.int64)
+    bits[0] = 1
+    bits[1:2] = 0
+    start = ed.from_host([hr.point_mul(int(rs.randint(1, 2**31)), hr.BASEPOINT) for _ in range(batch)], device=device)
+    view = ed.PointArray(*(c.t().contiguous().t() for c in start))
+    return table, torch.as_tensor(bits, device=device), start, view
 
 
 def to_device(inputs, torch, device):
