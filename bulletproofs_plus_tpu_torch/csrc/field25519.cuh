@@ -321,6 +321,15 @@ __device__ __forceinline__ bool fe_eq(const fe &a, const fe &b) {
     return diff == 0u;
 }
 
+// a == 0 mod p: the canonical form is zero (I1's test, ristretto.cu, and K3's tail, msm.cu).
+__device__ __forceinline__ bool fe_is_zero(const fe &a) {
+    const fe c = fe_canon(a);
+    u32 any = 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) any |= c.w[k];
+    return any == 0u;
+}
+
 // RFC 9496 negativity: the canonical form is odd.
 __device__ __forceinline__ bool fe_is_negative(const fe &a) { return (fe_canon(a).w[0] & 1u) != 0u; }
 

@@ -386,8 +386,14 @@ __global__ void __launch_bounds__(FOLD_MAX_THREADS, 1) lane_fold_kernel(const u3
 // warp.  More warps shorten the additions (four warps: 1 + 5 deep) but read
 // no faster: they need shared memory and a barrier, and the compiler guards
 // every shuffle of a block whose warps part ways with a WARPSYNC.
+//
+// The tail (I1 folded in): where `identity` is given, thread 0 writes whether
+// the sum is the identity, X or Y 0 mod p as ristretto.cu's is_identity_kernel
+// decides it (ops/ristretto.py:95-103): lanes 0 (X) and 1 (Y) each take their
+// coordinate's canonical form, one shuffle joins the two tests.  The point is
+// written all the same.
 __global__ void __launch_bounds__(4 * HORNER_GROUPS, 1)
-    horner_kernel(const int64_t *__restrict__ wsum, int64_t *__restrict__ out) {
+    horner_kernel(const int64_t *__restrict__ wsum, int64_t *__restrict__ out, uint8_t *__restrict__ identity) {
     const int tid = threadIdx.x, c = tid & 3;
     const int g = tid >> 2;  // this group's chunk
     const int64_t *mine = wsum + c * 16 * N_WINDOWS + g * HORNER_CHUNK;  // coordinate c of the chunk's windows
@@ -403,6 +409,11 @@ __global__ void __launch_bounds__(4 * HORNER_GROUPS, 1)
     for (int i = 0; i < 4 * HORNER_CHUNK * (HORNER_GROUPS - 1); ++i) acc = fe_select(i < own, ge_dbl4(acc), acc);
     acc = ge4_warp_sum(acc, HORNER_GROUPS);
     if (tid < 4) fe_store(out + c * 16, 1, acc);
+    if (identity != nullptr) {
+        const bool zero = fe_is_zero(acc);
+        const bool y_zero = __shfl_down_sync(0xffffffffu, zero, 1);  // lane 0 reads lane 1's: Y
+        if (tid == 0) *identity = zero || y_zero;
+    }
 }
 
 extern "C" const char *bppt_msm_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
@@ -471,7 +482,9 @@ extern "C" int bppt_lane_fold(const void *parts, void *out, long nb, long thread
     return (int)cudaGetLastError();
 }
 
-extern "C" int bppt_horner(const void *wsum, void *out, void *stream) {
-    horner_kernel<<<1, 4 * HORNER_GROUPS, 0, (cudaStream_t)stream>>>((const int64_t *)wsum, (int64_t *)out);
+// identity: one byte, or null for the point alone.
+extern "C" int bppt_horner(const void *wsum, void *out, void *identity, void *stream) {
+    horner_kernel<<<1, 4 * HORNER_GROUPS, 0, (cudaStream_t)stream>>>((const int64_t *)wsum, (int64_t *)out,
+                                                                     (uint8_t *)identity);
     return (int)cudaGetLastError();
 }

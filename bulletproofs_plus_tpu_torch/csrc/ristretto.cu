@@ -12,7 +12,9 @@
 //      `double_compress_kernel` (below) in its place;
 //   I1 `is_identity_kernel`: ops/ristretto.py:103 `is_identity`, the closing
 //      check of `final_msm_is_identity`, `mixed_msm_is_identity` and
-//      `combine_groups_msm` (verifier_kernels.py:439, 446, 405).
+//      `combine_groups_msm` (verifier_kernels.py:439, 446, 405); on the port's
+//      single-host verify K3's tail takes the same test (msm.cu), and I1
+//      checks a sharded verify's all-reduced point (parallel/verify.py).
 // In the port these were eager torch, hundreds of launches of int64 limb
 // arithmetic around one launch of K4's fused entry; their plain versions stay
 // as the port's ops/ristretto.py `*_plain`, which these kernels equal.
@@ -60,14 +62,6 @@ __device__ __forceinline__ fe fe_invsqrt_a_minus_d() {  // 1/sqrt(a - d), a = -1
     r.w[0] = 0x805d40eau; r.w[1] = 0x99c8fdaau; r.w[2] = 0x5a4172beu; r.w[3] = 0x9d2f1617u;
     r.w[4] = 0xfe01d840u; r.w[5] = 0x16c27b91u; r.w[6] = 0xcfaffca2u; r.w[7] = 0x786c8905u;
     return r;
-}
-
-__device__ __forceinline__ bool fe_is_zero(const fe &a) {
-    const fe c = fe_canon(a);
-    u32 any = 0u;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) any |= c.w[k];
-    return any == 0u;
 }
 
 // s < p on the words as loaded, before any fold (fe_canon would map s >= p
@@ -275,7 +269,9 @@ __global__ void fe_inv_latency_kernel(const int64_t *in, int64_t *out, int iters
 // and point_equal(p, q) = [X_p Y_q == Y_p X_q] or [Y_p Y_q == X_p X_q], each
 // side compared canonically mod p.  With X_q = 0 and Y_q = 1 the first is
 // [X_p == 0] and the second [Y_p == 0]: no product is left, only the two
-// canonical forms.  x, y: (n, 16) limbs each; out: n bytes, 0 or 1.
+// canonical forms.  x, y: (n, 16) limbs each; out: n bytes, 0 or 1.  Its one path
+// is a sharded verify's all-reduced point: a single-host verify takes the same
+// test from K3's tail (msm.cu horner_kernel).
 __global__ void __launch_bounds__(RIST_THREADS) is_identity_kernel(const int64_t *__restrict__ x,
                                                                   const int64_t *__restrict__ y,
                                                                   uint8_t *__restrict__ out, long n) {

@@ -26,18 +26,24 @@ masked sum are the kernels P1-P4 of csrc/prover.cu on a card, their plain
 twins on the CPU (models/prover_kernels.py): one launch of P1, one of P2 a
 round, two of P3 and one of P4 a prove.
 
-**Fiat-Shamir on the host.**  The JAX package runs the Merlin sponge inside
-its one jitted program because a jit cannot call back to the host.  PyTorch
-runs eagerly, so the batched numpy transcript that starts the prover
-(`RangeProofTranscript` over B stacked lanes) drives the whole protocol:
-after A, after each round's L/R and after A1/B the compressed points are
-read back, the challenges are squeezed and the round's masks drawn with
-`rpt.rng().random_not_zero()` in the sequential prover's order, and the
-scalars are uploaded.  The external RNG is so consumed by the transcript
-itself, in the reference's call order.  Challenge inverses (y^-1, each e^-1)
-are taken on the host too, one batch inversion a challenge
-(`batch_invert_l`: one modular inversion and 3B products) instead of
-one Fermat ladder of ~380 batched multiplications on the device each.
+**Fiat-Shamir on the card.**  The JAX package runs the Merlin sponge inside
+its one jitted program.  The port runs it as T1 (csrc/transcript.cu, by way
+of ops/cuda_transcript.py; its plain twin on the CPU), a launch a phase:
+after A, after each round's L and R and after A1 and B, each phase appends
+the points that C1' wrote, rebuilds the transcript RNG and draws the masks
+the prover needs before the next challenge, squeezes the challenges and
+inverts y or e, writing every scalar into the tensors P1-P3 read.  The
+host keeps what the JAX package keeps there: the statement's absorption
+(`RangeProofTranscript`), alpha's draws from the first RNG, the seed
+nonces, and the external RNG's 32-byte blocks, one a phase, drawn after
+alpha in the sequential prover's call order (the last phase's rebuild
+draws nothing, but its block is consumed as the host path consumed it).
+Everything is uploaded once, and one device-to-host copy at the end brings
+back every point, r1, s1, d1, the states and the phases' flags; a flag
+raises the host path's error of the earliest phase.  One deviation: a
+one-lane batch whose RNG draws a zero mask (probability 2^-252) raises the
+batched error where the sequential prover would draw again, as the JAX
+package's fused prover does.
 
 Bit-exactness contract: proofs and the callers' final transcript states are
 byte-identical to sequential `RangeProof.prove_with_rng` calls fed the same
@@ -58,10 +64,11 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..errors import InvalidArgument, InvalidLength
+from ..errors import InvalidArgument, InvalidLength, VerificationFailed
 from ..gens.pedersen import ExtensionDegree
 from ..ops import host_ristretto as hr
 from ..ops import ristretto as rist
+from ..ops.cuda_transcript import IDENTITY, ZERO_CHALLENGE, ZERO_DRAW, prove_transcript, prover_phases
 from ..ops.edwards import PointArray
 from ..ops.fixed_base import fixed_msm_batched, fixed_msm_grouped
 from ..ops.limbs import NLIMBS, bytes_from_limbs, int_from_limbs, pack_ints
@@ -73,29 +80,6 @@ from .transcripts import RangeProofTranscript
 from .verifier_kernels import _on
 
 L = hr.L
-
-
-def batch_invert_l(values: Sequence[int]) -> List[int]:
-    """The inverses mod l of nonzero `values` by Montgomery's trick: the
-    running products, one `pow(., -1, L)` of the last, then back through
-    the values, 3 n products in all.  The inverse is unique, so each
-    equals `pow(v, -1, L)`; a zero value raises, as `pow` does (the
-    transcript refuses a zero challenge before any inversion)."""
-    prefix, acc = [], 1
-    for v in values:
-        prefix.append(acc)
-        acc = acc * v % L
-    inv = pow(acc, -1, L)
-    out = [0] * len(prefix)
-    for i in range(len(prefix) - 1, -1, -1):
-        out[i] = inv * prefix[i] % L
-        inv = inv * values[i] % L
-    return out
-
-
-def _point_bytes(comp: torch.Tensor) -> np.ndarray:
-    """(..., 16) canonical limbs on the device -> (..., 32) uint8 on the host."""
-    return bytes_from_limbs(comp.cpu().numpy())
 
 
 class _RunRng:
@@ -185,6 +169,7 @@ def prove_batch_with_rng(
             for (k, a), part in zip(own.items(), np.split(every, np.cumsum(widths)[:-1], axis=1))
         }
 
+    _raise_flags(lanes["flags"])
     proofs = [
         RangeProof(
             a=lanes["a"][lane].tobytes(),
@@ -209,12 +194,36 @@ def prove_batch_with_rng(
     return proofs
 
 
+def _raise_flags(flags: np.ndarray) -> None:
+    """The phases' flags (B, phases) -> the host path's error of the earliest
+    phase that raised one, within a phase in the host path's order: a point
+    appended (the identity), the challenges, then the draws the next step
+    makes from the phase's RNG."""
+    for column in np.asarray(flags).T:
+        if (column & IDENTITY).any():
+            raise VerificationFailed("Identity element cannot be added to the transcript")
+        if (column & ZERO_CHALLENGE).any():  # pragma: no cover - 2^-252
+            raise VerificationFailed("Transcript challenge cannot be zero")
+        if (column & ZERO_DRAW).any():  # pragma: no cover - 2^-252
+            raise VerificationFailed(
+                "Batched transcript RNG drew a zero scalar; lanes cannot retry in "
+                "lockstep — re-run the batch with a fresh external RNG"
+            )
+
+
+def _read_back(parts: list) -> np.ndarray:
+    """The prove's one device-to-host copy: (B, ...) int64 tensors side by
+    side as (B, sum of their widths)."""
+    return torch.cat([t.reshape(t.shape[0], -1) for t in parts], dim=1).cpu().numpy()
+
+
 def _prove_lanes(transcripts, statements, witnesses, rng, device):
     """The batched prover proper, on lanes whose arguments are checked.
     Returns ({name: (B, ...) numpy array}, the final sponge positions):
     the compressed points "a" (B, 32), "li" and "ri" (B, rounds, 32) and
     "a1_b" (B, 2, 32); the scalars' limbs "r1", "s1" (B, 16) and "d1"
-    (B, deg, 16); "state", the final transcript states (B, 200)."""
+    (B, deg, 16); "state", the final transcript states (B, 200); "flags",
+    the phases' (B, rounds + 2); all read back in one copy."""
     B = len(statements)
     gens = statements[0].generators
     bit_length = gens.bit_length()
@@ -224,8 +233,9 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
     rounds = mn.bit_length() - 1
     seeded = statements[0].seed_nonce is not None
 
-    # The batched transcript, keyed with each lane's witness bytes
-    # (v LE64 then each blinding, per opening: transcripts.rs:91-109).
+    # The batched transcript absorbs the statement and keys its first RNG
+    # with each lane's witness bytes (v LE64 then each blinding, per
+    # opening: transcripts.rs:91-109) and one external block.
     witness_bytes = np.stack(
         [
             np.frombuffer(
@@ -255,19 +265,25 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
         rng,
     )
 
-    def upload(values: Sequence[int], *shape: int) -> torch.Tensor:
+    def upload(values, *shape: int) -> torch.Tensor:
         """Python ints mod l -> (*shape, 16) limb tensor on the device."""
         return _on(pack_ints([v % L for v in values]), device).reshape(shape + (NLIMBS,))
 
-    def masks(label: str, index_j) -> torch.Tensor:
-        """(B, deg, 16) mask scalars: the seed nonce's if the statements carry
-        one, else `deg` lockstep draws from the transcript RNG."""
-        if seeded:
-            return upload([nonce(s.seed_nonce, label, index_j, k) for s in statements for k in range(deg)], B, deg)
-        draws = [rpt.rng().random_not_zero() for _ in range(deg)]  # [k][lane]
-        return upload([draws[k][lane] for lane in range(B) for k in range(deg)], B, deg)
+    def nonces(label: str, index_j) -> list:
+        return [nonce(s.seed_nonce, label, index_j, k) for s in statements for k in range(deg)]
 
-    alpha = masks("alpha", None)
+    # alpha (range_proof.rs:299-303): nonces, or lockstep draws from the first RNG
+    if seeded:
+        alpha = upload(nonces("alpha", None), B, deg)
+    else:
+        draws = [rpt.rng().random_not_zero() for _ in range(deg)]  # [k][lane]
+        alpha = upload([draws[k][lane] for lane in range(B) for k in range(deg)], B, deg)
+    # The external RNG's blocks of the rebuilds, one a phase, in the sequential prover's call order
+    blocks = np.stack([rng.fill_bytes(B, 32) for _ in range(rounds + 2)])
+    phases, final_position = prover_phases(
+        rounds, deg, seeded, witness_bytes.shape[1], stacked.strobe.pos, stacked.strobe.pos_begin,
+        stacked.strobe.cur_flags,
+    )
 
     # Bit decomposition with minimum-value offsets
     bits_np = np.zeros((B, mn), dtype=np.int64)
@@ -287,6 +303,34 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
         ],
         B, m, deg,
     )
+    state = torch.as_tensor(np.ascontiguousarray(stacked.strobe.state), device=device)
+    witness_t = torch.as_tensor(witness_bytes, device=device)
+    blocks_t = torch.as_tensor(blocks, device=device)
+    flags = torch.zeros((B, rounds + 2), dtype=torch.uint8, device=device)
+
+    def scalar() -> torch.Tensor:
+        return torch.empty((B, NLIMBS), dtype=torch.int64, device=device)
+
+    def masks() -> torch.Tensor:
+        return torch.empty((B, deg, NLIMBS), dtype=torch.int64, device=device)
+
+    # Where each phase's draws go: round p's d_L and d_R, or after the last round r_s, s_s, d and eta; seeded
+    # statements take d_L, d_R, d and eta from their nonces
+    if seeded:
+        d_l = upload([v for r in range(rounds) for v in nonces("dL", r)], rounds, B, deg)
+        d_r = upload([v for r in range(rounds) for v in nonces("dR", r)], rounds, B, deg)
+        d_mask, eta = upload(nonces("d", None), B, deg), upload(nonces("eta", None), B, deg)
+        phase_draws = [[] for _ in range(rounds)]
+    else:
+        d_l, d_r = [masks() for _ in range(rounds)], [masks() for _ in range(rounds)]
+        d_mask, eta = masks(), masks()
+        phase_draws = [[d[:, k] for d in (d_l[r], d_r[r]) for k in range(deg)] for r in range(rounds)]
+    r_s, s_s = scalar(), scalar()
+    phase_draws.append([r_s, s_s] + ([] if seeded else [d[:, k] for d in (d_mask, eta) for k in range(deg)]))
+
+    def run_phase(p: int, points: torch.Tensor, outs: list) -> None:
+        block = blocks_t[p] if phases[p].n_draws else None
+        prove_transcript(phases[p], state, points, witness_t, block, outs, flags[:, p])
 
     # The tables of the halved generators joined with the halved Pedersen bases' [G_1..G_deg, H], at lanes
     # 2mn..2mn+deg: every MSM gives Q, and 2Q is the point of the proof, encoded by `double_and_compress`
@@ -297,60 +341,55 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
     # bit decomposition (a_li in {0,1}, a_ri in {0,-1}), so the MSM collapses
     # to a masked sum (P4) on top of the alpha fixed-base MSM.
     a_pt = bit_sum(fixed_msm_batched(alpha, tables, lanes=pedersen[:deg]), bits, tables)
-    a_bytes = _point_bytes(rist.double_and_compress(a_pt))
+    a_comp = rist.double_and_compress(a_pt)
 
     # --- challenges y, z (transcripts.rs:124-138); vector prep (range_proof.rs:350-373)
-    y_list, z_list = rpt.challenges_y_z(a_bytes)
-    y_inv = upload(batch_invert_l(y_list), B)
-    av, bv, y_pows, y_inv_n, alpha = prove_prep(
-        upload(y_list, B), upload(z_list, B), y_inv, bits, r_blind, alpha, bit_length=bit_length
-    )
+    y, z, y_inv = scalar(), scalar(), scalar()
+    run_phase(0, a_comp[:, None], phase_draws[0] + [y, z, y_inv])
+    av, bv, y_pows, y_inv_n, alpha = prove_prep(y, z, y_inv, bits, r_blind, alpha, bit_length=bit_length)
 
     # Rounds (range_proof.rs:409-537): each folds by the previous round's
     # challenge, then L and R are one grouped fixed-base MSM over the ORIGINAL
     # generators (folded generators are linear in them: per-lane coefficients
     # g and h) and the Pedersen lanes [d, c].
-    li_bytes, ri_bytes = [], []
+    lr_comps = []
     g_coeff = h_coeff = fold = None
     for r in range(rounds):
-        d_l = masks("dL", r)
-        d_r = masks("dR", r)
         av, bv, g_coeff, h_coeff, alpha, scalars = prove_round(
-            av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, d_l, d_r, r=r
+            av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, d_l[r], d_r[r], r=r
         )
         lr_pts = fixed_msm_grouped(scalars, tables, 2, lanes=round_lanes(mn, deg, r))
-        lr_bytes = _point_bytes(rist.double_and_compress(lr_pts))  # (B, 2, 32)
-        li_bytes.append(lr_bytes[:, 0])
-        ri_bytes.append(lr_bytes[:, 1])
-
-        e_list = rpt.challenge_round_e(lr_bytes[:, 0], lr_bytes[:, 1])
-        fold = (upload(e_list, B), upload(batch_invert_l(e_list), B), d_l, d_r)
+        lr_comps.append(rist.double_and_compress(lr_pts))  # (B, 2, 16)
+        e, e_inv = scalar(), scalar()
+        run_phase(r + 1, lr_comps[-1], phase_draws[r + 1] + [e, e_inv])
+        fold = (e, e_inv, d_l[r], d_r[r])
 
     # --- final masks and A1/B (range_proof.rs:540-584): A1 spans ALL original
     # generator lanes after the last fold, and the Pedersen lanes; B only the latter
-    r_s = upload(rpt.rng().random_not_zero(), B)
-    s_s = upload(rpt.rng().random_not_zero(), B)
-    d_mask = masks("d", None)
-    eta = masks("eta", None)
     a1_scalars, b_scalars, a0, b0, alpha = prove_final(
         av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, r_s, s_s, d_mask, eta
     )
     a1_pt = fixed_msm_batched(a1_scalars, tables)
     b_pt = fixed_msm_batched(b_scalars, tables, lanes=pedersen)
     final_pts = PointArray(*(torch.stack([a, b], dim=1) for a, b in zip(a1_pt, b_pt)))
-    final_bytes = _point_bytes(rist.double_and_compress(final_pts))  # (B, 2, 32)
+    final_comp = rist.double_and_compress(final_pts)  # (B, 2, 16)
+    e = scalar()
+    run_phase(rounds + 1, final_comp, [e])
+    r1, s1, d1 = prove_responses(r_s, s_s, a0, b0, eta, d_mask, alpha, e)
 
-    e_list = rpt.challenge_final_e(final_bytes[:, 0], final_bytes[:, 1])
-    r1, s1, d1 = prove_responses(r_s, s_s, a0, b0, eta, d_mask, alpha, upload(e_list, B))
-    final = stacked.strobe
+    host = _read_back([a_comp, *lr_comps, final_comp, r1, s1, d1, state.view(torch.int64), flags.to(torch.int64)])
+    ends = np.cumsum([NLIMBS, 2 * NLIMBS * rounds, 2 * NLIMBS, NLIMBS, NLIMBS, deg * NLIMBS, 25])
+    a_l, lr_l, final_l, r1_l, s1_l, d1_l, state_w, flags_l = np.split(host, ends, axis=1)
+    lr_bytes = bytes_from_limbs(lr_l.reshape(B, rounds, 2, NLIMBS))  # (B, rounds, 2, 32)
     lanes = {
-        "a": a_bytes,
-        "li": np.array(li_bytes, dtype=np.uint8).reshape(rounds, B, 32).transpose(1, 0, 2),
-        "ri": np.array(ri_bytes, dtype=np.uint8).reshape(rounds, B, 32).transpose(1, 0, 2),
-        "a1_b": final_bytes,
-        "r1": r1.cpu().numpy(),
-        "s1": s1.cpu().numpy(),
-        "d1": d1.cpu().numpy(),
-        "state": np.asarray(final.state).reshape(B, -1),
+        "a": bytes_from_limbs(a_l),
+        "li": np.ascontiguousarray(lr_bytes[:, :, 0]),
+        "ri": np.ascontiguousarray(lr_bytes[:, :, 1]),
+        "a1_b": bytes_from_limbs(final_l.reshape(B, 2, NLIMBS)),
+        "r1": r1_l,
+        "s1": s1_l,
+        "d1": d1_l.reshape(B, deg, NLIMBS),
+        "state": np.ascontiguousarray(state_w).view(np.uint8).reshape(B, 200),
+        "flags": flags_l.astype(np.uint8),
     }
-    return lanes, (final.pos, final.pos_begin, final.cur_flags)
+    return lanes, final_position

@@ -12,8 +12,8 @@ src/range_proof.rs:856-1062) on torch tensors:
     plain twin `scalar_pass_plain`, on any other device an error;
   * one batched ristretto decompression of every proof point (D1 on a
     card);
-  * one MSM against the identity (K7 or K1, then K2 and K3 inside; the
-    identity check I1 on a card).
+  * one MSM against the identity (K7 or K1, then K2 and K3 inside; on a
+    card the verdict comes from K3's own launch, I1's test in its tail).
 
 `group_contrib` does the first two for one shape group and
 `combine_groups_msm` sums the groups and runs the MSM: a mixed-shape batch
@@ -325,12 +325,13 @@ def group_contrib(
 
 def combine_groups_point(
     gis, his, gbs, hbs, dyn_scalar_parts, dyn_point_parts,
-    static_points, g_base_pts, h_base_pt,
+    static_points, g_base_pts, h_base_pt, identity: bool = False,
 ):
     """Sum the groups' static scalar accumulators, concatenate their dynamic
     halves, and run the one folded mixed MSM (range_proof.rs:1050-1062):
-    its point, which a valid batch makes the identity.  A rank of the
-    sharded verify (parallel/verify.py) folds the static lanes in this way."""
+    its point, which a valid batch makes the identity (with `identity`,
+    (point, that verdict) from K3's tail).  A rank of the sharded verify
+    (parallel/verify.py) folds the static lanes in this way."""
     from functools import reduce
 
     from ..ops.fixed_base import mixed_msm
@@ -344,7 +345,7 @@ def combine_groups_point(
     dyn_scalars = torch.cat(list(dyn_scalar_parts) + [gb, hb[None]])
     dyn_points = cat(list(dyn_point_parts) + [g_base_pts, h_base_pt])
     dyn_scalars, dyn_points = pad_msm_inputs(dyn_scalars, dyn_points)
-    return mixed_msm(static_scalars, static_points, dyn_scalars, dyn_points)
+    return mixed_msm(static_scalars, static_points, dyn_scalars, dyn_points, identity=identity)
 
 
 def combine_groups_msm(
@@ -352,25 +353,25 @@ def combine_groups_msm(
     static_points, g_base_pts, h_base_pt,
 ):
     """The closing step of a verification: `combine_groups_point` against
-    the identity."""
-    return rist.is_identity(combine_groups_point(
-        gis, his, gbs, hbs, dyn_scalar_parts, dyn_point_parts, static_points, g_base_pts, h_base_pt,
-    ))
+    the identity, the verdict K3's tail writes (no I1 launch)."""
+    return combine_groups_point(
+        gis, his, gbs, hbs, dyn_scalar_parts, dyn_point_parts, static_points, g_base_pts, h_base_pt, identity=True,
+    )[1]
 
 
 def final_msm_is_identity(scalars: torch.Tensor, points) -> torch.Tensor:
-    """One folded MSM, compared against the identity."""
+    """One folded MSM, compared against the identity in K3's tail."""
     from ..ops.msm import msm_kernel
 
-    return rist.is_identity(msm_kernel(scalars, points))
+    return msm_kernel(scalars, points, identity=True)[1]
 
 
 def mixed_msm_is_identity(static_scalars, static_points, dynamic_scalars, dynamic_points) -> torch.Tensor:
     """Static (generator) + dynamic MSM == identity: the final batch-
-    verification check (range_proof.rs:1050-1062)."""
+    verification check (range_proof.rs:1050-1062), in K3's tail."""
     from ..ops.fixed_base import mixed_msm
 
-    return rist.is_identity(mixed_msm(static_scalars, static_points, dynamic_scalars, dynamic_points))
+    return mixed_msm(static_scalars, static_points, dynamic_scalars, dynamic_points, identity=True)[1]
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,7 @@ LIBRARIES = {
             "bppt_dyn_acc": [_VP, _VP, _VP, _LONG, _LONG, _LONG, _VP],
             "bppt_dyn_acc_signed": [_VP, _VP, _VP, _LONG, _LONG, _LONG, _VP],
             "bppt_lane_fold": [_VP, _VP, _LONG, _LONG, _VP],
-            "bppt_horner": [_VP, _VP, _VP],
+            "bppt_horner": [_VP, _VP, _VP, _VP],
             "bppt_msm_occupancy": [_LONG, _LONG, _LONG, ctypes.POINTER(ctypes.c_int)],
         },
     ),
@@ -71,6 +71,15 @@ LIBRARIES = {
             "bppt_perm_latency": [_VP, _VP, _LONG, _VP],
             "bppt_keccak_latency": [_VP, _VP, _LONG, _VP],
             "bppt_reduce_wide": [_VP, _VP, _VP, _LONG, _VP],
+        },
+    ),
+    "transcript": (
+        "transcript.cu",
+        {
+            "bppt_prove_transcript": [_VP, _VP, _LONG, _VP, _LONG, _VP, _VP, _LONG, _LONG, _LONG, _LONG, _LONG,
+                                      ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_long), _LONG, _VP,
+                                      _LONG, _LONG, _LONG, _VP],
+            "bppt_transcript_occupancy": [_LONG, _LONG, _LONG, _LONG, _LONG, ctypes.POINTER(ctypes.c_int)],
         },
     ),
     "prover": (

@@ -196,6 +196,15 @@ def horner_plain(wsum: torch.Tensor) -> torch.Tensor:
     return pf.to_coords(acc)
 
 
+def horner_identity_plain(wsum: torch.Tensor):
+    """K3 with its tail: `horner_plain`, then I1's plain twin on its point
+    -> (point, () bool)."""
+    from .ristretto import is_identity_plain
+
+    out = horner_plain(wsum)
+    return out, is_identity_plain(PointArray(*out))
+
+
 def dyn_msm_plain(scalars: torch.Tensor, points: PointArray) -> PointArray:
     """The whole K1 -> K2 -> K3 chain in plain torch: (n, 16) canonical
     scalars and points -> sum_i s_i P_i."""
@@ -306,14 +315,18 @@ def _launch_lane_fold(parts: torch.Tensor, threads: int) -> torch.Tensor:
     return out
 
 
-def horner(wsum: torch.Tensor) -> torch.Tensor:
-    """K3: (4, 16, 64) window sums -> (4, 16) point sum_j 16^j W_j."""
+def horner(wsum: torch.Tensor, identity: bool = False):
+    """K3: (4, 16, 64) window sums -> (4, 16) point sum_j 16^j W_j; with
+    `identity`, (point, () bool: the point is the identity) from the same
+    launch, I1's verdict from K3's tail (`horner_identity_plain` on the CPU)."""
     if wsum.device.type == "cpu":
-        return horner_plain(wsum)
+        return horner_identity_plain(wsum) if identity else horner_plain(wsum)
     cuda.require(wsum, "horner window sums", (4, NLIMBS, N_WINDOWS))
     out = torch.empty((4, NLIMBS), dtype=torch.int64, device=wsum.device)
+    flag = torch.empty((), dtype=torch.bool, device=wsum.device) if identity else None
     with torch.cuda.device(wsum.device):
-        status = cuda.lib("msm").bppt_horner(wsum.data_ptr(), out.data_ptr(), _stream())
+        status = cuda.lib("msm").bppt_horner(wsum.data_ptr(), out.data_ptr(),
+                                             flag.data_ptr() if identity else None, _stream())
     cuda.check("msm", status, "horner")
     cuda.launches["horner"] += 1
-    return out
+    return (out, flag) if identity else out

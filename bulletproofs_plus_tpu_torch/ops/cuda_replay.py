@@ -29,6 +29,11 @@ into it:
   SET_CONST   state[pos : pos + len] = pool[arg : arg + len]
   TAKE        out[arg : arg + len] = state[pos : pos + len]; those bytes = 0
   CHECK_ZERO  flag the lane if row[arg : arg + 32] is all zeroes
+  SET_DATA    state[pos : pos + len] = row[arg : arg + len]
+  SAVE        the second state = the state
+  SWAP        exchange the state and the second state
+
+(the last three in the prover's programs only, ops/cuda_transcript.py).
 
 The pool holds every constant byte of the program, zeroes included.  The
 kernel takes the program as 64-bit words (an op is two int32,
@@ -62,7 +67,7 @@ from ..utils.keccak import bytes_as_states
 from . import field as F
 from . import scalar_model
 
-PERMUTE, XOR_CONST, XOR_DATA, SET_CONST, TAKE, CHECK_ZERO = range(6)
+PERMUTE, XOR_CONST, XOR_DATA, SET_CONST, TAKE, CHECK_ZERO, SET_DATA, SAVE, SWAP = range(9)  # csrc/sponge.cuh SpanOp
 POINT_BYTES = 32
 WIDE = 64  # bytes of a challenge before its reduction
 STATE_BYTES = 200
@@ -72,7 +77,7 @@ WARP_CHOICES = (1, 2, 4, 8, 16, 32)  # warps a block, smallest first
 
 
 def encode(kind: int, pos: int, length: int, arg: int) -> List[int]:
-    if not (kind in range(6) and 0 <= pos and 0 <= length < 256 and pos + length <= STATE_BYTES
+    if not (kind in range(9) and 0 <= pos and 0 <= length < 256 and pos + length <= STATE_BYTES
             and 0 <= arg < 1 << 31):
         raise ValueError(f"replay op out of range: kind {kind}, position {pos}, length {length}, argument {arg}")
     return [kind << 16 | pos << 8 | length, arg]
@@ -92,14 +97,16 @@ class RowSlice:
 
 class _Tape:
     """The program being recorded: its ops, its pool of constant bytes and
-    the output bytes taken so far."""
+    the output bytes taken so far; `live`, in a program of two states
+    (ops/cuda_transcript.py), the recorder whose state the lanes hold."""
 
-    __slots__ = ("ops", "pool", "n_out")
+    __slots__ = ("ops", "pool", "n_out", "live")
 
     def __init__(self):
         self.ops: List[List[int]] = []
         self.pool = bytearray()
         self.n_out = 0
+        self.live = None
 
     def span(self, kind: int, pos: int, chunk) -> None:
         if isinstance(chunk, RowSlice):
@@ -165,7 +172,35 @@ class _Recorder(JStrobe):
         return (outs[0][0], sum(n for _, n in outs))
 
 
-class Program:
+class _Compiled:
+    """A recorded span program as the kernels read it: its ops (kind,
+    position, length, argument), its pool of constant bytes, the output
+    bytes it takes, its permutations and other ops ("spans"), and the
+    bytes those move."""
+
+    def _assemble(self, tape: _Tape) -> None:
+        self.ops = np.asarray(tape.ops, dtype=np.int64).reshape(-1, 4)
+        self.pool = bytes(tape.pool)
+        self.n_out = tape.n_out
+        kinds = self.ops[:, 0]
+        self.n_permutations = int((kinds == PERMUTE).sum())
+        self.n_spans = int((kinds != PERMUTE).sum())
+        self.span_bytes = int(self.ops[np.isin(kinds, (XOR_CONST, XOR_DATA, SET_CONST, SET_DATA, TAKE)), 2].sum())
+        words = np.asarray([encode(*op) for op in tape.ops], dtype="<i4").tobytes()
+        pool = self.pool + bytes(-len(self.pool) % 8)
+        self.pool_words = len(pool) // 8
+        self.blob = np.frombuffer(words + pool, dtype="<i8")
+        self._on: dict = {}
+
+    def blob_on(self, device) -> torch.Tensor:
+        """The program and its pool as int64 words on `device`, uploaded once."""
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = torch.as_tensor(self.blob.copy(), device=device)
+        return self._on[key]
+
+
+class Program(_Compiled):
     """A replay sequence, the transcript position it starts from, and the
     span program it compiles to.
 
@@ -187,26 +222,8 @@ class Program:
             raise AssertionError("the replay's outputs do not fill the output row in order")
         if any(n != WIDE for _, n in outs):
             raise AssertionError("every challenge of the replay is 64 bytes wide")
-        self.ops = np.asarray(tape.ops, dtype=np.int64).reshape(-1, 4)  # kind, position, length, argument
-        self.pool = bytes(tape.pool)
-        self.n_out = tape.n_out
+        self._assemble(tape)
         self.n_challenges, self.n_seed = len(outs), seeds[1]
-        kinds = self.ops[:, 0]
-        self.n_permutations = int((kinds == PERMUTE).sum())
-        self.n_spans = int((kinds != PERMUTE).sum())
-        self.span_bytes = int(self.ops[np.isin(kinds, (XOR_CONST, XOR_DATA, SET_CONST, TAKE)), 2].sum())
-        words = np.asarray([encode(*op) for op in tape.ops], dtype="<i4").tobytes()
-        pool = self.pool + bytes(-len(self.pool) % 8)
-        self.pool_words = len(pool) // 8
-        self.blob = np.frombuffer(words + pool, dtype="<i8")
-        self._on: dict = {}
-
-    def blob_on(self, device) -> torch.Tensor:
-        """The program and its pool as int64 words on `device`, uploaded once."""
-        key = str(device)
-        if key not in self._on:
-            self._on[key] = torch.as_tensor(self.blob.copy(), device=device)
-        return self._on[key]
 
 
 def _check(tape: _Tape, point) -> None:
@@ -319,14 +336,17 @@ def _byte_mask(lo: int, hi: int, w: int) -> np.uint64:
     return np.uint64(((1 << (8 * nb)) - 1) << (8 * (lo - 8 * w)))
 
 
-def replay_model(program: Program, state: np.ndarray, buf: np.ndarray):
-    """csrc/replay.cu's replay_kernel in numpy, every lane of every warp at
-    once: the span ops on 64-bit words, the warp's permutation, the
-    epilogue's reduction through ops/scalar_model.py.  Returns (scalars,
-    seeds, bad_identity, bad_zero) as numpy arrays."""
+def run_ops_model(program: _Compiled, state: np.ndarray, buf: np.ndarray):
+    """csrc/sponge.cuh `sponge_run` in numpy, every lane of every warp at
+    once: the program's ops on (B, 200) states and the (B, stride) rows ->
+    (final states as (B, 32) uint64 lanes, out (B, n_out) uint8,
+    bad_identity (B,) bool).  The span ops act on 64-bit words
+    under byte masks, the permutation is the warp's (`keccak_warp`), and
+    SAVE and SWAP keep the second state in a second set of lanes."""
     batch = state.shape[0]
     a = np.zeros((batch, 32), dtype=np.uint64)
     a[:, :STATE_WORDS] = bytes_as_states(np.ascontiguousarray(state, dtype=np.uint8))
+    s = np.zeros_like(a)
     row = _padded_words(np.ascontiguousarray(buf, dtype=np.uint8))
     row_bytes = row.view(np.uint8)
     pool = _padded_words(np.frombuffer(program.pool, dtype=np.uint8)[None])
@@ -339,6 +359,12 @@ def replay_model(program: Program, state: np.ndarray, buf: np.ndarray):
         if kind == CHECK_ZERO:
             bad |= ~(row_bytes[:, PAD_FRONT + arg + _LANES] != 0).any(axis=1)
             continue
+        if kind == SAVE:
+            s = a.copy()
+            continue
+        if kind == SWAP:
+            a, s = s, a
+            continue
         for w in range(STATE_WORDS):
             lo, hi = max(8 * w, pos), min(8 * w + 8, pos + length)
             if lo >= hi:
@@ -350,20 +376,37 @@ def replay_model(program: Program, state: np.ndarray, buf: np.ndarray):
                         out[:, arg + 8 * w + b - pos] = (a[:, w] >> np.uint64(8 * b)) & np.uint64(0xFF)
                 a[:, w] &= ~mask
             else:
-                v = _window(row if kind == XOR_DATA else pool, arg, pos, w) & mask
-                a[:, w] = (a[:, w] & ~mask) | v if kind == SET_CONST else a[:, w] ^ v
+                v = _window(row if kind in (XOR_DATA, SET_DATA) else pool, arg, pos, w) & mask
+                a[:, w] = (a[:, w] & ~mask) | v if kind in (SET_CONST, SET_DATA) else a[:, w] ^ v
+    return a, out, bad
 
-    n_ch = program.n_challenges
-    wide = out[:, : WIDE * n_ch].copy().view("<u4").reshape(batch, n_ch, 16)
-    scalars = np.zeros((batch, n_ch, 16), dtype=np.int64)
-    zero = np.zeros(batch, dtype=bool)
+
+def reduce_model(wide: np.ndarray):
+    """The epilogue's reduction, as ops/scalar_model.py runs it word for
+    word: (B, k, 64) uint8 -> (scalars (B, k, 16) int64 limbs, zero (B, k)
+    bool)."""
+    batch, k = wide.shape[:2]
+    words = np.ascontiguousarray(wide).view("<u4").reshape(batch, k, 16)
+    scalars = np.zeros((batch, k, 16), dtype=np.int64)
+    zero = np.zeros((batch, k), dtype=bool)
     for lane in range(batch):
-        for c in range(n_ch):
-            r = scalar_model.reduce_fold([int(v) for v in wide[lane, c]])
+        for c in range(k):
+            r = scalar_model.reduce_fold([int(v) for v in words[lane, c]])
             scalars[lane, c, 0::2] = [v & 0xFFFF for v in r]
             scalars[lane, c, 1::2] = [v >> 16 for v in r]
-            zero[lane] |= not any(r)
-    return scalars, out[:, WIDE * n_ch :], bad, zero
+            zero[lane, c] = not any(r)
+    return scalars, zero
+
+
+def replay_model(program: Program, state: np.ndarray, buf: np.ndarray):
+    """csrc/replay.cu's replay_kernel in numpy (`run_ops_model`, then the
+    epilogue's reduction through ops/scalar_model.py).  Returns (scalars,
+    seeds, bad_identity, bad_zero) as numpy arrays."""
+    batch = state.shape[0]
+    _, out, bad = run_ops_model(program, state, buf)
+    n_ch = program.n_challenges
+    scalars, zero = reduce_model(out[:, : WIDE * n_ch].reshape(batch, n_ch, WIDE))
+    return scalars, out[:, WIDE * n_ch :], bad, zero.any(axis=1)
 
 
 # ---------------------------------------------------------------------------

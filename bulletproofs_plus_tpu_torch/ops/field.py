@@ -347,9 +347,106 @@ def pow_l(x: torch.Tensor, exp: int) -> torch.Tensor:
     return _pow_bits(x, exp, mul_l, sqr_l)
 
 
+# The inverse mod l by Bernstein and Yang's divsteps, as csrc/scalar_l.cuh
+# `sc_inv_l_warp` and ops/scalar_model.py `inv_l` run them: nine signed
+# 30-bit limbs, batches of 30 divsteps applied as one 2 x 2 matrix, a fixed
+# 20 batches (enough for any input below 2^256; batches past g = 0 leave d
+# the same mod l).  Every value fits int64: the matrix's entries lie in
+# [-2^30, 2^30] and a limb's sum of products below 2^63.
+_M30, _M32 = (1 << 30) - 1, (1 << 32) - 1
+_L_S30 = [(L >> (30 * i)) & _M30 for i in range(9)]
+_L_INV30 = pow(L, -1, 1 << 30)
+_INV_BATCHES = 20
+
+
+def _to_s30(x: torch.Tensor) -> list:
+    """(..., 16) limbs below 2^16 -> nine (...) 30-bit limbs."""
+    out = []
+    for i in range(9):
+        parts = [x[..., j] << (16 * j - 30 * i) if 16 * j >= 30 * i else x[..., j] >> (30 * i - 16 * j)
+                 for j in range(NLIMBS) if 16 * j < 30 * i + 30 and 16 * j + 16 > 30 * i]
+        out.append(sum(parts) & _M30)
+    return out
+
+
+def _from_s30(s: list) -> torch.Tensor:
+    """Nine (...) limbs in [0, 2^30) -> (..., 16) limbs below 2^16."""
+    out = []
+    for j in range(NLIMBS):
+        parts = [s[i] >> (16 * j - 30 * i) if 16 * j >= 30 * i else s[i] << (30 * i - 16 * j)
+                 for i in range(9) if 30 * i < 16 * j + 16 and 30 * i + 30 > 16 * j]
+        out.append(sum(parts) & LIMB_MASK)
+    return torch.stack(out, dim=-1)
+
+
+def _divsteps_30(zeta, f, g):
+    """30 divsteps on the low words f (odd) and g: zeta and the matrix (u,
+    v, q, r) scaled by 2^30 (scalar_model.divsteps_30, a lane a value).
+    (f, u, v) and (g, q, r) each travel as one (..., 3) tensor."""
+    fuv = torch.stack([f, torch.ones_like(f), torch.zeros_like(f)], dim=-1)
+    gqr = torch.stack([g, torch.zeros_like(g), torch.ones_like(g)], dim=-1)
+    halve = torch.tensor([1, 0, 0], dtype=f.dtype, device=f.device)  # g halves, q and r stay
+    double = 1 - halve  # u and v double, f stays
+    for _ in range(30):
+        neg, odd = zeta < 0, (gqr[..., 0] & 1) == 1
+        summed = torch.where(odd[..., None], (gqr + torch.where(neg[..., None], -fuv, fuv)) & _M32, gqr)
+        swap = neg & odd
+        fuv = (torch.where(swap[..., None], gqr, fuv) << double) & _M32
+        zeta = torch.where(swap, -zeta - 2, zeta - 1)
+        gqr = summed >> halve
+    u, v, q, r = fuv[..., 1], fuv[..., 2], gqr[..., 1], gqr[..., 2]
+    return zeta, [w - ((w >> 31) << 32) for w in (u, v, q, r)]  # as signed 32-bit values
+
+
+def _apply(t, a: list, b: list, ma=None, mb=None) -> tuple:
+    """(a, b) <- t (a, b) / 2^30, plus ma, mb times l where given (the
+    multiples that clear the low 30 bits of d and e)."""
+    u, v, q, r = t
+    ca, cb = u * a[0] + v * b[0], q * a[0] + r * b[0]
+    if ma is not None:
+        ca, cb = ca + _L_S30[0] * ma, cb + _L_S30[0] * mb
+    ca, cb = ca >> 30, cb >> 30
+    na, nb = [], []
+    for i in range(1, 9):
+        ca, cb = ca + u * a[i] + v * b[i], cb + q * a[i] + r * b[i]
+        if ma is not None:
+            ca, cb = ca + _L_S30[i] * ma, cb + _L_S30[i] * mb
+        na.append(ca & _M30)
+        nb.append(cb & _M30)
+        ca, cb = ca >> 30, cb >> 30
+    return na + [ca], nb + [cb]
+
+
 def inv_l(x: torch.Tensor) -> torch.Tensor:
-    """Inverse mod l by Fermat; inv(0) = 0."""
-    return pow_l(x, L - 2)
+    """Inverse mod l (inv(0) = 0) of (..., 16) limbs of any value below
+    2^256, canonical out: Bernstein and Yang's divsteps, as the kernels
+    invert (scalar_l.cuh `sc_inv_l_warp`), batched over the leading axes."""
+    x = barrett_reduce(x)
+    f, g = [torch.full_like(x[..., 0], w) for w in _L_S30], _to_s30(x)
+    d, e = [torch.zeros_like(x[..., 0]) for _ in range(9)], [torch.ones_like(x[..., 0])] + [
+        torch.zeros_like(x[..., 0]) for _ in range(8)]
+    zeta = torch.full_like(x[..., 0], -1)
+    for _ in range(_INV_BATCHES):
+        if x.device.type == "cpu" and not any(bool(w.any()) for w in g):
+            break  # every value's g is 0: further batches leave d the same mod l
+        zeta, t = _divsteps_30(zeta, f[0], g[0])
+        u, v, q, r = t
+        sd, se = d[8] < 0, e[8] < 0
+        md = torch.where(sd, u, 0) + torch.where(se, v, 0)
+        me = torch.where(sd, q, 0) + torch.where(se, r, 0)
+        md = md - ((_L_INV30 * ((u * d[0] + v * e[0]) & _M32) + md) & _M30)
+        me = me - ((_L_INV30 * ((q * d[0] + r * e[0]) & _M32) + me) & _M30)
+        d, e = _apply(t, d, e, md, me)
+        f, g = _apply(t, f, g)
+    negate = f[8] < 0
+    for first in (True, False):  # d in (-2l, l), negated where f = -1, to [0, l)
+        d = [torch.where(d[8] < 0, a + m, a) for a, m in zip(d, _L_S30)]
+        if first:
+            d = [torch.where(negate, -a, a) for a in d]
+        for i in range(8):
+            d[i + 1] = d[i + 1] + (d[i] >> 30)
+            d[i] = d[i] & _M30
+    return _from_s30(d)
 
 
 def eq_l(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -408,6 +408,15 @@ def is_identity_words(x: list, y: list) -> bool:
     return fe_is_zero(x) or fe_is_zero(y)
 
 
+def horner_identity_lanes(coords: list) -> bool:
+    """msm.cu horner_kernel's tail, lane by lane: lanes 0-3 hold the sum's
+    X, Y, Z, T (8 words each), every lane tests its coordinate with
+    fe_is_zero, and lane 0 joins its test with lane 1's (a shuffle down by
+    one)."""
+    zero = [fe_is_zero(c) for c in coords]
+    return zero[0] or zero[1]
+
+
 # ---------------------------------------------------------------------------
 # csrc/divsteps.cuh fe_inv and csrc/ristretto.cu double_compress_kernel
 # ---------------------------------------------------------------------------

@@ -174,9 +174,11 @@ def mixed_msm(
     static_points: PointArray,
     dynamic_scalars: torch.Tensor,
     dynamic_points: PointArray,
-) -> PointArray:
+    identity: bool = False,
+):
     """sum static_scalars * static_points + sum dynamic_scalars * dynamic_points,
     the analog of `vartime_mixed_multiscalar_mul` (range_proof.rs:1050).
-    Dynamic lanes come first, as in the JAX package."""
+    Dynamic lanes come first, as in the JAX package.  identity=True returns
+    (point, whether it is the identity), as `msm_kernel` does."""
     scalars = torch.cat([dynamic_scalars, static_scalars])
-    return msm_kernel(scalars, ed.cat([dynamic_points, static_points]))
+    return msm_kernel(scalars, ed.cat([dynamic_points, static_points]), identity=identity)

@@ -153,7 +153,7 @@ def tree_reduce(points: PointArray) -> PointArray:
     return PointArray(*(c[..., 0, :] for c in acc))
 
 
-def msm_kernel(scalars: torch.Tensor, points: PointArray, signed: bool | None = None) -> PointArray:
+def msm_kernel(scalars: torch.Tensor, points: PointArray, signed: bool | None = None, identity: bool = False):
     """sum_i scalars[i] * points[i] for (n, 16) canonical scalar limbs.
 
     4-bit windowed MSM: per-lane tables of the digits' multiples of P,
@@ -163,13 +163,19 @@ def msm_kernel(scalars: torch.Tensor, points: PointArray, signed: bool | None = 
     kernels on CUDA tensors.  signed=None reads BPPT_MSM_SIGNED at call time:
     K7 unless it is "0", which selects K1.  Signed digits are the default
     because K7 + K2 measured faster than K1 + K2 on an H100 at both verify
-    widths (PERF.md); the JAX package defaults to unsigned digits."""
+    widths (PERF.md); the JAX package defaults to unsigned digits.
+    identity=True returns (point, () bool: the sum is the identity), the
+    verdict from K3's own launch (its tail, I1's test)."""
     from .cuda_msm import coords_t, dyn_acc, dyn_acc_signed, horner, lane_fold
 
     if signed is None:
         signed = os.environ.get("BPPT_MSM_SIGNED", "1") != "0"
     acc = dyn_acc_signed if signed else dyn_acc
-    return PointArray(*horner(lane_fold(acc(scalars.t().contiguous(), coords_t(points)))))
+    wsum = lane_fold(acc(scalars.t().contiguous(), coords_t(points)))
+    if identity:
+        point, flag = horner(wsum, identity=True)
+        return PointArray(*point), flag
+    return PointArray(*horner(wsum))
 
 
 def device_msm(scalars: Sequence[int], points: Sequence[hr.Point], device="cuda") -> hr.Point:

@@ -11,8 +11,8 @@ Every state change goes through four byte-level primitives (`_xor`, `_set`,
 `_take`, `_permute`) and every piece of data through `_chunk`/`_join`.
 That keeps the STROBE framing in one place: ops/cuda_replay.py subclasses
 `JStrobe` with primitives that record a span program (one op a call)
-instead of running it, and the replay kernel (csrc/replay.cu) executes
-that program.
+instead of running it, and the replay kernel (csrc/replay.cu) and the
+prover's transcript kernel (csrc/transcript.cu) execute such programs.
 
 Bit-exactness contract: given the same inputs, `JStrobe` produces the same
 state bytes as `strobe.Strobe128` (tests/test_torch_replay.py); its
@@ -211,6 +211,15 @@ class JTranscriptRngBuilder:
         self.strobe.meta_ad(_le32(_data_len(witness)), True)
         self.strobe.key(witness, False)
         return self
+
+    def finalize_with(self, random_bytes: Data) -> "JTranscriptRng":
+        """finalize(rng) with the external RNG's 32 bytes drawn beforehand
+        on the host and passed in ((B, 32) uint8): how the prover's
+        Fiat-Shamir on the card (ops/cuda_transcript.py) keeps the host
+        prover's RNG stream."""
+        self.strobe.meta_ad(b"rng", False)
+        self.strobe.key(random_bytes, False)
+        return JTranscriptRng(self.strobe)
 
     def finalize_null(self) -> "JTranscriptRng":
         """finalize(NullRng): key 32 zero bytes (nullrng.rs parity)."""

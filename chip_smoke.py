@@ -9,7 +9,10 @@ verify batches below, 4736 and 2048 lanes; R1, the Fiat-Shamir replay, at
 both batches' shapes; S1, the scalar pass, at both batches' groups and the
 mixed batch's two; D1, C1 and I1, ristretto decoding, encoding and the
 identity check, at the verify's and the prover's shapes, C1 in both its
-forms: the RFC 9496 encoder and the double-and-encode the prover runs; P1-P4,
+forms: the RFC 9496 encoder and the double-and-encode the prover runs, and
+K3's tail, the verdict a single-host verify takes in place of I1's launch,
+against I1 on the same points; T1, the prover's Fiat-Shamir, at every phase
+of the 128-proof prove (seeded and unseeded) and of the 64 x m4 one; P1-P4,
 the prover's scalar protocol and the A commitment's masked sum, at the
 128-proof prove's shape, P2 at each of its six rounds, and each but P3's
 second entry by phase (P2 at its row's round), P4 on the tables of halved
@@ -25,7 +28,9 @@ against `engine="host"`) and a stream of nine batches through
 128 x 64-bit statements with `RangeProof.prove_batch_with_rng` over tables
 of halved generators, built before the clock starts, and verifies what it
 proved, with launch counters proving the kernels ran (C1's
-double-and-encode eight times, its sqrt form never) and a counter
+double-and-encode eight times, its sqrt form never, T1 once a phase), one
+device-to-host copy a prove (torch.profiler's "Memcpy DtoH" operations)
+and a counter
 of plain field and point calls on CUDA tensors (`PLAIN_FUNCTIONS`) proving
 that nothing else computed, then 64 x (64-bit, m=4, degree 5) statements
 against the sequential prover at lanes 0 and 63, and checks
@@ -105,6 +110,16 @@ a block, `blocks`, `waves` over the blocks the card holds at once) and
 `replay_fn_ms`, the whole `replay_fn` (one launch and views) called back
 to back; its epilogue alone (`reduce_wide_probe`) is held against Python
 integers at the reduction's edges.
+
+T1's row is a whole prove's phases (rounds + 2 launches back to back; each
+phase's `graph_ms` beside): it reads each lane's state, points (as limbs),
+witness bytes and block and writes the state, its scalars and a flag byte,
+and counts R1's work (permutations, span bytes, reductions) and, for each
+inversion, the divsteps batches this run's value needs (`INV_BATCH_OPS`
+each); its `chain_ms` is its permutations at `perm_ns` and its inversions
+at `sc_inv_ns`.  K3's row times the main path's form, with the tail
+(`graph_ms_without_tail` beside); I1's launches are the sharded verify's,
+its one path.
 
 D1 reads an encoding and writes a point and a flag, C1 reads a point and
 writes an encoding, I1 reads X and Y and writes a flag, as int64 limbs; D1
@@ -275,6 +290,11 @@ SC_MULADDS_PER_MUL = 2 * 64 + FOLD_MULADDS
 INV_BATCH_OPS = 30 * 27 + 2 * (36 + 12 + 1 + 36)
 # S1's shapes (label, golden cell, lanes, max_mn): the b64_m1_x256 and b64_m4_x64 verifies' groups and the mixed
 # batch's two groups (m=2 with minimum values; m=1 padded to the batch's widest, 128 lanes)
+# T1's shapes (label, proofs, bits, m, extension degree, seeded): the 128-proof prove (the main path's: seeded)
+# unseeded too, and the 64 x m4 prove's
+TRANSCRIPT_SHAPES = (("b64_m1_x128", PROVE_BATCH, 64, 1, 1, True), ("b64_m1_x128_unseeded", PROVE_BATCH, 64, 1, 1, False),
+                     ("b64_m4_x64", 64, 64, 4, 5, False))
+T1_ZERO_LANE = 3  # its first point in phase 1 all zeroes: flagged on that lane alone
 SCALAR_SHAPES = (("b64_m1_x256", 3, 256, 64), ("b64_m4_x64", 6, 64, 256), ("mixed_m2", 4, 128, 128),
                  ("mixed_m1", 3, 128, 128))
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "golden_vectors.json")
@@ -414,6 +434,7 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
     sass.update(sass_histogram(cuda, "scalar", ("scalar_latency_kernel", "scalar_inv_latency_kernel",
                                                 "scalar_proof_kernel", "scalar_lane_kernel")))
     sass.update(sass_histogram(cuda, "ristretto", ("fe_inv_latency_kernel", "double_compress_kernel")))
+    sass.update(sass_histogram(cuda, "transcript", ("prove_transcript_kernel",)))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
             "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
@@ -695,6 +716,124 @@ def _replay_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: dict,
                                                           "warps", "blocks", "waves", "replay_fn_ms", "plain_ms")}
                                    for b, v in by_shape.items()},
                       **ptxas.get("replay_kernel", {})}
+
+
+def _transcript_inputs(torch, bp, batch: int, bits: int, m: int, deg: int, seeded: bool, rs: random.Random):
+    """T1's inputs at a prove's shape: the host transcript of `batch` lanes
+    after a statement of this shape (random commitments and bases: the
+    phases' programs depend on the shape and the sponge position alone),
+    its phases, random witness bytes, external blocks and points (canonical
+    limbs below 2^16), lane T1_ZERO_LANE's first point of phase 1 zeroed."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.models.transcripts import RangeProofTranscript
+    from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+
+    def rand(*shape, high=256, dtype=np.uint8):
+        return np.asarray([rs.randrange(high) for _ in range(int(np.prod(shape)))], dtype=dtype).reshape(shape)
+
+    rounds, width = (bits * m).bit_length() - 1, m * (8 + 32 * deg)
+    stacked = bp.Transcript.stack([bp.Transcript(b"t1") for _ in range(batch)])
+    rpt = RangeProofTranscript(stacked, rs.randbytes(32), [rs.randbytes(32) for _ in range(deg)], bits, deg, m,
+                               [rand(batch, 32) | 1 for _ in range(m)], [[None] * batch for _ in range(m)],
+                               rand(batch, width), bp.NullRng())
+    st = rpt.transcript.strobe
+    phases, _ = ct.prover_phases(rounds, deg, seeded, width, st.pos, st.pos_begin, st.cur_flags)
+    state = torch.as_tensor(np.ascontiguousarray(st.state), device="cuda")
+    witness = torch.as_tensor(rand(batch, width), device="cuda")
+    blocks = torch.as_tensor(rand(rounds + 2, batch, 32), device="cuda")
+    points = [torch.as_tensor(rand(batch, ph.n_points, 16, high=1 << 16, dtype=np.int64), device="cuda")
+              for ph in phases]
+    points[1][T1_ZERO_LANE, 0] = 0
+    return phases, state, witness, blocks, points
+
+
+def _transcript_rows(torch, bp, rs: random.Random, rows: dict, out: dict, ptxas: dict) -> None:
+    """T1 against its plain twin (`transcript_plain`: the phase on
+    utils/jstrobe.py's tensors, then reduce_wide_l, is_zero_l, inv_l) on the
+    card, at every phase of a prove of each TRANSCRIPT_SHAPES shape, exact on
+    the states, every draw, challenge and inverse, and the flags (lane
+    T1_ZERO_LANE's zeroed point flagged in phase 1 alone).  A row is a whole
+    prove's phases, rounds + 2 launches run back to back: `ms`, `graph_ms`,
+    each phase's `graph_ms`, the plain version's time; its bound the bytes
+    each launch reads and writes once (the state both ways, the points as
+    limbs, the witness bytes and block, the scalars and flag, the program)
+    against R1's count of a permutation, a span byte and a reduction, and
+    the divsteps batches each inversion of this run's values needs; its
+    chain the phases' permutations at `perm_ns` and their inversions at
+    `sc_inv_ns`, both measured in this run."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+    from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs
+
+    by_shape = {}
+    for label, batch, bits, m, deg, seeded in TRANSCRIPT_SHAPES:
+        phases, state, witness, blocks, points = _transcript_inputs(torch, bp, batch, bits, m, deg, seeded, rs)
+        outs = [torch.full((ph.n_wide + len(ph.invert), batch, 16), -1, dtype=torch.int64, device="cuda")
+                for ph in phases]
+        flags = torch.full((batch, len(phases)), 255, dtype=torch.uint8, device="cuda")
+        block = [blocks[p] if ph.n_draws else None for p, ph in enumerate(phases)]
+        plain_state, err, bytes_moved, ops, plain_s = state.clone(), 0.0, 0, 0, 0.0
+        for p, ph in enumerate(phases):
+            ct.transcript_cuda(ph, state, points[p], witness, block[p], list(outs[p]), flags[:, p])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want_state, scalars, inverses, want_flags = ct.transcript_plain(ph, plain_state, points[p], witness,
+                                                                            block[p])
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            plain_state = want_state
+            want = torch.cat([scalars, inverses], dim=1).transpose(0, 1)
+            err = max(err, float((outs[p] - want).abs().max()), float((state.long() - want_state.long()).abs().max()),
+                      float((flags[:, p] != want_flags).sum()))
+            flagged = flags[:, p].nonzero().flatten().tolist()
+            if flagged != ([T1_ZERO_LANE] if p == 1 else []) or (p == 1 and int(flags[T1_ZERO_LANE, 1]) != ct.IDENTITY):
+                raise AssertionError(f"prove_transcript ({label}, phase {p}): flags on lanes {flagged}")
+            bytes_moved += (batch * (2 * 200 + 128 * ph.n_points + ph.witness_len + 32 * (block[p] is not None)
+                                     + 128 * (ph.n_wide + len(ph.invert)) + 1) + 8 * len(ph.blob))
+            inverted = [int_from_limbs(v) for c in ph.invert for v in scalars[:, c].cpu().numpy()]
+            ops += (batch * (ph.n_permutations * KECCAK_INT_OPS + ph.span_bytes + ph.n_wide * FOLD_MULADDS)
+                    + sum(_divstep_batches(v) for v in inverted) * INV_BATCH_OPS)
+        if err != 0:
+            raise AssertionError(f"prove_transcript ({label}) disagrees with its plain twin: max_abs_err {err}")
+
+        def run():
+            for p, ph in enumerate(phases):
+                ct.transcript_cuda(ph, state, points[p], witness, block[p], list(outs[p]), flags[:, p])
+
+        # the same phases without their inversions: what T1's inversions add to its chain (taking them in P1
+        # and P2 instead would put the same divsteps on the prove's path there)
+        bare = [ct.Phase(ph.spec._replace(invert=()), ph.witness_len, ph.position) for ph in phases]
+
+        def run_bare():
+            for p, ph in enumerate(bare):
+                ct.transcript_cuda(ph, state, points[p], witness, block[p], list(outs[p][: ph.n_wide]), flags[:, p])
+
+        b_ms, b_by = bound_ms(bytes_moved, ops)
+        grid = ct.launch_shape(phases[0], batch, "cuda")
+        permutations = sum(ph.n_permutations for ph in phases)
+        inversions = sum(len(ph.invert) for ph in phases)
+        by_shape[label] = {
+            "lanes": batch, "rounds": len(phases) - 2, "launches_per_prove": len(phases), "max_abs_err": err,
+            "permutations": permutations, "inversions": inversions, "spans": sum(ph.n_spans for ph in phases),
+            "draws": sum(ph.n_draws for ph in phases), **grid, "waves": grid["blocks"] / grid["resident_blocks"],
+            "ms": kernel_ms(run, 20), "graph_ms": graph_ms(run, 5),
+            "phase_graph_ms": [graph_ms(lambda p=p, ph=ph: ct.transcript_cuda(ph, state, points[p], witness, block[p],
+                                                                            list(outs[p]), flags[:, p]))
+                               for p, ph in enumerate(phases)],
+            "without_inversions_graph_ms": graph_ms(run_bare, 5),
+            "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,  # the checked run's phases
+            "chain_ms": (permutations * out["perm_ns"] + inversions * out["sc_inv_ns"]) * 1e-6,
+        }
+    out["transcript_by_shape"] = by_shape
+    first = by_shape[TRANSCRIPT_SHAPES[0][0]]
+    rows["prove_transcript"] = {
+        **first, "threads": 32 * first["warps"], "perm_ns": out["perm_ns"], "sc_inv_ns": out["sc_inv_ns"],
+        "by_shape": {k: {kk: v[kk] for kk in ("graph_ms", "without_inversions_graph_ms", "bound_ms", "chain_ms",
+                                              "permutations", "inversions", "draws", "launches_per_prove", "warps",
+                                              "blocks", "plain_ms")}
+                     for k, v in by_shape.items()},
+        **ptxas.get("prove_transcript_kernel", {}),
+    }
 
 
 def _scalar_inputs(torch, bp, hr, cell, batch: int, rs: random.Random):
@@ -1055,7 +1194,8 @@ def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: di
     }
     out["fe_inv_ns"] = fe_inv_ns
 
-    # I1: K3's output from a verify of the golden batch and of the same with one r1 tampered
+    # I1: K3's output from a verify of the golden batch and of the same with one r1 tampered; the verdict K3's
+    # tail wrote there against I1's on the same point
     statements, proofs = _tiled(bp, hr, next(c for c in cells if c["seed"] == 3), 256)
     tampered = list(proofs)
     tampered[17] = bp.RangeProof.from_bytes(proofs[17].to_bytes())
@@ -1083,12 +1223,16 @@ def _ristretto_rows(torch, bp, hr, cells, rs: random.Random, rows: dict, out: di
                    ed.PointArray(*(c[:64] for c in _rand_points(torch, ed, hr, 64, rs, "cuda")))])
     got = rc.is_identity_cuda(many)
     err_i = float((got != rist.is_identity_plain(many)).sum())
-    k3 = [bool(rc.is_identity_cuda(r)) for r in results]
+    points, fused = [r[0] for r in results], [bool(r[1]) for r in results]
+    k3 = [bool(rc.is_identity_cuda(r)) for r in points]
     if err_i != 0 or got.tolist() != [True] * len(forms) + [False] * 64 or k3 != [True, False]:
         raise AssertionError(f"is_identity disagrees with its plain version ({err_i} lanes) or on K3's output {k3}")
-    if [bool(rist.is_identity_plain(r)) for r in results] != k3 or results[0].y.data_ptr() - results[0].x.data_ptr() != 128:
+    if [bool(rist.is_identity_plain(r)) for r in points] != k3 or points[0].y.data_ptr() - points[0].x.data_ptr() != 128:
         raise AssertionError("is_identity: K3's output is not the (4, 16) tensor read in place, or the plain twin differs")
-    res = results[0]
+    if fused != k3:
+        raise AssertionError(f"K3's tail gave the verdicts {fused}, I1 on the same points {k3}")
+    out["k3_tail_verdicts"] = {"tail": fused, "is_identity": k3}
+    res = points[0]
     bi = bound_ms(2 * LIMB_BYTES + 1, 0)
     rows["is_identity"] = {
         "max_abs_err": err_i, "lanes": 1, "checked": many.x.shape[0] + 2,
@@ -1470,6 +1614,9 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     _scalar_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
     section_done("s1")
 
+    _transcript_rows(torch, bp, rs, rows, out, ptxas)
+    section_done("t1")
+
     # the prover's tables, built and timed here, the first use of each: the joined generators' and Pedersen bases'
     # (P4's and K5's rows below), the halved ones (the batched prover's)
     t0 = time.perf_counter()
@@ -1596,9 +1743,21 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     # the longest chain: 252 doublings, each a squaring and a multiplication deep over four lanes, then the
     # addition of a group's own pair of windows and those of the tree's levels, each 3 multiplications deep
     horner_adds = 64 // cm.HORNER_GROUPS - 1 + (cm.HORNER_GROUPS - 1).bit_length()
-    rows["horner"] = {"max_abs_err": err3, "ms": kernel_ms(lambda: cm.horner(wsum)),
-                      "graph_ms": graph_ms(lambda: cm.horner(wsum)),
-                      "plain_ms": median_ms(lambda: cm.horner_plain(wsum), 1),
+    # the main path's K3 writes the verdict too (its tail, I1's test): held against the plain twin and I1
+    tail_pt, tail_flag = cm.horner(wsum, identity=True)
+    plain_pt, plain_flag = cm.horner_identity_plain(wsum)
+    err3 = max(err3, _point_err(F, torch, tail_pt[..., None], plain_pt[..., None]),
+               float(bool(tail_flag) != bool(plain_flag)),
+               float(bool(tail_flag) != bool(rist.is_identity(ed.PointArray(*tail_pt)))))
+    for w in edges.values():  # the identity among them
+        edge_flag = cm.horner(w, identity=True)[1]
+        err3 = max(err3, float(bool(edge_flag) != bool(cm.horner_identity_plain(w)[1])))
+    if err3 != 0:
+        raise AssertionError(f"horner with its tail disagrees with its plain twin or with I1 (max_abs_err {err3})")
+    rows["horner"] = {"max_abs_err": err3, "ms": kernel_ms(lambda: cm.horner(wsum, identity=True)),
+                      "graph_ms": graph_ms(lambda: cm.horner(wsum, identity=True)),
+                      "graph_ms_without_tail": graph_ms(lambda: cm.horner(wsum)),
+                      "plain_ms": median_ms(lambda: cm.horner_identity_plain(wsum), 1),
                       "bound_ms": b3[0], "bound_by": b3[1],
                       "chain_ms": (252 * (probe["fe_sqr_ns"] + probe["fe_mul_ns"])
                                    + horner_adds * FMUL_DEEP_ADD4 * probe["fe_mul_ns"]) * 1e-6,
@@ -1784,17 +1943,18 @@ def _verify(bp, statements, proofs):
     )
 
 
-# D1 decodes a verify's points once a shape group and I1 checks its MSM's point once; C1 encodes a prove's
-# points eight times; K4's chain runs inside D1 and C1, and K4's own entries (`pow_p58`, `sqrt_ratio_m1`) on
-# no path.  The MSM's first stage is K7 (signed digits, the default) or K1 (BPPT_MSM_SIGNED=0); a
-# single-shape verify replays its transcripts once through R1; S1 runs the scalar pass once a shape group
-VERIFY_KERNELS = ("replay", "scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "decompress", "is_identity")
-PROVE_KERNELS = ("fixed_acc", "fixed_fold", "double_compress") + PROVER_KERNELS
+# D1 decodes a verify's points once a shape group and K3 writes the MSM's verdict in its tail (I1 checks the
+# all-reduced point of a sharded verify only); C1 encodes a prove's points eight times; K4's chain runs inside D1
+# and C1, and K4's own entries (`pow_p58`, `sqrt_ratio_m1`) on no path.  The MSM's first stage is K7 (signed
+# digits, the default) or K1 (BPPT_MSM_SIGNED=0); a single-shape verify replays its transcripts once through R1;
+# S1 runs the scalar pass once a shape group
+VERIFY_KERNELS = ("replay", "scalar_pass", "dyn_acc_signed", "lane_fold", "horner", "decompress")
+PROVE_KERNELS = ("fixed_acc", "fixed_fold", "double_compress", "prove_transcript") + PROVER_KERNELS
 # a 64-bit prove, 6 rounds: K5 and K6 once a round (L and R with their Pedersen lanes) and for alpha, A1 and B;
-# C1's double-and-encode for A, each round's L/R and A1/B (its sqrt form and K4's own entries never); P1 once, P2
-# once a round, P3's entries and P4 once
-PROVE_LAUNCHES = {"fixed_acc": 9, "fixed_fold": 9, "double_compress": 8, "prove_prep": 1, "prove_round": 6,
-                  "prove_final": 1, "prove_responses": 1, "bit_sum": 1}
+# C1's double-and-encode for A, each round's L/R and A1/B (its sqrt form and K4's own entries never); T1 once a
+# phase (after A, each round and A1/B); P1 once, P2 once a round, P3's entries and P4 once
+PROVE_LAUNCHES = {"fixed_acc": 9, "fixed_fold": 9, "double_compress": 8, "prove_transcript": 8, "prove_prep": 1,
+                  "prove_round": 6, "prove_final": 1, "prove_responses": 1, "bit_sum": 1}
 # the plain field and point functions that no prove on the card may call on a CUDA tensor
 PLAIN_FUNCTIONS = {"ops.field": ("mul_l", "add_l", "sub_l", "sqr_l", "select"), "ops.edwards": ("add",),
                    "ops.msm": ("tree_reduce",)}
@@ -1817,9 +1977,9 @@ def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
             del os.environ["BPPT_MSM_SIGNED"]
         else:
             os.environ["BPPT_MSM_SIGNED"] = before
-    counts = {k: cuda.launches[k] for k in ("dyn_acc",) + VERIFY_KERNELS + K4_ENTRIES}
-    if (not counts["dyn_acc"] or counts["dyn_acc_signed"] or any(counts[k] for k in K4_ENTRIES)
-            or [counts[k] for k in ("lane_fold", "horner", "replay", "decompress", "is_identity")] != [1] * 5):
+    counts = {k: cuda.launches[k] for k in ("dyn_acc", "is_identity") + VERIFY_KERNELS + K4_ENTRIES}
+    if (not counts["dyn_acc"] or counts["dyn_acc_signed"] or any(counts[k] for k in K4_ENTRIES) or counts["is_identity"]
+            or [counts[k] for k in ("lane_fold", "horner", "replay", "decompress")] != [1] * 4):
         raise AssertionError(f"unsigned verify: wrong kernels launched: {counts}")
     launches["dyn_acc"] = counts["dyn_acc"]
     return {"proofs": len(proofs), "seconds": seconds, "launches": counts}
@@ -1828,11 +1988,11 @@ def _unsigned_arm(torch, bp, cuda, statements, proofs, launches: dict) -> dict:
 def _verify_stages(torch, bp, statements, proofs) -> dict:
     """Three stages of one verify, each its call's arguments captured from a
     verify, then the call alone with a synchronise on both sides (median of
-    5, host clock): the scalar pass (S1), the decompression (D1) and the
-    identity check (I1 on the MSM's point, then the verdict's and the
-    flags' readbacks, as scripts/profile_torch_verify.py stages it); and
-    torch.profiler over one whole verify: its device operations, device busy
-    time, idle share, D1's, I1's and S1's device time, S1a's and S1b's apart,
+    5, host clock): the scalar pass (S1), the decompression (D1) and the MSM
+    with its verdict (`combine_groups_msm`: K7, K2, K3 with I1's test in its
+    tail, then the verdict's and the flags' readbacks); and torch.profiler
+    over one whole verify: its device operations, device busy time, idle
+    share, D1's, K3's and S1's device time, S1a's and S1b's apart,
     beside theirs in the captured call run 5 times back to back and 5 times
     each after 20 ms of an idle card."""
     from torch.profiler import ProfilerActivity, profile
@@ -1840,7 +2000,7 @@ def _verify_stages(torch, bp, statements, proofs) -> dict:
     from bulletproofs_plus_tpu_torch.models import verifier_kernels as vk
     from bulletproofs_plus_tpu_torch.ops import ristretto as rist
 
-    stages = {"scalar_pass": vk, "decompress": rist, "is_identity": rist}
+    stages = {"scalar_pass": vk, "decompress": rist, "combine_groups_msm": vk}
     inners = {name: getattr(module, name) for name, module in stages.items()}
     captured = {name: [] for name in stages}
 
@@ -1858,11 +2018,11 @@ def _verify_stages(torch, bp, statements, proofs) -> dict:
         for name, module in stages.items():
             setattr(module, name, inners[name])
     ((args, kwargs),), ((dec_args, _),), ((id_args, _),) = (captured[name] for name in stages)
-    inner, decompress, is_identity = (inners[name] for name in stages)
+    inner, decompress, msm_verdict = (inners[name] for name in stages)
     _, valid = decompress(*dec_args)
     out = {"scalar_pass_stage_ms": median_ms(lambda: inner(*args, **kwargs), 5),
            "decompress_stage_ms": median_ms(lambda: decompress(*dec_args), 5),
-           "identity_check_stage_ms": median_ms(lambda: bool(is_identity(*id_args)) and bool(valid.all()), 5),
+           "msm_verdict_stage_ms": median_ms(lambda: bool(msm_verdict(*id_args)) and bool(valid.all()), 5),
            "decompress_points": dec_args[0].shape[0], "card": nvidia_smi()}
 
     def device_events(fn):
@@ -1896,7 +2056,7 @@ def _verify_stages(torch, bp, statements, proofs) -> dict:
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
     out.update(device_ops=len(events), verify_wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
                **{f"{label}_device_ms": sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e3
-                  for label, name in (("d1", "decompress"), ("i1", "is_identity_kernel"))},
+                  for label, name in (("d1", "decompress"), ("k3", "horner_kernel"))},
                s1_device_ms=sum(s1_ms(events, 1)), s1_device_ms_in_verify=s1_ms(events, 1),
                s1_device_ms_back_to_back=s1_ms(device_events(lambda: [inner(*args, **kwargs) for _ in range(5)])[0], 5),
                s1_device_ms_after_idle=s1_ms(device_events(after_idle)[0], 5))
@@ -1916,8 +2076,8 @@ def phase_main(torch, bp, hr, cells, launches: dict) -> dict:
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS}
-        if (not all(counts.values()) or [counts[k] for k in ("replay", "scalar_pass", "decompress", "is_identity")]
-                != [1, 1, 1, 1] or any(cuda.launches[k] for k in OFF_PROVE + ("double_compress", "dyn_acc"))):
+        if (not all(counts.values()) or [counts[k] for k in ("replay", "scalar_pass", "decompress", "horner")]
+                != [1, 1, 1, 1] or any(cuda.launches[k] for k in OFF_PROVE + ("double_compress", "dyn_acc", "is_identity"))):
             raise AssertionError(f"{label}: wrong kernel launches: {dict(cuda.launches)}")
         if seed == 3:
             launches.update(counts)
@@ -1981,9 +2141,11 @@ def phase_mixed(torch, bp, hr, cells) -> dict:
         seconds = time.perf_counter() - t0
         counts = {k: cuda.launches[k] for k in VERIFY_KERNELS + K4_ENTRIES}
         if (counts["replay"] or counts["decompress"] != decompressions or counts["dyn_acc_signed"] != 1
-                or counts["scalar_pass"] != 2 or counts["is_identity"] != 1 or any(counts[k] for k in K4_ENTRIES)):
+                or counts["scalar_pass"] != 2 or counts["horner"] != 1 or cuda.launches["is_identity"]
+                or any(counts[k] for k in K4_ENTRIES)):
             raise AssertionError(f"mixed {action}: wrong kernel launches {counts} (want no replay, "
-                                 f"{decompressions} decompressions, two scalar passes, one MSM, one identity check)")
+                                 f"{decompressions} decompressions, two scalar passes, one MSM with its verdict, "
+                                 f"no identity check apart)")
         want = run(action, engine="host", msm_backend="device")
         masks = [None if m is None else m.blindings() for m in got]
         if masks != [None if m is None else m.blindings() for m in want]:
@@ -2125,6 +2287,24 @@ class _PlainCalls:
         return False
 
 
+def _prove_copies(torch, prove) -> dict:
+    """One prove under torch.profiler: its device-to-host copies (the
+    trace's "Memcpy DtoH" operations), which must be 1, and T1's device time
+    and launches there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prove()
+        torch.cuda.synchronize()
+    events = prof.events()
+    copies = sum(e.name.startswith("Memcpy DtoH") for e in events)
+    t1 = [e for e in events if "prove_transcript_kernel" in e.name and "CUDA" in str(getattr(e, "device_type", ""))]
+    if copies != 1:
+        raise AssertionError(f"prove: {copies} device-to-host copies, want 1")
+    return {"device_to_host_copies": copies, "t1_device_ms": sum(e.time_range.elapsed_us() for e in t1) / 1e3,
+            "t1_device_launches": len(t1)}
+
+
 M4_BATCH = 64  # the aggregated prove: 64 statements of four 64-bit commitments, extension degree 5
 
 
@@ -2163,9 +2343,12 @@ def _prove_m4(torch, bp, hr) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = {k: cuda.launches[k] for k in PROVE_KERNELS}
-    want = {**PROVE_LAUNCHES, "prove_round": 8, "fixed_acc": 11, "fixed_fold": 11, "double_compress": 10}
+    want = {**PROVE_LAUNCHES, "prove_round": 8, "fixed_acc": 11, "fixed_fold": 11, "double_compress": 10,
+            "prove_transcript": 10}
     if counts != want or any(cuda.launches[k] for k in OFF_PROVE):
         raise AssertionError(f"m4 prove: expected launches {want}, got {counts}")
+    copies = _prove_copies(torch, lambda: bp.RangeProof.prove_batch_with_rng(
+        [bp.Transcript(b"m4") for _ in range(M4_BATCH)], statements, witnesses, bp.SeededRng(11), device="cuda"))
     for lane in (0, M4_BATCH - 1):
         seq_t = bp.Transcript(b"m4")
         seq = bp.RangeProof.prove_with_rng(seq_t, statements[lane], witnesses[lane], _prover_inputs().LaneRng(11, lane),
@@ -2179,7 +2362,7 @@ def _prove_m4(torch, bp, hr) -> dict:
         raise AssertionError("m4 prove: the batch did not verify")
     return {"proofs": M4_BATCH, "m": 4, "bits": 64, "deg": 5, "rounds": 8, "seconds": seconds, "launches": counts,
             "halved_tables_build_s": build_s, "halved_tables_bytes": tables.numel() * 4,
-            "lanes_equal_to_sequential": [0, M4_BATCH - 1], "verified": M4_BATCH, "seeded": seeded}
+            "lanes_equal_to_sequential": [0, M4_BATCH - 1], "verified": M4_BATCH, "seeded": seeded, **copies}
 
 
 def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
@@ -2225,6 +2408,8 @@ def phase_prove(torch, bp, hr, params, cells, launches: dict) -> dict:
     out["plain_calls_on_cuda"] = {"counts": plain.counts, "names_wrapped": len(plain.patched)}
     launches.update(counts, compress=cuda.launches["compress"])
     out["launches"] = dict(cuda.launches)
+    out.update(_prove_copies(torch, lambda: bp.RangeProof.prove_batch_with_rng(
+        transcripts(), seeded, witnesses, bp.SeededRng(seed), device="cuda")))
     if proofs[0].to_bytes().hex() != cell["proof"]:
         raise AssertionError("prove: lane 0 is not golden proof 3")
     masks = bp.RangeProof.verify_batch(transcripts(), seeded, proofs, bp.VerifyAction.RECOVER_AND_VERIFY, device="cuda")
@@ -2403,7 +2588,7 @@ def _sharded_checks(torch, mesh, collectives: dict) -> dict:
     return out
 
 
-def phase_sharded(torch) -> dict:
+def phase_sharded(torch, launches: dict) -> dict:
     """parallel/ on the card: two gloo ranks sharing card 0, then NCCL (a
     world of one on a one-card machine, two ranks on two cards where there
     are two), each rank running `_sharded_checks`.  A rank that fails raises
@@ -2427,6 +2612,8 @@ def phase_sharded(torch) -> dict:
                 with open(os.path.join(tmp, f"rank{rank}.json")) as f:
                     ranks.append(json.load(f))
         out[f"{backend}_world{world}"] = {"ran": what, "seconds": seconds, "ranks": ranks}
+    # I1's path: the all-reduced point of a sharded verify (a single-host verify takes K3's verdict)
+    launches["is_identity"] = out["gloo_world2"]["ranks"][0]["verify"]["launches"]["is_identity"]
     return out
 
 
@@ -2486,7 +2673,7 @@ def main() -> int:
         ("pipelined", lambda: phase_pipelined(torch, bp, hr, cells)),
         ("prove", lambda: phase_prove(torch, bp, hr, params, cells, launches)),
         ("reject", lambda: phase_reject(bp, hr, cells)),
-        ("sharded", lambda: phase_sharded(torch)),
+        ("sharded", lambda: phase_sharded(torch, launches)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -2510,6 +2697,7 @@ def main() -> int:
         "double_compress": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:47"),
         "is_identity": ("ristretto.cu", "bulletproofs_plus_tpu/ops/ristretto.py:103"),
         **{k: ("prover.cu", "bulletproofs_plus_tpu/models/prover_device.py:90") for k in PROVER_KERNELS},
+        "prove_transcript": ("transcript.cu", "bulletproofs_plus_tpu/models/prover_device.py:134"),
     }
     launches["pow_p58"] = launches["decompress"] + launches["compress"]  # K4's chain, inline in D1 and C1
     table = [
@@ -2523,7 +2711,9 @@ def main() -> int:
                                                 "spans", "warps", "perm_ns", "replay_fn_ms", "by_shape",
                                                 "sc_mul_ns", "sc_inv_ns", "fe_inv_ns", "ptxas", "one_lane_graph_ms",
                                                 "four_lanes_graph_ms", "products", "inversions", "round", "by_round",
-                                                "phases", "stamped_graph_ms", "chain4_ms", "fe_mul4_ns", "fe_sqr4_ns")
+                                                "phases", "stamped_graph_ms", "chain4_ms", "fe_mul4_ns", "fe_sqr4_ns",
+                                                "graph_ms_without_tail", "phase_graph_ms", "launches_per_prove",
+                                                "inversions", "draws", "without_inversions_graph_ms")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

@@ -14,14 +14,20 @@ with `RangeProof.prove_batch_with_rng` of the port
     device time is charged where it was enqueued: the fixed-base MSMs (K5 +
     K6 and their glue), the encodings (C1: `double_and_compress` where the
     tree has it, else `compress`), the A commitment's masked sums
-    (`tree_reduce`, or P4 `bit_sum` where the tree has it), the readbacks of
-    compressed points, the host transcript (challenges, RNG rebuilds and
-    draws), the argument checks (each witness's commitment recomputed in
-    host integers), and the rest: the scalar folds (P1-P3 where the tree has
-    them, else plain torch), nonces and uploads;
+    (`tree_reduce`, or P4 `bit_sum` where the tree has it), the readbacks
+    (of each batch of compressed points, or the one copy at the end where
+    the tree has `_read_back`), the host transcript (the statement's
+    absorption and alpha's draws; where the tree has no T1, also the
+    challenges, RNG rebuilds and the other draws), T1's phases
+    (`prove_transcript`, where the tree has it), the argument checks (each
+    witness's commitment recomputed in host integers), and the rest: the
+    scalar folds (P1-P3 where the tree has them, else plain torch), nonces
+    and uploads;
   * "profile": torch.profiler over one whole prove: device busy time, wall
-    time, the idle share, the number of device operations and the five
-    kernels with the most device time;
+    time, the idle share, the number of device operations, its
+    device-to-host copies ("Memcpy DtoH" operations), the five kernels with
+    the most device time and the hand-written kernels' device time (T1's
+    among them);
   * "host_profile": one prove under cProfile: its wall time (inflated by
     the profiler) and the twelve functions with the most time in their own
     code, with their calls;
@@ -116,7 +122,8 @@ def main() -> int:
         (pd, "fixed_msm_batched", "fixed_base_msms"), (pd, "fixed_msm_grouped", "fixed_base_msms"),
         (pd.rist, "compress", "compress"), (pd.rist, "double_and_compress", "compress"),
         (pd, "tree_reduce", "a_commitment_sums"),
-        (pd, "_point_bytes", "readbacks"), (RangeProofTranscript, "__init__", "host_transcript"),
+        (pd, "_point_bytes", "readbacks"), (pd, "_read_back", "readbacks"),
+        (pd, "prove_transcript", "t1_transcript"), (RangeProofTranscript, "__init__", "host_transcript"),
         (RangeProofTranscript, "challenges_y_z", "host_transcript"),
         (RangeProofTranscript, "challenge_round_e", "host_transcript"),
         (RangeProofTranscript, "challenge_final_e", "host_transcript"),
@@ -148,6 +155,7 @@ def main() -> int:
         prove()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    copies = sum(e.name.startswith("Memcpy DtoH") for e in prof.events())
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = {}
     for e in kernels:
@@ -160,7 +168,8 @@ def main() -> int:
     print(json.dumps({
         "profile": {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
                     "idle_share": 1 - busy_us / 1e3 / wall_ms if wall_ms else None,
-                    "device_ops": len(kernels), "top_ms": {k: v / 1e3 for k, v in top},
+                    "device_ops": len(kernels), "device_to_host_copies": copies,
+                    "top_ms": {k: v / 1e3 for k, v in top},
                     "hand_written_kernels_ms": ours},
     }), flush=True)
     # The host's own time by function: one prove under cProfile (whose overhead inflates every figure), the

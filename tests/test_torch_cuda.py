@@ -512,6 +512,83 @@ def test_is_identity_kernel_matches_plain(card):
         assert cuda.launches["is_identity"] == 1
 
 
+@pytest.mark.parametrize("case", ["valid", "tampered", "all_identity", "random"])
+def test_horner_identity_tail_matches_is_identity(card, case):
+    """K3 with its tail: the point is K3's alone and the verdict is I1's on
+    it and the plain twin's, from one launch of K3 and none of I1: the sum
+    of a valid and a tampered MSM, window sums all the identity, random
+    projective window sums."""
+    if case in ("valid", "tampered"):
+        scalars, points = _msm_inputs(16, 47)
+        sc = torch.as_tensor(pack_ints(scalars).astype(np.int64), device=card)
+        other = [(hr.L - v) % hr.L for v in scalars] if case == "valid" else scalars
+        sc = torch.cat([sc, torch.as_tensor(pack_ints(other).astype(np.int64), device=card)])
+        p_dev = ed.from_host(points, device=card)
+        wsum = cm.lane_fold(cm.dyn_acc_signed(sc.t().contiguous(), cm.coords_t(ed.cat([p_dev, p_dev]))))
+    elif case == "all_identity":
+        wsum = torch.zeros((4, 16, 64), dtype=torch.int64, device=card)
+        wsum[1, 0] = 1
+        wsum[2, 0] = 1
+    else:
+        wsum = cm.coords_t(_random_projective(card, 64, 9))
+    cuda.reset_launches()
+    point, flag = cm.horner(wsum, identity=True)
+    assert dict(cuda.launches) == {"horner": 1}
+    assert torch.equal(point, cm.horner(wsum))
+    plain_point, plain_flag = cm.horner_identity_plain(wsum)
+    assert bool(rist.point_equal(ed.PointArray(*point), ed.PointArray(*plain_point)))
+    assert flag.shape == () and bool(flag) == bool(plain_flag) == bool(rcu.is_identity_cuda(ed.PointArray(*point)))
+    assert bool(flag) == (case in ("valid", "all_identity"))
+
+
+def _transcript_inputs(batch, bits, m, deg, seeded, device, seed):
+    """A prove's T1 phases from a fresh stacked transcript that has absorbed
+    nothing, random points, witness bytes and blocks on `device`, lane 3's
+    first point of phase 1 all zeroes."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+    from bulletproofs_plus_tpu_torch.utils.merlin import Transcript
+
+    rs = np.random.RandomState(seed)
+    rounds = (bits * m).bit_length() - 1
+    stacked = Transcript.stack([Transcript(b"t1") for _ in range(batch)])
+    st = stacked.strobe
+    width = m * (8 + 32 * deg)
+    phases, _ = ct.prover_phases(rounds, deg, seeded, width, st.pos, st.pos_begin, st.cur_flags)
+    state = torch.as_tensor(rs.randint(0, 256, (batch, 200), dtype=np.uint8), device=device)
+    witness = torch.as_tensor(rs.randint(0, 256, (batch, width), dtype=np.uint8), device=device)
+    blocks = torch.as_tensor(rs.randint(0, 256, (rounds + 2, batch, 32), dtype=np.uint8), device=device)
+    points = [torch.as_tensor(rs.randint(0, 1 << 16, (batch, ph.n_points, 16)), device=device) for ph in phases]
+    points[1][3, 0] = 0
+    return phases, state, witness, blocks, points
+
+
+@pytest.mark.parametrize("batch, bits, m, deg, seeded", [(128, 64, 1, 1, True), (128, 64, 1, 1, False),
+                                                         (64, 64, 4, 5, False), (5, 1, 1, 2, False)],
+                         ids=["b64_m1_x128_seeded", "b64_m1_x128", "b64_m4_x64_deg5", "one_bit_x5"])
+def test_prove_transcript_kernel_matches_plain(card, batch, bits, m, deg, seeded):
+    """T1 against its plain twin on the card at every phase of a prove:
+    states, every draw, challenge and inverse, and the flags, exactly, one
+    launch a phase; lane 3's zeroed point flags lane 3 alone."""
+    from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+
+    phases, state, witness, blocks, points = _transcript_inputs(batch, bits, m, deg, seeded, card, batch + deg)
+    plain_state = state.clone()
+    for p, phase in enumerate(phases):
+        block = blocks[p] if phase.n_draws else None
+        n = phase.n_wide + len(phase.invert)
+        outs = torch.full((n, batch, 16), -1, dtype=torch.int64, device=card)
+        flags = torch.full((batch,), 255, dtype=torch.uint8, device=card)
+        cuda.reset_launches()
+        ct.prove_transcript(phase, state, points[p], witness, block, list(outs), flags)
+        assert dict(cuda.launches) == {"prove_transcript": 1}
+        want_state, scalars, inverses, want_flags = ct.transcript_plain(phase, plain_state, points[p], witness, block)
+        plain_state = want_state
+        assert torch.equal(state, want_state), p
+        assert torch.equal(outs, torch.cat([scalars, inverses], dim=1).transpose(0, 1)), p
+        assert torch.equal(flags, want_flags), p
+        assert flags.nonzero().flatten().tolist() == ([3] if p == 1 else []), p
+
+
 def _golden_cells():
     import json
     import os
@@ -666,8 +743,8 @@ def test_keccak_probe_matches_plain(card):
 def test_device_replay_verify_on_card(card):
     """A single-shape batch verifies through R1 once, the golden mask comes back.
     Mask recovery decompresses every proof's points for the structural checks
-    before the verification's own decompression: D1 twice, I1 once, and no
-    launch of K4's own entries."""
+    before the verification's own decompression: D1 twice, K3 once with the
+    verdict in its tail and no I1, and no launch of K4's own entries."""
     import bulletproofs_plus_tpu_torch as tbp
 
     cell = next(c for c in _golden_cells() if c["seed"] == 3)
@@ -675,7 +752,7 @@ def test_device_replay_verify_on_card(card):
     cuda.reset_launches()
     masks = tbp.RangeProof.verify_batch([tbp.Transcript(b"golden") for _ in range(4)], [statement] * 4,
                                         [proof] * 4, tbp.VerifyAction.RECOVER_AND_VERIFY, device=card)
-    assert [cuda.launches[k] for k in ("replay", "decompress", "is_identity")] == [1, 2, 1]
+    assert [cuda.launches[k] for k in ("replay", "decompress", "horner", "is_identity")] == [1, 2, 1, 0]
     assert cuda.launches["sqrt_ratio_m1"] == 0 and cuda.launches["pow_p58"] == 0
     assert all([format(b, "064x") for b in m.blindings()] == cell["mask"] for m in masks)
 
@@ -1042,8 +1119,8 @@ def test_prove_batch_on_card_matches_cpu(card, seeded, n, m, deg):
     plain twins) byte for byte, proofs and final transcript states, and
     launches P1 once, P2 once a round, each entry of P3 and P4 once, K5 and
     K6 once a round and three times besides (alpha, A1, B), C1's
-    double-and-encode once a round and twice besides, and C1's sqrt form
-    never."""
+    double-and-encode once a round and twice besides, T1 once a phase
+    (rounds + 2) and C1's sqrt form never, with one device-to-host copy."""
     import bulletproofs_plus_tpu_torch as tbp
 
     pc = tbp.create_pedersen_gens_with_extension_degree(tbp.ExtensionDegree(deg))
@@ -1064,9 +1141,18 @@ def test_prove_batch_on_card_matches_cpu(card, seeded, n, m, deg):
         return [p.to_bytes() for p in proofs], [bytes(np.asarray(t.strobe.state).tobytes()) for t in ts]
 
     want = prove("cpu")
+    prove(card)  # the tables and the programs, once
+    torch.cuda.synchronize()
     cuda.reset_launches()
-    assert prove(card) == want
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = prove(card)
+        torch.cuda.synchronize()
+    assert got == want
     assert {k: cuda.launches[k] for k in ("prove_prep", "prove_round", "prove_final", "prove_responses", "bit_sum",
-                                          "fixed_acc", "fixed_fold", "double_compress", "compress")} == {
+                                          "fixed_acc", "fixed_fold", "double_compress", "compress",
+                                          "prove_transcript")} == {
         "prove_prep": 1, "prove_round": rounds, "prove_final": 1, "prove_responses": 1, "bit_sum": 1,
-        "fixed_acc": rounds + 3, "fixed_fold": rounds + 3, "double_compress": rounds + 2, "compress": 0}
+        "fixed_acc": rounds + 3, "fixed_fold": rounds + 3, "double_compress": rounds + 2, "compress": 0,
+        "prove_transcript": rounds + 2}
+    assert sum(e.name.startswith("Memcpy DtoH") for e in prof.events()) == 1

@@ -139,6 +139,17 @@ def test_fl_ops_match_jax(op):
     assert _ints(got_t) == _ints(got_j) == want
 
 
+def test_inv_l_matches_python():
+    """`inv_l` by divsteps (the kernels' inversion, batched in plain torch)
+    against pow(., -1, l): the edges, inv(0) = 0, random values, and values
+    at and above l, reduced first; a batch of two axes."""
+    rs = np.random.RandomState(17)
+    vals = EDGES_L + [3, L, L + 5, 2**252, 2**256 - 1] + _rand_ints(rs, 24, L) + _rand_ints(rs, 8, 2**256)
+    got = F.inv_l(torch.as_tensor(pack_ints(vals).astype(np.int64)).reshape(2, -1, 16))
+    assert got.shape == (2, len(vals) // 2, 16)
+    assert _ints(got.reshape(-1, 16)) == [pow(v % L, -1, L) if v % L else 0 for v in vals]
+
+
 def test_wide_reduction_and_scalar_predicates_match_jax():
     """reduce_wide_l (a 64-byte challenge to its scalar), is_zero_l and eq_l
     against the JAX package's, zero and l included."""

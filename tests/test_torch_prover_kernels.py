@@ -439,19 +439,3 @@ def test_bit_sum_schedule_matches_host_points(joined, mn, threads):
     for i in range(mn):
         want = hr.point_add(want, gens[2 * i] if bits[i] else hr.point_neg(gens[2 * i + 1]))
     assert hr.compress(acc[0]) == hr.compress(want)
-
-
-@pytest.mark.parametrize("batch", [1, 2, 129])
-def test_batch_invert_l_matches_pow(batch):
-    """The prover's batch inversion of its challenges (one `pow` and 3B
-    products) against `pow(v, -1, L)` value by value, 1 and l - 1 among the
-    values."""
-    from bulletproofs_plus_tpu_torch.models.prover_device import batch_invert_l
-
-    rs = np.random.default_rng(batch)
-    values = [int.from_bytes(rs.bytes(32), "little") % (L - 1) + 1 for _ in range(batch)]
-    values[0] = 1
-    values[-1] = L - 1 if batch > 1 else values[-1]
-    assert batch_invert_l(values) == [pow(v, -1, L) for v in values]
-    with pytest.raises(ValueError):
-        batch_invert_l(values[:-1] + [0])
