@@ -22,7 +22,9 @@
 // where a - b borrows, as field.py's `add_l` and `sub_l`, so canonical inputs
 // give the canonical result; `sc_inv_l_warp` is the inverse of a canonical
 // value by Bernstein and Yang's divsteps (divsteps.cuh), which is x^(l - 2) as
-// `F.inv_l` computes it, with inv(0) = 0.
+// `F.inv_l` computes it, with inv(0) = 0, its lanes in lock-step (S1's);
+// `sc_inv_l_var` the same inverse of one value by a whole warp, in variable
+// time, for public values only (T1's Fiat-Shamir challenges).
 //
 // ops/scalar_model.py repeats this file word for word in Python, with every
 // bound it relies on asserted; tests/test_torch_replay.py holds the reduction
@@ -255,5 +257,66 @@ __device__ __forceinline__ void sc_inv_l_warp(const u32 *x, u32 *r, u32 mask) {
         divsteps_update_fg(f, g, t);
     }
     divsteps_normalize<ModL>(d, f[8]);
+    s30_to_words(d, r);
+}
+
+// ---------------------------------------------------------------------------
+// The inverse mod l of a public value, a warp for one value, in variable time:
+// T1 (transcript.cu) inverts y and each e, the Fiat-Shamir challenges that any
+// verifier recomputes from the proof, so the time their inversion takes is no
+// secret.  S1 keeps `sc_inv_l_warp`: its lanes invert different values in
+// lock-step, and this one needs the whole warp for one.  C1's `fe_inv` keeps
+// its fixed batches: its inputs come from the prover's masks.
+// ---------------------------------------------------------------------------
+
+#define SC_INV_VAR_BATCHES 20  // 600 divsteps of the zeta form suffice below 2^256
+
+// r = x^-1 mod l (inv(0) = 0), canonical, on every lane; x canonical, read from lane `src`; r may be x.  All 32
+// lanes call it together, converged, with the same src; `jump` is DS_JUMP4 in shared memory.  Batches of 30 divsteps
+// (divsteps_30's zeta form, from zeta = -1) until g = 0: every lane takes the batch's steps from f's and g's low
+// limbs (divsteps_30_jump), then lane i < 9 updates limb i of d and e, lane 16 + i limb i of f and g
+// (divsteps_settle), the multiples of l that clear d's and e's low 30 bits from lane 0's products; at the end
+// every lane gathers d and normalizes it by f's sign.  ops/scalar_model.py `inv_l_var`.
+__device__ __forceinline__ void sc_inv_l_var(const u32 *x, int src, u32 *r, const unsigned long long *jump) {
+    const int lane = threadIdx.x & 31, i = lane & 15;
+    const bool fg = lane >= 16;
+    u32 w[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) w[k] = __shfl_sync(0xffffffffu, x[k], src);
+    int32_t xs[9];
+    words_to_s30(w, xs);
+    int32_t a = 0, b = 0, lm = 0;  // d and e, or f and g; l's limb on d's and e's lanes
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+        if (i == k) {
+            a = fg ? ModL::limb(k) : 0;
+            b = fg ? xs[k] : k == 0;
+            lm = fg ? 0 : ModL::limb(k);
+        }
+    }
+    int32_t zeta = -1;
+    u32 f0 = (u32)ModL::limb(0), g0 = (u32)xs[0];
+#pragma unroll 1
+    for (int batch = 0; batch < SC_INV_VAR_BATCHES; ++batch) {
+        if (!__any_sync(0xffffffffu, fg && b != 0)) break;
+        int32_t t[4];
+        zeta = divsteps_30_jump(zeta, f0, g0, t, jump);
+        const int32_t u = t[0], v = t[1], q = t[2], rr = t[3];
+        const int32_t sd = __shfl_sync(0xffffffffu, a, 8) >> 31, se = __shfl_sync(0xffffffffu, b, 8) >> 31;
+        int64_t pa = (int64_t)u * a + (int64_t)v * b, pb = (int64_t)q * a + (int64_t)rr * b;
+        const u32 pa0 = __shfl_sync(0xffffffffu, (u32)pa, 0), pb0 = __shfl_sync(0xffffffffu, (u32)pb, 0);
+        int32_t md = (u & sd) + (v & se), me = (q & sd) + (rr & se);
+        md -= (int32_t)((ModL::inv30 * pa0 + (u32)md) & DS_M30);
+        me -= (int32_t)((ModL::inv30 * pb0 + (u32)me) & DS_M30);
+        pa += (int64_t)lm * md;
+        pb += (int64_t)lm * me;
+        divsteps_settle(pa, pb, i, a, b);
+        f0 = (u32)__shfl_sync(0xffffffffu, a, 16);
+        g0 = (u32)__shfl_sync(0xffffffffu, b, 16);
+    }
+    int32_t d[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) d[k] = __shfl_sync(0xffffffffu, a, k);
+    divsteps_normalize<ModL>(d, __shfl_sync(0xffffffffu, a, 24));
     s30_to_words(d, r);
 }

@@ -80,6 +80,7 @@ LIBRARIES = {
                                       ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_long), _LONG, _VP,
                                       _LONG, _LONG, _LONG, _VP],
             "bppt_transcript_occupancy": [_LONG, _LONG, _LONG, _LONG, _LONG, ctypes.POINTER(ctypes.c_int)],
+            "bppt_transcript_inv_latency": [_VP, _VP, _LONG, _LONG, _VP],
         },
     ),
     "prover": (

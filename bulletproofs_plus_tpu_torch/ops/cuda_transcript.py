@@ -11,7 +11,8 @@ the next challenge (a clone of the state, rekeyed with the lane's witness
 bytes, finalized with the phase's external block, which the host drew
 beforehand in the sequential prover's order); draws those masks; squeezes
 the challenges; and reduces every draw and challenge mod l, flagging a
-zero, and inverts y or e.  The draws of phase p are round p's d_L and d_R
+zero, and inverts y or e (on the card by scalar_l.cuh `sc_inv_l_var`, the
+warp for one value, in variable time: the challenges are public).  The draws of phase p are round p's d_L and d_R
 (degree each, unless the statements carry a seed nonce), or, in the phase
 after the last round (phase 0 of a prove without rounds), r_s, s_s and, on
 unseeded statements, d and eta.  The last phase builds no RNG.
@@ -28,7 +29,7 @@ forms run it:
     any device;
   * `transcript_model`: the span program in numpy as the kernel runs it,
     word for word (`cuda_replay.run_ops_model`, the reduction and the
-    divsteps inverse through ops/scalar_model.py);
+    warp's variable-time inverse through ops/scalar_model.py, `inv_l_var`);
   * `transcript_cuda`: the kernel, a warp a proof.
 
 `prove_transcript` takes the kernel for CUDA tensors and the plain
@@ -36,6 +37,8 @@ version for CPU ones, and any other device raises.  Both write in place:
 the (B, 200) states, each scalar into the (B, 16) int64 view the caller
 names (the limb tensors P1-P3 read), and a flag byte a proof, bits
 `IDENTITY`, `ZERO_CHALLENGE`, `ZERO_DRAW`.
+
+`inv_latency_probe` is `sc_inv_var_ns`'s probe.
 """
 
 from __future__ import annotations
@@ -164,6 +167,8 @@ class Phase(_Compiled):
         self.end = (rec.pos, rec.pos_begin, rec.cur_flags)
         self._assemble(tape)
         self.n_wide, self.n_draws = len(outs), spec.draws
+        if any(not 0 <= i < len(spec.challenges) for i in spec.invert):
+            raise ValueError("a phase inverts only its challenges (public values), never a draw")
         self.invert = [spec.draws + i for i in spec.invert]  # among the outputs
         self.inv_mask = sum(1 << c for c in self.invert)
         if self.n_wide + len(self.invert) > MAX_OUTS:
@@ -229,9 +234,9 @@ def _limbs_to_words(limbs) -> list:
 
 def transcript_model(phase: Phase, state: np.ndarray, row: np.ndarray):
     """csrc/transcript.cu in numpy, word for word: `run_ops_model` over the
-    phase's program, the reduction and the divsteps inverse of
-    ops/scalar_model.py.  state (B, 200) and row (B, stride) uint8 ->
-    (states, scalars, inverses, flags) as numpy arrays."""
+    phase's program, the reduction and the warp's variable-time inverse of
+    ops/scalar_model.py (`inv_l_var`).  state (B, 200) and row (B, stride)
+    uint8 -> (states, scalars, inverses, flags) as numpy arrays."""
     batch = state.shape[0]
     a, out, bad = run_ops_model(phase, state, row)
     new_state = np.ascontiguousarray(a[:, :STATE_WORDS]).astype("<u8").view(np.uint8).reshape(batch, STATE_BYTES)
@@ -239,7 +244,7 @@ def transcript_model(phase: Phase, state: np.ndarray, row: np.ndarray):
     inverses = np.zeros((batch, len(phase.invert), 16), dtype=np.int64)
     for lane in range(batch):
         for i, c in enumerate(phase.invert):
-            words = scalar_model.inv_l(_limbs_to_words(scalars[lane, c]))
+            words = scalar_model.inv_l_var(_limbs_to_words(scalars[lane, c]))
             inverses[lane, i, 0::2] = [w & 0xFFFF for w in words]
             inverses[lane, i, 1::2] = [w >> 16 for w in words]
     flags = (bad * IDENTITY | zero[:, phase.n_draws :].any(axis=1) * ZERO_CHALLENGE
@@ -281,6 +286,9 @@ def launch_shape(phase: Phase, batch: int, device) -> dict:
 
 def _check_args(phase: Phase, state, points, witness, block, outs: Sequence[torch.Tensor], flags) -> int:
     batch = state.shape[0]
+    if phase.inv_mask & ((1 << phase.n_draws) - 1) or phase.inv_mask >> phase.n_wide:
+        raise ValueError("prove_transcript: the phase inverts a draw, a secret mask, or no output "
+                         "(only challenges, which are public, take the variable-time inversion)")
     if len(outs) != phase.n_wide + len(phase.invert):
         raise ValueError(f"prove_transcript: the phase writes {phase.n_wide + len(phase.invert)} scalars, "
                          f"got {len(outs)} outputs")
@@ -327,6 +335,20 @@ def transcript_cuda(phase: Phase, state: torch.Tensor, points: torch.Tensor, wit
         )
     cuda.check("transcript", status, "prove_transcript")
     cuda.launches["prove_transcript"] += 1
+
+
+def inv_latency_probe(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """`sc_inv_var_ns`'s probe: warp i (a one-warp block) runs `iters`
+    dependent inversions by sc_inv_l_var from acc = x[i], each but the
+    first of x[i] + acc mod l ((n, 16) canonical int64 limbs on a CUDA
+    device; iters = 1 gives x's inverses, 0 for 0).  Counts no launch."""
+    cuda.require(x, "inversion probe input", (x.shape[0], 16))
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = cuda.lib("transcript").bppt_transcript_inv_latency(
+            x.data_ptr(), out.data_ptr(), x.shape[0], iters, torch.cuda.current_stream().cuda_stream)
+    cuda.check("transcript", status, "transcript inversion probe")
+    return out
 
 
 def prove_transcript(phase: Phase, state: torch.Tensor, points: torch.Tensor, witness: torch.Tensor,

@@ -9,15 +9,20 @@ the order of the CUDA loop, and every bound the CUDA code relies on (a carry
 that cannot occur, a remainder below 2l) is asserted.  ops/cuda_replay.py's
 `replay_model` runs R1's epilogue through `reduce_fold`, and
 ops/cuda_scalar.py's `scalar_pass_model` runs S1's programs on `mul_l`,
-`sqr_l`, `add_l`, `sub_l` and `inv_l`; tests/test_torch_replay.py holds the
-reduction against Python integers and the torch and JAX `reduce_wide_l`,
-tests/test_torch_scalar.py the field operations against Python integers.
+`sqr_l`, `add_l`, `sub_l` and `inv_l`, and ops/cuda_transcript.py's
+`transcript_model` T1's inverses on `inv_l_var` (the warp's variable-time
+inversion, lane by lane); tests/test_torch_replay.py holds the reduction
+against Python integers and the torch and JAX `reduce_wide_l`,
+tests/test_torch_scalar.py the field operations and
+tests/test_torch_transcript.py `inv_l_var` against Python integers.
 
 The reduction folds 2^252 = -delta (mod l) three times, delta = l - 2^252
 being below 2^125 (`reduce_fold`).
 """
 
 from __future__ import annotations
+
+import functools
 
 from .field_model import M32, Carry
 
@@ -343,3 +348,125 @@ def inv_batches(x: list) -> int:
         f, g = _update_fg(f, g, t)
         n += 1
     return n
+
+
+# ---------------------------------------------------------------------------
+# The inverse mod l of a public value, a warp for one value (sc_inv_l_var, T1's)
+# ---------------------------------------------------------------------------
+
+INV_VAR_BATCHES = 20  # SC_INV_VAR_BATCHES: 600 divsteps of the zeta form
+
+
+def jump4_entry(zeta: int, f: int, g: int) -> tuple:
+    """Four divsteps of the zeta form from zeta, f (odd) and g: ((u, v, q,
+    r), sign, c) with 2^4 (f4, g4) = (u f + v g, q f + r g) and zeta4 =
+    sign zeta + c."""
+    u, v, q, r, sign, c = 1, 0, 0, 1, 1, 0
+    for _ in range(4):
+        if zeta < 0 and g & 1:
+            f, g, u, v, q, r = g, (g - f) >> 1, 2 * q, 2 * r, q - u, r - v
+            zeta, sign, c = -zeta - 2, -sign, -c - 2
+        else:
+            if g & 1:
+                g, q, r = g + f, q + u, r + v
+            g, u, v, zeta, c = g >> 1, 2 * u, 2 * v, zeta - 1, c - 1
+    return (u, v, q, r), sign, c
+
+
+@functools.lru_cache(maxsize=None)
+def jump4_table() -> tuple:
+    """divsteps.cuh DS_JUMP4: entry (clamp(zeta, -4, 3) + 4) << 7 | (f mod
+    16) >> 1 << 4 | g mod 16 is `jump4_entry` of that clamped zeta, f mod 16
+    and g mod 16 (the four steps decide alike for any zeta past the clamp),
+    as ((u, v, q, r), sign, c)."""
+    table = []
+    for idx in range(1024):
+        entry = jump4_entry((idx >> 7) - 4, 2 * ((idx >> 4) & 7) + 1, idx & 15)
+        assert all(-16 <= w <= 16 for w in entry[0]) and -10 <= entry[2] <= 10
+        table.append(entry)
+    return tuple(table)
+
+
+def divsteps_30_jump(zeta: int, f0: int, g0: int):
+    """divsteps.cuh divsteps_30_jump: divsteps_30's zeta and matrix by seven
+    jumps of four steps from `jump4_table` on the words f and g (exact mod
+    2^(32 - 4 j) after j jumps), then two single steps."""
+    table = jump4_table()
+    u, v, q, r, f, g = 1, 0, 0, 1, f0, g0
+    for _ in range(7):
+        assert f & 1, "f must stay odd"
+        (a, b, c, d), sign, add = table[(min(max(zeta, -4), 3) + 4) << 7 | ((f >> 1) & 7) << 4 | (g & 15)]
+        f, g = ((a * f + b * g) & M32) >> 4, ((c * f + d * g) & M32) >> 4
+        u, v, q, r = a * u + b * q, a * v + b * r, c * u + d * q, c * v + d * r
+        zeta = sign * zeta + add
+    for _ in range(2):
+        assert f & 1, "f must stay odd"
+        if zeta < 0 and g & 1:
+            f, g, u, v, q, r, zeta = g, ((g - f) & M32) >> 1, 2 * q, 2 * r, q - u, r - v, -zeta - 2
+        else:
+            if g & 1:
+                g, q, r = (g + f) & M32, q + u, r + v
+            g, u, v, zeta = g >> 1, 2 * u, 2 * v, zeta - 1
+    assert not (u * f0 + v * g0 - (f << 30)) & M32 and not (q * f0 + r * g0 - (g << 30)) & M32
+    assert all(-(1 << 30) <= w <= 1 << 30 for w in (u, v, q, r)) and -601 <= zeta <= 601
+    return zeta, (u, v, q, r)
+
+
+def settle(p: list) -> tuple:
+    """divsteps.cuh divsteps_settle for one value on one half-warp, lane by
+    lane: lanes 0-8's 64-bit sums p of P, a multiple of 2^30 (lanes 9-15
+    hold zeroes and give them) -> (lanes 0-8's limbs of P / 2^30, the carry
+    rounds it needs after the first; the warp runs the most that any of its
+    four values needs, which leave the others as they are)."""
+    assert len(p) == 9 and not p[0] & M30
+    s = [(p[i + 1] & M30) + (p[i] >> 30) for i in range(8)] + [p[8] >> 30]
+    carry = [w >> 30 for w in s]
+    assert -(1 << 63) <= min(s) and max(s) < 1 << 63 and -(1 << 31) <= min(carry) and max(carry) < 1 << 31
+    val = [s[0] & M30] + [(s[i] & M30) + carry[i - 1] for i in range(1, 8)]
+    top = s[8] + carry[7]
+    rounds = 0
+    while min(val) < 0 or max(val) > M30:
+        rounds += 1
+        carry = [w >> 30 for w in val]
+        assert -1 <= min(carry) and max(carry) <= 1
+        val = [val[0] & M30] + [(val[i] & M30) + carry[i - 1] for i in range(1, 8)]
+        top += carry[7]
+    assert -(1 << 31) <= top < 1 << 31
+    return val + [top], rounds
+
+
+def inv_l_var(x: list, counts: dict | None = None) -> list:
+    """scalar_l.cuh sc_inv_l_var: x^-1 mod l for a canonical 8-word x (inv(0)
+    = 0), by a warp, lane by lane: lane i < 9 holds limb i of d and e, lane
+    16 + i limb i of f and g; from f = l, g = x, d = 0, e = 1, zeta = -1,
+    batches until g = 0 (at most INV_VAR_BATCHES): the steps from f's and
+    g's low limbs (`divsteps_30_jump`), every lane's products, the multiples
+    of l that clear d's and e's low 30 bits from lane 0's products, and
+    `settle` for each half; then d gathered and normalized by f's sign.
+    `counts`, where given, gets the batches and the carry rounds after the
+    first ("rounds", the most of the four values' a batch)."""
+    assert len(x) == 8 and from_words(x) < L
+    d, e, f, g = [0] * 9, [1] + [0] * 8, list(L_S30), words_to_s30(x)
+    zeta, batches, rounds = -1, 0, 0
+    for _ in range(INV_VAR_BATCHES):
+        if not any(g):
+            break
+        zeta, (u, v, q, r) = divsteps_30_jump(zeta, f[0] & M32, g[0] & M32)
+        sd, se = -(d[8] < 0), -(e[8] < 0)
+        pd = [u * a + v * b for a, b in zip(d, e)]
+        pe = [q * a + r * b for a, b in zip(d, e)]
+        md, me = (u & sd) + (v & se), (q & sd) + (r & se)
+        md -= (L_INV30 * (pd[0] & M32) + (md & M32)) & M30
+        me -= (L_INV30 * (pe[0] & M32) + (me & M32)) & M30
+        (d, rd), (e, re) = (settle([w + m * md for w, m in zip(pd, L_S30)]),
+                            settle([w + m * me for w, m in zip(pe, L_S30)]))
+        (f, rf), (g, rg) = settle([u * a + v * b for a, b in zip(f, g)]), settle([q * a + r * b for a, b in zip(f, g)])
+        assert -2 * L < _s30_value(d) < L and -2 * L < _s30_value(e) < L
+        batches += 1
+        rounds += max(rd, rf, re, rg)
+    assert not any(g), "g = 0 within INV_VAR_BATCHES"
+    assert _s30_value(f) in ((1, -1) if any(x) else (L,))
+    if counts is not None:
+        counts.update(batches=batches, rounds=rounds)
+    return s30_to_words(_normalize(d, f[8]))
+

@@ -8,11 +8,12 @@ core of utils/jstrobe.py.
 
 Representation: a batch of sponge states is (B, 25, 2) int64 -- 25 lanes of
 (lo, hi) 32-bit halves, little-endian within the lane, the JAX package's
-layout.  Torch has no unsigned 64-bit integer and its `>>` on int64 is
-arithmetic, so every half stays in [0, 2^32) and every operation keeps it
-there: shifts are masked, and a NOT is only ever ANDed with a half.  A
-round is some twenty whole-batch tensor operations (rotations by a per-lane
-shift tensor), not one per lane.
+layout.  The permutation joins each lane's halves into one int64 (its bits
+those of the unsigned lane) and splits them again at the end.  Torch has no
+unsigned 64-bit integer and its `>>` on int64 is arithmetic, so a right
+shift is masked to the bits it brings down.  A round is some twenty
+whole-batch tensor operations (rotations by a per-lane shift tensor), not
+one per lane.
 """
 
 from __future__ import annotations
@@ -51,45 +52,34 @@ _M32 = 0xFFFFFFFF
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: str):
-    """Round constants (24, 2), the rho-pi source lanes, and the per-output-
-    lane rotation split into (swap halves, shift within a half)."""
-    rc = torch.tensor([[v & _M32, v >> 32] for v in _RC64], dtype=torch.int64, device=device)
-    rot = RHO[PI_SRC]
-    swap = torch.as_tensor(rot >= 32, device=device)
-    shift = torch.as_tensor(rot % 32, device=device)
-    return rc, torch.as_tensor(PI_SRC, device=device), swap, shift
-
-
-def _rotl(lo: torch.Tensor, hi: torch.Tensor, n):
-    """Rotate (lo, hi) halves left by n < 32 (an int or a broadcastable tensor)."""
-    return (((lo << n) & _M32) | (hi >> (32 - n)), ((hi << n) & _M32) | (lo >> (32 - n)))
+    """Round constants as int64 (24,), the rho-pi source lanes, each output
+    lane's left rotation, the right shift that brings its wrapped bits down
+    (63 where it rotates by 0) and their mask (0 there)."""
+    rc = torch.tensor([v - (1 << 64) if v >> 63 else v for v in _RC64], dtype=torch.int64, device=device)
+    rot = torch.as_tensor(RHO[PI_SRC], device=device)
+    right = torch.where(rot == 0, 63, 64 - rot)
+    mask = torch.where(rot == 0, 0, (1 << rot) - 1)
+    return rc, torch.as_tensor(PI_SRC, device=device), rot, right, mask
 
 
 def keccak_f1600(state: torch.Tensor) -> torch.Tensor:
     """Apply the 24-round permutation to (B, 25, 2) int64 states."""
-    rc, pi_src, swap, shift = _tables(str(state.device))
-    lo, hi = state[..., 0], state[..., 1]
+    rc, pi_src, rot, right, mask = _tables(str(state.device))
     batch = state.shape[0]
+    a = state[..., 0] | (state[..., 1] << 32)
     for r in range(24):
         # theta: column parities c[x], then d[x] = c[x - 1] ^ rotl(c[x + 1], 1) on every lane of column x
-        lo5, hi5 = lo.view(batch, 5, 5), hi.view(batch, 5, 5)
-        c_lo = lo5[:, 0] ^ lo5[:, 1] ^ lo5[:, 2] ^ lo5[:, 3] ^ lo5[:, 4]
-        c_hi = hi5[:, 0] ^ hi5[:, 1] ^ hi5[:, 2] ^ hi5[:, 3] ^ hi5[:, 4]
-        r_lo, r_hi = _rotl(c_lo.roll(-1, 1), c_hi.roll(-1, 1), 1)
-        lo = (lo5 ^ (c_lo.roll(1, 1) ^ r_lo)[:, None]).reshape(batch, 25)
-        hi = (hi5 ^ (c_hi.roll(1, 1) ^ r_hi)[:, None]).reshape(batch, 25)
-        # rho + pi: gather each output lane's source, swap halves for shifts >= 32, rotate the rest
-        g_lo, g_hi = lo[:, pi_src], hi[:, pi_src]
-        g_lo, g_hi = torch.where(swap, g_hi, g_lo), torch.where(swap, g_lo, g_hi)
-        b_lo, b_hi = _rotl(g_lo, g_hi, shift)
-        # chi: a[x] = b[x] ^ (~b[x + 1] & b[x + 2]) within each row
-        b_lo, b_hi = b_lo.view(batch, 5, 5), b_hi.view(batch, 5, 5)
-        lo = (b_lo ^ (~b_lo.roll(-1, 2) & b_lo.roll(-2, 2))).reshape(batch, 25)
-        hi = (b_hi ^ (~b_hi.roll(-1, 2) & b_hi.roll(-2, 2))).reshape(batch, 25)
-        # iota
-        lo = torch.cat([lo[:, :1] ^ rc[r, 0], lo[:, 1:]], dim=1)
-        hi = torch.cat([hi[:, :1] ^ rc[r, 1], hi[:, 1:]], dim=1)
-    return torch.stack([lo, hi], dim=-1)
+        a5 = a.view(batch, 5, 5)
+        c = a5[:, 0] ^ a5[:, 1] ^ a5[:, 2] ^ a5[:, 3] ^ a5[:, 4]
+        c1 = c.roll(-1, 1)
+        d = c.roll(1, 1) ^ ((c1 << 1) | ((c1 >> 63) & 1))
+        # rho + pi: gather each output lane's source and rotate it
+        a = (a5 ^ d[:, None]).reshape(batch, 25)[:, pi_src]
+        b = ((a << rot) | ((a >> right) & mask)).view(batch, 5, 5)
+        # chi: a[x] = b[x] ^ (~b[x + 1] & b[x + 2]) within each row; iota
+        a = (b ^ (~b.roll(-1, 2) & b.roll(-2, 2))).reshape(batch, 25)
+        a[:, 0] ^= rc[r]
+    return torch.stack([a & _M32, (a >> 32) & _M32], dim=-1)
 
 
 def bytes_to_state(data: torch.Tensor) -> torch.Tensor:

@@ -115,9 +115,23 @@ T1's row is a whole prove's phases (rounds + 2 launches back to back; each
 phase's `graph_ms` beside): it reads each lane's state, points (as limbs),
 witness bytes and block and writes the state, its scalars and a flag byte,
 and counts R1's work (permutations, span bytes, reductions) and, for each
-inversion, the divsteps batches this run's value needs (`INV_BATCH_OPS`
-each); its `chain_ms` is its permutations at `perm_ns` and its inversions
-at `sc_inv_ns`.  K3's row times the main path's form, with the tail
+inversion, the cheaper of two counts for this run's value: the divsteps
+batches of the constant-time form (`INV_BATCH_OPS` each) and the
+operations T1's own inversion (sc_inv_l_var, a warp for one value) does by
+its word model's counts of batches and carry rounds (`INV_JUMP_BATCH_OPS`,
+`INV_SETTLE_ROUND_OPS`), as S1's bound takes the cheaper of its two.
+`bound_ms_ct` beside it counts every inversion by the constant-time form
+alone, the yardstick from before T1's variable-time inversion, so that
+both designs read against one figure; `inversion_ops_var` is the second
+count summed.  Its `chain_ms` is its permutations at `perm_ns` and its
+inversions at `sc_inv_var_ns`, one warp's chain of dependent sc_inv_l_var
+on random inputs (each the sum of the last inverse and the value), its
+ends checked against the word model; the inversion is also held against
+Python integers and the word model at the edges
+(torch_prover_inputs.inv_edge_values), alone and inside T1 (a program that
+squeezes each proof's value from its state,
+`torch_prover_inputs.EpiloguePhase`: a zero challenge gives inverse 0 and
+its flag).  K3's row times the main path's form, with the tail
 (`graph_ms_without_tail` beside); I1's launches are the sharded verify's,
 its one path.
 
@@ -288,6 +302,13 @@ SC_MULADDS_PER_MUL = 2 * 64 + FOLD_MULADDS
 # 2 x 2 matrix's 32 x 32 -> 64-bit products at two multiply-adds each: (d, e)'s 36 and l's 12 (six non-zero limbs
 # of l), one for each multiple of l, and (f, g)'s 36
 INV_BATCH_OPS = 30 * 27 + 2 * (36 + 12 + 1 + 36)
+# T1's own inversion (csrc/scalar_l.cuh sc_inv_l_var, a warp for one value) in 32-bit integer operations: a batch's
+# steps on one lane's worth, seven jumps of four (the table index 7, the load, its fields 6, f and g 6, the matrix 8,
+# zeta 2) and two single steps (27 each, as INV_BATCH_OPS counts them); the batch's products on their lanes, as
+# INV_BATCH_OPS counts (d, e) and (f, g); its first carry round, 6 a limb of each of two values on 9 limbs a half; and
+# each further round, 3 a limb of the same 36 limbs
+INV_JUMP_BATCH_OPS = 7 * 30 + 2 * 27 + 2 * (36 + 12 + 1 + 36) + 2 * 2 * 9 * 6
+INV_SETTLE_ROUND_OPS = 4 * 9 * 3
 # S1's shapes (label, golden cell, lanes, max_mn): the b64_m1_x256 and b64_m4_x64 verifies' groups and the mixed
 # batch's two groups (m=2 with minimum values; m=1 padded to the batch's widest, 128 lanes)
 # T1's shapes (label, proofs, bits, m, extension degree, seeded): the 128-proof prove (the main path's: seeded)
@@ -434,7 +455,7 @@ def phase_build(torch, cuda, ptxas: dict) -> dict:
     sass.update(sass_histogram(cuda, "scalar", ("scalar_latency_kernel", "scalar_inv_latency_kernel",
                                                 "scalar_proof_kernel", "scalar_lane_kernel")))
     sass.update(sass_histogram(cuda, "ristretto", ("fe_inv_latency_kernel", "double_compress_kernel")))
-    sass.update(sass_histogram(cuda, "transcript", ("prove_transcript_kernel",)))
+    sass.update(sass_histogram(cuda, "transcript", ("prove_transcript_kernel", "transcript_inv_latency_kernel")))
     return {"seconds": seconds, "per_library": per_lib, "device": torch.cuda.get_device_name(0),
             "power": nvidia_smi(), "ptxas": regs, "sass": sass}
 
@@ -748,23 +769,82 @@ def _transcript_inputs(torch, bp, batch: int, bits: int, m: int, deg: int, seede
     return phases, state, witness, blocks, points
 
 
-def _transcript_rows(torch, bp, rs: random.Random, rows: dict, out: dict, ptxas: dict) -> None:
+def _inv_var_rows(torch, hr, rs: random.Random, out: dict) -> dict:
+    """T1's inversion, sc_inv_l_var, on the card: against Python integers
+    and its word model at the edges and on random values, alone
+    (`inv_latency_probe`) and inside T1's epilogue (`EpiloguePhase`, proof 0
+    a zero challenge: inverse 0 and the zero-challenge flag on that proof
+    alone); its one-warp latency `sc_inv_var_ns` (a chain of dependent
+    inversions, one value, 40 against 8) beside `sc_inv_ns`."""
+    import numpy as np
+
+    from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+    from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs, pack_ints
+
+    tpi = _prover_inputs()
+
+    def limbs(vals):
+        return torch.as_tensor(pack_ints(vals).astype(np.int64), device="cuda")
+
+    edges = tpi.inv_edge_values()
+    vals = edges + [rs.randrange(hr.L) for _ in range(64)]
+    got = [int_from_limbs(r) for r in ct.inv_latency_probe(limbs(vals), 1).cpu().numpy()]
+    if got != [pow(v, -1, hr.L) if v else 0 for v in vals] or got != tpi.inv_latency_model(vals, 1):
+        raise AssertionError("sc_inv_l_var disagrees with Python integers or its word model")
+    chain = [int_from_limbs(r) for r in ct.inv_latency_probe(limbs(vals[-8:]), 5).cpu().numpy()]
+    if chain != tpi.inv_latency_model(vals[-8:], 5):
+        raise AssertionError("sc_inv_l_var's chain disagrees with its word model")
+    x1 = limbs(vals[-1:])
+    short = kernel_ms(lambda: ct.inv_latency_probe(x1, 8))
+    long = kernel_ms(lambda: ct.inv_latency_probe(x1, 40))
+    sc_inv_var_ns = (long - short) * 1e6 / 32
+    out["sc_inv_var_ns"] = sc_inv_var_ns
+
+    # inside T1: proof i's state squeezes edges[i] (proof 0 a zero challenge)
+    batch = len(edges)
+    state = torch.zeros((batch, 200), dtype=torch.uint8)
+    state[:, :64] = torch.as_tensor(np.frombuffer(b"".join(v.to_bytes(64, "little") for v in edges),
+                                                  dtype=np.uint8).reshape(batch, 64).copy())
+    state = state.to("cuda")
+    phase = tpi.EpiloguePhase(1, (0,))
+    points = torch.zeros((batch, 0, 16), dtype=torch.int64, device="cuda")
+    witness = torch.zeros((batch, 0), dtype=torch.uint8, device="cuda")
+    outs = torch.full((2, batch, 16), -1, dtype=torch.int64, device="cuda")
+    flags = torch.full((batch,), 255, dtype=torch.uint8, device="cuda")
+    plain_state = state.clone()
+    ct.transcript_cuda(phase, state, points, witness, None, list(outs), flags)
+    want_state, scalars, inverses, want_flags = ct.transcript_plain(phase, plain_state, points, witness, None)
+    got = outs.cpu().numpy()
+    if (not torch.equal(state, want_state) or not torch.equal(flags, want_flags)
+            or not torch.equal(outs, torch.cat([scalars, inverses], dim=1).transpose(0, 1))
+            or [int_from_limbs(r) for r in got[1]] != [pow(v, -1, hr.L) if v else 0 for v in edges]
+            or flags.nonzero().flatten().tolist() != [0] or int(flags[0]) != ct.ZERO_CHALLENGE):
+        raise AssertionError("T1's epilogue at the inversion's edges disagrees with its twin or Python integers")
+    return {"sc_inv_var_ns": sc_inv_var_ns, "edge_values": len(edges), "epilogue_lanes": batch}
+
+
+def _transcript_rows(torch, bp, hr, rs: random.Random, rows: dict, out: dict, ptxas: dict) -> None:
     """T1 against its plain twin (`transcript_plain`: the phase on
     utils/jstrobe.py's tensors, then reduce_wide_l, is_zero_l, inv_l) on the
     card, at every phase of a prove of each TRANSCRIPT_SHAPES shape, exact on
     the states, every draw, challenge and inverse, and the flags (lane
-    T1_ZERO_LANE's zeroed point flagged in phase 1 alone).  A row is a whole
+    T1_ZERO_LANE's zeroed point flagged in phase 1 alone), after its
+    inversion alone (`_inv_var_rows`).  A row is a whole
     prove's phases, rounds + 2 launches run back to back: `ms`, `graph_ms`,
     each phase's `graph_ms`, the plain version's time; its bound the bytes
     each launch reads and writes once (the state both ways, the points as
     limbs, the witness bytes and block, the scalars and flag, the program)
     against R1's count of a permutation, a span byte and a reduction, and
-    the divsteps batches each inversion of this run's values needs; its
-    chain the phases' permutations at `perm_ns` and their inversions at
-    `sc_inv_ns`, both measured in this run."""
+    for each inversion of this run's values the cheaper of the
+    constant-time divsteps batches it needs and T1's own inversion's count
+    (`bound_ms_ct` beside: the constant-time count alone);
+    its chain the phases' permutations at `perm_ns` and their inversions at
+    `sc_inv_var_ns`, both measured in this run."""
     from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+    from bulletproofs_plus_tpu_torch.ops import scalar_model as SM
     from bulletproofs_plus_tpu_torch.ops.limbs import int_from_limbs
 
+    inv_var = _inv_var_rows(torch, hr, rs, out)
     by_shape = {}
     for label, batch, bits, m, deg, seeded in TRANSCRIPT_SHAPES:
         phases, state, witness, blocks, points = _transcript_inputs(torch, bp, batch, bits, m, deg, seeded, rs)
@@ -772,7 +852,8 @@ def _transcript_rows(torch, bp, rs: random.Random, rows: dict, out: dict, ptxas:
                 for ph in phases]
         flags = torch.full((batch, len(phases)), 255, dtype=torch.uint8, device="cuda")
         block = [blocks[p] if ph.n_draws else None for p, ph in enumerate(phases)]
-        plain_state, err, bytes_moved, ops, plain_s = state.clone(), 0.0, 0, 0, 0.0
+        plain_state, err, bytes_moved, ops, ops_ct, plain_s = state.clone(), 0.0, 0, 0, 0, 0.0
+        var_counts = {"batches": 0, "rounds": 0}
         for p, ph in enumerate(phases):
             ct.transcript_cuda(ph, state, points[p], witness, block[p], list(outs[p]), flags[:, p])
             torch.cuda.synchronize()
@@ -791,8 +872,16 @@ def _transcript_rows(torch, bp, rs: random.Random, rows: dict, out: dict, ptxas:
             bytes_moved += (batch * (2 * 200 + 128 * ph.n_points + ph.witness_len + 32 * (block[p] is not None)
                                      + 128 * (ph.n_wide + len(ph.invert)) + 1) + 8 * len(ph.blob))
             inverted = [int_from_limbs(v) for c in ph.invert for v in scalars[:, c].cpu().numpy()]
-            ops += (batch * (ph.n_permutations * KECCAK_INT_OPS + ph.span_bytes + ph.n_wide * FOLD_MULADDS)
-                    + sum(_divstep_batches(v) for v in inverted) * INV_BATCH_OPS)
+            sponge_ops = batch * (ph.n_permutations * KECCAK_INT_OPS + ph.span_bytes + ph.n_wide * FOLD_MULADDS)
+            ops_ct += sponge_ops
+            ops += sponge_ops
+            for v in inverted:
+                SM.inv_l_var(SM.to_words(v, 8), counts := {})
+                for key in var_counts:
+                    var_counts[key] += counts[key]
+                ct_ops = _divstep_batches(v) * INV_BATCH_OPS
+                ops_ct += ct_ops
+                ops += min(ct_ops, counts["batches"] * INV_JUMP_BATCH_OPS + counts["rounds"] * INV_SETTLE_ROUND_OPS)
         if err != 0:
             raise AssertionError(f"prove_transcript ({label}) disagrees with its plain twin: max_abs_err {err}")
 
@@ -809,6 +898,7 @@ def _transcript_rows(torch, bp, rs: random.Random, rows: dict, out: dict, ptxas:
                 ct.transcript_cuda(ph, state, points[p], witness, block[p], list(outs[p][: ph.n_wide]), flags[:, p])
 
         b_ms, b_by = bound_ms(bytes_moved, ops)
+        b_ms_ct, _ = bound_ms(bytes_moved, ops_ct)
         grid = ct.launch_shape(phases[0], batch, "cuda")
         permutations = sum(ph.n_permutations for ph in phases)
         inversions = sum(len(ph.invert) for ph in phases)
@@ -822,15 +912,21 @@ def _transcript_rows(torch, bp, rs: random.Random, rows: dict, out: dict, ptxas:
                                for p, ph in enumerate(phases)],
             "without_inversions_graph_ms": graph_ms(run_bare, 5),
             "plain_ms": plain_s * 1e3, "bound_ms": b_ms, "bound_by": b_by,  # the checked run's phases
-            "chain_ms": (permutations * out["perm_ns"] + inversions * out["sc_inv_ns"]) * 1e-6,
+            "bound_ms_ct": b_ms_ct, "operations": ops, "operations_ct": ops_ct,
+            "inversion_ops_var": (var_counts["batches"] * INV_JUMP_BATCH_OPS
+                                  + var_counts["rounds"] * INV_SETTLE_ROUND_OPS),
+            "inversion_counts_var": var_counts,
+            "chain_ms": (permutations * out["perm_ns"] + inversions * out["sc_inv_var_ns"]) * 1e-6,
         }
     out["transcript_by_shape"] = by_shape
     first = by_shape[TRANSCRIPT_SHAPES[0][0]]
     rows["prove_transcript"] = {
         **first, "threads": 32 * first["warps"], "perm_ns": out["perm_ns"], "sc_inv_ns": out["sc_inv_ns"],
+        **inv_var,
         "by_shape": {k: {kk: v[kk] for kk in ("graph_ms", "without_inversions_graph_ms", "bound_ms", "chain_ms",
                                               "permutations", "inversions", "draws", "launches_per_prove", "warps",
-                                              "blocks", "plain_ms")}
+                                              "blocks", "plain_ms", "phase_graph_ms", "inversion_ops_var", "bound_ms_ct",
+                                              "inversion_counts_var")}
                      for k, v in by_shape.items()},
         **ptxas.get("prove_transcript_kernel", {}),
     }
@@ -1614,7 +1710,7 @@ def phase_kernels(torch, bp, params, cells, rows: dict, ptxas: dict) -> dict:
     _scalar_rows(torch, bp, hr, cells, rs, rows, out, ptxas)
     section_done("s1")
 
-    _transcript_rows(torch, bp, rs, rows, out, ptxas)
+    _transcript_rows(torch, bp, hr, rs, rows, out, ptxas)
     section_done("t1")
 
     # the prover's tables, built and timed here, the first use of each: the joined generators' and Pedersen bases'
@@ -2713,7 +2809,9 @@ def main() -> int:
                                                 "four_lanes_graph_ms", "products", "inversions", "round", "by_round",
                                                 "phases", "stamped_graph_ms", "chain4_ms", "fe_mul4_ns", "fe_sqr4_ns",
                                                 "graph_ms_without_tail", "phase_graph_ms", "launches_per_prove",
-                                                "inversions", "draws", "without_inversions_graph_ms")
+                                                "inversions", "draws", "without_inversions_graph_ms",
+                                                "sc_inv_var_ns", "operations", "inversion_ops_var",
+                                                "bound_ms_ct", "operations_ct")
             if extra in rows[k]}}
         for k, (source, replaces) in kernels.items()
     ]

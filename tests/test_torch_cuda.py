@@ -589,6 +589,72 @@ def test_prove_transcript_kernel_matches_plain(card, batch, bits, m, deg, seeded
         assert flags.nonzero().flatten().tolist() == ([3] if p == 1 else []), p
 
 
+def test_transcript_inv_probe_matches_model(card):
+    """sc_inv_l_var, T1's variable-time inversion, one value a thread
+    (`cuda_transcript.inv_latency_probe`), against its word model and
+    Python's pow(x, -1, l) at the edges (torch_prover_inputs.inv_edge_values: 0
+    gives 0, every 2^k, long zero runs, the inputs needing the most
+    batches) and on 256 seeded values; chains of three inversions against
+    the model's."""
+    from torch_prover_inputs import inv_edge_values, inv_latency_model
+
+    from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+
+    L = hr.L
+    rs = np.random.RandomState(18)
+    vals = inv_edge_values() + [int.from_bytes(rs.bytes(32), "little") % L for _ in range(256)]
+    x = torch.as_tensor(pack_ints(vals).astype(np.int64), device=card)
+    got = [int_from_limbs(r) for r in ct.inv_latency_probe(x, 1).cpu().numpy()]
+    assert got == [pow(v, -1, L) if v else 0 for v in vals] == inv_latency_model(vals, 1)
+    chained = [int_from_limbs(r) for r in ct.inv_latency_probe(x[-40:], 3).cpu().numpy()]
+    assert chained == inv_latency_model(vals[-40:], 3)
+
+
+@pytest.mark.parametrize("n_wide", [1, 3], ids=["one_lane", "three_lanes"])
+def test_prove_transcript_epilogue_inverts_edges(card, n_wide):
+    """T1's epilogue on values the lanes' states choose (`EpiloguePhase`):
+    each 512-bit value reduced mod l and inverted by its lane alone (three
+    lanes of a warp at once in the second case), against the plain twin and
+    Python integers at the inversion's edges; a zero challenge gives inverse
+    0 and the zero-challenge flag, on its proof alone."""
+    from torch_prover_inputs import EpiloguePhase, inv_edge_values
+
+    from bulletproofs_plus_tpu_torch.ops import cuda_transcript as ct
+
+    L = hr.L
+    edges = inv_edge_values()
+    batch = -(-len(edges) // n_wide)
+    vals = (edges + [L] * (batch * n_wide - len(edges)))[: batch * n_wide]
+    vals[0] = 0  # proof 0: a zero challenge
+    vals[n_wide] = L + 5  # proof 1: a value past l
+    vals[-1] = 2**512 - 1
+    state = torch.zeros((batch, 200), dtype=torch.uint8)
+    for i, v in enumerate(vals):
+        lane, c = divmod(i, n_wide)
+        state[lane, 64 * c : 64 * c + 64] = torch.as_tensor(list(v.to_bytes(64, "little")), dtype=torch.uint8)
+    state = state.to(card)
+    phase = EpiloguePhase(n_wide, tuple(range(n_wide)))
+    points = torch.zeros((batch, 0, 16), dtype=torch.int64, device=card)
+    witness = torch.zeros((batch, 0), dtype=torch.uint8, device=card)
+    plain_state = state.clone()
+    outs = torch.full((2 * n_wide, batch, 16), -1, dtype=torch.int64, device=card)
+    flags = torch.full((batch,), 255, dtype=torch.uint8, device=card)
+    cuda.reset_launches()
+    ct.prove_transcript(phase, state, points, witness, None, list(outs), flags)
+    assert dict(cuda.launches) == {"prove_transcript": 1}
+    want_state, scalars, inverses, want_flags = ct.transcript_plain(phase, plain_state, points, witness, None)
+    assert torch.equal(state, want_state) and torch.equal(flags, want_flags)
+    assert torch.equal(outs, torch.cat([scalars, inverses], dim=1).transpose(0, 1))
+    got = outs.cpu().numpy()
+    for i, v in enumerate(vals):
+        lane, c = divmod(i, n_wide)
+        assert int_from_limbs(got[c, lane]) == v % L
+        assert int_from_limbs(got[n_wide + c, lane]) == (pow(v, -1, L) if v % L else 0), v
+    zero = [lane for lane in range(batch) if any(vals[lane * n_wide + c] % L == 0 for c in range(n_wide))]
+    assert flags.nonzero().flatten().tolist() == zero and 0 in zero
+    assert all(int(flags[lane]) == ct.ZERO_CHALLENGE for lane in zero)
+
+
 def _golden_cells():
     import json
     import os

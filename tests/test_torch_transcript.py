@@ -6,13 +6,19 @@ tensors) is held phase by phase against the host's numpy
 `RangeProofTranscript` fed the same external blocks: states, sponge
 positions, draws, challenges, inverses and flags; its word model
 (`transcript_model`, the kernel's span ops and epilogue in numpy) against
-the plain twin.  The batched prover's use of the external RNG is held
+the plain twin.  The epilogue's variable-time inversion (scalar_l.cuh
+`sc_inv_l_var`, a warp for one value, lane by lane in ops/scalar_model.py
+`inv_l_var`) is held against Python's pow(x, -1, l) at its edges and on
+seeded random values, within its cap of batches, its four-step table
+against single divsteps, and through a program whose state chooses the
+values (`EpiloguePhase`).  The batched prover's use of the external RNG is held
 against the sequential prover's.  K3's tail (msm.cu: X or Y 0 mod p) is held
 against I1's word model and the plain twins.  The kernels themselves run
 only on the card (tests/test_torch_cuda.py).  This file imports no JAX.
 Tolerance: exact everywhere.
 """
 
+import copy
 import functools
 
 import numpy as np
@@ -27,9 +33,11 @@ from bulletproofs_plus_tpu_torch.ops import edwards as ed
 from bulletproofs_plus_tpu_torch.ops import field_model as fm
 from bulletproofs_plus_tpu_torch.ops import host_ristretto as hr
 from bulletproofs_plus_tpu_torch.ops import ristretto as rist
+from bulletproofs_plus_tpu_torch.ops import scalar_model as SM
 from bulletproofs_plus_tpu_torch.ops.limbs import bytes_from_limbs, int_from_limbs, pack_ints
 from bulletproofs_plus_tpu_torch.ops.msm import host_msm, msm_kernel
 from bulletproofs_plus_tpu_torch.utils.merlin import SeededRng, Transcript
+from torch_prover_inputs import INV_VAR_WORST, EpiloguePhase, inv_edge_values
 
 torch.set_num_threads(1)  # small plain torch ops: keep parallel pytest workers off each other's cores
 L = hr.L
@@ -124,6 +132,94 @@ def test_phases_match_host_transcript(bits, m, deg, seeded):
     # the draws each phase makes: round p's d_L and d_R, or r_s, s_s (d and eta) after the last round
     masks = 0 if seeded else 2 * deg
     assert [ph.n_draws for ph in phases] == [masks] * rounds + [2 + masks, 0]
+
+
+def _random_scalars(n: int, seed: int) -> list:
+    rs = np.random.default_rng(seed)
+    return [int.from_bytes(rs.bytes(32), "little") % L for _ in range(n)]
+
+
+@pytest.mark.parametrize("values", ["edges", "random"])
+def test_inv_l_var_model_matches_pow(values):
+    """`inv_l_var`, the warp's inversion lane by lane with its bounds
+    asserted, equals pow(x, -1, l) (0 for 0) at the edges (0, 1, 2, l - 1,
+    l - 2, every 2^k, long runs of zero bits, the inputs that took the most
+    divsteps among 60,000 random ones) and on 1,000 seeded random values; no
+    input needs more than 18 batches of the cap of 20, and the most-divstep
+    inputs take their 18."""
+    xs = inv_edge_values() if values == "edges" else _random_scalars(1000, 18)
+    most = 0
+    for x in xs:
+        counts = {}
+        assert SM.from_words(SM.inv_l_var(SM.to_words(x, 8), counts)) == (pow(x, -1, L) if x else 0), x
+        most = max(most, counts["batches"])
+    assert most <= 18 < SM.INV_VAR_BATCHES
+    if values == "edges":
+        for x in INV_VAR_WORST:
+            counts = {}
+            SM.inv_l_var(SM.to_words(x, 8), counts)
+            assert counts["batches"] == 18
+
+
+def test_jump4_table_matches_single_divsteps():
+    """Every entry of the four-step table (divsteps.cuh DS_JUMP4) equals four
+    single divsteps from any zeta that clamps to its row, on random words
+    with the entry's low bits: the same matrix and the same zeta after."""
+    rs = np.random.default_rng(4)
+    table = SM.jump4_table()
+    for idx, ((a, b, c, d), sign, add) in enumerate(table):
+        clamped = (idx >> 7) - 4
+        for zeta in ({clamped} | ({-40, -9, -5} if clamped == -4 else {9, 40} if clamped == 3 else set())):
+            f = int(rs.integers(0, 1 << 27)) << 4 | (idx >> 4 & 7) << 1 | 1
+            g = int(rs.integers(0, 1 << 27)) << 4 | (idx & 15)
+            zf, ff, gf, uu, vv, qq, rr = zeta, f, g, 1, 0, 0, 1
+            for _ in range(4):
+                if zf < 0 and gf & 1:
+                    zf, ff, gf, uu, vv, qq, rr = -zf - 2, gf, (gf - ff) >> 1, 2 * qq, 2 * rr, qq - uu, rr - vv
+                else:
+                    gf, qq, rr = (gf + ff, qq + uu, rr + vv) if gf & 1 else (gf, qq, rr)
+                    zf, gf, uu, vv = zf - 1, gf >> 1, 2 * uu, 2 * vv
+            assert (uu, vv, qq, rr) == (a, b, c, d) and zf == sign * zeta + add, (idx, zeta)
+            assert (a * f + b * g) == ff << 4 and (c * f + d * g) == gf << 4
+
+
+def test_epilogue_phase_reduces_and_inverts_chosen_values():
+    """A program that squeezes three outputs straight from the state
+    (`EpiloguePhase`, all three inverted, as the card's lanes do it at
+    once): the plain twin and the word model give each 512-bit value mod l,
+    its inverse (0 for 0) and the zero-challenge flag, lane 1's middle value
+    being l, lane 2's last 0."""
+    phase = EpiloguePhase(3, (0, 1, 2))
+    values = [[2**512 - 1, L - 1, 2**252 + 1], [7, L, 2**511 + 5], [L + 1, 1, 0]]
+    state = torch.zeros((3, 200), dtype=torch.uint8)
+    for lane, row in enumerate(values):
+        for c, v in enumerate(row):
+            state[lane, 64 * c : 64 * c + 64] = torch.as_tensor(list(v.to_bytes(64, "little")), dtype=torch.uint8)
+    points, witness = torch.zeros((3, 0, 16), dtype=torch.int64), torch.zeros((3, 0), dtype=torch.uint8)
+    got, flags, model, outs = _run_phase(phase, state, points, witness, None)
+    reduced = [[v % L for v in row] for row in values]
+    assert got == [[row[c] for row in reduced] for c in range(3)] + [
+        [pow(row[c], -1, L) if row[c] else 0 for row in reduced] for c in range(3)]
+    assert flags.tolist() == [0, ct.ZERO_CHALLENGE, ct.ZERO_CHALLENGE]
+    assert not state[:, :192].any()
+    _assert_model_equal(model, state, outs, flags, phase)
+
+
+def test_only_challenges_take_the_variable_time_inversion():
+    """A draw is a secret mask and never takes T1's variable-time inversion:
+    a spec that names no challenge is refused, and a phase whose mask names
+    a draw is refused before it runs."""
+    phase = ct.prover_phases(2, 1, False, 8, 0, 0, 0)[0][1]  # a round phase: d_L, d_R, then e
+    with pytest.raises(ValueError, match="never a draw"):
+        ct.Phase(phase.spec._replace(invert=(-1,)), phase.witness_len, phase.position)
+    bad = copy.copy(phase)
+    bad.invert, bad.inv_mask = [0], 1
+    outs = torch.zeros((bad.n_wide + 1, 1, 16), dtype=torch.int64)
+    with pytest.raises(ValueError, match="inverts a draw"):
+        ct.prove_transcript(bad, torch.zeros((1, 200), dtype=torch.uint8),
+                            torch.zeros((1, bad.n_points, 16), dtype=torch.int64),
+                            torch.zeros((1, bad.witness_len), dtype=torch.uint8),
+                            torch.zeros((1, 32), dtype=torch.uint8), list(outs), torch.zeros(1, dtype=torch.uint8))
 
 
 def test_zero_point_flags_its_lane_only():

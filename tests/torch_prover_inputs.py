@@ -4,6 +4,11 @@ the port's CPU tests (tests/test_torch_prover_kernels.py), its card tests
 for the sequential prover (tests/test_torch_prover.py,
 tests/test_torch_parallel.py and chip_smoke.py).  Canonical scalars as numpy int64 limbs, from
 numpy's seeded generator; y^k and y^-n consistent with one random y a proof.
+Also the inputs of T1's inversion (csrc/scalar_l.cuh sc_inv_l_var) in
+tests/test_torch_transcript.py, tests/test_torch_cuda.py and chip_smoke.py:
+its edge values (`inv_edge_values`), `EpiloguePhase` (a T1 program whose
+state chooses the values it inverts) and `inv_latency_model` (the probe's
+chain on the word model).
 This module imports numpy and the port only, so that the card tests run where
 JAX is not installed."""
 
@@ -11,6 +16,9 @@ import hashlib
 
 import numpy as np
 
+from bulletproofs_plus_tpu_torch.ops import scalar_model
+from bulletproofs_plus_tpu_torch.ops.cuda_replay import STATE_BYTES, TAKE, WIDE, _Compiled, _Tape
+from bulletproofs_plus_tpu_torch.ops.cuda_transcript import BLOCK_BYTES
 from bulletproofs_plus_tpu_torch.ops.limbs import pack_ints
 from bulletproofs_plus_tpu_torch.ops.scalar_model import L
 
@@ -172,3 +180,64 @@ def to_device(inputs, torch, device):
         return torch.as_tensor(v, device=device)
 
     return {k: conv(v) for k, v in inputs.items()}
+
+
+# The most divsteps of the zeta form (525 and 524: 18 batches) among 60,000 seeded random values below l
+INV_VAR_WORST = (
+    0xD2A2322AE2493DC027E9D83F21CA6ADE291ECC9050D9DD2041F9FCDB7888B9A,
+    0xF6C6A0DE8259D762730CA69BAA0A0A0D1684FCB9DF1FA5EB4ECB7B81F362059,
+    0xBA3DABA5805E8EECB4286CF9C4DBFEABE556E291527A364716E7A041E44D487,
+    0x6E3DCC30D1F52B1AA29DF376C5FD5093C33B0E01B90EB1DF802F4E87B1A2E09,
+    0xA27FD5A4DC50F09EF13CA416EE926F23BDA66A63876365805DE1A21AA5904A5,
+)
+
+
+def inv_edge_values() -> list:
+    """Canonical values at the inversion's edges: 0, 1, 2, l - 1, l - 2,
+    every 2^k below l, values with long runs of zero bits (2^k + 1, 64 ones
+    shifted up, l - 2^k, 2^252 - 1, 2^252 + 1, 2^200 + 2^100 + 1), small
+    values, and INV_VAR_WORST."""
+    runs = ([(1 << k) | 1 for k in range(1, 253, 7)] + [((1 << 64) - 1) << k for k in range(0, 189, 17)]
+            + [L - (1 << k) for k in range(0, 252, 9)] + [(1 << 252) - 1, (1 << 252) + 1, (1 << 200) + (1 << 100) + 1])
+    values = [0, 1, 2, L - 1, L - 2] + [1 << k for k in range(253)] + runs + list(range(3, 40)) + list(INV_VAR_WORST)
+    assert all(0 <= v < L for v in values)
+    return values
+
+
+class EpiloguePhase(_Compiled):
+    """A program for T1 with no sponge work: output c is the state's bytes
+    [64 c, 64 c + 64) (c < n_wide <= 3), taken as a squeeze takes them
+    (then zeroed); the outputs whose indices `invert` names are inverted.
+    No points, no witness bytes, no draws.  So a lane's state chooses the
+    512-bit values its epilogue reduces mod l and inverts; the plain twin
+    runs it as the same squeezes of a STROBE at position 0."""
+
+    def __init__(self, n_wide: int = 1, invert: tuple = (0,)):
+        if not 1 <= n_wide <= STATE_BYTES // WIDE or any(not 0 <= c < n_wide for c in invert):
+            raise ValueError("an epilogue phase takes 1 to 3 outputs and inverts some of them")
+        self.position = (0, 0, 0)
+        self.sequence = lambda t, row, check: [t.strobe._take(WIDE * c, WIDE) for c in range(n_wide)]
+        tape = _Tape()
+        for c in range(n_wide):
+            tape.ops.append([TAKE, WIDE * c, WIDE, WIDE * c])
+        tape.n_out = WIDE * n_wide
+        self._assemble(tape)
+        self.n_points, self.witness_len, self.stride = 0, 0, BLOCK_BYTES
+        self.n_wide, self.n_draws = n_wide, 0
+        self.invert = list(invert)
+        self.inv_mask = sum(1 << c for c in self.invert)
+
+
+def inv_latency_model(values, iters: int) -> list:
+    """`cuda_transcript.inv_latency_probe` on Python integers through
+    ops/scalar_model.py's `inv_l_var` and `add_l`, word for word."""
+    out = []
+    for v in values:
+        x = scalar_model.to_words(v, 8)
+        acc = list(x)
+        for k in range(iters):
+            if k:
+                acc = scalar_model.add_l(acc, x)
+            acc = scalar_model.inv_l_var(acc)
+        out.append(scalar_model.from_words(acc))
+    return out
