@@ -72,6 +72,7 @@ from ..ops.cuda_transcript import IDENTITY, ZERO_CHALLENGE, ZERO_DRAW, prove_tra
 from ..ops.edwards import PointArray
 from ..ops.fixed_base import fixed_msm_batched, fixed_msm_grouped
 from ..ops.limbs import NLIMBS, bytes_from_limbs, int_from_limbs, pack_ints
+from ..utils import trace
 from ..utils.hashing import nonce
 from ..utils.merlin import Transcript
 from .prover_kernels import bit_sum, prove_final, prove_prep, prove_responses, prove_round, round_lanes
@@ -114,6 +115,12 @@ def prove_batch_with_rng(
     the mesh; B must divide by the mesh's size, and every rank returns all
     B proofs and advances all B transcripts.
     """
+    trace.new_call()
+    with trace.span("prove"):
+        return _prove_batch(transcripts, statements, witnesses, rng, device, mesh)
+
+
+def _prove_batch(transcripts, statements, witnesses, rng, device, mesh) -> list:
     from .range_proof import RangeProof
 
     B = len(statements)
@@ -124,30 +131,31 @@ def prove_batch_with_rng(
     m = len(statements[0].commitments)
     deg = int(gens.extension_degree())
     seeded = statements[0].seed_nonce is not None
-    for statement, witness in zip(statements, witnesses):
-        if statement.generators is not gens and (
-            statement.generators.g_bases_compressed() != gens.g_bases_compressed()
-            or statement.generators.h_base_compressed() != gens.h_base_compressed()
-            or statement.generators.bit_length() != bit_length
-        ):
-            raise InvalidArgument("Batch prove needs identical generators")
-        if len(statement.commitments) != m:
-            raise InvalidArgument("Batch prove needs a uniform aggregation factor")
-        if (statement.seed_nonce is not None) != seeded:
-            raise InvalidArgument("Batch prove needs uniform seed nonce presence")
-        if len(witness.openings) != m:
-            raise InvalidLength("Witness openings and statement commitments do not match!")
-        if int(witness.extension_degree) != deg:
-            raise InvalidLength("Witness and statement extension degrees do not match!")
-        for opening in witness.openings:
-            if bit_length < 64 and opening.v >> bit_length > 0:
-                raise InvalidLength("Value exceeds bit vector capacity!")
-        for opening, commitment in zip(witness.openings, statement.commitments):
-            if not hr.point_equal(gens.pc_gens.commit(opening.v, opening.r), commitment):
-                raise InvalidArgument("Witness opening is invalid!")
-        for minimum_value, opening in zip(statement.minimum_value_promises, witness.openings):
-            if minimum_value is not None and minimum_value > opening.v:
-                raise InvalidArgument("Minimum value is larger than value")
+    with trace.span("prove.arg_checks"):
+        for statement, witness in zip(statements, witnesses):
+            if statement.generators is not gens and (
+                statement.generators.g_bases_compressed() != gens.g_bases_compressed()
+                or statement.generators.h_base_compressed() != gens.h_base_compressed()
+                or statement.generators.bit_length() != bit_length
+            ):
+                raise InvalidArgument("Batch prove needs identical generators")
+            if len(statement.commitments) != m:
+                raise InvalidArgument("Batch prove needs a uniform aggregation factor")
+            if (statement.seed_nonce is not None) != seeded:
+                raise InvalidArgument("Batch prove needs uniform seed nonce presence")
+            if len(witness.openings) != m:
+                raise InvalidLength("Witness openings and statement commitments do not match!")
+            if int(witness.extension_degree) != deg:
+                raise InvalidLength("Witness and statement extension degrees do not match!")
+            for opening in witness.openings:
+                if bit_length < 64 and opening.v >> bit_length > 0:
+                    raise InvalidLength("Value exceeds bit vector capacity!")
+            for opening, commitment in zip(witness.openings, statement.commitments):
+                if not hr.point_equal(gens.pc_gens.commit(opening.v, opening.r), commitment):
+                    raise InvalidArgument("Witness opening is invalid!")
+            for minimum_value, opening in zip(statement.minimum_value_promises, witness.openings):
+                if minimum_value is not None and minimum_value > opening.v:
+                    raise InvalidArgument("Minimum value is larger than value")
 
     if mesh is None:
         lanes, positions = _prove_lanes(transcripts, statements, witnesses, rng, device)
@@ -169,28 +177,29 @@ def prove_batch_with_rng(
             for (k, a), part in zip(own.items(), np.split(every, np.cumsum(widths)[:-1], axis=1))
         }
 
-    _raise_flags(lanes["flags"])
-    proofs = [
-        RangeProof(
-            a=lanes["a"][lane].tobytes(),
-            a1=lanes["a1_b"][lane, 0].tobytes(),
-            b=lanes["a1_b"][lane, 1].tobytes(),
-            r1=int_from_limbs(lanes["r1"][lane]),
-            s1=int_from_limbs(lanes["s1"][lane]),
-            d1=[int_from_limbs(lanes["d1"][lane, k]) for k in range(deg)],
-            li=[lb.tobytes() for lb in lanes["li"][lane]],
-            ri=[rb.tobytes() for rb in lanes["ri"][lane]],
-            extension_degree=ExtensionDegree.from_int(deg),
-        )
-        for lane in range(B)
-    ]
+    with trace.span("prove.assemble"):
+        _raise_flags(lanes["flags"])
+        proofs = [
+            RangeProof(
+                a=lanes["a"][lane].tobytes(),
+                a1=lanes["a1_b"][lane, 0].tobytes(),
+                b=lanes["a1_b"][lane, 1].tobytes(),
+                r1=int_from_limbs(lanes["r1"][lane]),
+                s1=int_from_limbs(lanes["s1"][lane]),
+                d1=[int_from_limbs(lanes["d1"][lane, k]) for k in range(deg)],
+                li=[lb.tobytes() for lb in lanes["li"][lane]],
+                ri=[rb.tobytes() for rb in lanes["ri"][lane]],
+                extension_degree=ExtensionDegree.from_int(deg),
+            )
+            for lane in range(B)
+        ]
 
-    # Write the finished transcript state back into the callers' transcripts:
-    # the sequential prover mutates its transcript in place.
-    for lane, transcript in enumerate(transcripts):
-        st = transcript.strobe
-        st.state = lanes["state"][lane : lane + 1].copy()
-        st.pos, st.pos_begin, st.cur_flags = positions
+        # Write the finished transcript state back into the callers' transcripts:
+        # the sequential prover mutates its transcript in place.
+        for lane, transcript in enumerate(transcripts):
+            st = transcript.strobe
+            st.state = lanes["state"][lane : lane + 1].copy()
+            st.pos, st.pos_begin, st.cur_flags = positions
     return proofs
 
 
@@ -214,7 +223,8 @@ def _raise_flags(flags: np.ndarray) -> None:
 def _read_back(parts: list) -> np.ndarray:
     """The prove's one device-to-host copy: (B, ...) int64 tensors side by
     side as (B, sum of their widths)."""
-    return torch.cat([t.reshape(t.shape[0], -1) for t in parts], dim=1).cpu().numpy()
+    with trace.span("prove.readback"):
+        return torch.cat([t.reshape(t.shape[0], -1) for t in parts], dim=1).cpu().numpy()
 
 
 def _prove_lanes(transcripts, statements, witnesses, rng, device):
@@ -233,149 +243,151 @@ def _prove_lanes(transcripts, statements, witnesses, rng, device):
     rounds = mn.bit_length() - 1
     seeded = statements[0].seed_nonce is not None
 
-    # The batched transcript absorbs the statement and keys its first RNG
-    # with each lane's witness bytes (v LE64 then each blinding, per
-    # opening: transcripts.rs:91-109) and one external block.
-    witness_bytes = np.stack(
-        [
-            np.frombuffer(
-                b"".join(
-                    o.v.to_bytes(8, "little") + b"".join(hr.scalar_to_bytes(r_) for r_ in o.r)
-                    for o in witness.openings
-                ),
-                dtype=np.uint8,
-            )
-            for witness in witnesses
-        ]
-    )
-    stacked = Transcript.stack(transcripts)
-    rpt = RangeProofTranscript(
-        stacked,
-        gens.h_base_compressed(),
-        gens.g_bases_compressed(),
-        bit_length,
-        deg,
-        m,
-        [
-            np.stack([np.frombuffer(s.commitments_compressed[j], dtype=np.uint8) for s in statements])
-            for j in range(m)
-        ],
-        [[s.minimum_value_promises[j] for s in statements] for j in range(m)],
-        witness_bytes,
-        rng,
-    )
-
-    def upload(values, *shape: int) -> torch.Tensor:
-        """Python ints mod l -> (*shape, 16) limb tensor on the device."""
-        return _on(pack_ints([v % L for v in values]), device).reshape(shape + (NLIMBS,))
-
-    def nonces(label: str, index_j) -> list:
-        return [nonce(s.seed_nonce, label, index_j, k) for s in statements for k in range(deg)]
-
-    # alpha (range_proof.rs:299-303): nonces, or lockstep draws from the first RNG
-    if seeded:
-        alpha = upload(nonces("alpha", None), B, deg)
-    else:
-        draws = [rpt.rng().random_not_zero() for _ in range(deg)]  # [k][lane]
-        alpha = upload([draws[k][lane] for lane in range(B) for k in range(deg)], B, deg)
-    # The external RNG's blocks of the rebuilds, one a phase, in the sequential prover's call order
-    blocks = np.stack([rng.fill_bytes(B, 32) for _ in range(rounds + 2)])
-    phases, final_position = prover_phases(
-        rounds, deg, seeded, witness_bytes.shape[1], stacked.strobe.pos, stacked.strobe.pos_begin,
-        stacked.strobe.cur_flags,
-    )
-
-    # Bit decomposition with minimum-value offsets
-    bits_np = np.zeros((B, mn), dtype=np.int64)
-    for lane, (statement, witness) in enumerate(zip(statements, witnesses)):
-        offsets = [
-            opening.v - (minimum_value or 0)
-            for minimum_value, opening in zip(statement.minimum_value_promises, witness.openings)
-        ]
-        bits_np[lane] = [(v >> i) & 1 for v in offsets for i in range(bit_length)]
-    bits = _on(bits_np, device)
-    r_blind = upload(
-        [
-            witness.openings[j].r[k] if k < len(witness.openings[j].r) else 0
-            for witness in witnesses
-            for j in range(m)
-            for k in range(deg)
-        ],
-        B, m, deg,
-    )
-    state = torch.as_tensor(np.ascontiguousarray(stacked.strobe.state), device=device)
-    witness_t = torch.as_tensor(witness_bytes, device=device)
-    blocks_t = torch.as_tensor(blocks, device=device)
-    flags = torch.zeros((B, rounds + 2), dtype=torch.uint8, device=device)
-
-    def scalar() -> torch.Tensor:
-        return torch.empty((B, NLIMBS), dtype=torch.int64, device=device)
-
-    def masks() -> torch.Tensor:
-        return torch.empty((B, deg, NLIMBS), dtype=torch.int64, device=device)
-
-    # Where each phase's draws go: round p's d_L and d_R, or after the last round r_s, s_s, d and eta; seeded
-    # statements take d_L, d_R, d and eta from their nonces
-    if seeded:
-        d_l = upload([v for r in range(rounds) for v in nonces("dL", r)], rounds, B, deg)
-        d_r = upload([v for r in range(rounds) for v in nonces("dR", r)], rounds, B, deg)
-        d_mask, eta = upload(nonces("d", None), B, deg), upload(nonces("eta", None), B, deg)
-        phase_draws = [[] for _ in range(rounds)]
-    else:
-        d_l, d_r = [masks() for _ in range(rounds)], [masks() for _ in range(rounds)]
-        d_mask, eta = masks(), masks()
-        phase_draws = [[d[:, k] for d in (d_l[r], d_r[r]) for k in range(deg)] for r in range(rounds)]
-    r_s, s_s = scalar(), scalar()
-    phase_draws.append([r_s, s_s] + ([] if seeded else [d[:, k] for d in (d_mask, eta) for k in range(deg)]))
-
-    def run_phase(p: int, points: torch.Tensor, outs: list) -> None:
-        block = blocks_t[p] if phases[p].n_draws else None
-        prove_transcript(phases[p], state, points, witness_t, block, outs, flags[:, p])
-
-    # The tables of the halved generators joined with the halved Pedersen bases' [G_1..G_deg, H], at lanes
-    # 2mn..2mn+deg: every MSM gives Q, and 2Q is the point of the proof, encoded by `double_and_compress`
-    tables = gens.bp_gens.halved_tables_joined(2 * mn, gens.pc_gens, device)
-    pedersen = 2 * mn + np.arange(deg + 1)
-
-    # --- A commitment (range_proof.rs:299-345): the static scalars ARE the
-    # bit decomposition (a_li in {0,1}, a_ri in {0,-1}), so the MSM collapses
-    # to a masked sum (P4) on top of the alpha fixed-base MSM.
-    a_pt = bit_sum(fixed_msm_batched(alpha, tables, lanes=pedersen[:deg]), bits, tables)
-    a_comp = rist.double_and_compress(a_pt)
-
-    # --- challenges y, z (transcripts.rs:124-138); vector prep (range_proof.rs:350-373)
-    y, z, y_inv = scalar(), scalar(), scalar()
-    run_phase(0, a_comp[:, None], phase_draws[0] + [y, z, y_inv])
-    av, bv, y_pows, y_inv_n, alpha = prove_prep(y, z, y_inv, bits, r_blind, alpha, bit_length=bit_length)
-
-    # Rounds (range_proof.rs:409-537): each folds by the previous round's
-    # challenge, then L and R are one grouped fixed-base MSM over the ORIGINAL
-    # generators (folded generators are linear in them: per-lane coefficients
-    # g and h) and the Pedersen lanes [d, c].
-    lr_comps = []
-    g_coeff = h_coeff = fold = None
-    for r in range(rounds):
-        av, bv, g_coeff, h_coeff, alpha, scalars = prove_round(
-            av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, d_l[r], d_r[r], r=r
+    with trace.span("prove.transcript"):
+        # The batched transcript absorbs the statement and keys its first RNG
+        # with each lane's witness bytes (v LE64 then each blinding, per
+        # opening: transcripts.rs:91-109) and one external block.
+        witness_bytes = np.stack(
+            [
+                np.frombuffer(
+                    b"".join(
+                        o.v.to_bytes(8, "little") + b"".join(hr.scalar_to_bytes(r_) for r_ in o.r)
+                        for o in witness.openings
+                    ),
+                    dtype=np.uint8,
+                )
+                for witness in witnesses
+            ]
         )
-        lr_pts = fixed_msm_grouped(scalars, tables, 2, lanes=round_lanes(mn, deg, r))
-        lr_comps.append(rist.double_and_compress(lr_pts))  # (B, 2, 16)
-        e, e_inv = scalar(), scalar()
-        run_phase(r + 1, lr_comps[-1], phase_draws[r + 1] + [e, e_inv])
-        fold = (e, e_inv, d_l[r], d_r[r])
+        stacked = Transcript.stack(transcripts)
+        rpt = RangeProofTranscript(
+            stacked,
+            gens.h_base_compressed(),
+            gens.g_bases_compressed(),
+            bit_length,
+            deg,
+            m,
+            [
+                np.stack([np.frombuffer(s.commitments_compressed[j], dtype=np.uint8) for s in statements])
+                for j in range(m)
+            ],
+            [[s.minimum_value_promises[j] for s in statements] for j in range(m)],
+            witness_bytes,
+            rng,
+        )
 
-    # --- final masks and A1/B (range_proof.rs:540-584): A1 spans ALL original
-    # generator lanes after the last fold, and the Pedersen lanes; B only the latter
-    a1_scalars, b_scalars, a0, b0, alpha = prove_final(
-        av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, r_s, s_s, d_mask, eta
-    )
-    a1_pt = fixed_msm_batched(a1_scalars, tables)
-    b_pt = fixed_msm_batched(b_scalars, tables, lanes=pedersen)
-    final_pts = PointArray(*(torch.stack([a, b], dim=1) for a, b in zip(a1_pt, b_pt)))
-    final_comp = rist.double_and_compress(final_pts)  # (B, 2, 16)
-    e = scalar()
-    run_phase(rounds + 1, final_comp, [e])
-    r1, s1, d1 = prove_responses(r_s, s_s, a0, b0, eta, d_mask, alpha, e)
+        def upload(values, *shape: int) -> torch.Tensor:
+            """Python ints mod l -> (*shape, 16) limb tensor on the device."""
+            return _on(pack_ints([v % L for v in values]), device).reshape(shape + (NLIMBS,))
+
+        def nonces(label: str, index_j) -> list:
+            return [nonce(s.seed_nonce, label, index_j, k) for s in statements for k in range(deg)]
+
+        # alpha (range_proof.rs:299-303): nonces, or lockstep draws from the first RNG
+        if seeded:
+            alpha = upload(nonces("alpha", None), B, deg)
+        else:
+            draws = [rpt.rng().random_not_zero() for _ in range(deg)]  # [k][lane]
+            alpha = upload([draws[k][lane] for lane in range(B) for k in range(deg)], B, deg)
+        # The external RNG's blocks of the rebuilds, one a phase, in the sequential prover's call order
+        blocks = np.stack([rng.fill_bytes(B, 32) for _ in range(rounds + 2)])
+        phases, final_position = prover_phases(
+            rounds, deg, seeded, witness_bytes.shape[1], stacked.strobe.pos, stacked.strobe.pos_begin,
+            stacked.strobe.cur_flags,
+        )
+
+    with trace.span("prove.dispatch"):
+        # Bit decomposition with minimum-value offsets
+        bits_np = np.zeros((B, mn), dtype=np.int64)
+        for lane, (statement, witness) in enumerate(zip(statements, witnesses)):
+            offsets = [
+                opening.v - (minimum_value or 0)
+                for minimum_value, opening in zip(statement.minimum_value_promises, witness.openings)
+            ]
+            bits_np[lane] = [(v >> i) & 1 for v in offsets for i in range(bit_length)]
+        bits = _on(bits_np, device)
+        r_blind = upload(
+            [
+                witness.openings[j].r[k] if k < len(witness.openings[j].r) else 0
+                for witness in witnesses
+                for j in range(m)
+                for k in range(deg)
+            ],
+            B, m, deg,
+        )
+        state = torch.as_tensor(np.ascontiguousarray(stacked.strobe.state), device=device)
+        witness_t = torch.as_tensor(witness_bytes, device=device)
+        blocks_t = torch.as_tensor(blocks, device=device)
+        flags = torch.zeros((B, rounds + 2), dtype=torch.uint8, device=device)
+
+        def scalar() -> torch.Tensor:
+            return torch.empty((B, NLIMBS), dtype=torch.int64, device=device)
+
+        def masks() -> torch.Tensor:
+            return torch.empty((B, deg, NLIMBS), dtype=torch.int64, device=device)
+
+        # Where each phase's draws go: round p's d_L and d_R, or after the last round r_s, s_s, d and eta; seeded
+        # statements take d_L, d_R, d and eta from their nonces
+        if seeded:
+            d_l = upload([v for r in range(rounds) for v in nonces("dL", r)], rounds, B, deg)
+            d_r = upload([v for r in range(rounds) for v in nonces("dR", r)], rounds, B, deg)
+            d_mask, eta = upload(nonces("d", None), B, deg), upload(nonces("eta", None), B, deg)
+            phase_draws = [[] for _ in range(rounds)]
+        else:
+            d_l, d_r = [masks() for _ in range(rounds)], [masks() for _ in range(rounds)]
+            d_mask, eta = masks(), masks()
+            phase_draws = [[d[:, k] for d in (d_l[r], d_r[r]) for k in range(deg)] for r in range(rounds)]
+        r_s, s_s = scalar(), scalar()
+        phase_draws.append([r_s, s_s] + ([] if seeded else [d[:, k] for d in (d_mask, eta) for k in range(deg)]))
+
+        def run_phase(p: int, points: torch.Tensor, outs: list) -> None:
+            block = blocks_t[p] if phases[p].n_draws else None
+            prove_transcript(phases[p], state, points, witness_t, block, outs, flags[:, p])
+
+        # The tables of the halved generators joined with the halved Pedersen bases' [G_1..G_deg, H], at lanes
+        # 2mn..2mn+deg: every MSM gives Q, and 2Q is the point of the proof, encoded by `double_and_compress`
+        tables = gens.bp_gens.halved_tables_joined(2 * mn, gens.pc_gens, device)
+        pedersen = 2 * mn + np.arange(deg + 1)
+
+        # --- A commitment (range_proof.rs:299-345): the static scalars ARE the
+        # bit decomposition (a_li in {0,1}, a_ri in {0,-1}), so the MSM collapses
+        # to a masked sum (P4) on top of the alpha fixed-base MSM.
+        a_pt = bit_sum(fixed_msm_batched(alpha, tables, lanes=pedersen[:deg]), bits, tables)
+        a_comp = rist.double_and_compress(a_pt)
+
+        # --- challenges y, z (transcripts.rs:124-138); vector prep (range_proof.rs:350-373)
+        y, z, y_inv = scalar(), scalar(), scalar()
+        run_phase(0, a_comp[:, None], phase_draws[0] + [y, z, y_inv])
+        av, bv, y_pows, y_inv_n, alpha = prove_prep(y, z, y_inv, bits, r_blind, alpha, bit_length=bit_length)
+
+        # Rounds (range_proof.rs:409-537): each folds by the previous round's
+        # challenge, then L and R are one grouped fixed-base MSM over the ORIGINAL
+        # generators (folded generators are linear in them: per-lane coefficients
+        # g and h) and the Pedersen lanes [d, c].
+        lr_comps = []
+        g_coeff = h_coeff = fold = None
+        for r in range(rounds):
+            av, bv, g_coeff, h_coeff, alpha, scalars = prove_round(
+                av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, d_l[r], d_r[r], r=r
+            )
+            lr_pts = fixed_msm_grouped(scalars, tables, 2, lanes=round_lanes(mn, deg, r))
+            lr_comps.append(rist.double_and_compress(lr_pts))  # (B, 2, 16)
+            e, e_inv = scalar(), scalar()
+            run_phase(r + 1, lr_comps[-1], phase_draws[r + 1] + [e, e_inv])
+            fold = (e, e_inv, d_l[r], d_r[r])
+
+        # --- final masks and A1/B (range_proof.rs:540-584): A1 spans ALL original
+        # generator lanes after the last fold, and the Pedersen lanes; B only the latter
+        a1_scalars, b_scalars, a0, b0, alpha = prove_final(
+            av, bv, g_coeff, h_coeff, alpha, fold, y_pows, y_inv_n, r_s, s_s, d_mask, eta
+        )
+        a1_pt = fixed_msm_batched(a1_scalars, tables)
+        b_pt = fixed_msm_batched(b_scalars, tables, lanes=pedersen)
+        final_pts = PointArray(*(torch.stack([a, b], dim=1) for a, b in zip(a1_pt, b_pt)))
+        final_comp = rist.double_and_compress(final_pts)  # (B, 2, 16)
+        e = scalar()
+        run_phase(rounds + 1, final_comp, [e])
+        r1, s1, d1 = prove_responses(r_s, s_s, a0, b0, eta, d_mask, alpha, e)
 
     host = _read_back([a_comp, *lr_comps, final_comp, r1, s1, d1, state.view(torch.int64), flags.to(torch.int64)])
     ends = np.cumsum([NLIMBS, 2 * NLIMBS * rounds, 2 * NLIMBS, NLIMBS, NLIMBS, deg * NLIMBS, 25])

@@ -33,6 +33,7 @@ from ..errors import (
 from ..gens.pedersen import ExtensionDegree
 from ..ops import host_ristretto as hr
 from ..ops.msm import msm
+from ..utils import trace
 from ..utils.hashing import nonce
 from ..utils.merlin import NullRng, OsRng, Transcript
 from .statement import ExtendedMask, RangeStatement, RangeWitness
@@ -96,7 +97,10 @@ class _FetchStage:
 
     def run(self):
         """Fetch and continue: the single-batch path."""
-        return self.cont(self.fetch())
+        with trace.span("verify.wait"):
+            values = self.fetch()
+        with trace.span("verify.continue"):
+            return self.cont(values)
 
 
 def _tree_map(fn, tree):
@@ -610,6 +614,7 @@ class RangeProof:
 
         device = _rank_device(mesh, device)
         lookahead = _pipeline_lookahead()
+        trace.new_call()
         b_q: List = []  # (idx, _FetchStage) pending seed fetch
         c_q: List = []  # (idx, _FetchStage) pending verdict fetch
         done: dict = {}
@@ -625,12 +630,16 @@ class RangeProof:
             serve = [c_q.pop(0) for _ in range(min(lookahead, len(c_q)))]
             serve += [b_q.pop(0) for _ in range(min(lookahead, len(b_q)))]
             serve = [(idx, st) for idx, st in serve if not doomed(idx)]
-            values = [st.fetch() for _, st in serve]
+            values = []
+            for idx, st in serve:
+                with trace.span("verify.wait", idx):
+                    values.append(st.fetch())
             for (idx, st), vals in sorted(zip(serve, values), key=lambda p: p[0][0]):
                 if doomed(idx):  # a lower-indexed continuation in this pump failed
                     continue
                 try:
-                    step = st.cont(vals)
+                    with trace.span("verify.continue", idx):
+                        step = st.cont(vals)
                 except ProofError as exc:
                     errors[idx] = exc
                     continue
@@ -644,14 +653,15 @@ class RangeProof:
                 break  # abandon the rest of the stream
             try:
                 _check_batch_lengths(transcripts, statements, proofs)
-                stage = RangeProof._verify_device_dispatch(
-                    transcripts[:MAX_RANGE_PROOF_BATCH_SIZE],
-                    statements[:MAX_RANGE_PROOF_BATCH_SIZE],
-                    proofs[:MAX_RANGE_PROOF_BATCH_SIZE],
-                    action,
-                    device,
-                    mesh,
-                )
+                with trace.span("verify.dispatch", n):
+                    stage = RangeProof._verify_device_dispatch(
+                        transcripts[:MAX_RANGE_PROOF_BATCH_SIZE],
+                        statements[:MAX_RANGE_PROOF_BATCH_SIZE],
+                        proofs[:MAX_RANGE_PROOF_BATCH_SIZE],
+                        action,
+                        device,
+                        mesh,
+                    )
             except ProofError as exc:
                 errors[n] = exc
                 n += 1
@@ -679,7 +689,9 @@ class RangeProof:
         mesh=None,
     ) -> List[Optional[ExtendedMask]]:
         """The device engine: dispatch, then run its stages until done."""
-        step = RangeProof._verify_device_dispatch(transcripts, statements, proofs, action, device, mesh)
+        trace.new_call()
+        with trace.span("verify.dispatch", 0):
+            step = RangeProof._verify_device_dispatch(transcripts, statements, proofs, action, device, mesh)
         while isinstance(step, _FetchStage):
             step = step.run()
         return step
@@ -730,7 +742,8 @@ class RangeProof:
                 return RangeProof._dispatch_device_replay(stacked, statements, proofs, action, groups,
                                                           max_statement, device)
 
-        batch_challenges, seeds = RangeProof._replay_challenges(transcripts, statements, proofs)
+        with trace.span("verify.host_replay"):
+            batch_challenges, seeds = RangeProof._replay_challenges(transcripts, statements, proofs)
         weights = RangeProof._draw_weights(seeds, len(proofs))
 
         # Pass-2 prologue in reference order (range_proof.rs:856-888): per

@@ -21,6 +21,7 @@ from ..errors import InvalidArgument, InvalidLength
 from ..gens.params import RangeParameters
 from ..gens.pedersen import ExtensionDegree
 from ..ops import host_ristretto as hr
+from ..utils import trace
 
 
 def _is_power_of_two(n: int) -> bool:
@@ -76,6 +77,7 @@ class RangeStatement:
         "seed_nonce",
     )
 
+    @trace.timed("statement.init")
     def __init__(
         self,
         generators: RangeParameters,

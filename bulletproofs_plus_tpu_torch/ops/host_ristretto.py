@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from ..utils import trace
+
 # ---------------------------------------------------------------------------
 # Field and curve constants (edwards25519 / ristretto255, RFC 7748 / RFC 9496)
 # ---------------------------------------------------------------------------
@@ -193,6 +195,7 @@ def compress(p1: Point) -> bytes:
     return s.to_bytes(32, "little")
 
 
+@trace.timed("ristretto.decompress")
 def decompress(data: bytes) -> Optional[Point]:
     """Decode 32 bytes to a point; None if non-canonical / invalid."""
     if len(data) != 32:

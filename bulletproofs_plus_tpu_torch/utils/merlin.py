@@ -23,6 +23,7 @@ import os
 
 import numpy as np
 
+from . import trace
 from .strobe import Strobe128
 
 MERLIN_PROTOCOL_LABEL = b"Merlin v1.0"
@@ -44,19 +45,24 @@ class Transcript:
 
     __slots__ = ("strobe",)
 
-    def __init__(self, label: bytes = b"", batch: int = 1, _strobe: Strobe128 | None = None):
-        if _strobe is not None:
-            self.strobe = _strobe
-            return
+    @trace.timed("transcript.init")
+    def __init__(self, label: bytes = b"", batch: int = 1):
         self.strobe = Strobe128(MERLIN_PROTOCOL_LABEL, batch=batch)
         self.append_message(b"dom-sep", label)
+
+    @classmethod
+    def _of(cls, strobe: Strobe128) -> "Transcript":
+        """A transcript around a sponge that is already set up."""
+        transcript = object.__new__(cls)
+        transcript.strobe = strobe
+        return transcript
 
     @property
     def batch(self) -> int:
         return self.strobe.batch
 
     def clone(self) -> "Transcript":
-        return Transcript(_strobe=self.strobe.clone())
+        return Transcript._of(self.strobe.clone())
 
     @staticmethod
     def stack(transcripts: "list[Transcript]") -> "Transcript":
@@ -64,10 +70,10 @@ class Transcript:
 
         Requires lockstep sponge positions; raises ValueError otherwise.
         """
-        return Transcript(_strobe=Strobe128.stack([t.strobe for t in transcripts]))
+        return Transcript._of(Strobe128.stack([t.strobe for t in transcripts]))
 
     def lane(self, i: int) -> "Transcript":
-        return Transcript(_strobe=self.strobe.lane(i))
+        return Transcript._of(self.strobe.lane(i))
 
     def append_message(self, label: bytes, message) -> None:
         """message: bytes (broadcast) or (B, L) uint8 array."""
