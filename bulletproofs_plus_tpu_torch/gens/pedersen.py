@@ -6,19 +6,25 @@ instantiation's cached masking basepoints
 (reference src/ristretto.rs:67-112).
 
 Host representation: points are host_ristretto extended-coordinate tuples and
-32-byte compressed encodings; commitment creation is host-side (it is a
-per-statement setup operation, not a hot path).
+32-byte compressed encodings.  Commitment creation is host-side, and it is
+most of a wallet's prove call: a commitment and the prover's check of it
+each make one.  So `commit` adds entries of fixed-base tables
+(`host_ristretto.fixed_base_table`), one a nonzero byte of each scalar,
+never doubling.  The tables are built at a base's first commit, once a
+process, and shared by every `PedersenGens` with that base.
 """
 
 from __future__ import annotations
 
 import enum
 import functools
+import threading
 from dataclasses import dataclass, field
 from typing import List, Sequence
 
 from ..errors import InvalidArgument, InvalidLength
 from ..ops import host_ristretto as hr
+from ..utils import trace
 from ..utils.hashing import hash_from_bytes_sha3_512
 
 
@@ -55,6 +61,32 @@ def ristretto_masking_basepoints() -> tuple:
         hash_from_bytes_sha3_512(f"RISTRETTO_MASKING_BASEPOINT_{i}".encode())
         for i in range(1, EXTENSION_DEGREE_COUNT + 1)
     )
+
+
+# A base's 32-byte encoding -> its fixed-base table.  The default bases are
+# seven (H and G_1..G_6); the bound only keeps hand-made bases from growing it.
+_TABLES_MAX = 16
+_tables: dict = {}
+_tables_lock = threading.Lock()
+
+
+@trace.timed("pedersen.tables")
+def _build_table(point: hr.Point) -> tuple:
+    return hr.fixed_base_table(point)
+
+
+def base_table(point: hr.Point, encoding: bytes) -> tuple:
+    """The process's fixed-base table of `point` (whose encoding is
+    `encoding`), built at its first use.  Two threads may each build one;
+    only whole tables are stored."""
+    table = _tables.get(encoding)
+    if table is None:
+        table = _build_table(point)
+        with _tables_lock:
+            if len(_tables) >= _TABLES_MAX:
+                del _tables[next(iter(_tables))]
+            _tables[encoding] = table
+    return table
 
 
 @dataclass
@@ -100,14 +132,16 @@ class PedersenGens:
             self._device_tables[key] = pack_tables(build_tables(points))
         return self._device_tables[key]
 
+    @trace.timed("pedersen.commit")
     def commit(self, value: int, blindings: Sequence[int]) -> hr.Point:
         """C = value*H + sum_k blindings[k]*G_k
-        (reference src/generators/pedersen_gens.rs:112-122)."""
+        (reference src/generators/pedersen_gens.rs:112-122), over the bases'
+        fixed-base tables; a shorter blinding vector takes the first bases."""
         if len(blindings) == 0 or len(blindings) > int(self.extension_degree):
             raise InvalidLength("blinding vector")
-        acc = hr.point_mul(value, self.h_base)
-        for r, g in zip(blindings, self.g_base_vec):
-            acc = hr.point_add(acc, hr.point_mul(r, g))
+        acc = hr.fixed_mul_add(hr.IDENTITY, value, base_table(self.h_base, self.h_base_compressed))
+        for r, g, encoding in zip(blindings, self.g_base_vec, self.g_base_compressed_vec):
+            acc = hr.fixed_mul_add(acc, r, base_table(g, encoding))
         return acc
 
     def __eq__(self, other) -> bool:

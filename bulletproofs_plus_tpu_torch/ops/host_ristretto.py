@@ -12,6 +12,9 @@ decompress-with-canonicality, from_uniform_bytes, identity, add, scalar mul).
 
 Everything here is variable-time Python — never use it on secret data in
 production paths; the device kernels are fixed-shape (effectively constant time).
+That includes the fixed-base tables (`fixed_base_table`, `fixed_mul_add`):
+which entries a scalar adds, and how many, follow its digits, as the
+double-and-add's additions follow its bits.
 """
 
 from __future__ import annotations
@@ -154,6 +157,60 @@ def point_mul(k: int, p1: Point) -> Point:
         p1 = point_double(p1)
         k >>= 1
     return acc
+
+
+# A fixed-base table: row w holds j * 2^(8w) * P for j = 1..255 at index j (None
+# at 0), each in the cached affine form (y + x, y - x, 2d * x * y); 32 rows
+# cover every byte of a scalar reduced mod L.
+FIXED_WINDOWS = 32
+_D2 = 2 * D % P
+
+
+def fixed_base_table(p1: Point) -> tuple:
+    """The table of `p1` for `fixed_mul_add`: each row's multiples by
+    successive additions, every entry brought to Z = 1 by one batch
+    inversion (Montgomery's trick) over the whole table."""
+    per_row = 255
+    points = []
+    base = p1
+    for _ in range(FIXED_WINDOWS):
+        acc = base
+        points.append(acc)
+        for _ in range(per_row - 1):
+            acc = point_add(acc, base)
+            points.append(acc)
+        base = point_add(acc, base)  # 2^8 times the row's base: the next row's
+    prefix = []
+    run = 1
+    for pt in points:
+        prefix.append(run)
+        run = run * pt[2] % P
+    inv = pow(run, P - 2, P)
+    cached = [None] * len(points)
+    for i in range(len(points) - 1, -1, -1):
+        x, y, z, _ = points[i]
+        z_inv = inv * prefix[i] % P
+        inv = inv * z % P
+        x = x * z_inv % P
+        y = y * z_inv % P
+        cached[i] = ((y + x) % P, (y - x) % P, _D2 * x % P * y % P)
+    return tuple((None,) + tuple(cached[w * per_row : (w + 1) * per_row]) for w in range(FIXED_WINDOWS))
+
+
+def fixed_mul_add(acc: Point, k: int, table: tuple) -> Point:
+    """acc + k * P for the P of `table`: k reduced mod L, one mixed addition
+    (madd-2008-hwcd-3, a = -1: 7 products) a nonzero byte, no doubling."""
+    x1, y1, z1, t1 = acc
+    for row, digit in zip(table, (k % L).to_bytes(32, "little")):
+        if digit:
+            y_plus_x, y_minus_x, t2d = row[digit]
+            a = (y1 - x1) * y_minus_x % P
+            b = (y1 + x1) * y_plus_x % P
+            c = t1 * t2d % P
+            dd = 2 * z1
+            e, f, g, h = b - a, dd - c, dd + c, b + a
+            x1, y1, z1, t1 = e * f % P, g * h % P, f * g % P, e * h % P
+    return (x1, y1, z1, t1)
 
 
 def point_equal(p1: Point, p2: Point) -> bool:

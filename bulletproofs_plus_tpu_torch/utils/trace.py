@@ -30,7 +30,8 @@ runs after a fetch: weights, packing and launches, or the verdict's
 checks); `prove` (a `prove_batch_with_rng` call), its children
 `prove.arg_checks`, `prove.transcript`, `prove.dispatch`, `prove.readback`
 and `prove.assemble`.  Its timers: `ristretto.decompress`,
-`statement.init`, `transcript.init`.
+`statement.init`, `transcript.init`, `pedersen.commit` (a commitment) and
+`pedersen.tables` (a base's fixed-base table built).
 """
 
 from __future__ import annotations
